@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+These tests import neither JAX nor volxel_tpu, so they also run on a
+machine that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Without a card the tests marked `cuda` skip (a CUDA kernel has no CPU
+mode). Tolerances: the march is bit-equal (the library is built with
+--fmad=false and follows the plain version's operation order); the
+pyramid rtol 1e-6 (a 4-term mean summed in another order); the tonemap
+atol 1e-6 (powf and a division may round an ulp apart).
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from volxel_tpu_torch import Renderer, kernels
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.render import pallas_ops, pyrmarch
+from volxel_tpu_torch.render.modes import DDA_SAMPLE_MAX_STEPS, _march_setup
+from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _renderer(device, side=48):
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    r = Renderer(side, side, device=device)
+    r.restart_from_grid(grid)
+    return r
+
+
+def _march_args(r, budget: int):
+    """Camera lanes of the 32^3 scene, half of them moved to seeded
+    mid-march states."""
+    config = r._config()
+    params = r.volume_params()
+    grid = with_premul_majorant(config, r._device_grid, params, r._lut)
+    inv_view, inv_proj, _ = r._camera_operands(config)
+    n = config.width * config.height
+    pixels = torch.arange(n, dtype=torch.int64, device=r.device)
+    state, rays = camera_wavefront(config, inv_view, inv_proj, pixels, 0)
+    active = torch.ones(n, dtype=torch.bool, device=r.device)
+    _, ipos, idir, ri, far, t, tau, mip, running, extent = _march_setup(
+        grid, params, rays.origin, rays.direction, state, active
+    )
+    rng = np.random.default_rng(4)
+    mid = torch.from_numpy(rng.random(n) < 0.5).to(r.device)
+    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(r.device)
+    t = torch.where(mid & running, t + u * (far - t), t)
+    mip = torch.where(mid, torch.from_numpy(rng.integers(0, 13, n).astype(np.float32) * 0.25).to(r.device), mip)
+    b = torch.full((n,), budget, dtype=torch.int32, device=r.device)
+    return (grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, b, running, DDA_SAMPLE_MAX_STEPS)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper called with CPU tensors raises instead of running anything."""
+    r = _renderer("cpu", side=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pyrmarch.pyr_march_cuda(*_march_args(r, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        pallas_ops.build_importance_pyramid_cuda(r.environment.state.imp_mips[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        pallas_ops.tonemap_cuda(torch.zeros((4, 3)), 1.0, 2.2)
+
+
+def test_chip_smoke_fails_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result when there is no
+    CUDA device; on a card it is the end-to-end run itself, not this test."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run in full")
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [DDA_SAMPLE_MAX_STEPS, 3])
+def test_march_kernel_bit_equal_to_plain(cuda_device, budget):
+    args = _march_args(_renderer(cuda_device), budget)
+    got, want = pyrmarch.pyr_march_cuda(*args), pyrmarch.pyr_march_plain(*args)
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pyramid_kernel_matches_plain(cuda_device):
+    base = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (512, 512)).astype(np.float32)).to(cuda_device)
+    for a, b in zip(pallas_ops.build_importance_pyramid_cuda(base), pallas_ops.build_importance_pyramid_plain(base)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_tonemap_kernel_matches_plain(cuda_device):
+    fb = np.random.default_rng(1).uniform(0, 4, (1920 * 1080 // 64 + 1, 3)).astype(np.float32)  # ragged tail
+    fb = torch.from_numpy(fb).to(cuda_device)
+    torch.testing.assert_close(pallas_ops.tonemap_cuda(fb, 5.5, 2.2), pallas_ops.tonemap_plain(fb, 5.5, 2.2),
+                               rtol=0.0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_render_on_card_goes_through_every_kernel(cuda_device):
+    kernels.reset_launch_counts()
+    r = _renderer(cuda_device, side=32)
+    img = r.render(8)
+    assert np.isfinite(img).all() and img.shape == (32, 32, 3)
+    assert all(count > 0 for count in kernels.LAUNCHES.values()), kernels.LAUNCHES

@@ -1,0 +1,167 @@
+"""The port's default-mode path tracer against the JAX package's, end to end.
+
+Both renderers load the same brick grid, apply the reference's settings
+export (tests/fixtures/reference_benchmark.json) and accumulate 12 frames;
+the port runs on the CPU with its plain PyTorch versions. The contract is
+tests/test_parity_oracle.py's: > 98% of pixels within 0.1% relative
+(> 97% at bounces 3, where an ulp-level flip of a stochastic compare —
+XLA contracts multiply-adds into FMAs and rounds log/exp/pow differently
+from ATen — changes a whole path), median relative error < 1e-4, and means
+within 0.5%.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from volxel_tpu import Renderer as JRenderer
+from volxel_tpu.grid import construct_brick_grid as jax_construct
+from volxel_tpu.render.pathtrace import accumulate_progressive as jax_accumulate
+from volxel_tpu.render.pathtrace import render_sample as jax_render_sample
+from volxel_tpu.render.sampling import decode_dense as jax_decode_dense
+from volxel_tpu.render.sampling import device_grid_from_brick as jax_device_grid
+from volxel_tpu.utils.fixtures import synthetic_ct_volume
+from volxel_tpu_torch import Renderer as TRenderer
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.api.convert import from_jax_state
+from volxel_tpu_torch.grid import construct_brick_grid as torch_construct
+from volxel_tpu_torch.render import modes as tmodes
+from volxel_tpu_torch.render.pathtrace import RenderConfig, accumulate_progressive, render_sample
+from volxel_tpu_torch.render.sampling import decode_dense_device, device_grid_from_brick
+
+FIXTURE = Path(__file__).parent / "fixtures" / "reference_benchmark.json"
+REPO = Path(__file__).resolve().parent.parent
+W = H = 16
+FRAMES = 12  # frames 5..11 accumulate
+
+
+def _volume():
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    return vol.astype(np.float32) / vol.max()
+
+
+def _setup(r, grid, bounces, use_env, physical=False):
+    r.restart_from_grid(grid)
+    r.restore_settings(json.loads(FIXTURE.read_text())["sharedSettings"][0])
+    r.settings.resolution_factor = 1.0
+    r.settings.bounces = bounces
+    r.settings.use_env = use_env
+    if bounces == 3:
+        r.settings.density_multiplier = 2.0  # more hits -> more deep bounces
+    if physical:
+        r.settings.physical_shadows = r.settings.physical_majorant = r.settings.physical_pdf = True
+    r.restart_rendering()
+    return r
+
+
+def _assert_contract(ours, theirs, tight_min):
+    ours, theirs = np.asarray(ours, np.float64), np.asarray(theirs, np.float64)
+    assert np.isfinite(ours).all()
+    rel = np.abs(ours - theirs) / (np.abs(theirs) + 1e-3)
+    frac = float((rel.max(axis=-1) < 1e-3).mean())
+    assert frac > tight_min, f"only {frac:.2%} of pixels within 0.1% (max rel {rel.max():.2e})"
+    assert float(np.median(rel)) < 1e-4, "systematic drift"
+    assert abs(ours.mean() - theirs.mean()) < 5e-3 * max(theirs.mean(), 1e-3)
+
+
+@pytest.mark.parametrize(
+    "bounces,use_env,physical",
+    [(1, True, False), (3, True, False), (1, False, False), (3, False, False), (1, True, True)],
+)
+def test_renderer_matches_jax_renderer(bounces, use_env, physical):
+    data = _volume()
+    eye = np.eye(4, dtype=np.float32)
+    jr = _setup(JRenderer(width=W, height=H), jax_construct(data, transform=eye), bounces, use_env, physical)
+    tr = _setup(TRenderer(W, H, device="cpu"), torch_construct(data, transform=eye), bounces, use_env, physical)
+    kernels.reset_launch_counts()
+    for _ in range(FRAMES):
+        jr.render_frame()
+        tr.render_frame()
+    assert all(v == 0 for v in kernels.LAUNCHES.values())  # CPU: plain versions only
+    _assert_contract(tr._framebuffer.numpy(), np.asarray(jr._framebuffer), 0.97 if bounces == 3 else 0.98)
+    np.testing.assert_allclose(tr.image(), jr.image(), rtol=0, atol=2e-2)
+    assert tr.export_settings() == jr.export_settings()
+
+
+def test_render_from_carried_jax_state():
+    """Both packages render from one scene state, carried into the port by
+    from_jax_state, with the same camera matrices."""
+    data = _volume()
+    jr = _setup(JRenderer(width=W, height=H), jax_construct(data, transform=np.eye(4, dtype=np.float32)), 1, True)
+    config = jr._config()
+    (_, jgrid, jparams, jlut, jenv, inv_view, inv_proj, light) = jr._prime_operands(config)
+    as_np = jax.tree_util.tree_map(np.asarray, (jgrid, jparams, jlut, jenv))
+    grid, params, lut, env = from_jax_state(*as_np, device="cpu")
+    tconfig = RenderConfig(width=W, height=H, bounces=1)
+    t_ops = tuple(torch.from_numpy(np.array(a)) for a in (inv_view, inv_proj, light))
+    j_acc = np.zeros((W * H, 3), np.float32)
+    t_acc = torch.zeros((W * H, 3))
+    for f in range(FRAMES):
+        js = jax_render_sample(config, jgrid, jparams, jlut, jenv, inv_view, inv_proj, light, np.uint32(f))
+        j_acc = jax_accumulate(j_acc, js, np.uint32(f))
+        t_acc = accumulate_progressive(t_acc, render_sample(tconfig, grid, params, lut, env, *t_ops, f), f)
+    _assert_contract(t_acc.numpy(), np.asarray(j_acc), 0.98)
+
+
+def test_dense_decode_bit_equal():
+    """The device decode gives the JAX package's bf16 field bit for bit."""
+    grid = torch_construct(_volume())
+    ours = device_grid_from_brick(grid, "cpu").dense
+    theirs = np.asarray(jax_device_grid(grid).dense)
+    np.testing.assert_array_equal(ours.view(torch.int16).numpy(), theirs.view(np.int16))
+    host = torch.from_numpy(jax_decode_dense(grid)).to(torch.bfloat16)
+    assert torch.equal(ours.view(torch.int16), host.view(torch.int16))
+    jgrid = jax.tree_util.tree_map(np.asarray, jax_device_grid(grid, dense=False))
+    atlas = decode_dense_device(*(torch.from_numpy(np.array(a)) for a in
+                                  (jgrid.atlas, jgrid.range_lo, jgrid.range_hi, jgrid.ptr)))
+    assert torch.equal(atlas.view(torch.int16), ours.view(torch.int16))
+
+
+def test_unported_modes_raise():
+    for mode in ("no_dda", "raymarch"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmodes.get_mode_functions(mode)
+    r = TRenderer(8, 8, device="cpu")
+    r.restart_from_grid(torch_construct(_volume()))
+    r.render_mode = "raymarch"
+    with pytest.raises(NotImplementedError):
+        r.render_frame()
+    r.render_mode = "default"
+    r.settings.debug_hits = True
+    with pytest.raises(NotImplementedError):
+        r.render_frame()
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """A fresh interpreter renders 16x16 with the port on the CPU and never
+    loads jax or volxel_tpu; every kernel launch counter stays 0."""
+    code = """
+import sys, json
+import numpy as np
+from volxel_tpu_torch import Renderer, kernels
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+r = Renderer(16, 16, device="cpu")
+r.restart_from_grid(construct_brick_grid(vol.astype(np.float32) / vol.max()))
+img = r.render(8)
+print(json.dumps({"jax": "jax" in sys.modules, "volxel_tpu": "volxel_tpu" in sys.modules,
+                  "launches": kernels.LAUNCHES, "finite": bool(np.isfinite(img).all()),
+                  "mean": float(img.mean())}))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["jax"] is False and res["volxel_tpu"] is False
+    assert all(v == 0 for v in res["launches"].values())
+    assert res["finite"] and res["mean"] > 0

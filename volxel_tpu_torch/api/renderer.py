@@ -1,0 +1,266 @@
+"""Renderer facade: the PyTorch counterpart of volxel_tpu.api.renderer.
+
+Owns the scene (volume, camera, environment, transfer LUT), the viewer
+settings and the progressive accumulation loop, with the reference web
+component's surface (viewer.ts:111+):
+
+  restart_from_grid                         (viewer.ts:963-1017)
+  load_env_default                          (viewer.ts:1019-1040)
+  restore_settings / export_settings        (viewer.ts:626-762)
+  render_frame / render / image / raw_image (viewer.ts:1183-1293)
+  render_mode property                      (viewer.ts:1442-1452)
+
+Progressive semantics: samples 0..4 are warm-up (weight 0, each overwrites
+the buffer — viewer.ts:132,1356), accumulation starts at sample 5 as a
+running average.
+
+Every tensor lives on the `device` the renderer was made for; nothing
+chooses a device on its own. Loading ZIP/DICOM series and HDR/EXR
+environments needs the ingest layer, which is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from volxel_tpu_torch.api.settings import ViewerSettings, make_settings_export
+from volxel_tpu_torch.grid.brick import BrickGrid
+from volxel_tpu_torch.render.pallas_ops import tonemap_display
+from volxel_tpu_torch.render.pathtrace import (
+    WARMUP_SAMPLES,
+    RenderConfig,
+    accumulate_progressive,
+    render_sample,
+)
+from volxel_tpu_torch.render.sampling import VolumeParams, device_grid_from_brick
+from volxel_tpu_torch.scene.camera import Camera
+from volxel_tpu_torch.scene.environment import Environment, default_environment
+from volxel_tpu_torch.scene.volume import Volume
+from volxel_tpu_torch.transfer.function import DEFAULT_COLOR_STOPS, generate_transfer_function
+
+LOW_RESOLUTION_DURATION = WARMUP_SAMPLES  # warm-up samples (viewer.ts:132)
+
+
+class Renderer:
+    def __init__(self, width: int = 1920, height: int = 1080, *, device, settings: ViewerSettings | None = None):
+        self.width = int(width)
+        self.height = int(height)
+        self.device = torch.device(device)
+        self.settings = settings or ViewerSettings()
+
+        self.camera = Camera(1.0)
+        self.environment: Environment = default_environment(self.device)
+        self.volume: Volume | None = None
+        self.density_scale: float = 1.0
+        self.grid: BrickGrid | None = None
+        self._device_grid = None
+
+        self._transfer_colors = [dict(c) for c in DEFAULT_COLOR_STOPS]
+        self._transfer_type = "color_stops"
+        self._lut = self._to_device(generate_transfer_function(self._transfer_colors))
+
+        self.frame_index = 0
+        self._framebuffer = torch.zeros((self.height * self.width, 3), dtype=torch.float32, device=self.device)
+
+    def _to_device(self, array) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array, dtype=np.float32)).to(self.device)
+
+    # -- volume loading (viewer.ts:963-1017, 1080-1145) ------------------------
+
+    def restart_from_grid(self, grid: BrickGrid) -> None:
+        """setupFromGrid: reset clip/scale, unit-cube rescale, upload."""
+        self.grid = grid
+        self.density_scale = 1.0
+        self.settings.volume_clip_min = [0.0, 0.0, 0.0]
+        self.settings.volume_clip_max = [1.0, 1.0, 1.0]
+        self.volume = Volume.from_grid(grid)
+        self.density_scale *= self.volume.rescale_to_unit_cube()
+        self._device_grid = device_grid_from_brick(grid, self.device)
+        self.restart_rendering()
+
+    # -- environment (viewer.ts:1019-1040, 1074-1078) --------------------------
+
+    def load_env_default(self) -> None:
+        self.environment = default_environment(self.device)
+        self.restart_rendering()
+
+    # -- transfer function ------------------------------------------------------
+
+    def set_transfer_colors(self, colors: list[dict]) -> None:
+        self._transfer_colors = [dict(c) for c in colors]
+        self._transfer_type = "color_stops"
+        self._lut = self._to_device(generate_transfer_function(self._transfer_colors))
+        self.restart_rendering()
+
+    def set_transfer_full(self, rgba_rows) -> None:
+        self._transfer_colors = [list(r) for r in rgba_rows]
+        self._transfer_type = "full"
+        self._lut = self._to_device(rgba_rows)
+        self.restart_rendering()
+
+    # -- render mode (viewer.ts:1442-1452) --------------------------------------
+
+    @property
+    def render_mode(self) -> str:
+        return self.settings.render_mode
+
+    @render_mode.setter
+    def render_mode(self, mode: str) -> None:
+        if mode not in ("default", "no_dda", "raymarch"):
+            raise ValueError(f"Unknown render mode: {mode}")
+        self.settings.render_mode = mode
+        self.restart_rendering()
+
+    # -- progressive loop (viewer.ts:1155-1293) ---------------------------------
+
+    def restart_rendering(self) -> None:
+        self.frame_index = 0
+
+    def _render_dims(self) -> tuple[int, int]:
+        factor = float(self.settings.resolution_factor)
+        return max(1, round(self.width * factor)), max(1, round(self.height * factor))
+
+    def _config(self) -> RenderConfig:
+        for name in ("debug_hits", "gradient_shading", "warmup_low_res"):
+            if getattr(self.settings, name):
+                raise NotImplementedError(f"setting {name} is not ported yet (ROADMAP.md, queue 1)")
+        w, h = self._render_dims()
+        return RenderConfig(
+            width=w,
+            height=h,
+            mode=self.settings.render_mode,
+            bounces=int(self.settings.bounces),
+            show_environment=bool(self.settings.show_environment),
+            use_env=bool(self.settings.use_env),
+            physical_shadows=bool(self.settings.physical_shadows),
+            physical_majorant=bool(self.settings.physical_majorant),
+            physical_pdf=bool(self.settings.physical_pdf),
+        )
+
+    def volume_params(self) -> VolumeParams:
+        """bindUniforms volume block (viewer.ts:1324-1345)."""
+        if self.volume is None:
+            raise RuntimeError("No volume loaded")
+        lo, hi = self.volume.aabb_clipped(self.settings.volume_clip_min, self.settings.volume_clip_max)
+        vmin, vmaj = self.volume.min_maj
+        scale = self.density_scale * self.settings.density_multiplier
+        maj = vmaj * scale
+
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+        return VolumeParams(
+            aabb_lo=self._to_device(lo),
+            aabb_hi=self._to_device(hi),
+            transform_inv=self._to_device(np.linalg.inv(self.volume.combined_transform()).astype(np.float32)),
+            vol_min=scalar(vmin * scale),
+            vol_maj=scalar(maj),
+            inv_maj=scalar(1.0 / maj),
+            density_scale=scalar(scale),
+            albedo=torch.full((3,), 0.9, dtype=torch.float32, device=self.device),  # viewer.ts:1337
+            phase_g=scalar(0.0),  # viewer.ts:1338
+            sample_range=self._to_device(self.settings.sample_range),
+        )
+
+    def _camera_operands(self, config: RenderConfig):
+        inv_view = self._to_device(np.linalg.inv(self.camera.view_matrix()).astype(np.float32))
+        inv_proj = self._to_device(
+            np.linalg.inv(self.camera.proj_matrix(config.width / config.height)).astype(np.float32)
+        )
+        return inv_view, inv_proj, self._to_device(self.settings.light_dir)
+
+    def render_frame(self) -> torch.Tensor:
+        """Render one progressive sample and fold it into the accumulator.
+
+        Returns the accumulated (linear, pre-tonemap) framebuffer.
+        """
+        if self._device_grid is None:
+            raise RuntimeError("No volume loaded")
+        config = self._config()
+        n = config.width * config.height
+        if self._framebuffer.shape[0] != n:
+            self._framebuffer = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
+        inv_view, inv_proj, light_dir = self._camera_operands(config)
+        sample = render_sample(
+            config, self._device_grid, self.volume_params(), self._lut, self.environment.state,
+            inv_view, inv_proj, light_dir, self.frame_index,
+        )
+        self._framebuffer = accumulate_progressive(self._framebuffer, sample, self.frame_index)
+        self.frame_index += 1
+        return self._framebuffer
+
+    def render(self, samples: int | None = None) -> np.ndarray:
+        """Render up to `samples` progressive frames (or maxSamples) and
+        return the tonemapped image.
+
+        Warm-up frames carry zero weight and are overwritten by the first
+        accumulated frame, so when the target reaches past the warm-up they
+        are skipped: the converged image is the same.
+        """
+        total = samples if samples is not None else self.settings.max_samples
+        if total > LOW_RESOLUTION_DURATION:
+            self.frame_index = max(self.frame_index, LOW_RESOLUTION_DURATION)
+        while self.frame_index < total:
+            self.render_frame()
+        return self.image()
+
+    def image(self) -> np.ndarray:
+        """Tonemapped (height, width, 3) float32 image, row 0 = top."""
+        w, h = self._render_dims()
+        img = tonemap_display(self._framebuffer, self.settings.exposure, self.settings.gamma)
+        return img.cpu().numpy().reshape(h, w, 3)[::-1]  # GL row 0 is the bottom
+
+    def raw_image(self) -> np.ndarray:
+        """Linear accumulated radiance, (height, width, 3), row 0 = top."""
+        w, h = self._render_dims()
+        return self._framebuffer.cpu().numpy().reshape(h, w, 3)[::-1]
+
+    # -- settings import/export (viewer.ts:626-762) ------------------------------
+
+    def export_settings(self) -> dict:
+        return make_settings_export(
+            self.settings,
+            transfer_colors=self._transfer_colors,
+            transfer_type=self._transfer_type,
+            histogram_range=self.settings.sample_range,
+            env_strength=self.environment.strength,
+            camera_pos=self.camera.pos,
+            camera_look_at=self.camera.view,
+        )
+
+    def restore_settings(self, export: dict) -> None:
+        """Apply a verified V3 SettingsExport (viewer.ts restoreSettings)."""
+        from volxel_tpu_torch.api.settings import verify_settings
+
+        export = verify_settings(export)
+        tr = export["transfer"]
+        self.settings.density_multiplier = tr["densityMultiplier"]
+        self.settings.sample_range = list(tr["histogramRange"])
+        if tr["transfer"]["type"] == "color_stops":
+            self.set_transfer_colors(tr["transfer"]["colors"])
+        else:
+            self.set_transfer_full(tr["transfer"]["colors"])
+
+        disp = export["display"]
+        self.settings.max_samples = int(disp["samples"])
+        self.settings.bounces = int(disp["bounces"])
+        self.settings.gamma = disp["gamma"]
+        self.settings.exposure = disp["exposure"]
+        self.settings.debug_hits = disp["debugHits"]
+        self.settings.render_mode = disp["renderMode"]
+        self.settings.resolution_factor = disp["resolutionFactor"]
+
+        light = export["lighting"]
+        self.settings.use_env = light["useEnv"]
+        self.settings.show_environment = light["showEnv"]
+        self.environment.with_strength(light["envStrength"])
+        self.settings.sync_light_dir = light["syncLightDir"]
+        self.settings.light_dir = list(light["lightDir"])
+
+        other = export["other"]
+        self.camera.pos = np.asarray(other["cameraPos"], np.float64)
+        self.camera.view = np.asarray(other["cameraLookAt"], np.float64)
+        self.settings.volume_clip_min = list(other["clipMin"])
+        self.settings.volume_clip_max = list(other["clipMax"])
+        self.restart_rendering()

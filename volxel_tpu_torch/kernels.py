@@ -1,0 +1,134 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources are `csrc/*.cu`. At first use they are compiled by `nvcc`
+into one shared library with a plain C interface under `build/` (keyed by
+a hash of the sources and flags, so an edited source rebuilds) and loaded
+with ctypes. Nothing is compiled or loaded at import: the CPU tests import
+every module on machines without `nvcc` or a card.
+
+Each C entry point launches on the stream it is given (the caller passes
+`torch.cuda.current_stream()`), never synchronises, and returns
+`cudaGetLastError()`; `check` turns a non-zero code into an exception.
+`--fmad=false` keeps every multiply and add separately rounded, as eager
+PyTorch ops are, so a kernel can be held bit-equal to its plain version.
+
+`LAUNCHES` counts kernel launches by name. Only the wrappers add to it,
+once per launch, so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "--fmad=false", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+LAUNCHES = {"pyr_march": 0, "importance_pyramid": 0, "tonemap": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # maj, bz, by, bx, ex, ey, ez, ipos, idir, ri, t, tau, mip, far, budget,
+    # running, t_out, tau_out, mip_out, maj_out, kind_out, budget_out,
+    # n, steps_cap, stream
+    "vx_pyr_march": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 15 + [_I, _I, _P],
+    # src, dst, out_h, out_w, stream
+    "vx_pool2x2": [_P, _P, _I, _I, _P],
+    # src, dst, n, exposure, inv_gamma, stream
+    "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
+}
+
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cuda.exists():
+        return str(cuda)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD / f"libvolxel_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the keyed shared library unless it exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def stream_of(tensor) -> int:
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device
+    (`device`, when given) and of `dtype`, when given."""
+    dev = tensors[0].device if device is None else device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+        if dtype is not None and t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")

@@ -1,0 +1,102 @@
+"""The environment importance pyramid and the display tonemap, each a
+hand-written CUDA kernel on the card beside its plain PyTorch version.
+
+Counterparts of the two Pallas kernels of volxel_tpu.render.pallas_ops:
+
+  * build_importance_pyramid — 9 levels of 2x2 mean pooling of the 512^2
+    environment luma (256^2 ... 1^2); csrc/importance_pyramid.cu.
+  * tonemap_display — the Hable filmic tonemap + exposure + gamma over the
+    flat (N, 3) framebuffer (blit.frag:17-35); csrc/tonemap.cu.
+
+Dispatch is on the tensor's device: a CPU tensor takes the plain version,
+a CUDA tensor launches the kernel (or raises). There is no fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.scene.environment import IMP_BASE_MIP, IMP_DIM
+
+# Hable / Uncharted2 curve constants (blit.frag:17-25)
+_A, _B, _C, _D, _E, _F = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30
+HABLE_WHITE = 11.2
+
+
+# -- importance pyramid --------------------------------------------------------
+
+
+def build_importance_pyramid_plain(base: torch.Tensor) -> tuple:
+    """Successive 2x2 mean pools: (512, 512) -> (256^2, ..., 1^2)."""
+    levels = []
+    level = base
+    for _ in range(IMP_BASE_MIP):
+        h, w = level.shape
+        level = level.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+        levels.append(level)
+    return tuple(levels)
+
+
+def build_importance_pyramid_cuda(base: torch.Tensor) -> tuple:
+    """The same pools as 9 launches of csrc/importance_pyramid.cu, one
+    thread per output texel."""
+    kernels.require_cuda("build_importance_pyramid", base, dtype=torch.float32)
+    if tuple(base.shape) != (IMP_DIM, IMP_DIM):
+        raise ValueError(f"build_importance_pyramid: expected ({IMP_DIM}, {IMP_DIM}), got {tuple(base.shape)}")
+    if base.data_ptr() % 8:
+        raise ValueError("build_importance_pyramid: the kernel reads 8-byte pairs; base is misaligned")
+    lib = kernels.lib()
+    stream = kernels.stream_of(base)
+    levels = []
+    src = base
+    for k in range(IMP_BASE_MIP):
+        dim = IMP_DIM >> (k + 1)
+        dst = torch.empty((dim, dim), dtype=torch.float32, device=base.device)
+        kernels.check("vx_pool2x2", lib.vx_pool2x2(src.data_ptr(), dst.data_ptr(), dim, dim, stream))
+        kernels.LAUNCHES["importance_pyramid"] += 1
+        levels.append(dst)
+        src = dst
+    return tuple(levels)
+
+
+def build_importance_pyramid(base: torch.Tensor) -> tuple:
+    """(512, 512) luma -> tuple of 9 pooled levels (256^2 ... 1^2)."""
+    if base.device.type == "cpu":
+        return build_importance_pyramid_plain(base)
+    return build_importance_pyramid_cuda(base)
+
+
+# -- display tonemap -----------------------------------------------------------
+
+
+def _hable(rgb):
+    return ((rgb * (_A * rgb + _C * _B) + _D * _E) / (rgb * (_A * rgb + _B) + _D * _F)) - _E / _F
+
+
+def tonemap_plain(image: torch.Tensor, exposure: float, gamma: float) -> torch.Tensor:
+    """Hable/Uncharted2 filmic tonemap + gamma (blit.frag:17-35)."""
+    white = _hable(torch.tensor(HABLE_WHITE, dtype=torch.float32, device=image.device))
+    mapped = _hable(exposure * image) / white
+    return torch.pow(torch.clamp_min(mapped, 0.0), 1.0 / torch.tensor(gamma, dtype=torch.float32))
+
+
+def tonemap_cuda(image: torch.Tensor, exposure: float, gamma: float) -> torch.Tensor:
+    """The same map as one launch of csrc/tonemap.cu (grid-stride loop over
+    the 3N floats)."""
+    kernels.require_cuda("tonemap_display", image, dtype=torch.float32)
+    out = torch.empty_like(image)
+    inv_gamma = (1.0 / torch.tensor(gamma, dtype=torch.float32)).item()
+    code = kernels.lib().vx_tonemap(
+        image.data_ptr(), out.data_ptr(), image.numel(), float(exposure), inv_gamma, kernels.stream_of(image)
+    )
+    kernels.check("vx_tonemap", code)
+    kernels.LAUNCHES["tonemap"] += 1
+    return out
+
+
+def tonemap_display(framebuffer: torch.Tensor, exposure: float, gamma: float) -> torch.Tensor:
+    """Tonemap a flat (N, 3) framebuffer for display."""
+    if framebuffer.device.type == "cpu":
+        return tonemap_plain(framebuffer, exposure, gamma)
+    return tonemap_cuda(framebuffer, exposure, gamma)

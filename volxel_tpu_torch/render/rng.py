@@ -1,0 +1,128 @@
+"""Counter-based per-ray RNG: TEA seeding + xoshiro128++ streams.
+
+PyTorch counterpart of volxel_tpu.render.rng (the reference's
+shaders/random.glsl:41-94): each ray derives a 32-bit seed with the tiny
+encryption algorithm from (pixel index, frame index), expands it to a
+128-bit xoshiro128++ state with Wang hashes, and draws 24-bit-mantissa
+floats in [0, 1).
+
+PyTorch has no shifts or additions for uint32 on every backend, so words
+are carried as int64 tensors holding values in [0, 2^32): every sum and
+product is masked back to 32 bits, and right shifts of non-negative int64
+are logical. The words are bit-equal to the uint32 words of the JAX
+package (pinned by tests/test_torch_rng.py). State is explicit: functions
+take and return `(state, value)`; a state is an (..., 4) int64 tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+_INV_2_24 = 1.0 / 16777216.0
+
+
+def _u32(x, device=None) -> torch.Tensor:
+    """Any integer tensor/array/int -> int64 tensor of 32-bit words."""
+    return torch.as_tensor(x, device=device).to(torch.int64) & M32
+
+
+def _rotl(x, k: int):
+    return ((x << k) | (x >> (32 - k))) & M32
+
+
+def tea(val0, val1, rounds: int = 32):
+    """TEA hash of two 32-bit word streams (random.glsl:41-51)."""
+    v0 = _u32(val0)
+    v1 = _u32(val1, v0.device)
+    s0 = 0
+    for _ in range(rounds):
+        s0 = (s0 + 0x9E3779B9) & M32
+        v0 = (
+            v0
+            + ((((v1 << 4) + 0xA341316C) & M32) ^ ((v1 + s0) & M32) ^ ((v1 >> 5) + 0xC8013EA4))
+        ) & M32
+        v1 = (
+            v1
+            + ((((v0 << 4) + 0xAD90777D) & M32) ^ ((v0 + s0) & M32) ^ ((v0 >> 5) + 0x7E95761E))
+        ) & M32
+    return v0
+
+
+def wang_hash(x):
+    """Thomas Wang integer hash (random.glsl:59-67)."""
+    x = _u32(x)
+    x = (x ^ 61) ^ (x >> 16)
+    x = (x * 9) & M32
+    x = x ^ (x >> 4)
+    x = (x * 0x27D4EB2D) & M32
+    x = x ^ (x >> 15)
+    return x
+
+
+def seed_xoshiro(seed):
+    """Expand 32-bit seeds (...,) to xoshiro states (..., 4) (random.glsl:69-76)."""
+    seed = _u32(seed)
+    return torch.stack([wang_hash((seed + i) & M32) for i in range(4)], dim=-1)
+
+
+def next_u32(state):
+    """xoshiro128++ step (random.glsl:80-94): (state) -> (state', word)."""
+    s0, s1, s2, s3 = state[..., 0], state[..., 1], state[..., 2], state[..., 3]
+    result = (_rotl((s0 + s2) & M32, 7) + s0) & M32
+    t = (s1 << 9) & M32
+    s2 = s2 ^ s0
+    s3 = s3 ^ s1
+    s1 = s1 ^ s2
+    s0 = s0 ^ s3
+    s2 = s2 ^ t
+    s3 = _rotl(s3, 11)
+    return torch.stack([s0, s1, s2, s3], dim=-1), result
+
+
+def rng(state):
+    """Draw float32 in [0, 1) from the top 24 bits (random.glsl:103-106)."""
+    state, r = next_u32(state)
+    return state, (r >> 8).to(torch.float32) * _INV_2_24
+
+
+def rng2(state):
+    state, a = rng(state)
+    state, b = rng(state)
+    return state, torch.stack([a, b], dim=-1)
+
+
+def rng3(state):
+    state, a = rng(state)
+    state, b = rng(state)
+    state, c = rng(state)
+    return state, torch.stack([a, b, c], dim=-1)
+
+
+def rng_where(mask, state):
+    """Masked draw: lanes where mask is False do NOT consume the draw.
+
+    The GLSL consumes draws conditionally (inside `if` bodies and after
+    early returns), so per-lane stream parity with the reference needs
+    conditional consumption, not just conditional use. The returned value
+    is meaningful only where mask is True.
+    """
+    state2, x = rng(state)
+    return torch.where(mask[..., None], state2, state), x
+
+
+def rng2_where(mask, state):
+    state2, x = rng2(state)
+    return torch.where(mask[..., None], state2, state), x
+
+
+def rng3_where(mask, state):
+    state2, x = rng3(state)
+    return torch.where(mask[..., None], state2, state), x
+
+
+def seed_rays(pixel_index, frame_index):
+    """Per-ray state from pixel index + frame (fragment.frag:143-144)."""
+    pixel_index = _u32(pixel_index)
+    frame = torch.full_like(pixel_index, int(frame_index) & M32)
+    return seed_xoshiro(tea((42 * pixel_index) & M32, frame))

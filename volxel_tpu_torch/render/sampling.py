@@ -1,0 +1,201 @@
+"""Device-side brick-grid lookups and transfer-function sampling.
+
+PyTorch counterpart of volxel_tpu.render.sampling (shaders/sampling/
+common.glsl), cut to what the default render mode runs:
+
+  * the brick atlas is decoded once to a dense (Z, Y, X) bfloat16 field on
+    the device, so a voxel read is one gather (the JAX package's DeviceGrid
+    docstring explains the trade);
+  * every range-mip level is nearest-upsampled to the finest brick
+    resolution and stacked into one (4, bz, by, bx) majorant pyramid, so
+    the traced mip index is one more gather coordinate;
+  * the transfer LUT is sampled NEAREST with sample-range rejection
+    (common.glsl:78-83);
+  * out-of-extent voxel taps return 0.0 like GL texelFetch robust access.
+
+The JAX package's pair/quad/octo packings, MXU byte planes and slab grids
+work around serialized TPU gathers and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from volxel_tpu_torch.grid.brick import BrickGrid
+
+
+class DeviceGrid(NamedTuple):
+    """Brick grid resident on the device."""
+
+    dense: torch.Tensor  # (Z, Y, X) bfloat16 decoded density
+    # all range-mip levels upsampled to finest brick resolution:
+    maj_mips: torch.Tensor  # (4, bz, by, bx) float32 — level 0 = range_hi
+    extent: torch.Tensor  # (3,) int32 (x, y, z) index extent
+    # premultiplied pyramid vol_maj * transfer_alpha(majorant), built per
+    # render from the current transfer and settings
+    # (modes.build_premul_majorant); the DDA march reads it directly
+    maj_alpha: torch.Tensor | None = None  # (4, bz, by, bx) float32
+
+
+class VolumeParams(NamedTuple):
+    """Per-frame volume uniforms (viewer.ts bindUniforms, :1295-1357)."""
+
+    aabb_lo: torch.Tensor  # (3,) world-space clipped AABB
+    aabb_hi: torch.Tensor  # (3,)
+    transform_inv: torch.Tensor  # (4, 4) world -> index
+    vol_min: torch.Tensor  # scalar: minorant * density_scale * multiplier
+    vol_maj: torch.Tensor  # scalar majorant (same scaling)
+    inv_maj: torch.Tensor  # 1 / vol_maj
+    density_scale: torch.Tensor  # density_scale * multiplier
+    albedo: torch.Tensor  # (3,) — 0.9 constant in the reference
+    phase_g: torch.Tensor  # scalar — 0 in the reference
+    sample_range: torch.Tensor  # (2,)
+
+
+def _upsample_nearest(arr: np.ndarray, factor: int) -> np.ndarray:
+    return np.repeat(np.repeat(np.repeat(arr, factor, 0), factor, 1), factor, 2)
+
+
+def decode_dense_device(atlas, range_lo, range_hi, ptr) -> torch.Tensor:
+    """Decode the brick atlas to the dense bf16 field on the atlas's device.
+
+    Same f32 op sequence as the JAX package's host `decode_dense` (scale by
+    1/255, by the range, add the minimum; eager ops never fuse), rounded to
+    bf16 at the end, so the field is bit-equal to
+    decode_dense(...).astype(bf16) and to the JAX package's device decode.
+    """
+    bz, by, bx = range_lo.shape
+    az_b = atlas.shape[0] // 8 if atlas.shape[0] else 0
+    if az_b == 0:
+        return torch.zeros((bz * 8, by * 8, bx * 8), dtype=torch.bfloat16, device=atlas.device)
+    atlas_bricks = (
+        atlas.reshape(az_b, 8, by, 8, bx, 8).permute(0, 2, 4, 1, 3, 5).reshape(az_b * by * bx, 8, 8, 8)
+    )
+    p = ptr.reshape(-1, 3).to(torch.int64)
+    slot = p[:, 2] * (by * bx) + p[:, 1] * bx + p[:, 0]
+    occupied = (range_lo != range_hi).reshape(-1)
+    lo = range_lo.reshape(-1, 1, 1, 1)
+    hi = range_hi.reshape(-1, 1, 1, 1)
+    voxels = atlas_bricks[torch.clamp_max(slot, az_b * by * bx - 1)].to(torch.float32)
+    voxels = torch.where(occupied[:, None, None, None], voxels, 0.0)
+    decoded = lo + voxels * np.float32(1.0 / 255.0).item() * (hi - lo)
+    dense = decoded.reshape(bz, by, bx, 8, 8, 8).permute(0, 3, 1, 4, 2, 5).reshape(bz * 8, by * 8, bx * 8)
+    return dense.to(torch.bfloat16)
+
+
+def build_majorant_pyramid(grid: BrickGrid) -> np.ndarray:
+    """Stacked (NUM_MIPS+1, bz, by, bx) f32 majorant pyramid — every
+    range-mip level nearest-upsampled to finest brick resolution."""
+    mips = [grid.range_hi]
+    for level, (_, hi) in enumerate(grid.range_mips):
+        mips.append(_upsample_nearest(hi, 1 << (level + 1)))
+    return np.stack(mips, axis=0).astype(np.float32)
+
+
+def device_grid_from_brick(grid: BrickGrid, device) -> DeviceGrid:
+    """Upload a BrickGrid and decode its dense field on `device`."""
+    dense = decode_dense_device(
+        torch.from_numpy(np.ascontiguousarray(grid.atlas)).to(device),
+        torch.from_numpy(np.ascontiguousarray(grid.range_lo)).to(device),
+        torch.from_numpy(np.ascontiguousarray(grid.range_hi)).to(device),
+        torch.from_numpy(np.ascontiguousarray(grid.indirection)).to(device),
+    )
+    return DeviceGrid(
+        dense=dense,
+        maj_mips=torch.from_numpy(build_majorant_pyramid(grid)).to(device),
+        extent=torch.tensor(grid.index_extent, dtype=torch.int32, device=device),
+    )
+
+
+def _transform(m, p, translate: bool):
+    """Rows 0..2 of the (4, 4) matrix m applied to points/directions (..., 3),
+    written out elementwise (see render.rays)."""
+    cols = []
+    for j in range(3):
+        c = p[..., 0] * m[j, 0] + p[..., 1] * m[j, 1] + p[..., 2] * m[j, 2]
+        cols.append(c + m[j, 3] if translate else c)
+    return torch.stack(cols, dim=-1)
+
+
+def world_to_index_point(params: VolumeParams, p):
+    return _transform(params.transform_inv, p, True)
+
+
+def world_to_index_dir(params: VolumeParams, d):
+    return _transform(params.transform_inv, d, False)
+
+
+# -- raw voxel lookups ---------------------------------------------------------
+
+
+def lookup_density_brick_int(grid: DeviceGrid, iipos):
+    """Decoded density at integer voxel coords (common.glsl:36-43), read
+    from the dense field. iipos: (..., 3) integer (x, y, z). OOB taps
+    return 0.0."""
+    ext = grid.extent.to(iipos.dtype)
+    inside = ((iipos >= 0) & (iipos < ext)).all(dim=-1)
+    ip = torch.minimum(torch.clamp_min(iipos, 0), ext - 1).to(torch.int64)
+    _, ny, nx = grid.dense.shape
+    flat = (ip[..., 2] * ny + ip[..., 1]) * nx + ip[..., 0]
+    value = grid.dense.reshape(-1)[flat].to(torch.float32)
+    return torch.where(inside, value, 0.0)
+
+
+def _majorant_coords(grid: DeviceGrid, ipos):
+    """Brick coordinates of a majorant tap: floor -> clip to the extent ->
+    brick index."""
+    ip = torch.floor(ipos).to(torch.int32)
+    ip = torch.minimum(torch.clamp_min(ip, 0), grid.extent - 1)
+    return ip[..., 0] >> 3, ip[..., 1] >> 3, ip[..., 2] >> 3
+
+
+def lookup_majorant_premul(grid: DeviceGrid, ipos, mip):
+    """Fully-scaled DDA step majorant from the premultiplied pyramid
+    (grid.maj_alpha) at a traced mip level in [0, 3]."""
+    bxc, byc, bzc = _majorant_coords(grid, ipos)
+    _, bz, by, bx = grid.maj_alpha.shape
+    flat = ((mip.to(torch.int64) * bz + bzc) * by + byc) * bx + bxc
+    return grid.maj_alpha.reshape(-1)[flat]
+
+
+# the 8 stencil taps in the JAX package's order (dz outer, dx inner)
+_TAPS = tuple((dx, dy, dz) for dz in (0, 1) for dy in (0, 1) for dx in (0, 1))
+
+
+def lookup_density_trilinear(grid: DeviceGrid, params: VolumeParams, ipos):
+    """Trilinear filtered scaled density (common.glsl:61-69).
+
+    The 8 taps are fetched in one gather; each weight is
+    ((wx * wy) * wz) and the weighted taps are summed one after another in
+    the tap order of the JAX package's _trilinear_acc, so every value is
+    rounded as there."""
+    p = ipos - 0.5
+    base = torch.floor(p).to(torch.int64)
+    f = p - base.to(torch.float32)
+    offsets = torch.tensor(_TAPS, dtype=torch.int64, device=ipos.device)
+    taps = lookup_density_brick_int(grid, base[..., None, :] + offsets)  # (..., 8)
+    w1 = torch.stack([1 - f, f], dim=-1)  # (..., 3 axes, 2): weight of offset 0 / 1
+    idx = offsets.T  # (3, 8)
+    w = (w1[..., 0, idx[0]] * w1[..., 1, idx[1]]) * w1[..., 2, idx[2]]
+    terms = taps * w
+    acc = terms[..., 0]
+    for k in range(1, len(_TAPS)):
+        acc = acc + terms[..., k]
+    return params.density_scale * acc
+
+
+# -- transfer function ---------------------------------------------------------
+
+
+def lookup_transfer(lut: torch.Tensor, sample_range, density):
+    """NEAREST LUT sample with range rejection (common.glsl:78-83).
+
+    lut: (K, 4). density: (...,) normalized by the majorant. Returns (..., 4).
+    """
+    k = lut.shape[0]
+    rejected = (density < sample_range[0]) | (density > sample_range[1])
+    idx = torch.clamp(torch.floor(density * k).to(torch.int64), 0, k - 1)
+    return torch.where(rejected[..., None], 0.0, lut[idx])
