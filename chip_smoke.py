@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,17 +8,25 @@ Phases, each of which raises (exit code != 0) on failure:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from volxel_tpu_torch/csrc and print the time;
 3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes — the DDA march at every call of one 1080p sample of
-   the 512^3 scene (bit-equal on every output of every lane), the importance
-   pyramid on the default environment's 512^2 base (rtol 1e-6), the
-   tonemap on a 1920x1080x3 buffer (atol 1e-6) — and time both with CUDA
-   events;
-4. run the main path through the Renderer: the 512^3 synthetic CT volume in
-   the benchmark framing (bench.py), 1920x1080, 5 warm-up + 3 accumulated
-   frames, then image(); check the output and that every kernel launched;
+   main paths' shapes, and time both with CUDA events:
+   - the DDA march at every call of one 1080p default-mode sample of the
+     512^3 scene (bit-equal on every output of every lane), its summed
+     event time beside the torch.profiler device time of the same sample;
+   - the importance pyramid on the default environment's 512^2 base (rtol
+     1e-6) and the tonemap on a 1920x1080x3 buffer (atol 1e-6);
+   - the raymarch step loop at every call of one 1080p raymarch sample
+     (bit-equal on state, hit, t and rgb of every lane), and the
+     nearest-tap sums on that sample's camera rays at 64 steps (bit-equal);
+4. run the main paths through the Renderer: the 512^3 synthetic CT volume
+   in the benchmark framing (bench.py), 1920x1080, 5 warm-up + 3
+   accumulated frames, then image(), in the default mode and in the
+   raymarch mode, each with every launch counter at 0 before it; check the
+   output and that every kernel of the path launched; in both modes split
+   one sample into its camera and shadow legs and profile one; time one
+   1080p no_dda frame;
 5. render the same scene at 64x64 on the card and on the CPU (plain
-   versions) and hold the images to the parity contract of
-   tests/test_parity_oracle.py.
+   versions) in each of the three modes and hold the images to the parity
+   contract of tests/test_parity_oracle.py.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -29,6 +37,7 @@ any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -47,17 +56,22 @@ BENCH_SAMPLE_RANGE = [0.0564, 1.0]
 WARMUP_FRAMES = 5
 ACCUMULATED_FRAMES = 3
 PARITY_FRAMES = 12  # frames 5..11 accumulate, as tests/test_parity_oracle.py
+# a kernel's time at one call is the mean of this many back-to-back launches
+# of the call, so the few microseconds the events add per timed region are
+# spread over them (the DDA march's calls take ~30 us on average at 1080p)
+KERNEL_REPS = 5
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bench_renderer(grid, width: int, height: int, device):
+def bench_renderer(grid, width: int, height: int, device, mode: str = "default"):
     from volxel_tpu_torch import Renderer
 
     r = Renderer(width, height, device=device)
     r.restart_from_grid(grid)
+    r.render_mode = mode
     r.camera.rotate_around_view(0.6, 0.4)
     r.camera.zoom(2.0)
     r.settings.bounces = 1
@@ -67,29 +81,59 @@ def bench_renderer(grid, width: int, height: int, device):
     return r
 
 
-# a device-side spin queued ahead of a timed region, so the host has
-# enqueued the region's launches before the card reaches its start event
-# and the events measure device time, not launch latency (~0.5 ms at the
-# H100's 1980 MHz boost clock)
-PRE_ROLL_CYCLES = 1_000_000
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of `fn` over `reps` calls, by CUDA events, after a
-    warm-up call and a synchronize."""
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """Clock cycles per millisecond of torch.cuda._sleep on this card."""
     import torch
 
-    fn()
+    torch.cuda._sleep(1_000_000)  # wake the clocks
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def device_ms(fn, reps: int = 1):
+    """(last output, mean ms per call) of `reps` calls of `fn`, by CUDA
+    events. A first, untimed round measures the host's enqueue time; then a
+    device-side spin of twice that (+0.5 ms, at most 50 ms) is queued ahead
+    of the start event, so the card reaches the start event only after the
+    host has enqueued the whole timed round, and the events bracket device
+    work, not host time. A function that synchronizes inside (the plain
+    versions' step loops) still includes its host share."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1000
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(PRE_ROLL_CYCLES * reps)
+    torch.cuda._sleep(int(spin_cycles_per_ms() * min(2 * host_ms + 0.5, 50.0)))
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
+
+
+def profiled_device_ms(fn, name: str) -> float:
+    """Summed device time (ms) of the kernels whose name contains `name`
+    over one call of `fn`, read by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if name in e.key) / 1000
 
 
 def bits_equal(a, b) -> bool:
@@ -100,61 +144,76 @@ def bits_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def check_march(r) -> dict:
-    """K1 at every call of one full 1080p sample (camera march and NEE
-    shadow marches): each call's inputs go through the kernel and the
-    plain version, which must agree bit for bit on every output of every
-    lane. The times are summed over the sample's calls; the plain version
-    synchronizes at every step (to test whether any lane still marches), so
-    its time includes the host's share."""
-    import torch
+def max_abs(got, want) -> float:
+    """Largest |difference| over the outputs; lanes outside the box carry
+    NaN/inf through unchanged, so those count as 0."""
+    return max(float((a.double() - b.double()).abs().nan_to_num(0.0).max()) for a, b in zip(got, want))
 
+
+def sample_operands(r):
+    config = r._config()
+    inv_view, inv_proj, light_dir = r._camera_operands(config)
+    return (config, r._device_grid, r.volume_params(), r._lut, r.environment.state, inv_view, inv_proj, light_dir)
+
+
+def check_every_call(r, name: str, cuda_fn, plain_fn, outputs, lanes_arg: int) -> dict:
+    """Render one sample of `r` with modes.<name> replaced by a stand-in
+    that sends each call's inputs through the kernel and the plain version,
+    raises unless they agree bit for bit on every output of every lane, and
+    returns the kernel's result. Returns the tally: calls, the lanes counted
+    by the bool argument `lanes_arg`, the times summed over the calls, the
+    largest difference, and the first call's arguments. The plain versions
+    synchronize at every step (to test whether any lane still runs), so
+    their time includes the host's share."""
     import volxel_tpu_torch.render.modes as modes
     from volxel_tpu_torch.render.pathtrace import render_sample
-    from volxel_tpu_torch.render.pyrmarch import pyr_march_cuda, pyr_march_plain
 
-    names = ("t", "tau", "mip", "maj", "kind", "budget")
-    tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "err": 0.0}
-
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(PRE_ROLL_CYCLES)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
+    tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "err": 0.0, "first_args": None}
 
     def compared(*args):
-        got, ms = timed(lambda: pyr_march_cuda(*args))
-        want, plain_ms = timed(lambda: pyr_march_plain(*args))
-        bad = [nm for nm, a, b in zip(names, got, want) if not bits_equal(a, b)]
-        # lanes outside the box carry NaN/inf through unchanged: count them as 0
-        err = max(float((a.double() - b.double()).abs().nan_to_num(0.0).max()) for a, b in zip(got, want))
+        got, ms = device_ms(lambda: cuda_fn(*args), KERNEL_REPS)
+        want, plain_ms = device_ms(lambda: plain_fn(*args))
+        bad = [nm for nm, a, b in zip(outputs, got, want) if not bits_equal(a, b)]
+        err = max_abs(got, want)
         if bad:
-            raise SystemExit(f"pyr_march call {tally['calls']}: kernel differs from its plain version "
+            raise SystemExit(f"{name} call {tally['calls']}: kernel differs from its plain version "
                              f"in {bad} (max abs {err})")
         tally["calls"] += 1
-        tally["lanes"] += int(args[10].sum())
+        tally["lanes"] += int(args[lanes_arg].sum())
         tally["ms"] += ms
         tally["plain_ms"] += plain_ms
         tally["err"] = max(tally["err"], err)
+        if tally["first_args"] is None:
+            tally["first_args"] = args
         return got
 
-    config = r._config()
-    inv_view, inv_proj, light_dir = r._camera_operands(config)
-    operands = (config, r._device_grid, r.volume_params(), r._lut, r.environment.state, inv_view, inv_proj,
-                light_dir)
-    original = modes.pyr_march
-    modes.pyr_march = compared
+    operands = sample_operands(r)
+    original = getattr(modes, name)
+    setattr(modes, name, compared)
     try:
         render_sample(*operands, 0)
     finally:
-        modes.pyr_march = original
-    log(f"pyr_march: bit-equal at all {tally['calls']} calls of one {config.width}x{config.height} sample "
-        f"({tally['lanes']} running lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms "
+        setattr(modes, name, original)
+    config = operands[0]
+    log(f"{name}: bit-equal at all {tally['calls']} calls of one {config.width}x{config.height} {config.mode} "
+        f"sample ({tally['lanes']} lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms "
         f"summed over the calls")
+    return tally
+
+
+def check_march(r) -> dict:
+    """K1 at every call of one full 1080p sample (camera march and NEE
+    shadow marches; lanes counted: the running ones), and its summed event
+    time beside the profiler's device time of the same sample."""
+    from volxel_tpu_torch.render.pathtrace import render_sample
+    from volxel_tpu_torch.render.pyrmarch import pyr_march_cuda, pyr_march_plain
+
+    tally = check_every_call(r, "pyr_march", pyr_march_cuda, pyr_march_plain,
+                             ("t", "tau", "mip", "maj", "kind", "budget"), 10)
+    operands = sample_operands(r)
+    prof_ms = profiled_device_ms(lambda: render_sample(*operands, 0), "pyr_march_kernel")
+    log(f"pyr_march: summed event time {tally['ms']:.4f} ms, profiler device time {prof_ms:.4f} ms over the same "
+        f"sample (event/profiler {tally['ms'] / max(prof_ms, 1e-9):.3f})")
     return {"name": "pyr_march", "route": "cuda", "source": "volxel_tpu_torch/csrc/pyr_march.cu",
             "replaces": "volxel_tpu/render/pyrmarch.py:313", "max_abs_err": tally["err"],
             "ms": tally["ms"], "plain_ms": tally["plain_ms"]}
@@ -175,8 +234,8 @@ def check_pyramid(r) -> dict:
         if not torch.allclose(a, b, rtol=1e-6, atol=0.0):
             raise SystemExit(f"importance pyramid level {tuple(a.shape)} differs beyond rtol 1e-6")
         err = max(err, float((a - b).abs().max()))
-    ms = time_ms(lambda: build_importance_pyramid_cuda(base), 50)
-    plain_ms = time_ms(lambda: build_importance_pyramid_plain(base), 50)
+    _, ms = device_ms(lambda: build_importance_pyramid_cuda(base), 50)
+    _, plain_ms = device_ms(lambda: build_importance_pyramid_plain(base), 50)
     log(f"importance_pyramid: within rtol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return {"name": "importance_pyramid", "route": "cuda",
             "source": "volxel_tpu_torch/csrc/importance_pyramid.cu",
@@ -198,17 +257,57 @@ def check_tonemap(exposure: float, gamma: float) -> dict:
     err = float((got - want).abs().max())
     if not err <= 1e-6:
         raise SystemExit(f"tonemap kernel differs from its plain version by {err} > 1e-6")
-    ms = time_ms(lambda: tonemap_cuda(fb, exposure, gamma), 50)
-    plain_ms = time_ms(lambda: tonemap_plain(fb, exposure, gamma), 50)
+    _, ms = device_ms(lambda: tonemap_cuda(fb, exposure, gamma), 50)
+    _, plain_ms = device_ms(lambda: tonemap_plain(fb, exposure, gamma), 50)
     log(f"tonemap: within atol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     return {"name": "tonemap", "route": "cuda", "source": "volxel_tpu_torch/csrc/tonemap.cu",
             "replaces": "volxel_tpu/render/pallas_ops.py:115", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms}
 
 
-def main_path(grid, width: int, height: int) -> dict:
-    """The Renderer from construction to image(), with every launch counter
-    at 0 just before it starts."""
+def check_tile_march(r) -> list[dict]:
+    """K5 at every call of one 1080p raymarch sample (the camera leg of
+    each bounce; lanes counted: those inside the box), bit-equal on state,
+    hit, t and rgb of every lane, and K6 on that sample's camera rays at 64
+    steps, bit-equal."""
+    from volxel_tpu_torch.render.tilemarch import (
+        STEPS,
+        tile_march_sample_cuda,
+        tile_march_sample_plain,
+        tile_march_sums_cuda,
+        tile_march_sums_plain,
+    )
+
+    tally = check_every_call(r, "tile_march_sample", tile_march_sample_cuda, tile_march_sample_plain,
+                             ("state", "hit", "t", "rgb"), 6)
+    sample = {"name": "tile_march_sample", "route": "cuda", "source": "volxel_tpu_torch/csrc/tile_march.cu",
+              "replaces": "volxel_tpu/render/tilemarch.py:627", "max_abs_err": tally["err"], "ms": tally["ms"],
+              "plain_ms": tally["plain_ms"]}
+
+    dense, ipos, idir, start, dt, far, valid, _, _, _, _, extent = tally["first_args"]
+    args = (dense, ipos, idir, start, dt, far, valid, extent, STEPS)
+    got, ms = device_ms(lambda: tile_march_sums_cuda(*args), KERNEL_REPS)
+    want, plain_ms = device_ms(lambda: tile_march_sums_plain(*args))
+    err = max_abs([got], [want])
+    if not bits_equal(got, want):
+        raise SystemExit(f"tile_march_sums differs from its plain version (max abs {err})")
+    log(f"tile_march_sums: bit-equal on the {ipos.shape[0]} camera rays of that sample at {STEPS} steps "
+        f"(mean sum {float(got.mean()):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    sums = {"name": "tile_march_sums", "route": "cuda", "source": "volxel_tpu_torch/csrc/tile_march.cu",
+            "replaces": "volxel_tpu/render/tilemarch.py:293", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return [sample, sums]
+
+
+# the kernels each mode's main path must launch
+PATH_KERNELS = {
+    "default": ("pyr_march", "importance_pyramid", "tonemap"),
+    "raymarch": ("tile_march_sample", "importance_pyramid", "tonemap"),
+}
+
+
+def main_path(grid, width: int, height: int, mode: str) -> dict:
+    """The Renderer from construction to image() in one render mode, with
+    every launch counter at 0 just before it starts; the counts just after."""
     import torch
 
     from volxel_tpu_torch import kernels
@@ -217,56 +316,132 @@ def main_path(grid, width: int, height: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    r = bench_renderer(grid, width, height, "cuda")
+    r = bench_renderer(grid, width, height, "cuda", mode)
     for _ in range(WARMUP_FRAMES):
         r.render_frame()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    march_before = kernels.LAUNCHES["pyr_march"]
+    launches_before = dict(kernels.LAUNCHES)
     for _ in range(ACCUMULATED_FRAMES):
         r.render_frame()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    rounds = (kernels.LAUNCHES["pyr_march"] - march_before) / ACCUMULATED_FRAMES
+    per_sample = {k: (kernels.LAUNCHES[k] - launches_before[k]) / ACCUMULATED_FRAMES for k in PATH_KERNELS[mode][:1]}
     img = r.image()
     launches = dict(kernels.LAUNCHES)
     raw = r._framebuffer
-    log(f"main path: {width}x{height}, setup + {WARMUP_FRAMES} warm-up frames {t1 - t0:.3f} s, "
+    log(f"main path ({mode}): {width}x{height}, setup + {WARMUP_FRAMES} warm-up frames {t1 - t0:.3f} s, "
         f"{(t2 - t1) * 1000 / ACCUMULATED_FRAMES:.3f} ms/sample over {ACCUMULATED_FRAMES} accumulated frames, "
-        f"{rounds:.1f} march launches per sample, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    log(f"launches: {launches}")
+        f"launches per sample {per_sample}, peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    log(f"launches ({mode}): {launches}")
     if img.shape != (height, width, 3) or not np.isfinite(img).all():
         raise SystemExit(f"image() gave shape {img.shape} or non-finite values")
     mean = float(raw.mean())
     if not (bool(torch.isfinite(raw).all()) and mean > 0.0):
         raise SystemExit(f"framebuffer not finite or mean radiance {mean} <= 0")
-    for name, count in launches.items():
-        if count <= 0:
-            raise SystemExit(f"kernel {name} was not launched on the main path")
-    log(f"main path output: mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
+    for name in PATH_KERNELS[mode]:
+        if launches[name] <= 0:
+            raise SystemExit(f"kernel {name} was not launched on the {mode} main path")
+    log(f"main path output ({mode}): mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
     return launches
 
 
-def parity(grid, size: int) -> None:
+def breakdown(grid, width: int, height: int, mode: str) -> None:
+    """One sample with a synchronize around each leg (the mode's
+    sample_volume and transmittance), then one unprofiled and one profiled
+    sample: device busy time, idle share and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import volxel_tpu_torch.render.pathtrace as pathtrace
+
+    r = bench_renderer(grid, width, height, "cuda", mode)
+    r.render_frame()  # warm
+    legs = {"camera": 0.0, "shadow": 0.0}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            legs[name] += (time.perf_counter() - t0) * 1000
+            return out
+        return run
+
+    original = pathtrace.get_mode_functions
+
+    def split(mode, physical_shadows=False):
+        sample_volume, transmittance = original(mode, physical_shadows)
+        return timed("camera", sample_volume), timed("shadow", transmittance)
+
+    pathtrace.get_mode_functions = split
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1000
+    finally:
+        pathtrace.get_mode_functions = original
+    log(f"{mode} legs: one sample {total:.3f} ms with a synchronize around each leg: camera leg "
+        f"{legs['camera']:.3f} ms, shadow leg {legs['shadow']:.3f} ms, rest {total - legs['camera'] - legs['shadow']:.3f} ms")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render_frame()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1000
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r.render_frame()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's device time repeats its kernels'
+    device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy = sum(e.device_time_total for e in device) / 1000
+    count = sum(e.count for e in device)
+    top = sorted(device, key=lambda e: -e.device_time_total)[:4]
+    log(f"{mode} profile: one sample, {count} device kernels, device busy {busy:.3f} ms against an unprofiled "
+        f"sample of {wall:.3f} ms (idle share {1 - busy / wall:.3f}); largest: "
+        + "; ".join(f"{e.key[:70]} {e.device_time_total / 1000:.3f} ms x{e.count}" for e in top))
+
+
+def no_dda_frame(grid, width: int, height: int) -> None:
+    """One 1080p no_dda frame (delta and ratio tracking in PyTorch; no
+    kernel of this repo runs in that mode's traversal)."""
+    import torch
+
+    r = bench_renderer(grid, width, height, "cuda", "no_dda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fb = r.render_frame()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000
+    mean = float(fb.mean())
+    if not (bool(torch.isfinite(fb).all()) and mean > 0.0):
+        raise SystemExit(f"no_dda frame not finite or mean radiance {mean} <= 0")
+    log(f"no_dda: one {width}x{height} frame {ms:.3f} ms, mean radiance {mean:.6f}")
+
+
+def parity(grid, size: int, mode: str) -> None:
     """The same scene on the card and on the CPU, held to the slice contract."""
     images = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        r = bench_renderer(grid, size, size, device)
+        r = bench_renderer(grid, size, size, device, mode)
         for _ in range(PARITY_FRAMES):
             r.render_frame()
         images[device] = r._framebuffer.cpu().numpy().astype(np.float64)
-        log(f"parity render on {device}: {time.perf_counter() - t0:.2f} s")
+        log(f"parity render ({mode}) on {device}: {time.perf_counter() - t0:.2f} s")
     gpu, cpu = images["cuda"], images["cpu"]
     rel = np.abs(gpu - cpu) / (np.abs(cpu) + 1e-3)
     tight = float((rel.max(axis=-1) < 1e-3).mean())
     median = float(np.median(rel))
     means = (float(gpu.mean()), float(cpu.mean()))
-    log(f"parity {size}x{size}: {tight:.4%} of pixels within 0.1%, median rel {median:.3e}, "
+    log(f"parity {size}x{size} ({mode}): {tight:.4%} of pixels within 0.1%, median rel {median:.3e}, "
         f"means {means[0]:.6f} (card) {means[1]:.6f} (cpu)")
     if not (tight > 0.98 and median < 1e-4 and abs(means[0] - means[1]) < 5e-3 * max(means[1], 1e-3)):
-        raise SystemExit("card and CPU renders disagree beyond the parity contract")
+        raise SystemExit(f"card and CPU renders ({mode}) disagree beyond the parity contract")
 
 
 def main() -> int:
@@ -314,19 +489,31 @@ def main() -> int:
     del vol
     log(f"scene: {args.size}^3 synthetic CT volume, brick grid built in {time.perf_counter() - t0:.2f} s")
 
-    # phase 3: each kernel against its plain version at the main path's shapes
+    # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
     results = [check_march(r), check_pyramid(r), check_tonemap(r.settings.exposure, r.settings.gamma)]
     del r
+    r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
+    results += check_tile_march(r)
+    del r
     torch.cuda.empty_cache()
 
-    # phase 4: the main path
-    launches = main_path(grid, args.width, args.height)
+    # phase 4: the main paths, each with the counters at 0 before it
+    launches = {"default": main_path(grid, args.width, args.height, "default")}
+    torch.cuda.empty_cache()
+    launches["raymarch"] = main_path(grid, args.width, args.height, "raymarch")
     for entry in results:
-        entry["launches"] = launches[entry["name"]]
+        # K6 lies on no render path: its count from either run is 0
+        mode = "raymarch" if entry["name"].startswith("tile_march") else "default"
+        entry["launches"] = launches[mode][entry["name"]]
+    for mode in ("default", "raymarch"):
+        breakdown(grid, args.width, args.height, mode)
+    no_dda_frame(grid, args.width, args.height)
+    torch.cuda.empty_cache()
 
-    # phase 5: card against CPU at a small size
-    parity(grid, args.parity_size)
+    # phase 5: card against CPU at a small size, in every mode
+    for mode in ("default", "raymarch", "no_dda"):
+        parity(grid, args.parity_size, mode)
 
     kinds = [
         {k: e[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")}

@@ -6,10 +6,11 @@ machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card the tests marked `cuda` skip (a CUDA kernel has no CPU
-mode). Tolerances: the march is bit-equal (the library is built with
---fmad=false and follows the plain version's operation order); the
-pyramid rtol 1e-6 (a 4-term mean summed in another order); the tonemap
-atol 1e-6 (powf and a division may round an ulp apart).
+mode). Tolerances: the DDA march and both tile-march kernels are
+bit-equal (the library is built with --fmad=false and each kernel follows
+its plain version's operation order); the pyramid rtol 1e-6 (a 4-term mean
+summed in another order); the tonemap atol 1e-6 (powf and a division may
+round an ulp apart).
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ import torch
 
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
-from volxel_tpu_torch.render import pallas_ops, pyrmarch
-from volxel_tpu_torch.render.modes import DDA_SAMPLE_MAX_STEPS, _march_setup
+from volxel_tpu_torch.render import pallas_ops, pyrmarch, tilemarch
+from volxel_tpu_torch.render.modes import DDA_SAMPLE_MAX_STEPS, _march_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
+from volxel_tpu_torch.render.rng import seed_rays
+from volxel_tpu_torch.render.sampling import DeviceGrid, VolumeParams
 from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
 
 REPO = Path(__file__).resolve().parent.parent
@@ -70,6 +73,60 @@ def _march_args(r, budget: int):
     return (grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, b, running, DDA_SAMPLE_MAX_STEPS)
 
 
+def _tile_march_args(device, n=2048, side=64):
+    """tile_march_sample's arguments for 2048 seeded rays through a random
+    64^3 field, after the raymarch prologue. About a fifth of the rays miss
+    the box, 5% are inactive, and the index extent stops short of the field
+    in x and y, so taps at the box's faces and past the extent read 0."""
+    rng = np.random.default_rng(8)
+    dense = torch.from_numpy(rng.random((side,) * 3, dtype=np.float32) * 0.9).to(torch.bfloat16)
+    grid = DeviceGrid(dense=dense.to(device), maj_mips=None,
+                      extent=torch.tensor([side - 5, side - 2, side], dtype=torch.int32, device=device))
+
+    def f32(*v):
+        return torch.tensor(v if len(v) > 1 else v[0], dtype=torch.float32, device=device)
+
+    params = VolumeParams(
+        aabb_lo=f32(0.0, 0.0, 0.0), aabb_hi=f32(side, side, side),
+        transform_inv=torch.eye(4, dtype=torch.float32, device=device),
+        vol_min=f32(0.0), vol_maj=f32(1.2), inv_maj=f32(1 / 1.2), density_scale=f32(1.0),
+        albedo=f32(0.9, 0.9, 0.9), phase_g=f32(0.0), sample_range=f32(0.02, 0.98),
+    )
+    lut = torch.from_numpy(rng.random((128, 4), dtype=np.float32)).to(device)
+    origin = (side / 2 + rng.normal(size=(n, 3)) * side).astype(np.float32)
+    target = (rng.random((n, 3)) * 1.4 - 0.2) * side
+    d = (target - origin).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    active = torch.from_numpy(rng.random(n) > 0.05).to(device)
+    state = seed_rays(torch.arange(n, dtype=torch.int64, device=device), 2)
+    return raymarch_prologue(grid, params, lut, torch.from_numpy(origin).to(device), torch.from_numpy(d).to(device),
+                             state, active)
+
+
+def _sums_args(args):
+    dense, ipos, idir, start, dt, far, valid, _, _, _, _, extent = args
+    return dense, ipos, idir, start, dt, far, valid, extent, tilemarch.STEPS
+
+
+def _assert_bits_equal(got, want):
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def test_tile_march_scene_covers_its_cases():
+    """The card tests' lanes (built here on the CPU) miss the box, hit,
+    march through, and tap past the extent."""
+    args = _tile_march_args("cpu")
+    valid = args[6]
+    assert 0.05 < (~valid).float().mean() < 0.5
+    _, hit, _, _ = tilemarch.tile_march_sample(*args)
+    assert 0.1 < hit.float().mean() < 0.9
+    sums = tilemarch.tile_march_sums(*_sums_args(args))
+    assert (sums[valid] > 0).float().mean() > 0.5 and (sums[~valid] == 0).all()
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A wrapper called with CPU tensors raises instead of running anything."""
     r = _renderer("cpu", side=8)
@@ -79,6 +136,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pallas_ops.build_importance_pyramid_cuda(r.environment.state.imp_mips[0])
     with pytest.raises(ValueError, match="CUDA"):
         pallas_ops.tonemap_cuda(torch.zeros((4, 3)), 1.0, 2.2)
+    args = _tile_march_args("cpu", n=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tilemarch.tile_march_sample_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        tilemarch.tile_march_sums_cuda(*_sums_args(args))
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -104,6 +166,18 @@ def test_march_kernel_bit_equal_to_plain(cuda_device, budget):
 
 
 @pytest.mark.cuda
+def test_tile_march_sample_kernel_bit_equal_to_plain(cuda_device):
+    args = _tile_march_args(cuda_device)
+    _assert_bits_equal(tilemarch.tile_march_sample_cuda(*args), tilemarch.tile_march_sample_plain(*args))
+
+
+@pytest.mark.cuda
+def test_tile_march_sums_kernel_bit_equal_to_plain(cuda_device):
+    args = _sums_args(_tile_march_args(cuda_device))
+    _assert_bits_equal([tilemarch.tile_march_sums_cuda(*args)], [tilemarch.tile_march_sums_plain(*args)])
+
+
+@pytest.mark.cuda
 def test_pyramid_kernel_matches_plain(cuda_device):
     base = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (512, 512)).astype(np.float32)).to(cuda_device)
     for a, b in zip(pallas_ops.build_importance_pyramid_cuda(base), pallas_ops.build_importance_pyramid_plain(base)):
@@ -120,8 +194,15 @@ def test_tonemap_kernel_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_render_on_card_goes_through_every_kernel(cuda_device):
+    """Each mode's render goes through its kernels; tile_march_sums is on
+    no render path."""
     kernels.reset_launch_counts()
     r = _renderer(cuda_device, side=32)
     img = r.render(8)
     assert np.isfinite(img).all() and img.shape == (32, 32, 3)
-    assert all(count > 0 for count in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    r.render_mode = "raymarch"
+    assert np.isfinite(r.render(6)).all()
+    r.render_mode = "no_dda"
+    assert np.isfinite(r.render(6)).all()
+    ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
+    assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"}, kernels.LAUNCHES

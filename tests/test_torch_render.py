@@ -1,8 +1,10 @@
-"""The port's default-mode path tracer against the JAX package's, end to end.
+"""The port's path tracer against the JAX package's, end to end.
 
 Both renderers load the same brick grid, apply the reference's settings
-export (tests/fixtures/reference_benchmark.json) and accumulate 12 frames;
-the port runs on the CPU with its plain PyTorch versions. The contract is
+export (tests/fixtures/reference_benchmark.json), switch to the render mode
+under test and accumulate 12 frames; the port runs on the CPU with its
+plain PyTorch versions. The same contract holds the port against the
+scalar GLSL oracle (tests/oracle.py) in the no_dda and raymarch modes. It is
 tests/test_parity_oracle.py's: > 98% of pixels within 0.1% relative
 (> 97% at bounces 3, where an ulp-level flip of a stochastic compare —
 XLA contracts multiply-adds into FMAs and rounds log/exp/pow differently
@@ -38,6 +40,8 @@ from volxel_tpu_torch.render import modes as tmodes
 from volxel_tpu_torch.render.pathtrace import RenderConfig, accumulate_progressive, render_sample
 from volxel_tpu_torch.render.sampling import decode_dense_device, device_grid_from_brick
 
+from .oracle import F, Oracle
+
 FIXTURE = Path(__file__).parent / "fixtures" / "reference_benchmark.json"
 REPO = Path(__file__).resolve().parent.parent
 W = H = 16
@@ -49,10 +53,11 @@ def _volume():
     return vol.astype(np.float32) / vol.max()
 
 
-def _setup(r, grid, bounces, use_env, physical=False):
+def _setup(r, grid, bounces, use_env, physical=False, mode="default"):
     r.restart_from_grid(grid)
     r.restore_settings(json.loads(FIXTURE.read_text())["sharedSettings"][0])
     r.settings.resolution_factor = 1.0
+    r.render_mode = mode
     r.settings.bounces = bounces
     r.settings.use_env = use_env
     if bounces == 3:
@@ -74,14 +79,23 @@ def _assert_contract(ours, theirs, tight_min):
 
 
 @pytest.mark.parametrize(
-    "bounces,use_env,physical",
-    [(1, True, False), (3, True, False), (1, False, False), (3, False, False), (1, True, True)],
+    "mode,bounces,use_env,physical",
+    [
+        pytest.param("default", 1, True, False, id="1-True-False"),
+        pytest.param("default", 3, True, False, id="3-True-False"),
+        pytest.param("default", 1, False, False, id="1-False-False"),
+        pytest.param("default", 3, False, False, id="3-False-False"),
+        pytest.param("default", 1, True, True, id="1-True-True"),
+        pytest.param("raymarch", 1, True, False, id="raymarch-1-True-False"),
+        pytest.param("no_dda", 1, True, False, id="no_dda-1-True-False"),
+    ],
 )
-def test_renderer_matches_jax_renderer(bounces, use_env, physical):
+def test_renderer_matches_jax_renderer(mode, bounces, use_env, physical):
     data = _volume()
     eye = np.eye(4, dtype=np.float32)
-    jr = _setup(JRenderer(width=W, height=H), jax_construct(data, transform=eye), bounces, use_env, physical)
-    tr = _setup(TRenderer(W, H, device="cpu"), torch_construct(data, transform=eye), bounces, use_env, physical)
+    jr = _setup(JRenderer(width=W, height=H), jax_construct(data, transform=eye), bounces, use_env, physical, mode)
+    tr = _setup(TRenderer(W, H, device="cpu"), torch_construct(data, transform=eye), bounces, use_env, physical,
+                mode)
     kernels.reset_launch_counts()
     for _ in range(FRAMES):
         jr.render_frame()
@@ -90,6 +104,33 @@ def test_renderer_matches_jax_renderer(bounces, use_env, physical):
     _assert_contract(tr._framebuffer.numpy(), np.asarray(jr._framebuffer), 0.97 if bounces == 3 else 0.98)
     np.testing.assert_allclose(tr.image(), jr.image(), rtol=0, atol=2e-2)
     assert tr.export_settings() == jr.export_settings()
+
+
+class _DenseOracle(Oracle):
+    """The scalar GLSL oracle reading its voxels from the port's bf16 dense
+    field, the port's only decode (the oracle's own exact brick decode
+    differs from it by bf16 rounding, ~0.4%, which would swamp the contract)."""
+
+    def __init__(self, renderer):
+        super().__init__(renderer)
+        self.dense = renderer._device_grid.dense.to(torch.float32).numpy()
+
+    def _density_brick(self, iipos):
+        ix, iy, iz = iipos
+        if min(ix, iy, iz) < 0 or ix >= self.extent[0] or iy >= self.extent[1] or iz >= self.extent[2]:
+            return F(0.0)
+        return F(self.dense[iz, iy, ix])
+
+
+@pytest.mark.parametrize("mode", ["raymarch", "no_dda"])
+def test_renderer_matches_scalar_oracle(mode):
+    """The port against the per-pixel GLSL transliteration, at
+    tests/test_parity_oracle.py's size and contract."""
+    tr = _setup(TRenderer(W, H, device="cpu"), torch_construct(_volume(), transform=np.eye(4, dtype=np.float32)),
+                1, True, mode=mode)
+    for _ in range(FRAMES):
+        tr.render_frame()
+    _assert_contract(tr._framebuffer.numpy(), _DenseOracle(tr).render(FRAMES), 0.98)
 
 
 def test_render_from_carried_jax_state():
@@ -127,22 +168,55 @@ def test_dense_decode_bit_equal():
 
 
 def test_unported_modes_raise():
-    for mode in ("no_dda", "raymarch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmodes.get_mode_functions(mode)
+    """What is still unported raises with a pointer to the roadmap; every
+    render mode renders."""
     r = TRenderer(8, 8, device="cpu")
     r.restart_from_grid(torch_construct(_volume()))
-    r.render_mode = "raymarch"
-    with pytest.raises(NotImplementedError):
+    for name in ("debug_hits", "gradient_shading", "warmup_low_res"):
+        setattr(r.settings, name, True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            r.render_frame()
+        setattr(r.settings, name, False)
+    for mode in ("default", "no_dda", "raymarch"):
+        assert len(tmodes.get_mode_functions(mode)) == 2
+    with pytest.raises(ValueError):
+        tmodes.get_mode_functions("pathtrace")
+
+
+@pytest.mark.parametrize("mode", ["raymarch", "no_dda"])
+def test_restored_settings_render_in_their_mode(mode):
+    """A settings export whose renderMode is raymarch or no_dda renders in
+    that mode through render(), and exports the mode back."""
+    settings = json.loads(FIXTURE.read_text())["sharedSettings"][0]
+    settings["display"]["renderMode"] = mode
+    r = TRenderer(8, 8, device="cpu")
+    r.restart_from_grid(torch_construct(_volume()))
+    r.restore_settings(settings)
+    img = r.render(6)
+    assert r.render_mode == mode and r._config().mode == mode
+    assert img.shape == (6, 6, 3) and np.isfinite(img).all() and img.mean() > 0  # the export's 0.8 resolution
+    assert r.export_settings()["display"]["renderMode"] == mode
+
+
+def test_premul_majorant_built_for_default_mode_only(monkeypatch):
+    """The DDA march's premultiplied pyramid is setup work of the default
+    mode alone, as in the JAX package's render_pixels."""
+    import volxel_tpu_torch.render.pathtrace as pathtrace
+
+    built = []
+    real = pathtrace.with_premul_majorant
+    monkeypatch.setattr(pathtrace, "with_premul_majorant", lambda *a: built.append(a[0].mode) or real(*a))
+    r = TRenderer(8, 8, device="cpu")
+    r.restart_from_grid(torch_construct(_volume()))
+    for mode in ("raymarch", "no_dda", "default"):
+        r.render_mode = mode
         r.render_frame()
-    r.render_mode = "default"
-    r.settings.debug_hits = True
-    with pytest.raises(NotImplementedError):
-        r.render_frame()
+    assert built == ["default"]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """A fresh interpreter renders 16x16 with the port on the CPU and never
+    """A fresh interpreter renders 16x16 with the port on the CPU, in the
+    default mode and then one frame each of raymarch and no_dda, and never
     loads jax or volxel_tpu; every kernel launch counter stays 0."""
     code = """
 import sys, json
@@ -154,9 +228,13 @@ vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
 r = Renderer(16, 16, device="cpu")
 r.restart_from_grid(construct_brick_grid(vol.astype(np.float32) / vol.max()))
 img = r.render(8)
+means = [float(img.mean())]
+for mode in ("raymarch", "no_dda"):
+    r.render_mode = mode
+    fb = r.render_frame()
+    means.append(float(fb.mean()) if bool(fb.isfinite().all()) else -1.0)
 print(json.dumps({"jax": "jax" in sys.modules, "volxel_tpu": "volxel_tpu" in sys.modules,
-                  "launches": kernels.LAUNCHES, "finite": bool(np.isfinite(img).all()),
-                  "mean": float(img.mean())}))
+                  "launches": kernels.LAUNCHES, "finite": bool(np.isfinite(img).all()), "means": means}))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
@@ -164,4 +242,4 @@ print(json.dumps({"jax": "jax" in sys.modules, "volxel_tpu": "volxel_tpu" in sys
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["jax"] is False and res["volxel_tpu"] is False
     assert all(v == 0 for v in res["launches"].values())
-    assert res["finite"] and res["mean"] > 0
+    assert res["finite"] and all(m > 0 for m in res["means"])

@@ -1,7 +1,8 @@
 """volxel_tpu_torch — the PyTorch/CUDA port of volxel_tpu.
 
-The default-mode progressive Monte-Carlo volume path tracer, written in
-PyTorch, with the TPU package's Pallas kernels on the main path replaced by
+The progressive Monte-Carlo volume path tracer in its three render modes
+(default, no_dda, raymarch), written in PyTorch, with the TPU package's
+Pallas kernels on those paths replaced by
 hand-written CUDA kernels for Hopper (csrc/, built by kernels.py at first
 use on the card). The JAX package volxel_tpu stays the reference; this
 package imports neither JAX nor volxel_tpu.
@@ -10,9 +11,11 @@ Layer map (the module names follow volxel_tpu):
   grid/       numpy brick-grid builder (copy of volxel_tpu.grid)
   scene/      camera and volume transforms (numpy copies), environment
   transfer/   1D RGBA transfer-function LUTs (numpy copy)
-  render/     rng, rays, sampling, the DDA march, path tracer, tonemap
+  render/     rng, rays, sampling, the DDA march, the tile march, the
+              three modes, path tracer, tonemap
   api/        Renderer facade, settings JSON (numpy copy), JAX-state import
-  csrc/       CUDA sources: pyr_march, importance_pyramid, tonemap
+  csrc/       CUDA sources: pyr_march, importance_pyramid, tonemap,
+              tile_march
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are `csrc/*.cu`. At first use they are compiled by `nvcc`
-into one shared library with a plain C interface under `build/` (keyed by
-a hash of the sources and flags, so an edited source rebuilds) and loaded
-with ctypes. Nothing is compiled or loaded at import: the CPU tests import
-every module on machines without `nvcc` or a card.
+The sources are `csrc/*.cu`. At first use each is compiled by its own
+`nvcc`, all at once, and the objects are linked into one shared library
+with a plain C interface under `build/` (keyed by a hash of the sources
+and flags, so an edited source rebuilds), loaded with ctypes. Nothing is
+compiled or loaded at import: the CPU tests import every module on
+machines without `nvcc` or a card.
 
 Each C entry point launches on the stream it is given (the caller passes
 `torch.cuda.current_stream()`), never synchronises, and returns
@@ -28,13 +29,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH,
     "-O3", "--fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES = {"pyr_march": 0, "importance_pyramid": 0, "tonemap": 0}
+LAUNCHES = {
+    "pyr_march": 0, "importance_pyramid": 0, "tonemap": 0, "tile_march_sample": 0, "tile_march_sums": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +52,13 @@ _SIGNATURES = {
     "vx_pool2x2": [_P, _P, _I, _I, _P],
     # src, dst, n, exposure, inv_gamma, stream
     "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
+    # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
+    # tau_target, state, lut, lut_k, scalars, state_out, hit_out, t_out,
+    # rgb_out, n, steps, stream
+    "vx_tile_march_sample": [_P, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _P],
+    # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,
+    # n, steps, stream
+    "vx_tile_march_sums": [_P, _I, _I, _I, _I, _I] + [_P] * 7 + [_I, _I, _P],
 }
 
 _lib = None
@@ -80,20 +91,28 @@ def library_path() -> Path:
     return BUILD / f"libvolxel_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}) on {cmd[-1]}:\n{err}")
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the keyed shared library unless it exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmpdir:
+        objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for obj, src in zip(objs, _sources())])
+        lib_tmp = str(Path(tmpdir) / out.name)
+        _run([[nvcc, "-shared", *ARCH, "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, out)
     return out
 
 

@@ -1,13 +1,23 @@
-"""Volume traversal for the default render mode: DDA null-collision
-tracking over the majorant pyramid (shaders/sampling/dda.glsl).
+"""Volume traversal for the three render modes (shaders/sampling/).
 
-PyTorch counterpart of the default-mode functions of
-volxel_tpu.render.modes, with the structure of its sample_volume_dda_pyr /
-transmittance_dda_pyr: the march runs in render.pyrmarch.pyr_march (a CUDA
-kernel on the card), which parks every lane at its next collision
-candidate; the density decode and every random draw run here, on the
-parked lanes only, and the loop re-enters the march while any lane runs.
-Each lane has its own step budget (dda.glsl's per-pixel loop cap).
+PyTorch counterpart of volxel_tpu.render.modes:
+
+  default (dda.glsl): DDA null-collision tracking over the majorant
+    pyramid, with the structure of the JAX package's sample_volume_dda_pyr
+    / transmittance_dda_pyr. The march runs in render.pyrmarch.pyr_march (a
+    CUDA kernel on the card), which parks every lane at its next collision
+    candidate; the density decode and every random draw run here, on the
+    parked lanes only, and the loop re-enters the march while any lane
+    runs. Each lane has its own step budget (dda.glsl's per-pixel loop cap).
+  no_dda (normal.glsl): delta tracking and ratio tracking against the
+    global majorant, in PyTorch, over the lanes still running.
+  raymarch (raymarch.glsl): 64 fixed steps with the stochastic tricubic
+    filter. The camera leg's step loop runs in
+    render.tilemarch.tile_march_sample (a CUDA kernel on the card) after a
+    PyTorch prologue; the shadow leg is PyTorch.
+
+The JAX package's compaction ladders, compacted decodes and step
+statistics are TPU workarounds or diagnostics and are not ported.
 
 Function contracts:
   sample_volume(grid, params, lut, origin, direction, state, active)
@@ -16,8 +26,7 @@ Function contracts:
     -> (state, Tr)
 with origin/direction in world space and state the per-ray RNG state.
 Draw consumption is reference-exact per lane: inactive or box-missing lanes
-consume nothing, the real/null draw happens only at live collisions, the
-tau redraw only where the GLSL makes it, RR only under its threshold.
+consume nothing, and every other draw happens only where the GLSL makes it.
 """
 
 from __future__ import annotations
@@ -31,15 +40,19 @@ from volxel_tpu_torch.render.rays import Rays, ray_box_intersection
 from volxel_tpu_torch.render.rng import rng, rng_where
 from volxel_tpu_torch.render.sampling import (
     VolumeParams,
+    lookup_density_stochastic,
     lookup_density_trilinear,
     lookup_transfer,
     world_to_index_dir,
     world_to_index_point,
 )
+from volxel_tpu_torch.render.tilemarch import STEPS as RAYMARCH_STEPS
+from volxel_tpu_torch.render.tilemarch import tile_march_sample, volume_scalars
 
 # per-lane step caps
 DDA_SAMPLE_MAX_STEPS = 1024
 DDA_TRANSMITTANCE_MAX_STEPS = 100  # dda.glsl:18
+TRACKING_MAX_EVENTS = 512  # no_dda events per leg, one count for every lane as in the JAX package
 
 # adaptive mip schedule (dda.glsl:6-8)
 MIP_START = 3.0
@@ -195,15 +208,146 @@ def transmittance_dda(grid, params, lut, origin, direction, state, active, physi
     return state, tr
 
 
+# ---------------------------------------------------------------------------
+# Delta / ratio tracking (no_dda mode): normal.glsl
+# ---------------------------------------------------------------------------
+
+
+def _tracking_setup(params, origin, direction, state, active):
+    """Box test, index-space rays and the first free flight (normal.glsl:14,
+    :40): box-missing or inactive lanes consume nothing."""
+    hit_box, near, far = ray_box_intersection(Rays(origin, direction), params.aabb_lo, params.aabb_hi)
+    ipos, idir = _to_index_space(params, origin, direction)
+    state, xi = rng_where(active & hit_box, state)
+    t = near - torch.log(1.0 - xi) * params.inv_maj
+    running = active & hit_box & (t < far)
+    return state, ipos, idir, far, t, running
+
+
+def sample_volume_simple(grid, params, lut, origin, direction, state, active):
+    """Delta tracking (normal.glsl:36-55) against the global majorant.
+
+    Each event decodes every running lane (trilinear density, LUT), draws
+    the real/null test, and at a null collision the next free flight; a
+    real one returns first. Events run on the running lanes only, at most
+    TRACKING_MAX_EVENTS of them."""
+    state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
+    n = origin.shape[0]
+    hit = torch.zeros_like(running)
+    rgb = torch.ones((n, 3), dtype=torch.float32, device=origin.device)
+    lanes = torch.nonzero(running).squeeze(1)
+    for _ in range(TRACKING_MAX_EVENTS):
+        if not lanes.numel():
+            break
+        t_l = t[lanes]
+        rgba = _decode_rgba(grid, params, lut, ipos[lanes] + t_l[:, None] * idir[lanes])
+        p_real = params.vol_maj * rgba[:, 3] * params.inv_maj
+        st, xi1 = rng(state[lanes])
+        real = xi1 < p_real
+        st, xi2 = rng_where(~real, st)
+        t_l = torch.where(real, t_l, t_l - torch.log(1.0 - xi2) * params.inv_maj)
+        state[lanes] = st
+        t[lanes] = t_l
+        rgb[lanes[real]] = rgba[real, :3]
+        hit[lanes[real]] = True
+        lanes = lanes[~real & (t_l < far[lanes])]
+    le_add = torch.zeros((n, 3), dtype=torch.float32, device=origin.device)  # emission stub
+    return state, hit, t, rgb, le_add
+
+
+def transmittance_simple(grid, params, lut, origin, direction, state, active):
+    """Ratio tracking (normal.glsl:8-33): Tr *= 1 - density / majorant at
+    every event; russian roulette below 0.1, whose killed lanes return
+    before the free-flight draw. Events run on the running lanes only."""
+    state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
+    tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
+    lanes = torch.nonzero(running).squeeze(1)
+    for _ in range(TRACKING_MAX_EVENTS):
+        if not lanes.numel():
+            break
+        t_l = t[lanes]
+        rgba = _decode_rgba(grid, params, lut, ipos[lanes] + t_l[:, None] * idir[lanes])
+        d = params.vol_maj * rgba[:, 3]
+        tr_l = tr[lanes] * (1.0 - d * params.inv_maj)
+        rr_active = tr_l < 0.1
+        st, xi_rr = rng_where(rr_active, state[lanes])
+        killed = rr_active & (xi_rr < (1.0 - tr_l))
+        tr_l = torch.where(rr_active & ~killed, tr_l / torch.clamp_min(tr_l, 1e-20), tr_l)
+        tr[lanes] = torch.where(killed, 0.0, tr_l)
+        st, xi2 = rng_where(~killed, st)
+        t_l = t_l - torch.log(1.0 - xi2) * params.inv_maj
+        state[lanes] = st
+        t[lanes] = t_l
+        lanes = lanes[~killed & (t_l < far[lanes])]
+    return state, tr
+
+
+# ---------------------------------------------------------------------------
+# Fixed-step ray marching (raymarch mode): raymarch.glsl
+# ---------------------------------------------------------------------------
+
+
+def _raymarch_setup(params, origin, direction, active):
+    hit_box, near, far = ray_box_intersection(Rays(origin, direction), params.aabb_lo, params.aabb_hi)
+    ipos, idir = _to_index_space(params, origin, direction)
+    return ipos, idir, near, far, (far - near) / RAYMARCH_STEPS, active & hit_box
+
+
+def raymarch_prologue(grid, params, lut, origin, direction, state, active):
+    """The camera leg before its step loop (raymarch.glsl:30-40): the box
+    test, then the tau target and the start jitter, drawn on the lanes
+    inside the box only. Returns tilemarch.tile_march_sample's arguments."""
+    ipos, idir, near, far, dt, valid = _raymarch_setup(params, origin, direction, active)
+    state, xi_tau = rng_where(valid, state)
+    tau_target = -torch.log(1.0 - xi_tau)
+    state, xi_j = rng_where(valid, state)
+    start = near + xi_j * dt
+    extent = tuple(int(v) for v in grid.extent.tolist())
+    return grid.dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, volume_scalars(params), extent
+
+
+def sample_volume_raymarch(grid, params, lut, origin, direction, state, active):
+    """Stochastic-filter fixed-step raymarch (raymarch.glsl:30-56): the
+    prologue in PyTorch, then the step loop in tilemarch.tile_march_sample,
+    a kernel on the card at every bounce."""
+    state, hit, t, rgb = tile_march_sample(*raymarch_prologue(grid, params, lut, origin, direction, state, active))
+    le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
+    return state, hit, t, rgb, le_add
+
+
+def transmittance_raymarch(grid, params, lut, origin, direction, state, active):
+    """Raymarched shadow transmittance (raymarch.glsl:8-23): every lane
+    inside the box takes all RAYMARCH_STEPS steps and their draws (no early
+    out), Tr = exp(-tau). Plain PyTorch over those lanes only."""
+    ipos, idir, near, far, dt, valid = _raymarch_setup(params, origin, direction, active)
+    state, xi_j = rng_where(valid, state)  # raymarch.glsl:17
+    start = near + xi_j * dt
+    lanes = torch.nonzero(valid).squeeze(1)
+    ipos, idir, start, dt, far = ipos[lanes], idir[lanes], start[lanes], dt[lanes], far[lanes]
+    st = state[lanes]
+    tau = torch.zeros_like(start)
+    for i in range(RAYMARCH_STEPS):
+        t = torch.minimum(start + i * dt, far)
+        st, d_raw = lookup_density_stochastic(grid, params, ipos + t[:, None] * idir, st)
+        alpha = lookup_transfer(lut, params.sample_range, d_raw * params.inv_maj)[:, 3]
+        tau = tau + alpha * params.vol_maj * dt
+    state[lanes] = st
+    tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
+    tr[lanes] = torch.exp(-tau)
+    return state, tr
+
+
 def get_mode_functions(mode: str, physical_shadows: bool = False):
     """(sample_volume, transmittance) for a render mode. physical_shadows
-    selects proper ratio tracking for the shadow transmittance. The other
-    default-mode option, physical_majorant, lives in the premultiplied
-    pyramid the march reads (build_premul_majorant's envelope)."""
-    if mode in ("no_dda", "raymarch"):
-        raise NotImplementedError(
-            f"render mode {mode!r} is not ported yet (ROADMAP.md, queue 1: other modes)"
-        )
+    selects proper ratio tracking for the default mode's shadow
+    transmittance; the other default-mode option, physical_majorant, lives
+    in the premultiplied pyramid the march reads (build_premul_majorant's
+    envelope). Both are default-mode only, as in the JAX package: the other
+    modes use the global majorant."""
+    if mode == "no_dda":
+        return sample_volume_simple, transmittance_simple
+    if mode == "raymarch":
+        return sample_volume_raymarch, transmittance_raymarch
     if mode != "default":
         raise ValueError(f"unknown render mode: {mode!r}")
     if physical_shadows:

@@ -1,6 +1,6 @@
 """Wavefront volumetric path tracer (shaders/fragment.frag in PyTorch).
 
-Counterpart of volxel_tpu.render.pathtrace for the default render mode.
+Counterpart of volxel_tpu.render.pathtrace for the three render modes.
 One call renders one progressive sample for every pixel: seeds per-ray RNG
 from (pixel, frame) exactly like the reference (fragment.frag:143-144),
 builds jittered camera rays, and runs trace_path (fragment.frag:79-124) —
@@ -45,7 +45,7 @@ class RenderConfig(NamedTuple):
 
     width: int
     height: int
-    mode: str = "default"  # only "default" is ported
+    mode: str = "default"  # "default", "no_dda" or "raymarch"
     bounces: int = 3
     show_environment: bool = True
     use_env: bool = True
@@ -169,7 +169,7 @@ def render_pixels(
     depends only on the global pixel index + frame, so a subset renders
     the same per-pixel values as the whole frame.
     """
-    if grid.maj_alpha is None:
+    if config.mode == "default" and grid.maj_alpha is None:
         grid = with_premul_majorant(config, grid, params, lut)
     state, rays = camera_wavefront(config, inv_view, inv_proj, pixel_index, frame_index)
     state, radiance = trace_path(config, grid, params, lut, env, light_dir, rays.origin, rays.direction, state)

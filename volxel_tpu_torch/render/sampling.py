@@ -1,7 +1,7 @@
 """Device-side brick-grid lookups and transfer-function sampling.
 
 PyTorch counterpart of volxel_tpu.render.sampling (shaders/sampling/
-common.glsl), cut to what the default render mode runs:
+common.glsl), cut to what the ported render modes run:
 
   * the brick atlas is decoded once to a dense (Z, Y, X) bfloat16 field on
     the device, so a voxel read is one gather (the JAX package's DeviceGrid
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from volxel_tpu_torch.grid.brick import BrickGrid
+from volxel_tpu_torch.render.rng import rng3, rng3_where
 
 
 class DeviceGrid(NamedTuple):
@@ -185,6 +186,40 @@ def lookup_density_trilinear(grid: DeviceGrid, params: VolumeParams, ipos):
     for k in range(1, len(_TAPS)):
         acc = acc + terms[..., k]
     return params.density_scale * acc
+
+
+def stochastic_tricubic_offsets(ipos, state, mask=None):
+    """Weighted-reservoir tricubic tap selection (common.glsl:9-32).
+
+    Returns (state, iipos (..., 3) int32), the chosen tap. Each of taps 1..3
+    takes one rng3 draw (x, y, z) and replaces the pick where
+    r < w / max(1e-3, sum_w); with `mask`, lanes where it is False consume
+    none of the nine draws. The weights follow the JAX package's op order
+    term for term (tilemarch.cu repeats it)."""
+    p = ipos - 0.5
+    iipos = torch.floor(p).to(torch.int32)
+    t = p - iipos.to(torch.float32)
+    t2 = t * t
+    t3 = t * t2
+    sixth = 1.0 / 6.0
+    w0 = sixth * (-t3 + 3.0 * t2 - 3.0 * t + 1.0)
+    w1 = sixth * (3.0 * t3 - 6.0 * t2 + 4.0)
+    w2 = sixth * (-3.0 * t3 + 3.0 * t2 + 3.0 * t + 1.0)
+    w3 = sixth * t3
+    sum_w = w0
+    idx = torch.zeros_like(iipos)
+    for tap, w in ((1, w1), (2, w2), (3, w3)):
+        sum_w = sum_w + w
+        state, r = rng3(state) if mask is None else rng3_where(mask, state)
+        take = r < w / torch.clamp_min(sum_w, 1e-3)
+        idx = torch.where(take, tap, idx)
+    return state, iipos + idx - 1
+
+
+def lookup_density_stochastic(grid: DeviceGrid, params: VolumeParams, ipos, state, mask=None):
+    """Stochastic tricubic density (common.glsl:71-76) -> (state, density)."""
+    state, tap = stochastic_tricubic_offsets(ipos, state, mask)
+    return state, params.density_scale * lookup_density_brick_int(grid, tap)
 
 
 # -- transfer function ---------------------------------------------------------

@@ -1,0 +1,218 @@
+"""Tile-march: the raymarch camera leg's step loop, and nearest-tap density
+sums, as hand-written CUDA kernels on the card beside their plain PyTorch
+versions.
+
+Counterpart of volxel_tpu.render.tilemarch. There, Mosaic cannot gather
+per lane, so each (tile, step) streams a block window of the dense field
+into VMEM, each lane's tap is selected by one-hot matrix products, a lane
+whose tap support leaves the window freezes and is resumed by an XLA loop
+(modes._raymarch_resume). What the kernels compute per lane is the plain
+form those are pinned bit-identical to:
+
+  tile_march_sample: modes._raymarch_loop after the prologue. Up to STEPS
+    steps at t = min(start + i * dt, far), each a stochastic tricubic tap
+    (nine masked xoshiro128++ draws), the transfer LUT with range
+    rejection and tau += alpha * vol_maj * dt; a lane stops at its first
+    step with tau >= tau_target.
+  tile_march_sums: serial_march_sums. The sum over `steps` of the nearest
+    tap dense[floor(p - 0.5)], 0 outside the volume and on invalid lanes.
+
+Here every thread gathers its own taps (csrc/tile_march.cu), so there is
+no window, no freeze and no fallback, and the TPU sums kernel's `miss`
+output (window misses) has no counterpart. Both kernels are built with
+--fmad=false and follow the plain versions' op order, so on the card they
+agree bit for bit on every output of every lane.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.render.sampling import (
+    DeviceGrid,
+    VolumeParams,
+    lookup_density_brick_int,
+    lookup_transfer,
+    stochastic_tricubic_offsets,
+)
+
+STEPS = 64  # RAYMARCH_STEPS (raymarch.glsl:6)
+
+# layout of the (5,) f32 scalars tensor, as the JAX kernel's S_* rows
+S_INV_MAJ = 0
+S_VOL_MAJ = 1
+S_DEN_SCALE = 2
+S_RANGE_LO = 3
+S_RANGE_HI = 4
+
+# the kernel stages the LUT in shared memory: at most 48 KiB without opt-in
+MAX_LUT_ROWS = 3072
+
+
+def volume_scalars(params: VolumeParams):
+    """The kernel's (5,) f32 scalars on the params' device: no host sync."""
+    return torch.stack(
+        [params.inv_maj, params.vol_maj, params.density_scale, params.sample_range[0], params.sample_range[1]]
+    )
+
+
+def _dense_grid(dense, extent) -> DeviceGrid:
+    return DeviceGrid(
+        dense=dense, maj_mips=None, extent=torch.tensor(extent, dtype=torch.int32, device=dense.device)
+    )
+
+
+def tile_march_sample_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
+    """Plain PyTorch step loop: every lane in lockstep under a mask, at
+    most STEPS steps, each lane stopping at its hit; see
+    `tile_march_sample`."""
+    grid = _dense_grid(dense, extent)
+    inv_maj, vol_maj, density_scale = scalars[S_INV_MAJ], scalars[S_VOL_MAJ], scalars[S_DEN_SCALE]
+    sample_range = scalars[S_RANGE_LO:S_RANGE_HI + 1]
+    n = ipos.shape[0]
+    marching = valid.clone()
+    tau = torch.zeros((n,), dtype=torch.float32, device=ipos.device)
+    hit = torch.zeros_like(valid)
+    t_out = torch.zeros_like(tau)
+    rgb_out = torch.ones((n, 3), dtype=torch.float32, device=ipos.device)
+    i = 0
+    while i < STEPS and bool(marching.any()):
+        t = torch.minimum(start + i * dt, far)
+        state, tap = stochastic_tricubic_offsets(ipos + t[:, None] * idir, state, marching)
+        d_raw = density_scale * lookup_density_brick_int(grid, tap)
+        rgba = lookup_transfer(lut, sample_range, d_raw * inv_maj)
+        tau_new = tau + rgba[:, 3] * vol_maj * dt
+        new_hit = marching & (tau_new >= tau_target)
+        hit = hit | new_hit
+        t_out = torch.where(new_hit, t, t_out)
+        rgb_out = torch.where(new_hit[:, None], rgba[:, :3], rgb_out)
+        tau = torch.where(marching, tau_new, tau)
+        marching = marching & ~new_hit
+        i += 1
+    return state, hit, t_out, rgb_out
+
+
+def _check_lanes(name, n, vectors, scalars_per_lane):
+    for label, a in vectors:
+        if tuple(a.shape) != (n, 3):
+            raise ValueError(f"{name}: {label} must be ({n}, 3), got {tuple(a.shape)}")
+    for label, a in scalars_per_lane:
+        if tuple(a.shape) != (n,):
+            raise ValueError(f"{name}: {label} must be ({n},), got {tuple(a.shape)}")
+
+
+def _check_dense(name, dense, extent):
+    kernels.require_cuda(name, dense, dtype=torch.bfloat16)
+    if dense.dim() != 3:
+        raise ValueError(f"{name}: expected a (Z, Y, X) dense field, got {tuple(dense.shape)}")
+    ex, ey, ez = (int(v) for v in extent)
+    nz, ny, nx = dense.shape
+    if not (0 < ex <= nx and 0 < ey <= ny and 0 < ez <= nz):
+        raise ValueError(f"{name}: extent {(ex, ey, ez)} outside the dense field {tuple(dense.shape)}")
+    return ex, ey, ez
+
+
+def tile_march_sample_cuda(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
+    """The step loop as one launch of csrc/tile_march.cu; see
+    `tile_march_sample`."""
+    ex, ey, ez = _check_dense("tile_march_sample", dense, extent)
+    dev = dense.device
+    kernels.require_cuda("tile_march_sample", ipos, idir, start, dt, far, tau_target, lut, scalars,
+                         dtype=torch.float32, device=dev)
+    kernels.require_cuda("tile_march_sample", valid, dtype=torch.bool, device=dev)
+    kernels.require_cuda("tile_march_sample", state, dtype=torch.int64, device=dev)
+    n = ipos.shape[0]
+    _check_lanes("tile_march_sample", n, (("ipos", ipos), ("idir", idir)),
+                 (("start", start), ("dt", dt), ("far", far), ("valid", valid), ("tau_target", tau_target)))
+    if tuple(state.shape) != (n, 4):
+        raise ValueError(f"tile_march_sample: state must be ({n}, 4), got {tuple(state.shape)}")
+    if lut.dim() != 2 or lut.shape[1] != 4 or not 0 < lut.shape[0] <= MAX_LUT_ROWS:
+        raise ValueError(f"tile_march_sample: lut must be (K, 4) with K <= {MAX_LUT_ROWS}, "
+                         f"got {tuple(lut.shape)}")
+    if tuple(scalars.shape) != (S_RANGE_HI + 1,):
+        raise ValueError(f"tile_march_sample: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
+    _, ny, nx = dense.shape
+    state_o = torch.empty_like(state)
+    hit = torch.empty_like(valid)
+    t_o = torch.empty_like(start)
+    rgb = torch.empty_like(ipos)
+    code = kernels.lib().vx_tile_march_sample(
+        dense.data_ptr(), ny, nx, ex, ey, ez,
+        ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
+        valid.data_ptr(), tau_target.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0],
+        scalars.data_ptr(), state_o.data_ptr(), hit.data_ptr(), t_o.data_ptr(), rgb.data_ptr(),
+        n, STEPS, kernels.stream_of(ipos),
+    )
+    kernels.check("vx_tile_march_sample", code)
+    kernels.LAUNCHES["tile_march_sample"] += 1
+    return state_o, hit, t_o, rgb
+
+
+def tile_march_sample(
+    dense,  # (Z, Y, X) bf16 decoded density
+    ipos, idir,  # (n, 3) f32 index-space rays
+    start, dt, far,  # (n,) f32: jittered first t, step, box exit
+    valid,  # (n,) bool: active and inside the box
+    tau_target,  # (n,) f32: -log(1 - xi), drawn in the prologue
+    state,  # (n, 4) int64 xoshiro words after the prologue's draws
+    lut,  # (K, 4) f32 transfer LUT
+    scalars,  # (5,) f32 on the device: volume_scalars(params)
+    extent,  # (ex, ey, ez) ints: the volume's index extent
+):
+    """Raymarch the camera leg after its prologue (raymarch.glsl:42-55).
+    Returns (state, hit, t, rgb) per lane: the words after each lane's
+    draws, whether it reached its tau target, the t of that step (0
+    elsewhere) and the LUT colour there (1 elsewhere). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    args = (dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent)
+    if ipos.device.type == "cpu":
+        return tile_march_sample_plain(*args)
+    return tile_march_sample_cuda(*args)
+
+
+def tile_march_sums_plain(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):
+    """Plain PyTorch sums (the JAX package's serial_march_sums); see
+    `tile_march_sums`."""
+    grid = _dense_grid(dense, extent)
+    acc = torch.zeros_like(start)
+    for s in range(steps):
+        t = torch.minimum(start + s * dt, far)
+        tap = torch.floor(ipos + t[:, None] * idir - 0.5).to(torch.int32)
+        acc = acc + torch.where(valid, lookup_density_brick_int(grid, tap), 0.0)
+    return acc
+
+
+def tile_march_sums_cuda(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):
+    """The sums as one launch of csrc/tile_march.cu; see `tile_march_sums`."""
+    ex, ey, ez = _check_dense("tile_march_sums", dense, extent)
+    dev = dense.device
+    kernels.require_cuda("tile_march_sums", ipos, idir, start, dt, far, dtype=torch.float32, device=dev)
+    kernels.require_cuda("tile_march_sums", valid, dtype=torch.bool, device=dev)
+    n = ipos.shape[0]
+    _check_lanes("tile_march_sums", n, (("ipos", ipos), ("idir", idir)),
+                 (("start", start), ("dt", dt), ("far", far), ("valid", valid)))
+    _, ny, nx = dense.shape
+    sums = torch.empty_like(start)
+    code = kernels.lib().vx_tile_march_sums(
+        dense.data_ptr(), ny, nx, ex, ey, ez,
+        ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
+        valid.data_ptr(), sums.data_ptr(), n, int(steps), kernels.stream_of(ipos),
+    )
+    kernels.check("vx_tile_march_sums", code)
+    kernels.LAUNCHES["tile_march_sums"] += 1
+    return sums
+
+
+def tile_march_sums(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):
+    """Per-lane sum over `steps` of the nearest-tap density
+    dense[floor(ipos + min(start + s * dt, far) * idir - 0.5)] -> (n,) f32;
+    taps outside `extent` and invalid lanes give 0. Arguments as in
+    `tile_march_sample`. The JAX kernel's second output, `miss`, counted
+    taps outside its VMEM window; without a window there is none. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    args = (dense, ipos, idir, start, dt, far, valid, extent, steps)
+    if ipos.device.type == "cpu":
+        return tile_march_sums_plain(*args)
+    return tile_march_sums_cuda(*args)
