@@ -12,21 +12,34 @@ Phases, each of which raises (exit code != 0) on failure:
    - the DDA march at every call of one 1080p default-mode sample of the
      512^3 scene (bit-equal on every output of every lane), its summed
      event time beside the torch.profiler device time of the same sample;
+   - both table fetches (the transfer-LUT fetch and gather_f32) at every
+     call of one 1080p default-mode sample, and gather_f32 at one
+     environment lookup over 1920x1080 directions (bit-equal);
    - the importance pyramid on the default environment's 512^2 base (rtol
      1e-6) and the tonemap on a 1920x1080x3 buffer (atol 1e-6);
    - the raymarch step loop at every call of one 1080p raymarch sample
      (bit-equal on state, hit, t and rgb of every lane), and the
      nearest-tap sums on that sample's camera rays at 64 steps (bit-equal);
+   - the shear-warp intermediate on the 512^3 volume, on the preview's
+     fixed canvas and on one view's static canvas (bit-equal, or within
+     1e-6 where the card's expf and ATen's exp round apart);
+   each kernel's entry also carries its bound (the larger of its bytes
+   over the card's memory rate and its operations over the f32 rate) and,
+   where one PyTorch call computes the same function, that call's time;
 4. run the main paths through the Renderer: the 512^3 synthetic CT volume
    in the benchmark framing (bench.py), 1920x1080, 5 warm-up + 3
    accumulated frames, then image(), in the default mode and in the
    raymarch mode, each with every launch counter at 0 before it; check the
    output and that every kernel of the path launched; in both modes split
    one sample into its camera and shadow legs and profile one; time one
-   1080p no_dda frame;
+   1080p no_dda frame; then the shear-warp preview: render_preview() at six
+   camera poses that use all six (principal axis, flip) volumes, each
+   called 1 + 3 times, and render_dvr(screen=True) once, with the counters
+   at 0 before it;
 5. render the same scene at 64x64 on the card and on the CPU (plain
    versions) in each of the three modes and hold the images to the parity
-   contract of tests/test_parity_oracle.py.
+   contract of tests/test_parity_oracle.py; the preview at three poses is
+   held to max abs err 1e-5.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -37,6 +50,7 @@ any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import subprocess
@@ -60,6 +74,34 @@ PARITY_FRAMES = 12  # frames 5..11 accumulate, as tests/test_parity_oracle.py
 # of the call, so the few microseconds the events add per timed region are
 # spread over them (the DDA march's calls take ~30 us on average at 1080p)
 KERNEL_REPS = 5
+# the preview's camera poses, applied one after the other to the bench
+# framing: each turns the view onto another (principal axis, flip)
+PREVIEW_POSES = ((0.0, 0.0), (1.57, 0.0), (1.57, 0.0), (1.57, 0.0), (0.0, 1.2), (0.0, -2.4))
+PREVIEW_REPEATS = 3  # calls after the first at each pose
+PREVIEW_PARITY_ATOL = 1e-5
+# a view whose static canvas phase 3 checks: x principal, flipped
+STATIC_VIEW = (-0.9, 0.35, 0.3)
+
+# the least time a call could take: its bytes (each input read once, each
+# output written once) over HBM3's 3.35 TB/s, or its operations over the
+# 67 TFLOP/s of f32 outside the tensor cores, whichever is longer (NVIDIA's
+# H100 SXM data sheet; a card below its 700 W limit is slower)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per unit of work, counted from the kernels' sources: a DDA
+# step of the march; a raymarch step (nine xoshiro draws, the tricubic
+# offsets, the tap, the LUT and the tau test); a nearest-tap sum step; a
+# shear-warp voxel's classification (the LUT index and exp) and one
+# canvas pixel's update per slice (4-tap weights of 4 channels and the
+# composite); a tonemapped pixel (3 channels of Hable, exposure and pow);
+# a LUT fetch (compares, floor, clamp)
+OPS_DDA_STEP = 50
+OPS_TILE_STEP = 160
+OPS_SUMS_STEP = 15
+OPS_SW_VOXEL = 10
+OPS_SW_PIXEL = 37
+OPS_TONEMAP_PIXEL = 48
+OPS_LUT_FETCH = 6
 
 
 def log(msg: str) -> None:
@@ -150,78 +192,172 @@ def max_abs(got, want) -> float:
     return max(float((a.double() - b.double()).abs().nan_to_num(0.0).max()) for a, b in zip(got, want))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved_bytes: float, ops: float) -> dict:
+    """The least time (ms) the card could take for work that moves
+    `moved_bytes` and does `ops` operations, and which of the two sets it."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def sample_operands(r):
     config = r._config()
     inv_view, inv_proj, light_dir = r._camera_operands(config)
     return (config, r._device_grid, r.volume_params(), r._lut, r.environment.state, inv_view, inv_proj, light_dir)
 
 
-def check_every_call(r, name: str, cuda_fn, plain_fn, outputs, lanes_arg: int) -> dict:
-    """Render one sample of `r` with modes.<name> replaced by a stand-in
-    that sends each call's inputs through the kernel and the plain version,
-    raises unless they agree bit for bit on every output of every lane, and
-    returns the kernel's result. Returns the tally: calls, the lanes counted
-    by the bool argument `lanes_arg`, the times summed over the calls, the
-    largest difference, and the first call's arguments. The plain versions
-    synchronize at every step (to test whether any lane still runs), so
-    their time includes the host's share."""
-    import volxel_tpu_torch.render.modes as modes
-    from volxel_tpu_torch.render.pathtrace import render_sample
-
-    tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "err": 0.0, "first_args": None}
+@contextlib.contextmanager
+def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None):
+    """Replace module.<name>, for the block's duration, by a stand-in that
+    sends each call's inputs through the kernel and the plain version
+    (and `library_fn`, when given), raises unless they agree bit for bit
+    on every output, and returns the kernel's result. Yields the tally:
+    calls, lanes (`lanes(args)`), the times summed over the calls, the
+    bytes and operations of the work (`work(args, outputs)`), the largest
+    difference, and the first call's arguments."""
+    tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0,
+             "err": 0.0, "first_args": None}
 
     def compared(*args):
         got, ms = device_ms(lambda: cuda_fn(*args), KERNEL_REPS)
         want, plain_ms = device_ms(lambda: plain_fn(*args))
-        bad = [nm for nm, a, b in zip(outputs, got, want) if not bits_equal(a, b)]
-        err = max_abs(got, want)
+        single = not isinstance(got, tuple)
+        got_t, want_t = ((got,), (want,)) if single else (got, want)
+        bad = [nm for nm, a, b in zip(outputs, got_t, want_t) if not bits_equal(a, b)]
+        err = max_abs(got_t, want_t)
         if bad:
             raise SystemExit(f"{name} call {tally['calls']}: kernel differs from its plain version "
                              f"in {bad} (max abs {err})")
+        if library_fn is not None:
+            tally["library_ms"] += device_ms(lambda: library_fn(*args), KERNEL_REPS)[1]
+        moved, ops = work(args, got_t)
         tally["calls"] += 1
-        tally["lanes"] += int(args[lanes_arg].sum())
+        tally["lanes"] += lanes(args)
         tally["ms"] += ms
         tally["plain_ms"] += plain_ms
+        tally["bytes"] += moved
+        tally["ops"] += ops
         tally["err"] = max(tally["err"], err)
         if tally["first_args"] is None:
             tally["first_args"] = args
         return got
 
-    operands = sample_operands(r)
-    original = getattr(modes, name)
-    setattr(modes, name, compared)
+    original = getattr(module, name)
+    setattr(module, name, compared)
     try:
-        render_sample(*operands, 0)
+        yield tally
     finally:
-        setattr(modes, name, original)
-    config = operands[0]
+        setattr(module, name, original)
+
+
+def check_every_call(r, module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None) -> dict:
+    """Render one sample of `r` with module.<name> compared at every call
+    (compared_calls); the plain versions of the marches synchronize at
+    every step (to test whether any lane still runs), so their time
+    includes the host's share. Returns the tally."""
+    from volxel_tpu_torch.render.pathtrace import render_sample
+
+    with compared_calls(module, name, cuda_fn, plain_fn, outputs, lanes, work, library_fn) as tally:
+        render_sample(*sample_operands(r), 0)
+    config = r._config()
     log(f"{name}: bit-equal at all {tally['calls']} calls of one {config.width}x{config.height} {config.mode} "
-        f"sample ({tally['lanes']} lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms "
-        f"summed over the calls")
+        f"sample ({tally['lanes']} lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms"
+        + (f", library {tally['library_ms']:.4f} ms" if library_fn is not None else "")
+        + f" summed over the calls; bound {bound(tally['bytes'], tally['ops'])['bound_ms']:.4f} ms "
+        f"({tally['bytes'] / 1e6:.1f} MB, {tally['ops'] / 1e9:.3f} Gop)")
     return tally
+
+
+def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms: float, moved: float, ops: float,
+          library_ms=None, route: str = "cuda") -> dict:
+    return {"name": name, "route": route, "source": source, "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **bound(moved, ops), "library_ms": library_ms}
 
 
 def check_march(r) -> dict:
     """K1 at every call of one full 1080p sample (camera march and NEE
     shadow marches; lanes counted: the running ones), and its summed event
-    time beside the profiler's device time of the same sample."""
+    time beside the profiler's device time of the same sample. Its work:
+    the per-lane state read and written, each marching lane's ray read,
+    and one majorant fetch and one DDA step per step taken (the budget
+    each lane spent)."""
+    import volxel_tpu_torch.render.modes as modes
     from volxel_tpu_torch.render.pathtrace import render_sample
     from volxel_tpu_torch.render.pyrmarch import pyr_march_cuda, pyr_march_plain
 
-    tally = check_every_call(r, "pyr_march", pyr_march_cuda, pyr_march_plain,
-                             ("t", "tau", "mip", "maj", "kind", "budget"), 10)
+    def work(args, got):
+        maj, _, ipos, idir, ri, t, tau, mip, far, budget, running, _ = args
+        steps = int((budget - got[5]).sum())
+        rays = int((running & (budget > 0)).sum()) * nbytes(ipos, idir, ri, far) // t.numel()
+        return nbytes(t, tau, mip, budget, running, *got) + rays + min(nbytes(maj), 4 * steps), steps * OPS_DDA_STEP
+
+    tally = check_every_call(r, modes, "pyr_march", pyr_march_cuda, pyr_march_plain,
+                             ("t", "tau", "mip", "maj", "kind", "budget"), lambda a: int(a[10].sum()), work)
     operands = sample_operands(r)
     prof_ms = profiled_device_ms(lambda: render_sample(*operands, 0), "pyr_march_kernel")
     log(f"pyr_march: summed event time {tally['ms']:.4f} ms, profiler device time {prof_ms:.4f} ms over the same "
         f"sample (event/profiler {tally['ms'] / max(prof_ms, 1e-9):.3f})")
-    return {"name": "pyr_march", "route": "cuda", "source": "volxel_tpu_torch/csrc/pyr_march.cu",
-            "replaces": "volxel_tpu/render/pyrmarch.py:313", "max_abs_err": tally["err"],
-            "ms": tally["ms"], "plain_ms": tally["plain_ms"]}
+    return entry("pyr_march", "volxel_tpu_torch/csrc/pyr_march.cu", "volxel_tpu/render/pyrmarch.py:313",
+                 tally["err"], tally["ms"], tally["plain_ms"], tally["bytes"], tally["ops"])
+
+
+def check_gather(r) -> list[dict]:
+    """K2's two entry points at every call of one 1080p default-mode
+    sample (the LUT fetch at each collision decode; gather_f32 at the
+    environment's bilinear taps and importance texels), bit-equal, beside
+    torch.take for gather_f32; then gather_f32 at one environment lookup
+    over 1920x1080 seeded directions."""
+    import torch
+
+    from volxel_tpu_torch.render import gather
+    from volxel_tpu_torch.scene.environment import lookup_environment
+
+    def gather_cuda(table, idx):
+        return gather.gather_f32_cuda(table.contiguous(), idx.contiguous())
+
+    def gather_work(args, got):
+        table, idx = args
+        return nbytes(idx, *got) + min(nbytes(table), 4 * idx.numel()), idx.numel()
+
+    def lut_cuda(lut, sample_range, density):
+        return gather.lookup_transfer_cuda(lut.contiguous(), sample_range.contiguous(), density.contiguous())
+
+    def lut_work(args, got):
+        return nbytes(*args, *got), args[2].numel() * OPS_LUT_FETCH
+
+    lut = check_every_call(r, gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",),
+                           lambda a: a[2].numel(), lut_work)
+    take = check_every_call(r, gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
+                            lambda a: a[1].numel(), gather_work, library_fn=torch.take)
+
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(1920 * 1080, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dirs = torch.from_numpy(d).cuda()
+    with compared_calls(gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
+                        lambda a: a[1].numel(), gather_work, library_fn=torch.take) as env:
+        le = lookup_environment(r.environment.state, dirs)
+    if not (env["calls"] == 1 and bool(torch.isfinite(le).all())):
+        raise SystemExit(f"environment lookup: {env['calls']} gather calls, finite {bool(torch.isfinite(le).all())}")
+    log(f"gather_f32: bit-equal at one environment lookup of {dirs.shape[0]} directions ({env['lanes']} words); "
+        f"kernel {env['ms']:.4f} ms, plain {env['plain_ms']:.4f} ms, torch.take {env['library_ms']:.4f} ms, "
+        f"bound {bound(env['bytes'], env['ops'])['bound_ms']:.4f} ms")
+    source, replaces = "volxel_tpu_torch/csrc/gather.cu", "volxel_tpu/render/mxu_gather.py:196"
+    return [entry("lookup_transfer", source, replaces, lut["err"], lut["ms"], lut["plain_ms"], lut["bytes"],
+                  lut["ops"]),
+            entry("gather_f32", source, replaces, take["err"], take["ms"], take["plain_ms"], take["bytes"],
+                  take["ops"], library_ms=take["library_ms"])]
 
 
 def check_pyramid(r) -> dict:
-    """K3 on the default environment's 512^2 importance base."""
+    """K3 on the default environment's 512^2 importance base, beside 9
+    chained F.avg_pool2d(x, 2) calls (the same means)."""
     import torch
+    import torch.nn.functional as F
 
     from volxel_tpu_torch.render.pallas_ops import build_importance_pyramid_cuda, build_importance_pyramid_plain
 
@@ -234,13 +370,22 @@ def check_pyramid(r) -> dict:
         if not torch.allclose(a, b, rtol=1e-6, atol=0.0):
             raise SystemExit(f"importance pyramid level {tuple(a.shape)} differs beyond rtol 1e-6")
         err = max(err, float((a - b).abs().max()))
+
+    def pooled():
+        level = base[None]
+        for _ in range(len(got)):
+            level = F.avg_pool2d(level, 2)
+        return level
+
     _, ms = device_ms(lambda: build_importance_pyramid_cuda(base), 50)
     _, plain_ms = device_ms(lambda: build_importance_pyramid_plain(base), 50)
-    log(f"importance_pyramid: within rtol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "importance_pyramid", "route": "cuda",
-            "source": "volxel_tpu_torch/csrc/importance_pyramid.cu",
-            "replaces": "volxel_tpu/render/pallas_ops.py:60", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+    _, library_ms = device_ms(pooled, 50)
+    out_elems = sum(level.numel() for level in got)
+    log(f"importance_pyramid: within rtol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"avg_pool2d {library_ms:.4f} ms")
+    return entry("importance_pyramid", "volxel_tpu_torch/csrc/importance_pyramid.cu",
+                 "volxel_tpu/render/pallas_ops.py:60", err, ms, plain_ms, nbytes(base, *got), 4 * out_elems,
+                 library_ms=library_ms)
 
 
 def check_tonemap(exposure: float, gamma: float) -> dict:
@@ -260,16 +405,20 @@ def check_tonemap(exposure: float, gamma: float) -> dict:
     _, ms = device_ms(lambda: tonemap_cuda(fb, exposure, gamma), 50)
     _, plain_ms = device_ms(lambda: tonemap_plain(fb, exposure, gamma), 50)
     log(f"tonemap: within atol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "tonemap", "route": "cuda", "source": "volxel_tpu_torch/csrc/tonemap.cu",
-            "replaces": "volxel_tpu/render/pallas_ops.py:115", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+    return entry("tonemap", "volxel_tpu_torch/csrc/tonemap.cu", "volxel_tpu/render/pallas_ops.py:115", err, ms,
+                 plain_ms, nbytes(fb, got), fb.shape[0] * OPS_TONEMAP_PIXEL)
 
 
 def check_tile_march(r) -> list[dict]:
     """K5 at every call of one 1080p raymarch sample (the camera leg of
     each bounce; lanes counted: those inside the box), bit-equal on state,
     hit, t and rgb of every lane, and K6 on that sample's camera rays at 64
-    steps, bit-equal."""
+    steps, bit-equal. Their work: every lane's state and flag read and its
+    outputs written, each valid lane's ray read, and one tap of the bf16
+    field per step taken (a lane that hits stops)."""
+    import torch
+
+    import volxel_tpu_torch.render.modes as modes
     from volxel_tpu_torch.render.tilemarch import (
         STEPS,
         tile_march_sample_cuda,
@@ -278,11 +427,20 @@ def check_tile_march(r) -> list[dict]:
         tile_march_sums_plain,
     )
 
-    tally = check_every_call(r, "tile_march_sample", tile_march_sample_cuda, tile_march_sample_plain,
-                             ("state", "hit", "t", "rgb"), 6)
-    sample = {"name": "tile_march_sample", "route": "cuda", "source": "volxel_tpu_torch/csrc/tile_march.cu",
-              "replaces": "volxel_tpu/render/tilemarch.py:627", "max_abs_err": tally["err"], "ms": tally["ms"],
-              "plain_ms": tally["plain_ms"]}
+    def sample_work(args, got):
+        dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, _ = args
+        _, hit, t, _ = got
+        taken = torch.clamp(torch.round((t - start) / dt) + 1, 1, STEPS)
+        steps = int(torch.where(hit, taken, float(STEPS))[valid].sum())
+        rays = int(valid.sum()) * nbytes(ipos, idir, start, dt, far, tau_target) // start.numel()
+        moved = nbytes(state, valid, lut, scalars, *got) + rays + min(nbytes(dense), 2 * steps)
+        return moved, steps * OPS_TILE_STEP
+
+    tally = check_every_call(r, modes, "tile_march_sample", tile_march_sample_cuda, tile_march_sample_plain,
+                             ("state", "hit", "t", "rgb"), lambda a: int(a[6].sum()), sample_work)
+    source = "volxel_tpu_torch/csrc/tile_march.cu"
+    sample = entry("tile_march_sample", source, "volxel_tpu/render/tilemarch.py:627", tally["err"], tally["ms"],
+                   tally["plain_ms"], tally["bytes"], tally["ops"])
 
     dense, ipos, idir, start, dt, far, valid, _, _, _, _, extent = tally["first_args"]
     args = (dense, ipos, idir, start, dt, far, valid, extent, STEPS)
@@ -293,16 +451,63 @@ def check_tile_march(r) -> list[dict]:
         raise SystemExit(f"tile_march_sums differs from its plain version (max abs {err})")
     log(f"tile_march_sums: bit-equal on the {ipos.shape[0]} camera rays of that sample at {STEPS} steps "
         f"(mean sum {float(got.mean()):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    sums = {"name": "tile_march_sums", "route": "cuda", "source": "volxel_tpu_torch/csrc/tile_march.cu",
-            "replaces": "volxel_tpu/render/tilemarch.py:293", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    steps = int(valid.sum()) * STEPS
+    rays = int(valid.sum()) * nbytes(ipos, idir, start, dt, far) // start.numel()
+    sums = entry("tile_march_sums", source, "volxel_tpu/render/tilemarch.py:293", err, ms, plain_ms,
+                 nbytes(valid, got) + rays + min(nbytes(dense), 2 * steps), steps * OPS_SUMS_STEP)
     return [sample, sums]
+
+
+def check_shearwarp(r) -> dict:
+    """K7 on the 512^3 volume: at the bench view on the preview's fixed
+    canvas (the main path's shape) and at STATIC_VIEW on its static
+    canvas, against the plain slice loop on the card. Bit-equal, or within
+    1e-6 where only the card's expf and ATen's exp can round apart. Its
+    work: the bf16 volume read once, each voxel classified once, each
+    canvas pixel of a slice's footprint updated once, the colour and
+    transmittance written once."""
+    import torch
+
+    from volxel_tpu_torch.render import shearwarp
+
+    density = float(r.density_scale * r.settings.density_multiplier)
+    results = {}
+    for canvas, view in (("fixed", r._index_view_dir()), ("static", np.array(STATIC_VIEW))):
+        perm, flip, sx, sy = shearwarp.shear_parameters(view)
+        vol = shearwarp.permuted_volume(r._device_grid.dense, perm, flip)
+        args = (vol, r._lut, sx, sy, 1.0, density * float(np.sqrt(1.0 + sx * sx + sy * sy)), canvas == "fixed")
+        got, ms = device_ms(lambda: shearwarp.shearwarp_intermediate_cuda(*args), KERNEL_REPS)
+        want, plain_ms = device_ms(lambda: shearwarp.shearwarp_intermediate_plain(*args))
+        err = max_abs(got, want)
+        equal = all(bits_equal(a, b) for a, b in zip(got, want))
+        if not (equal or err <= 1e-6):
+            raise SystemExit(f"shearwarp_intermediate ({canvas} canvas) differs from its plain version by {err}")
+        z_n, y_n, x_n = vol.shape
+        moved = nbytes(vol, r._lut, *got)
+        ops = z_n * y_n * x_n * OPS_SW_VOXEL + z_n * (y_n + 1) * (x_n + 1) * OPS_SW_PIXEL
+        t = got[1]
+        log(f"shearwarp_intermediate ({canvas} canvas {tuple(t.shape)}, perm {perm}, flip {flip}, "
+            f"s=({sx:.4f}, {sy:.4f})): {'bit-equal' if equal else f'within 1e-6 (max abs {err:.3e})'}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound(moved, ops)['bound_ms']:.4f} ms; "
+            f"min t {float(t.min()):.4f}, last row t == 1: {bool((t[-1] == 1).all())}")
+        results[canvas] = entry("shearwarp_intermediate", "volxel_tpu_torch/csrc/shearwarp.cu",
+                                "volxel_tpu/render/shearwarp.py:435", err, ms, plain_ms, moved, ops)
+        del vol, got, want
+        torch.cuda.empty_cache()
+    return results["fixed"]
 
 
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
-    "default": ("pyr_march", "importance_pyramid", "tonemap"),
-    "raymarch": ("tile_march_sample", "importance_pyramid", "tonemap"),
+    "default": ("pyr_march", "lookup_transfer", "gather_f32", "importance_pyramid", "tonemap"),
+    "raymarch": ("tile_march_sample", "lookup_transfer", "gather_f32", "importance_pyramid", "tonemap"),
+    "preview": ("shearwarp_intermediate", "tonemap"),
 }
+# the path whose run gives each kernel's launch count (K6 lies on none:
+# its count from the raymarch run is 0)
+KERNEL_PATH = {"pyr_march": "default", "lookup_transfer": "default", "gather_f32": "default",
+               "importance_pyramid": "default", "tonemap": "default", "tile_march_sample": "raymarch",
+               "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview"}
 
 
 def main_path(grid, width: int, height: int, mode: str) -> dict:
@@ -326,7 +531,7 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
         r.render_frame()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    per_sample = {k: (kernels.LAUNCHES[k] - launches_before[k]) / ACCUMULATED_FRAMES for k in PATH_KERNELS[mode][:1]}
+    per_sample = {k: (kernels.LAUNCHES[k] - launches_before[k]) / ACCUMULATED_FRAMES for k in PATH_KERNELS[mode]}
     img = r.image()
     launches = dict(kernels.LAUNCHES)
     raw = r._framebuffer
@@ -349,10 +554,8 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
 def breakdown(grid, width: int, height: int, mode: str) -> None:
     """One sample with a synchronize around each leg (the mode's
     sample_volume and transmittance), then one unprofiled and one profiled
-    sample: device busy time, idle share and the largest kernels."""
+    sample (log_device_profile)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import volxel_tpu_torch.render.pathtrace as pathtrace
 
@@ -388,21 +591,27 @@ def breakdown(grid, width: int, height: int, mode: str) -> None:
     log(f"{mode} legs: one sample {total:.3f} ms with a synchronize around each leg: camera leg "
         f"{legs['camera']:.3f} ms, shadow leg {legs['shadow']:.3f} ms, rest {total - legs['camera'] - legs['shadow']:.3f} ms")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    r.render_frame()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1000
+    _, wall = timed_call(r.render_frame)
+    log_device_profile(mode, r.render_frame, wall)
+
+
+def log_device_profile(what: str, fn, wall_ms: float) -> None:
+    """Profile one call of `fn`: device kernels, device busy time against
+    an unprofiled call's `wall_ms` (the idle share) and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r.render_frame()
+        fn()
         torch.cuda.synchronize()
     # device-side events only: a CPU op's device time repeats its kernels'
     device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
     busy = sum(e.device_time_total for e in device) / 1000
     count = sum(e.count for e in device)
     top = sorted(device, key=lambda e: -e.device_time_total)[:4]
-    log(f"{mode} profile: one sample, {count} device kernels, device busy {busy:.3f} ms against an unprofiled "
-        f"sample of {wall:.3f} ms (idle share {1 - busy / wall:.3f}); largest: "
+    log(f"{what} profile: one call, {count} device kernels, device busy {busy:.3f} ms against an unprofiled "
+        f"call of {wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); largest: "
         + "; ".join(f"{e.key[:70]} {e.device_time_total / 1000:.3f} ms x{e.count}" for e in top))
 
 
@@ -421,6 +630,105 @@ def no_dda_frame(grid, width: int, height: int) -> None:
     if not (bool(torch.isfinite(fb).all()) and mean > 0.0):
         raise SystemExit(f"no_dda frame not finite or mean radiance {mean} <= 0")
     log(f"no_dda: one {width}x{height} frame {ms:.3f} ms, mean radiance {mean:.6f}")
+
+
+def timed_call(fn):
+    """(output, host ms) of one call between two torch.cuda.synchronize()."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1000
+
+
+def check_image(img, width: int, height: int, what: str) -> None:
+    if img.shape != (height, width, 3) or not np.isfinite(img).all():
+        raise SystemExit(f"{what}: shape {img.shape} or non-finite values")
+    if not float(img.max() - img.min()) > 1e-3:
+        raise SystemExit(f"{what}: the image is constant ({float(img.min())})")
+
+
+def preview_path(grid, width: int, height: int) -> dict:
+    """The interactive preview through the Renderer, with every launch
+    counter at 0 just before it: render_preview() at each pose (its first
+    call builds the permuted volume of its (principal axis, flip)), then
+    render_dvr(screen=True) once; the counts just after."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.render.shearwarp import shear_parameters
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    r = bench_renderer(grid, width, height, "cuda")
+    keys, later, shears = [], [], []
+    for pose in PREVIEW_POSES:
+        r.camera.rotate_around_view(*pose)
+        perm, flip, sx, sy = shear_parameters(r._index_view_dir())
+        key = (perm, flip)
+        shears.append((key, sx, sy))
+        img, first_ms = timed_call(r.render_preview)
+        check_image(img, width, height, f"render_preview at {key}")
+        ms = [timed_call(r.render_preview)[1] for _ in range(PREVIEW_REPEATS)]
+        later += ms
+        keys.append(key)
+        log(f"preview {key}: first call {first_ms:.3f} ms (its permuted volume built), then "
+            f"{sum(ms) / len(ms):.3f} ms mean of {len(ms)}; image mean {float(img.mean()):.4f}")
+    if len(set(keys)) != 6:
+        raise SystemExit(f"the preview poses used {len(set(keys))} of the 6 (perm, flip) volumes: {keys}")
+    img, dvr_ms = timed_call(lambda: r.render_dvr(screen=True))
+    check_image(img, width, height, "render_dvr(screen=True)")
+    launches = dict(kernels.LAUNCHES)
+    log_device_profile("preview", r.render_preview, later[-1])
+    preview_kernel_times(r, shears)
+    calls = len(PREVIEW_POSES) * (1 + PREVIEW_REPEATS) + 1
+    log(f"main path (preview): {width}x{height}, {len(PREVIEW_POSES)} poses x {1 + PREVIEW_REPEATS} previews, "
+        f"{sum(later) / len(later):.3f} ms per preview after its volume's first call; render_dvr(screen=True) "
+        f"{dvr_ms:.3f} ms; {calls} images, launches shearwarp_intermediate {launches['shearwarp_intermediate']}, "
+        f"tonemap {launches['tonemap']}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    for name in PATH_KERNELS["preview"]:
+        if launches[name] <= 0:
+            raise SystemExit(f"kernel {name} was not launched on the preview main path")
+    return launches
+
+
+def preview_kernel_times(r, shears) -> None:
+    """K7 alone at each preview pose, on that pose's cached volume and the
+    fixed canvas: CUDA events (the mean of KERNEL_REPS launches) beside the
+    profiler's device time of one launch."""
+    from volxel_tpu_torch.render.shearwarp import shearwarp_intermediate_cuda
+
+    density = float(r.density_scale * r.settings.density_multiplier)
+    for (perm, flip), sx, sy in shears:
+        args = (r._preview_volume(perm, flip), r._lut, sx, sy, 1.0,
+                density * float(np.sqrt(1.0 + sx * sx + sy * sy)), True)
+        _, ms = device_ms(lambda: shearwarp_intermediate_cuda(*args), KERNEL_REPS)
+        prof_ms = profiled_device_ms(lambda: shearwarp_intermediate_cuda(*args), "shearwarp_kernel")
+        log(f"shearwarp_intermediate at the preview's {(perm, flip)} pose, s=({sx:.4f}, {sy:.4f}): "
+            f"events {ms:.4f} ms, profiler {prof_ms:.4f} ms")
+
+
+def preview_parity(grid, size: int) -> None:
+    """The preview at the first three poses on the card and on the CPU
+    (plain versions): deterministic, so held to max abs err 1e-5 on the
+    tonemapped image."""
+    images = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = bench_renderer(grid, size, size, device)
+        images[device] = []
+        for pose in PREVIEW_POSES[:3]:
+            r.camera.rotate_around_view(*pose)
+            images[device].append(r.render_preview())
+        log(f"parity preview on {device}: {time.perf_counter() - t0:.2f} s")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(images["cuda"], images["cpu"]))
+    log(f"parity {size}x{size} (preview, 3 poses): max abs err {err:.3e}")
+    if not err <= PREVIEW_PARITY_ATOL:
+        raise SystemExit(f"card and CPU previews differ by {err} > {PREVIEW_PARITY_ATOL}")
 
 
 def parity(grid, size: int, mode: str) -> None:
@@ -491,7 +799,8 @@ def main() -> int:
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
-    results = [check_march(r), check_pyramid(r), check_tonemap(r.settings.exposure, r.settings.gamma)]
+    results = [check_march(r), *check_gather(r), check_pyramid(r),
+               check_tonemap(r.settings.exposure, r.settings.gamma), check_shearwarp(r)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
     results += check_tile_march(r)
@@ -502,24 +811,22 @@ def main() -> int:
     launches = {"default": main_path(grid, args.width, args.height, "default")}
     torch.cuda.empty_cache()
     launches["raymarch"] = main_path(grid, args.width, args.height, "raymarch")
-    for entry in results:
-        # K6 lies on no render path: its count from either run is 0
-        mode = "raymarch" if entry["name"].startswith("tile_march") else "default"
-        entry["launches"] = launches[mode][entry["name"]]
     for mode in ("default", "raymarch"):
         breakdown(grid, args.width, args.height, mode)
     no_dda_frame(grid, args.width, args.height)
+    launches["preview"] = preview_path(grid, args.width, args.height)
+    for e in results:
+        e["launches"] = launches[KERNEL_PATH[e["name"]]][e["name"]]
     torch.cuda.empty_cache()
 
-    # phase 5: card against CPU at a small size, in every mode
+    # phase 5: card against CPU at a small size, in every mode and the preview
     for mode in ("default", "raymarch", "no_dda"):
         parity(grid, args.parity_size, mode)
+    preview_parity(grid, args.parity_size)
 
-    kinds = [
-        {k: e[k] for k in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")}
-        for e in results
-    ]
-    print(json.dumps({"kernels": kinds}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in results]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,136 @@
+"""Per-sample time of two checkouts of the PyTorch/CUDA port, in turns, on one card.
+
+    python examples/ab_torch_paths.py BEFORE_DIR AFTER_DIR [--rounds 2]
+    python examples/ab_torch_paths.py --table-fetch-turns 10
+
+Each run is a fresh process in one checkout (its own volxel_tpu_torch and
+chip_smoke.py, its kernels built from its own sources), in the order
+before, after, after, before (repeated `--rounds` / 2 times). A run renders
+chip_smoke.py's bench scene (512^3 synthetic CT, 1920x1080, bounces 1) in
+the default and the raymarch mode: 5 warm-up frames, then 5 frames timed
+between two torch.cuda.synchronize() (ms/sample on the host clock), then
+one sample under torch.profiler (device-side kernels and their busy ms).
+Prints one JSON line per run and mode, and the card's name and power
+limit first.
+
+With --table-fetch-turns N it instead runs one process in this checkout
+and, in each mode, alternates samples with the table fetches (render.gather)
+launching their kernels and taking their plain PyTorch versions (the code
+the kernels replaced), N samples of each in the order kernel, plain, plain,
+kernel, ...; it prints the mean and median ms/sample of each.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+RUN = r"""
+import json, sys, time
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+kernels.lib()
+vol = synthetic_ct_volume((512,) * 3, bits_stored=12, seed=0)
+grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+del vol
+for mode in ("default", "raymarch"):
+    r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda", mode)
+    for _ in range(5):
+        r.render_frame()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        r.render_frame()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r.render_frame()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    print(json.dumps({"tree": sys.argv[1], "mode": mode, "ms_per_sample": ms,
+                      "device_kernels": sum(e.count for e in device),
+                      "device_busy_ms": sum(e.device_time_total for e in device) / 1000}), flush=True)
+    del r
+    torch.cuda.empty_cache()
+"""
+
+TURNS = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+
+import chip_smoke
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.render import gather
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+kernels.lib()
+turns = int(sys.argv[1])
+vol = synthetic_ct_volume((512,) * 3, bits_stored=12, seed=0)
+grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+del vol
+dispatch = {"kernel": (gather.gather_f32, gather.lookup_transfer_fetch),
+            "plain": (gather.gather_f32_plain, gather.lookup_transfer_plain)}
+for mode in ("default", "raymarch"):
+    r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda", mode)
+    for _ in range(5):
+        r.render_frame()
+    ms = {"kernel": [], "plain": []}
+    for i in range(2 * turns):
+        which = ("kernel", "plain", "plain", "kernel")[i % 4]
+        gather.gather_f32, gather.lookup_transfer_fetch = dispatch[which]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render_frame()
+        torch.cuda.synchronize()
+        ms[which].append((time.perf_counter() - t0) * 1000)
+    gather.gather_f32, gather.lookup_transfer_fetch = dispatch["kernel"]
+    print(json.dumps({"mode": mode, **{f"{k}_{stat.__name__}_ms": stat(v) for k, v in ms.items()
+                                       for stat in (statistics.mean, statistics.median)}, "samples": ms}),
+          flush=True)
+    del r
+    torch.cuda.empty_cache()
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("before", nargs="?")
+    ap.add_argument("after", nargs="?")
+    ap.add_argument("--rounds", type=int, default=2, help="runs of each tree (even: before, after, after, before)")
+    ap.add_argument("--table-fetch-turns", type=int, default=0,
+                    help="alternate the table fetches' kernels and plain versions in this checkout instead")
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    if args.table_fetch_turns:
+        here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        subprocess.run([sys.executable, "-c", TURNS, str(args.table_fetch_turns)], cwd=here,
+                       env=dict(os.environ, PYTHONPATH=here), check=True, timeout=900)
+        return 0
+    if not (args.before and args.after):
+        ap.error("BEFORE_DIR and AFTER_DIR are needed without --table-fetch-turns")
+    order = []
+    for i in range(args.rounds):
+        order += [("before", args.before), ("after", args.after)][:: 1 if i % 2 == 0 else -1]
+    for label, tree in order:
+        tree = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, "-c", RUN, label], cwd=tree, env=env, check=True, timeout=900)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

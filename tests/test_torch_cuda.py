@@ -6,9 +6,10 @@ machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card the tests marked `cuda` skip (a CUDA kernel has no CPU
-mode). Tolerances: the DDA march and both tile-march kernels are
-bit-equal (the library is built with --fmad=false and each kernel follows
-its plain version's operation order); the pyramid rtol 1e-6 (a 4-term mean
+mode). Tolerances: the DDA march, both tile-march kernels, the shear-warp
+intermediate and both table fetches are bit-equal (the library is built
+with --fmad=false and each kernel follows its plain version's operation
+order); the pyramid rtol 1e-6 (a 4-term mean
 summed in another order); the tonemap atol 1e-6 (powf and a division may
 round an ulp apart).
 """
@@ -25,7 +26,7 @@ import torch
 
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
-from volxel_tpu_torch.render import pallas_ops, pyrmarch, tilemarch
+from volxel_tpu_torch.render import gather, pallas_ops, pyrmarch, shearwarp, tilemarch
 from volxel_tpu_torch.render.modes import DDA_SAMPLE_MAX_STEPS, _march_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
 from volxel_tpu_torch.render.rng import seed_rays
@@ -108,6 +109,26 @@ def _sums_args(args):
     return dense, ipos, idir, start, dt, far, valid, extent, tilemarch.STEPS
 
 
+def _shearwarp_args(device, view_dir, shape=(40, 24, 32)):
+    """A seeded bf16 (Z, Y, X) volume with densities past the LUT's range,
+    a LUT whose row 0 is not zero (a tap outside the slice must not read
+    it), and the shear of `view_dir`."""
+    rng = np.random.default_rng(11)
+    vol = torch.from_numpy(rng.uniform(-0.1, 1.3, shape).astype(np.float32)).to(torch.bfloat16)
+    lut = torch.from_numpy(rng.uniform(0.05, 2.0, (128, 4)).astype(np.float32))
+    _, _, sx, sy = shearwarp.shear_parameters(view_dir)
+    return vol.to(device), lut.to(device), sx, sy, 1 / 1.1, 1.7 * float(np.sqrt(1 + sx * sx + sy * sy))
+
+
+def _random_words(n, seed=12):
+    """f32 values from random 32-bit words (NaN payloads, denormals) with
+    +-inf, +-0 and NaNs of both signs mixed in."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    bits[:8] = [0x7F800000, 0xFF800000, 0, 0x80000000, 0x7FC00000, 0xFFC00001, 1, 0x807FFFFF]
+    return torch.from_numpy(bits.view(np.float32).copy())
+
+
 def _assert_bits_equal(got, want):
     for a, b in zip(got, want):
         if a.is_floating_point():
@@ -141,6 +162,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tilemarch.tile_march_sample_cuda(*args)
     with pytest.raises(ValueError, match="CUDA"):
         tilemarch.tile_march_sums_cuda(*_sums_args(args))
+    with pytest.raises(ValueError, match="CUDA"):
+        shearwarp.shearwarp_intermediate_cuda(*_shearwarp_args("cpu", [0.2, 0.3, 0.9]), fixed_canvas=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.gather_f32_cuda(torch.zeros(8), torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        gather.lookup_transfer_cuda(torch.zeros((128, 4)), torch.tensor([0.0, 1.0]), torch.zeros(16))
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -193,9 +220,41 @@ def test_tonemap_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fixed_canvas", [False, True])
+@pytest.mark.parametrize("view_dir", [[0.2, 0.3, 0.9], [-0.9, 0.1, 0.3], [0.1, -0.8, 0.2], [1.0, -1.0, 1.0],
+                                      [0.0, 0.0, -1.0]])
+def test_shearwarp_kernel_bit_equal_to_plain(cuda_device, view_dir, fixed_canvas):
+    args = _shearwarp_args(cuda_device, view_dir)
+    got = shearwarp.shearwarp_intermediate_cuda(*args, fixed_canvas=fixed_canvas)
+    want = shearwarp.shearwarp_intermediate_plain(*args, fixed_canvas=fixed_canvas)
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_gather_kernels_bit_equal_to_plain(cuda_device):
+    table = _random_words(5000).reshape(50, 100).to(cuda_device)
+    rng = np.random.default_rng(13)
+    for shape in [(1,), (777,), (3, 41, 12)]:
+        idx = torch.from_numpy(rng.integers(0, table.numel(), shape)).to(cuda_device)
+        first = min(8, idx.numel())
+        idx.view(-1)[:first] = torch.arange(first, device=cuda_device)  # the special words
+        _assert_bits_equal([gather.gather_f32_cuda(table, idx)], [gather.gather_f32_plain(table, idx)])
+
+    lut = _random_words(512, seed=14).reshape(128, 4).to(cuda_device)
+    density = torch.from_numpy(rng.uniform(-0.2, 1.2, 3000).astype(np.float32))
+    density[:133] = torch.cat([torch.arange(129) / 128, torch.tensor([np.nan, np.inf, -np.inf, -0.0])])
+    density = density.reshape(30, 100).to(cuda_device)
+    for lo, hi in ((0.0564, 1.0), (-1.0, np.inf)):
+        sample_range = torch.tensor([lo, hi], dtype=torch.float32, device=cuda_device)
+        _assert_bits_equal([gather.lookup_transfer_cuda(lut, sample_range, density)],
+                           [gather.lookup_transfer_plain(lut, sample_range, density)])
+
+
+@pytest.mark.cuda
 def test_render_on_card_goes_through_every_kernel(cuda_device):
-    """Each mode's render goes through its kernels; tile_march_sums is on
-    no render path."""
+    """Each mode's render and the preview go through their kernels;
+    tile_march_sums is on no render path."""
     kernels.reset_launch_counts()
     r = _renderer(cuda_device, side=32)
     img = r.render(8)
@@ -204,5 +263,7 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
     assert np.isfinite(r.render(6)).all()
     r.render_mode = "no_dda"
     assert np.isfinite(r.render(6)).all()
+    for image in (r.render_preview(), r.render_dvr(screen=True)):
+        assert np.isfinite(image).all() and image.shape == (32, 32, 3)
     ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
     assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"}, kernels.LAUNCHES

@@ -9,6 +9,7 @@ component's surface (viewer.ts:111+):
   restore_settings / export_settings        (viewer.ts:626-762)
   render_frame / render / image / raw_image (viewer.ts:1183-1293)
   render_mode property                      (viewer.ts:1442-1452)
+  render_dvr / render_preview               (shear-warp preview, an extension)
 
 Progressive semantics: samples 0..4 are warm-up (weight 0, each overwrites
 the buffer — viewer.ts:132,1356), accumulation starts at sample 5 as a
@@ -26,6 +27,7 @@ import torch
 
 from volxel_tpu_torch.api.settings import ViewerSettings, make_settings_export
 from volxel_tpu_torch.grid.brick import BrickGrid
+from volxel_tpu_torch.render import shearwarp
 from volxel_tpu_torch.render.pallas_ops import tonemap_display
 from volxel_tpu_torch.render.pathtrace import (
     WARMUP_SAMPLES,
@@ -62,6 +64,8 @@ class Renderer:
 
         self.frame_index = 0
         self._framebuffer = torch.zeros((self.height * self.width, 3), dtype=torch.float32, device=self.device)
+        # the preview's permuted volumes per (perm, flip), for one dense field
+        self._preview_vol_cache: tuple | None = None
 
     def _to_device(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, dtype=np.float32)).to(self.device)
@@ -215,6 +219,93 @@ class Renderer:
         """Linear accumulated radiance, (height, width, 3), row 0 = top."""
         w, h = self._render_dims()
         return self._framebuffer.cpu().numpy().reshape(h, w, 3)[::-1]
+
+    # -- shear-warp preview (an extension: render/shearwarp.py) ------------------
+
+    def _index_view_dir(self) -> np.ndarray:
+        """The camera's forward axis in index space."""
+        forward = self.camera.view - self.camera.pos
+        minv = np.linalg.inv(self.volume.combined_transform().astype(np.float64))
+        return minv[:3, :3] @ forward
+
+    def _occupied_mid(self):
+        """(Z, Y, X) voxel centre of the occupied bricks, or None: keeps the
+        warp's reference plane on the data when mip alignment pads the
+        index box far past it."""
+        occ = np.asarray(self.grid.range_hi) > 0
+        if not occ.any():
+            return None
+        zs, ys, xs = np.nonzero(occ)
+        return np.array(
+            [
+                (zs.min() + zs.max() + 1) * 4.0,  # brick -> voxel mid
+                (ys.min() + ys.max() + 1) * 4.0,
+                (xs.min() + xs.max() + 1) * 4.0,
+            ]
+        )
+
+    def render_dvr(self, screen: bool = False) -> np.ndarray:
+        """Deterministic shear-warp DVR preview of the current view.
+
+        With screen=False returns the tonemapped intermediate (sheared-space)
+        image; with screen=True applies the warp half of shear-warp and
+        returns a (height, width, 3) image aligned with the camera (row 0 =
+        top). The canvas follows this view's shear (the static canvas)."""
+        if self._device_grid is None:
+            raise RuntimeError("DVR preview needs a loaded volume")
+        dense = self._device_grid.dense
+        d_index = self._index_view_dir()
+        scale = float(self.density_scale * self.settings.density_multiplier)
+        c, t = shearwarp.render_dvr(dense, self._lut, d_index, vol_maj=1.0, density_scale=scale)
+        if screen:
+            w, h = self._render_dims()
+            c = shearwarp.warp_to_screen(
+                c, t, d_index, tuple(int(v) for v in dense.shape),
+                self.volume.combined_transform().astype(np.float64),
+                self.camera.view_matrix().astype(np.float64),
+                self.camera.proj_matrix(w / h).astype(np.float64),
+                w, h, occupied_mid=self._occupied_mid(),
+            )
+        return shearwarp.display(c, self.settings.exposure, self.settings.gamma).cpu().numpy()
+
+    def _preview_volume(self, perm, flip: bool) -> torch.Tensor:
+        """The permuted, flipped contiguous volume for (perm, flip), made at
+        the first preview of its principal axis and direction, then reused."""
+        dense = self._device_grid.dense
+        if self._preview_vol_cache is None or self._preview_vol_cache[0] is not dense:
+            self._preview_vol_cache = (dense, {})
+        volumes = self._preview_vol_cache[1]
+        if (perm, flip) not in volumes:
+            volumes[(perm, flip)] = shearwarp.permuted_volume(dense, perm, flip)
+        return volumes[(perm, flip)]
+
+    def render_preview(self, scale: float = 1.0) -> np.ndarray:
+        """Interactive shear-warp preview: camera-aligned, tonemapped,
+        (height, width, 3), row 0 = top.
+
+        The intermediate canvas is fixed at the worst-case shear, so every
+        view of one principal axis and direction uses one cached permuted
+        volume and one canvas size (at most 6 of each)."""
+        if self._device_grid is None:
+            raise RuntimeError("preview needs a loaded volume")
+        w, h = self._render_dims()
+        if scale != 1.0:
+            w, h = max(1, round(w * scale)), max(1, round(h * scale))
+        dense = self._device_grid.dense
+        perm, flip, sx, sy, h_mat = shearwarp.preview_homography(
+            self._index_view_dir(), tuple(int(v) for v in dense.shape),
+            self.volume.combined_transform().astype(np.float64),
+            self.camera.view_matrix().astype(np.float64),
+            self.camera.proj_matrix(w / h).astype(np.float64),
+            w, h, occupied_mid=self._occupied_mid(),
+        )
+        density = float(self.density_scale * self.settings.density_multiplier)
+        sigma_dt = density * float(np.sqrt(1.0 + sx * sx + sy * sy))
+        img = shearwarp.preview_image(
+            self._preview_volume(perm, flip), self._lut, sx, sy, 1.0, sigma_dt, h_mat,
+            self.settings.exposure, self.settings.gamma, w, h,
+        )
+        return img.cpu().numpy()
 
     # -- settings import/export (viewer.ts:626-762) ------------------------------
 

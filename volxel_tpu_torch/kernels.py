@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {
     "pyr_march": 0, "importance_pyramid": 0, "tonemap": 0, "tile_march_sample": 0, "tile_march_sums": 0,
+    "shearwarp_intermediate": 0, "gather_f32": 0, "lookup_transfer": 0,
 }
 
 _P = ctypes.c_void_p
@@ -59,6 +60,13 @@ _SIGNATURES = {
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,
     # n, steps, stream
     "vx_tile_march_sums": [_P, _I, _I, _I, _I, _I] + [_P] * 7 + [_I, _I, _P],
+    # vol, z_n, y_n, x_n, lut, lut_k, params, out_h, out_w, c_out, t_out,
+    # stream
+    "vx_shearwarp_intermediate": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+    # table, idx, out, n, table_n, stream
+    "vx_gather_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
+    # lut, lut_k, range, density, out_rgba, n, stream
+    "vx_lookup_transfer": [_P, _I, _P, _P, _P, ctypes.c_longlong, _P],
 }
 
 _lib = None

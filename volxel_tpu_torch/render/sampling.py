@@ -10,7 +10,7 @@ common.glsl), cut to what the ported render modes run:
     resolution and stacked into one (4, bz, by, bx) majorant pyramid, so
     the traced mip index is one more gather coordinate;
   * the transfer LUT is sampled NEAREST with sample-range rejection
-    (common.glsl:78-83);
+    (common.glsl:78-83), one fused fetch on the card (render.gather);
   * out-of-extent voxel taps return 0.0 like GL texelFetch robust access.
 
 The JAX package's pair/quad/octo packings, MXU byte planes and slab grids
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from volxel_tpu_torch.grid.brick import BrickGrid
+from volxel_tpu_torch.render import gather
 from volxel_tpu_torch.render.rng import rng3, rng3_where
 
 
@@ -229,8 +230,6 @@ def lookup_transfer(lut: torch.Tensor, sample_range, density):
     """NEAREST LUT sample with range rejection (common.glsl:78-83).
 
     lut: (K, 4). density: (...,) normalized by the majorant. Returns (..., 4).
+    On the card one launch of the fused fetch (render.gather, kernel 2).
     """
-    k = lut.shape[0]
-    rejected = (density < sample_range[0]) | (density > sample_range[1])
-    idx = torch.clamp(torch.floor(density * k).to(torch.int64), 0, k - 1)
-    return torch.where(rejected[..., None], 0.0, lut[idx])
+    return gather.lookup_transfer_fetch(lut, sample_range, density)

@@ -19,7 +19,13 @@ over solid angle instead (settings.physical_pdf).
 
 The JAX package's precomputed warp tables, MXU packings and quad-packed
 envmap work around serialized TPU gathers; the warp here is the inline
-form, which those tables are pinned bit-identical to.
+form, which those tables are pinned bit-identical to. The bilinear taps
+and the importance-texel fetches go through render.gather.gather_f32
+(kernel 2 on the card), as the JAX package sends them through
+mxu_gather_f32.
+
+Every entry point that builds state takes its device from the caller;
+none defaults to one.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from volxel_tpu_torch.render import gather
 from volxel_tpu_torch.render.rays import luma
 
 # importance map resolution (power of two; environment.ts:9)
@@ -76,9 +83,9 @@ def resize_linear(image: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return out.to(torch.float32)
 
 
-def build_env_state(envmap_texture, strength: float = 1.0, device="cpu") -> EnvState:
+def build_env_state(envmap_texture, strength: float = 1.0, *, device) -> EnvState:
     """Build the importance pyramid from a texture-space (H, W, 3) envmap,
-    on `device`."""
+    on `device` (no default: the caller says where)."""
     from volxel_tpu_torch.render.pallas_ops import build_importance_pyramid
 
     env = torch.as_tensor(np.ascontiguousarray(np.asarray(envmap_texture)[..., :3], dtype=np.float32))
@@ -95,12 +102,12 @@ def build_env_state(envmap_texture, strength: float = 1.0, device="cpu") -> EnvS
 class Environment:
     """Host-side environment holder (reference Environment class)."""
 
-    def __init__(self, image_top_down: np.ndarray, strength: float = 1.0, device="cpu"):
+    def __init__(self, image_top_down: np.ndarray, strength: float = 1.0, *, device):
         # decoded images have row 0 at the top; flip to texture space
         tex = np.ascontiguousarray(image_top_down[::-1, :, :3], dtype=np.float32)
         self.texture = tex
         self.strength = float(strength)
-        self.state = build_env_state(tex, strength, device)
+        self.state = build_env_state(tex, strength, device=device)
 
     def with_strength(self, strength: float) -> "Environment":
         self.strength = float(strength)
@@ -124,7 +131,7 @@ def default_environment_image() -> np.ndarray:
     return data
 
 
-def default_environment(device="cpu") -> Environment:
+def default_environment(device) -> Environment:
     return Environment(default_environment_image(), device=device)
 
 
@@ -146,11 +153,11 @@ def _bilinear_wrap_clamp(tex: torch.Tensor, u, v):
     # rows are clamp(-1)=0 and clamp(0)=0 — NOT rows 0 and 1
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
     y1i = torch.clamp(y0.to(torch.int64) + 1, 0, h - 1)
-    flat = tex.reshape(h * w, -1)
-    t00 = flat[y0i * w + x0i]
-    t10 = flat[y0i * w + x1i]
-    t01 = flat[y1i * w + x0i]
-    t11 = flat[y1i * w + x1i]
+    # the 4 taps x C channels in one fetch (the JAX package's packed form)
+    c = tex.shape[2]
+    base = torch.stack([y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i])
+    taps = gather.gather_f32(tex, base[..., None] * c + torch.arange(c, device=tex.device))
+    t00, t10, t01, t11 = taps[0], taps[1], taps[2], taps[3]
     return t00 * (1 - fx) * (1 - fy) + t10 * fx * (1 - fy) + t01 * (1 - fx) * fy + t11 * fx * fy
 
 
@@ -218,7 +225,7 @@ def sample_environment(env: EnvState, rnd2, physical: bool = False):
 
     le = env.strength * _bilinear_wrap_clamp(env.envmap, uv_x, uv_y)
     avg_w = env.imp_mips[IMP_BASE_MIP][0, 0]
-    texel_ratio = env.imp_mips[0].reshape(-1)[pos_y * IMP_DIM + pos_x] / avg_w
+    texel_ratio = gather.gather_f32(env.imp_mips[0], pos_y * IMP_DIM + pos_x) / avg_w
     if physical:
         # texel mass / (avg * N) over uv-area 1/N, through the equirect
         # Jacobian d(omega) = 2*pi^2*sin(theta) d(uv)
@@ -249,7 +256,7 @@ def pdf_environment(env: EnvState, direction, physical: bool = False):
         px = torch.clamp((u * IMP_DIM).to(torch.int64), 0, IMP_DIM - 1)
         py = torch.clamp((v * IMP_DIM).to(torch.int64), 0, IMP_DIM - 1)
         sin_t = torch.sqrt(torch.clamp_min(1.0 - torch.clamp(direction[..., 1], -1.0, 1.0) ** 2, 0.0))
-        texel = env.imp_mips[0].reshape(-1)[py * IMP_DIM + px]
+        texel = gather.gather_f32(env.imp_mips[0], py * IMP_DIM + px)
         return texel / avg_w / (2.0 * math.pi * math.pi * torch.clamp_min(sin_t, 1e-6))
     le = lookup_environment(env, direction)
     return luma(le) / avg_w * (1.0 / (4.0 * math.pi))
