@@ -14,7 +14,10 @@ Phases, each of which raises (exit code != 0) on failure:
      event time beside the torch.profiler device time of the same sample;
    - both table fetches (the transfer-LUT fetch and gather_f32) at every
      call of one 1080p default-mode sample, and gather_f32 at one
-     environment lookup over 1920x1080 directions (bit-equal);
+     environment lookup over 1920x1080 directions (bit-equal), gather_f32
+     beside torch.index_select on the same int32 indices and torch.take on
+     their int64 copy, the LUT fetch's mean call beside the launch floor
+     (an empty kernel over the same grid);
    - the importance pyramid on the default environment's 512^2 base (rtol
      1e-6) and the tonemap on a 1920x1080x3 buffer (atol 1e-6);
    - the raymarch step loop at every call of one 1080p raymarch sample
@@ -22,7 +25,10 @@ Phases, each of which raises (exit code != 0) on failure:
      nearest-tap sums on that sample's camera rays at 64 steps (bit-equal);
    - the shear-warp intermediate on the 512^3 volume, on the preview's
      fixed canvas and on one view's static canvas (bit-equal, or within
-     1e-6 where the card's expf and ATen's exp round apart);
+     1e-6 where the card's expf and ATen's exp round apart), and on the
+     fixed canvas through the Renderer's default transfer and at a
+     translucent density; again at each of the preview's
+     six poses in phase 4;
    each kernel's entry also carries its bound (the larger of its bytes
    over the card's memory rate and its operations over the f32 rate) and,
    where one PyTorch call computes the same function, that call's time;
@@ -81,6 +87,23 @@ PREVIEW_REPEATS = 3  # calls after the first at each pose
 PREVIEW_PARITY_ATOL = 1e-5
 # a view whose static canvas phase 3 checks: x principal, flipped
 STATIC_VIEW = (-0.9, 0.35, 0.3)
+# the bench's density makes every voxel of the 512^3 scene opaque (sigma * a
+# >= 100 for every LUT row), so most of K7's compositing there is not needed
+# (a pixel with t = 0 keeps its colour); at this fraction of it a ray through
+# the volume gathers an optical depth of a few units, no pixel turns opaque,
+# and every pixel-slice of the footprints is needed work
+TRANSLUCENT = 2.0**-16
+# launches of the empty kernel that open and close every profiler window,
+# and how often a window that lost device records is profiled again
+# (profile_call)
+PROFILE_PAD = 32
+PROFILE_ATTEMPTS = 5
+PAD_KERNEL = "empty_kernel"
+# the device symbol of the kernel behind each launch counter
+KERNEL_SYMBOLS = {"pyr_march": "pyr_march_kernel", "importance_pyramid": "pool2x2_kernel",
+                  "tonemap": "tonemap_kernel", "tile_march_sample": "tile_march_sample_kernel",
+                  "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
+                  "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel"}
 
 # the least time a call could take: its bytes (each input read once, each
 # output written once) over HBM3's 3.35 TB/s, or its operations over the
@@ -91,15 +114,19 @@ F32_OPS_PER_S = 67e12
 # operations per unit of work, counted from the kernels' sources: a DDA
 # step of the march; a raymarch step (nine xoshiro draws, the tricubic
 # offsets, the tap, the LUT and the tau test); a nearest-tap sum step; a
-# shear-warp voxel's classification (the LUT index and exp) and one
-# canvas pixel's update per slice (4-tap weights of 4 channels and the
-# composite); a tonemapped pixel (3 channels of Hable, exposure and pow);
-# a LUT fetch (compares, floor, clamp)
+# shear-warp voxel's LUT index (two products, floor, clamp), a LUT row's
+# alpha' (product, exp, difference), one canvas pixel's update per slice
+# (4-tap blend of 4 channels and the composite) and, once the pixel's t is
+# +-0 and its colour can no longer change, its alpha blend and t update
+# alone; a tonemapped pixel (3 channels of Hable, exposure and pow); a LUT
+# fetch (compares, floor, clamp)
 OPS_DDA_STEP = 50
 OPS_TILE_STEP = 160
 OPS_SUMS_STEP = 15
-OPS_SW_VOXEL = 10
+OPS_SW_VOXEL = 5
+OPS_SW_LUT_ROW = 3
 OPS_SW_PIXEL = 37
+OPS_SW_OPAQUE_PIXEL = 9
 OPS_TONEMAP_PIXEL = 48
 OPS_LUT_FETCH = 6
 
@@ -165,17 +192,66 @@ def device_ms(fn, reps: int = 1):
     return out, start.elapsed_time(end) / reps
 
 
+def profile_call(fn):
+    """A torch.profiler window (host and device activities) over one call
+    of `fn`, opened and closed by PROFILE_PAD launches of the empty kernel
+    and ending in torch.cuda.synchronize(). On the H100, once a process has
+    profiled a window of tens of thousands of kernels, later windows lose
+    device records: their first few (up to 8 seen), which the leading pads
+    take, and in the windows right after the large one, all of them or a
+    run of them (PERF.md §6; examples/profiler_record_loss.py). So a
+    window counts only if it recorded every launch of this repo's kernels
+    that the launch counters saw in it, and more pads than PROFILE_PAD (a
+    run that reaches the window's end takes trailing pads with it);
+    otherwise `fn` is profiled again, at most PROFILE_ATTEMPTS times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.render.gather import launch_floor
+
+    cuda = torch.device("cuda")
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                launch_floor(1, cuda)
+            fn()
+            for _ in range(PROFILE_PAD):
+                launch_floor(1, cuda)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+        launched = {KERNEL_SYMBOLS[k]: n - before[k] for k, n in kernels.LAUNCHES.items()}
+        lost = {sym: n - sum(e.count for e in device if sym in e.key) for sym, n in launched.items()}
+        lost = {sym: n for sym, n in lost.items() if n}
+        pads = sum(e.count for e in device if PAD_KERNEL in e.key)
+        if pads <= PROFILE_PAD:
+            lost[PAD_KERNEL] = 2 * PROFILE_PAD - pads
+        if not lost:
+            if pads < 2 * PROFILE_PAD:
+                log(f"profiler window {attempt}: kept, {2 * PROFILE_PAD - pads} of its {2 * PROFILE_PAD} pads lost")
+            return prof
+        log(f"profiler window {attempt} of {PROFILE_ATTEMPTS} lost device records (launches not recorded: {lost}; "
+            f"pads recorded {pads} of {2 * PROFILE_PAD})")
+    raise SystemExit(f"the profiler lost device records in all {PROFILE_ATTEMPTS} windows")
+
+
+def device_events(prof) -> list:
+    """The device-side entries of a profile_call() window's
+    key_averages(), without the empty kernel that opened and closed it (a
+    CPU op's device time repeats its kernels', so host entries are left
+    out too)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and PAD_KERNEL not in e.key]
+
+
 def profiled_device_ms(fn, name: str) -> float:
     """Summed device time (ms) of the kernels whose name contains `name`
     over one call of `fn`, read by torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages() if name in e.key) / 1000
+    return sum(e.device_time_total for e in device_events(profile_call(fn)) if name in e.key) / 1000
 
 
 def bits_equal(a, b) -> bool:
@@ -211,16 +287,19 @@ def sample_operands(r):
 
 
 @contextlib.contextmanager
-def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None):
+def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None, others=None):
     """Replace module.<name>, for the block's duration, by a stand-in that
     sends each call's inputs through the kernel and the plain version
     (and `library_fn`, when given), raises unless they agree bit for bit
-    on every output, and returns the kernel's result. Yields the tally:
-    calls, lanes (`lanes(args)`), the times summed over the calls, the
-    bytes and operations of the work (`work(args, outputs)`), the largest
+    on every output, and returns the kernel's result. `others` maps a name
+    to a function of the call's inputs that prepares (untimed) one more
+    call to time beside them. Yields the tally: calls, lanes
+    (`lanes(args)`), the times summed over the calls, the bytes and
+    operations of the work (`work(args, outputs)`), the largest
     difference, and the first call's arguments."""
+    others = others or {}
     tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0,
-             "err": 0.0, "first_args": None}
+             "err": 0.0, "first_args": None, "others": dict.fromkeys(others, 0.0)}
 
     def compared(*args):
         got, ms = device_ms(lambda: cuda_fn(*args), KERNEL_REPS)
@@ -234,6 +313,8 @@ def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, l
                              f"in {bad} (max abs {err})")
         if library_fn is not None:
             tally["library_ms"] += device_ms(lambda: library_fn(*args), KERNEL_REPS)[1]
+        for other, prepare in others.items():
+            tally["others"][other] += device_ms(prepare(*args), KERNEL_REPS)[1]
         moved, ops = work(args, got_t)
         tally["calls"] += 1
         tally["lanes"] += lanes(args)
@@ -254,19 +335,21 @@ def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, l
         setattr(module, name, original)
 
 
-def check_every_call(r, module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None) -> dict:
+def check_every_call(r, module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None,
+                     others=None) -> dict:
     """Render one sample of `r` with module.<name> compared at every call
     (compared_calls); the plain versions of the marches synchronize at
     every step (to test whether any lane still runs), so their time
     includes the host's share. Returns the tally."""
     from volxel_tpu_torch.render.pathtrace import render_sample
 
-    with compared_calls(module, name, cuda_fn, plain_fn, outputs, lanes, work, library_fn) as tally:
+    with compared_calls(module, name, cuda_fn, plain_fn, outputs, lanes, work, library_fn, others) as tally:
         render_sample(*sample_operands(r), 0)
     config = r._config()
     log(f"{name}: bit-equal at all {tally['calls']} calls of one {config.width}x{config.height} {config.mode} "
         f"sample ({tally['lanes']} lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms"
         + (f", library {tally['library_ms']:.4f} ms" if library_fn is not None else "")
+        + "".join(f", {other} {ms:.4f} ms" for other, ms in tally["others"].items())
         + f" summed over the calls; bound {bound(tally['bytes'], tally['ops'])['bound_ms']:.4f} ms "
         f"({tally['bytes'] / 1e6:.1f} MB, {tally['ops'] / 1e9:.3f} Gop)")
     return tally
@@ -309,8 +392,11 @@ def check_gather(r) -> list[dict]:
     """K2's two entry points at every call of one 1080p default-mode
     sample (the LUT fetch at each collision decode; gather_f32 at the
     environment's bilinear taps and importance texels), bit-equal, beside
-    torch.take for gather_f32; then gather_f32 at one environment lookup
-    over 1920x1080 seeded directions."""
+    torch.index_select on the same int32 indices and torch.take on their
+    int64 copy for gather_f32; the LUT fetch's mean time per call beside
+    the launch floor, an empty kernel over the grid of the mean call,
+    timed the same way; then gather_f32 at one environment lookup over
+    1920x1080 seeded directions."""
     import torch
 
     from volxel_tpu_torch.render import gather
@@ -320,8 +406,17 @@ def check_gather(r) -> list[dict]:
         return gather.gather_f32_cuda(table.contiguous(), idx.contiguous())
 
     def gather_work(args, got):
-        table, idx = args
+        table, idx = args  # int32 indices: 4 bytes read and 4 written per word
         return nbytes(idx, *got) + min(nbytes(table), 4 * idx.numel()), idx.numel()
+
+    def index_select(table, idx):
+        return torch.index_select(table.reshape(-1), 0, idx.reshape(-1))
+
+    def take_int64(table, idx):
+        wide = idx.to(torch.int64)
+        return lambda: torch.take(table, wide)
+
+    take = {"torch.take (int64)": take_int64}
 
     def lut_cuda(lut, sample_range, density):
         return gather.lookup_transfer_cuda(lut.contiguous(), sample_range.contiguous(), density.contiguous())
@@ -331,26 +426,36 @@ def check_gather(r) -> list[dict]:
 
     lut = check_every_call(r, gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",),
                            lambda a: a[2].numel(), lut_work)
-    take = check_every_call(r, gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
-                            lambda a: a[1].numel(), gather_work, library_fn=torch.take)
+    mean_lanes = max(1, round(lut["lanes"] / max(lut["calls"], 1)))
+    _, floor_ms = device_ms(lambda: gather.launch_floor(mean_lanes, torch.device("cuda")), KERNEL_REPS)
+    per_call = lut["ms"] / max(lut["calls"], 1)
+    log(f"lookup_transfer: {per_call * 1000:.3f} us per call (mean of {lut['calls']} calls, {mean_lanes} lanes on "
+        f"average) beside a launch floor of {floor_ms * 1000:.3f} us (empty kernel, same grid): launches are "
+        f"{floor_ms / per_call:.1%} of its time")
+    sel = check_every_call(r, gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
+                           lambda a: a[1].numel(), gather_work, library_fn=index_select, others=take)
+    log(f"gather_f32 over the sample: kernel {sel['ms']:.4f} ms, torch.index_select (int32) "
+        f"{sel['library_ms']:.4f} ms, torch.take (int64) {sel['others']['torch.take (int64)']:.4f} ms, bound "
+        f"{bound(sel['bytes'], sel['ops'])['bound_ms']:.4f} ms")
 
     rng = np.random.default_rng(2)
     d = rng.normal(size=(1920 * 1080, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     dirs = torch.from_numpy(d).cuda()
     with compared_calls(gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
-                        lambda a: a[1].numel(), gather_work, library_fn=torch.take) as env:
+                        lambda a: a[1].numel(), gather_work, library_fn=index_select, others=take) as env:
         le = lookup_environment(r.environment.state, dirs)
     if not (env["calls"] == 1 and bool(torch.isfinite(le).all())):
         raise SystemExit(f"environment lookup: {env['calls']} gather calls, finite {bool(torch.isfinite(le).all())}")
     log(f"gather_f32: bit-equal at one environment lookup of {dirs.shape[0]} directions ({env['lanes']} words); "
-        f"kernel {env['ms']:.4f} ms, plain {env['plain_ms']:.4f} ms, torch.take {env['library_ms']:.4f} ms, "
+        f"kernel {env['ms']:.4f} ms, plain {env['plain_ms']:.4f} ms, torch.index_select (int32) "
+        f"{env['library_ms']:.4f} ms, torch.take (int64) {env['others']['torch.take (int64)']:.4f} ms, "
         f"bound {bound(env['bytes'], env['ops'])['bound_ms']:.4f} ms")
     source, replaces = "volxel_tpu_torch/csrc/gather.cu", "volxel_tpu/render/mxu_gather.py:196"
     return [entry("lookup_transfer", source, replaces, lut["err"], lut["ms"], lut["plain_ms"], lut["bytes"],
                   lut["ops"]),
-            entry("gather_f32", source, replaces, take["err"], take["ms"], take["plain_ms"], take["bytes"],
-                  take["ops"], library_ms=take["library_ms"])]
+            entry("gather_f32", source, replaces, sel["err"], sel["ms"], sel["plain_ms"], sel["bytes"],
+                  sel["ops"], library_ms=sel["library_ms"])]
 
 
 def check_pyramid(r) -> dict:
@@ -458,24 +563,64 @@ def check_tile_march(r) -> list[dict]:
     return [sample, sums]
 
 
-def check_shearwarp(r) -> dict:
-    """K7 on the 512^3 volume: at the bench view on the preview's fixed
-    canvas (the main path's shape) and at STATIC_VIEW on its static
-    canvas, against the plain slice loop on the card. Bit-equal, or within
-    1e-6 where only the card's expf and ATen's exp can round apart. Its
-    work: the bf16 volume read once, each voxel classified once, each
-    canvas pixel of a slice's footprint updated once, the colour and
-    transmittance written once."""
+def shearwarp_pixel_slices(vol, lut, sx: float, sy: float, inv_maj: float, sigma_dt: float, fixed_canvas: bool,
+                           t_kernel) -> int:
+    """The pixel-slices of the footprints whose t before the slice is not
+    +-0 (the others keep their colour: only their alpha is blended), by
+    the plain version's alpha blend, slice by slice on the card. Its t must
+    end bit-equal to the kernel's `t_kernel`."""
     import torch
 
     from volxel_tpu_torch.render import shearwarp
 
+    z_n, y_n, x_n = vol.shape
+    out_h, out_w, params = shearwarp.canvas(vol.shape, sx, sy, inv_maj, sigma_dt, fixed_canvas)
+    iy, ix, fy, fx = shearwarp.slice_shifts(params, vol.shape, out_h, out_w)
+    fy, fx = fy.to(vol.device), fx.to(vol.device)
+    p = shearwarp.upload(params, vol.device)
+    t = torch.ones((out_h, out_w), dtype=torch.float32, device=vol.device)
+    live = torch.zeros((), dtype=torch.int64, device=vol.device)
+    for z, (y0, x0) in enumerate(zip(iy.tolist(), ix.tolist())):
+        _, alpha = shearwarp._classify(vol[z].to(torch.float32), lut, p[shearwarp.P_INV_MAJ],
+                                       p[shearwarp.P_SIGMA_DT])
+        a = shearwarp._frac_block(alpha[..., None], fy[z], fx[z])[..., 0]
+        rows, cols = slice(y0, y0 + y_n + 1), slice(x0, x0 + x_n + 1)
+        live += (t[rows, cols] != 0).sum()
+        t[rows, cols] = t[rows, cols] * (1.0 - a)
+    if not bits_equal(t, t_kernel):
+        raise SystemExit("shearwarp_intermediate: the alpha blend that counts the work ends on another t")
+    return int(live)
+
+
+def check_shearwarp(r) -> dict:
+    """K7 on the 512^3 volume: at the bench view on the preview's fixed
+    canvas (the main path's shape) and at STATIC_VIEW on its static
+    canvas, against the plain slice loop on the card; then on the fixed
+    canvas through the Renderer's default transfer (air transparent, a
+    linear ramp to opaque white), where part of the tiles turn opaque, and
+    at TRANSLUCENT times the bench's density, where none does (the kernel
+    then composites every pixel-slice, as it would without its opaque-tile
+    path). Bit-equal, or within 1e-6 where only the card's expf and ATen's
+    exp can round apart. Its work, as these inputs need it: the bf16 volume
+    read once, each voxel's LUT index and each LUT row's alpha' once, each
+    footprint pixel of a slice composited while its t is not +-0 and only
+    its alpha blended after, the colour and transmittance written once."""
+    import torch
+
+    from volxel_tpu_torch.render import shearwarp
+    from volxel_tpu_torch.transfer.function import DEFAULT_COLOR_STOPS, generate_transfer_function
+
     density = float(r.density_scale * r.settings.density_multiplier)
+    default_lut = torch.as_tensor(generate_transfer_function(DEFAULT_COLOR_STOPS), dtype=torch.float32).cuda()
     results = {}
-    for canvas, view in (("fixed", r._index_view_dir()), ("static", np.array(STATIC_VIEW))):
+    for canvas, view, scale, lut in (("fixed", r._index_view_dir(), 1.0, r._lut),
+                                     ("static", np.array(STATIC_VIEW), 1.0, r._lut),
+                                     ("default-transfer fixed", r._index_view_dir(), 1.0, default_lut),
+                                     ("translucent fixed", r._index_view_dir(), TRANSLUCENT, r._lut)):
         perm, flip, sx, sy = shearwarp.shear_parameters(view)
         vol = shearwarp.permuted_volume(r._device_grid.dense, perm, flip)
-        args = (vol, r._lut, sx, sy, 1.0, density * float(np.sqrt(1.0 + sx * sx + sy * sy)), canvas == "fixed")
+        sigma_dt = scale * density * float(np.sqrt(1.0 + sx * sx + sy * sy))
+        args = (vol, lut, sx, sy, 1.0, sigma_dt, canvas != "static")
         got, ms = device_ms(lambda: shearwarp.shearwarp_intermediate_cuda(*args), KERNEL_REPS)
         want, plain_ms = device_ms(lambda: shearwarp.shearwarp_intermediate_plain(*args))
         err = max_abs(got, want)
@@ -483,13 +628,20 @@ def check_shearwarp(r) -> dict:
         if not (equal or err <= 1e-6):
             raise SystemExit(f"shearwarp_intermediate ({canvas} canvas) differs from its plain version by {err}")
         z_n, y_n, x_n = vol.shape
-        moved = nbytes(vol, r._lut, *got)
-        ops = z_n * y_n * x_n * OPS_SW_VOXEL + z_n * (y_n + 1) * (x_n + 1) * OPS_SW_PIXEL
+        pixel_slices = z_n * (y_n + 1) * (x_n + 1)
+        live = shearwarp_pixel_slices(*args, got[1])
+        moved = nbytes(vol, lut, *got)
+        ops = (z_n * y_n * x_n * OPS_SW_VOXEL + lut.shape[0] * OPS_SW_LUT_ROW + live * OPS_SW_PIXEL
+               + (pixel_slices - live) * OPS_SW_OPAQUE_PIXEL)
         t = got[1]
+        least = bound(moved, ops)
         log(f"shearwarp_intermediate ({canvas} canvas {tuple(t.shape)}, perm {perm}, flip {flip}, "
             f"s=({sx:.4f}, {sy:.4f})): {'bit-equal' if equal else f'within 1e-6 (max abs {err:.3e})'}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound(moved, ops)['bound_ms']:.4f} ms; "
-            f"min t {float(t.min()):.4f}, last row t == 1: {bool((t[-1] == 1).all())}")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
+            f"({moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop; {least['bound_ms'] / ms:.1%} of the kernel's time); "
+            f"{live} of {pixel_slices} footprint pixel-slices with t != 0 before the slice "
+            f"({live / pixel_slices:.4f}); min t {float(t.min()):.4f}, share of t == 0 "
+            f"{float((t == 0).float().mean()):.4f}, last row t == 1: {bool((t[-1] == 1).all())}")
         results[canvas] = entry("shearwarp_intermediate", "volxel_tpu_torch/csrc/shearwarp.cu",
                                 "volxel_tpu/render/shearwarp.py:435", err, ms, plain_ms, moved, ops)
         del vol, got, want
@@ -598,15 +750,7 @@ def breakdown(grid, width: int, height: int, mode: str) -> None:
 def log_device_profile(what: str, fn, wall_ms: float) -> None:
     """Profile one call of `fn`: device kernels, device busy time against
     an unprofiled call's `wall_ms` (the idle share) and the largest kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's device time repeats its kernels'
-    device = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    device = device_events(profile_call(fn))
     busy = sum(e.device_time_total for e in device) / 1000
     count = sum(e.count for e in device)
     top = sorted(device, key=lambda e: -e.device_time_total)[:4]
@@ -696,20 +840,44 @@ def preview_path(grid, width: int, height: int) -> dict:
     return launches
 
 
+def profile_keys(fn) -> list:
+    """(key, device type, count, host ms, device ms) of every entry of
+    torch.profiler's key_averages() over one call of `fn`."""
+    return [(e.key, str(e.device_type).rsplit(".", 1)[-1], e.count, e.cpu_time_total / 1000,
+             e.device_time_total / 1000) for e in profile_call(fn).key_averages()]
+
+
 def preview_kernel_times(r, shears) -> None:
     """K7 alone at each preview pose, on that pose's cached volume and the
-    fixed canvas: CUDA events (the mean of KERNEL_REPS launches) beside the
-    profiler's device time of one launch."""
-    from volxel_tpu_torch.render.shearwarp import shearwarp_intermediate_cuda
+    fixed canvas: held to the plain slice loop (bit-equal, or within 1e-6
+    where only expf and ATen's exp can round apart), CUDA events (the mean
+    of KERNEL_REPS launches) beside the profiler's device time of one
+    launch. Every key of the first pose's profile is listed."""
+    from volxel_tpu_torch.render.shearwarp import shearwarp_intermediate_cuda, shearwarp_intermediate_plain
 
     density = float(r.density_scale * r.settings.density_multiplier)
-    for (perm, flip), sx, sy in shears:
+    for i, ((perm, flip), sx, sy) in enumerate(shears):
         args = (r._preview_volume(perm, flip), r._lut, sx, sy, 1.0,
                 density * float(np.sqrt(1.0 + sx * sx + sy * sy)), True)
-        _, ms = device_ms(lambda: shearwarp_intermediate_cuda(*args), KERNEL_REPS)
-        prof_ms = profiled_device_ms(lambda: shearwarp_intermediate_cuda(*args), "shearwarp_kernel")
+        got, ms = device_ms(lambda: shearwarp_intermediate_cuda(*args), KERNEL_REPS)
+        want = shearwarp_intermediate_plain(*args)
+        err = max_abs(got, want)
+        equal = all(bits_equal(a, b) for a, b in zip(got, want))
+        if not (equal or err <= 1e-6):
+            raise SystemExit(f"shearwarp_intermediate at the preview's {(perm, flip)} pose differs from its plain "
+                             f"version by {err}")
+        keys = profile_keys(lambda: shearwarp_intermediate_cuda(*args))
+        if i == 0:
+            log(f"profile of one launch of shearwarp_intermediate_cuda between {PROFILE_PAD} launches of the empty "
+                "kernel before and after it, every key (type, count, host ms, device ms): "
+                + "; ".join(f"{k} [{kind}, {n}, {host:.4f}, {dev:.4f}]" for k, kind, n, host, dev in keys))
+        prof_ms = sum(dev for k, kind, _, _, dev in keys if kind != "CPU" and "shearwarp_kernel" in k)
+        if ms > 0 and prof_ms == 0:
+            raise SystemExit(f"the profiler recorded no shearwarp_kernel at the {(perm, flip)} pose, where events "
+                             f"read {ms:.4f} ms")
         log(f"shearwarp_intermediate at the preview's {(perm, flip)} pose, s=({sx:.4f}, {sy:.4f}): "
-            f"events {ms:.4f} ms, profiler {prof_ms:.4f} ms")
+            f"{'bit-equal' if equal else f'within 1e-6 (max abs {err:.3e})'}; events {ms:.4f} ms, "
+            f"profiler {prof_ms:.4f} ms")
 
 
 def preview_parity(grid, size: int) -> None:

@@ -219,12 +219,27 @@ def test_tonemap_kernel_matches_plain(cuda_device):
                                rtol=0.0, atol=1e-6)
 
 
+# one view per (principal axis, flip), two of them with |s| = 1 or nearly
+SHEARWARP_VIEWS = [[0.2, 0.3, 0.9], [0.0, 0.0, -1.0], [1.0, -1.0, 1.0], [-0.9, 0.1, 0.3], [0.7, 0.7001, -0.69],
+                   [0.1, -0.8, 0.2]]
+
+
+def test_shearwarp_views_reach_every_volume():
+    """The card tests' views use all six (perm, flip) volumes."""
+    keys = {shearwarp.shear_parameters(v)[:2] for v in SHEARWARP_VIEWS}
+    assert len(keys) == 6
+    assert max(max(abs(sx), abs(sy)) for _, _, sx, sy in map(shearwarp.shear_parameters, SHEARWARP_VIEWS)) == 1.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fixed_canvas", [False, True])
-@pytest.mark.parametrize("view_dir", [[0.2, 0.3, 0.9], [-0.9, 0.1, 0.3], [0.1, -0.8, 0.2], [1.0, -1.0, 1.0],
-                                      [0.0, 0.0, -1.0]])
-def test_shearwarp_kernel_bit_equal_to_plain(cuda_device, view_dir, fixed_canvas):
-    args = _shearwarp_args(cuda_device, view_dir)
+@pytest.mark.parametrize("view_dir", SHEARWARP_VIEWS)
+@pytest.mark.parametrize("shape", [(40, 24, 32), (37, 45, 71), (5, 1, 3)])
+def test_shearwarp_kernel_bit_equal_to_plain(cuda_device, view_dir, fixed_canvas, shape):
+    """Volumes whose Y and X are not multiples of the kernel's 31x24 block
+    tile, views of all six volumes, and a LUT whose row 0 is not zero."""
+    args = _shearwarp_args(cuda_device, view_dir, shape)
+    assert bool((args[1][0] != 0).all())
     got = shearwarp.shearwarp_intermediate_cuda(*args, fixed_canvas=fixed_canvas)
     want = shearwarp.shearwarp_intermediate_plain(*args, fixed_canvas=fixed_canvas)
     assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
@@ -232,14 +247,64 @@ def test_shearwarp_kernel_bit_equal_to_plain(cuda_device, view_dir, fixed_canvas
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fixed_canvas", [False, True])
+@pytest.mark.parametrize("view_dir", SHEARWARP_VIEWS[:3])
+def test_shearwarp_kernel_opaque_tiles(cuda_device, view_dir, fixed_canvas):
+    """At 200 times the density every class has alpha' = 1, so tiles turn
+    opaque after their first slices and blend alpha alone (a blend above 1
+    flips the sign of t = 0); with a LUT row that is not finite, which no
+    voxel reaches, no tile may switch."""
+    vol, lut, sx, sy, inv_maj, sigma_dt = _shearwarp_args(cuda_device, view_dir, (37, 45, 71))
+    nonfinite = lut.clone()
+    nonfinite[-1, 0] = float("inf")
+    low = vol.float().clamp(0.0, 0.5).to(torch.bfloat16)  # LUT rows below k / 2
+    for v, table in ((vol, lut), (low, nonfinite)):
+        args = (v, table, sx, sy, inv_maj, 200.0 * sigma_dt)
+        want = shearwarp.shearwarp_intermediate_plain(*args, fixed_canvas=fixed_canvas)
+        _assert_bits_equal(shearwarp.shearwarp_intermediate_cuda(*args, fixed_canvas=fixed_canvas), want)
+        assert float((want[1] == 0).float().mean()) > 0.2
+
+
+@pytest.mark.cuda
+def test_shearwarp_kernel_misaligned_volume_and_largest_lut(cuda_device):
+    """A volume whose pointer is 2 bytes past a 16-byte boundary (the
+    patch copies start at any column), and a LUT of MAX_LUT_ROWS rows (more
+    than 48 KiB of shared memory in all)."""
+    vol, lut, sx, sy, inv_maj, sigma_dt = _shearwarp_args(cuda_device, [0.3, -0.5, 0.8], (37, 45, 71))
+    storage = torch.empty(vol.numel() + 1, dtype=vol.dtype, device=cuda_device)
+    shifted = storage[1:].view(vol.shape)
+    shifted.copy_(vol)
+    assert shifted.data_ptr() % 16 == 2
+    rng = np.random.default_rng(15)
+    big = torch.from_numpy(rng.uniform(0.05, 2.0, (shearwarp.MAX_LUT_ROWS, 4)).astype(np.float32)).to(cuda_device)
+    for v, table in ((shifted, lut), (vol, big), (shifted, big)):
+        for fixed_canvas in (False, True):
+            args = (v, table, sx, sy, inv_maj, sigma_dt)
+            _assert_bits_equal(shearwarp.shearwarp_intermediate_cuda(*args, fixed_canvas=fixed_canvas),
+                               shearwarp.shearwarp_intermediate_plain(*args, fixed_canvas=fixed_canvas))
+
+
+@pytest.mark.cuda
 def test_gather_kernels_bit_equal_to_plain(cuda_device):
+    """gather_f32 on int32 indices: sizes around the 4-word groups, an
+    index tensor whose pointer is not 16-byte aligned, negative indices
+    and the special words; the LUT fetch; and the launch floor runs."""
     table = _random_words(5000).reshape(50, 100).to(cuda_device)
     rng = np.random.default_rng(13)
-    for shape in [(1,), (777,), (3, 41, 12)]:
-        idx = torch.from_numpy(rng.integers(0, table.numel(), shape)).to(cuda_device)
+    for shape in [(1,), (3,), (5,), (4097,), (777,), (3, 41, 12)]:
+        idx = torch.from_numpy(rng.integers(-table.numel(), table.numel(), shape).astype(np.int32)).to(cuda_device)
         first = min(8, idx.numel())
-        idx.view(-1)[:first] = torch.arange(first, device=cuda_device)  # the special words
+        idx.view(-1)[:first] = torch.arange(first, dtype=torch.int32, device=cuda_device)  # the special words
         _assert_bits_equal([gather.gather_f32_cuda(table, idx)], [gather.gather_f32_plain(table, idx)])
+        assert bool((idx < 0).any()) or idx.numel() < 8
+        for offset in (1, 2, 3):  # a storage offset: the pointer is 4, 8 or 12 bytes past 16
+            storage = torch.empty(idx.numel() + offset, dtype=torch.int32, device=cuda_device)
+            shifted = storage[offset:].view(idx.shape)
+            shifted.copy_(idx)
+            assert shifted.data_ptr() % 16 == 4 * offset
+            _assert_bits_equal([gather.gather_f32(table, shifted)], [gather.gather_f32_plain(table, idx)])
+    gather.launch_floor(4097, cuda_device)
+    torch.cuda.synchronize()
 
     lut = _random_words(512, seed=14).reshape(128, 4).to(cuda_device)
     density = torch.from_numpy(rng.uniform(-0.2, 1.2, 3000).astype(np.float32))
@@ -249,6 +314,17 @@ def test_gather_kernels_bit_equal_to_plain(cuda_device):
         sample_range = torch.tensor([lo, hi], dtype=torch.float32, device=cuda_device)
         _assert_bits_equal([gather.lookup_transfer_cuda(lut, sample_range, density)],
                            [gather.lookup_transfer_plain(lut, sample_range, density)])
+
+
+@pytest.mark.cuda
+def test_gather_kernel_refuses_int64_indices(cuda_device):
+    """The card's gather takes int32 indices only; the environment builds
+    them so."""
+    table = torch.zeros(64, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        gather.gather_f32_cuda(table, torch.zeros(4, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError, match="int32"):
+        gather.gather_f32(table, torch.zeros(4, dtype=torch.int64, device=cuda_device))
 
 
 @pytest.mark.cuda

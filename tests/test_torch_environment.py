@@ -117,3 +117,83 @@ def test_light_fallback_matches():
     for a, b in zip(tenv.sample_environment_light(t, torch.from_numpy(rnd2), torch.from_numpy(light)),
                     jenv.sample_environment_light(j, jnp.asarray(rnd2), jnp.asarray(light))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def _bilinear_indices_int64(tex, u, v):
+    """The bilinear taps' flat indices at (u, v), computed in int64."""
+    h, w, c = tex.shape
+    x0 = torch.floor(u * w - 0.5).to(torch.int64)
+    y0 = torch.floor(v * h - 0.5).to(torch.int64)
+    x0i = torch.remainder(x0, w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.clamp(y0, 0, h - 1)
+    y1i = torch.clamp(y0 + 1, 0, h - 1)
+    base = torch.stack([y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i])
+    return base[..., None] * c + torch.arange(c)
+
+
+def _walk_indices_int64(env, rnd2):
+    """The hierarchical warp's texel index, its walk computed in int64."""
+    pos_x = torch.zeros(rnd2.shape[:-1], dtype=torch.int64)
+    pos_y = torch.zeros(rnd2.shape[:-1], dtype=torch.int64)
+    px, py = rnd2[..., 0], rnd2[..., 1]
+    for mip in range(tenv.IMP_BASE_MIP - 1, -1, -1):
+        dim = env.imp_mips[mip].shape[1]
+        flat = env.imp_mips[mip].reshape(-1)
+        row0 = (pos_y * 2) * dim + pos_x * 2
+        w00, w10, w01, w11 = flat[row0], flat[row0 + 1], flat[row0 + dim], flat[row0 + dim + 1]
+        q0, q1 = w00 + w01, w10 + w11
+        d = q0 / torch.clamp_min(q0 + q1, 1e-8)
+        go_right = px >= d
+        e = torch.where(go_right, w10, w00) / torch.clamp_min(torch.where(go_right, q1, q0), 1e-8)
+        px = torch.where(go_right, (px - d) / torch.clamp_min(1.0 - d, 1e-8), px / torch.clamp_min(d, 1e-8))
+        go_up = py >= e
+        py = torch.where(go_up, (py - e) / torch.clamp_min(1.0 - e, 1e-8), py / torch.clamp_min(e, 1e-8))
+        pos_x = pos_x * 2 + go_right.to(torch.int64)
+        pos_y = pos_y * 2 + go_up.to(torch.int64)
+    return pos_y * tenv.IMP_DIM + pos_x
+
+
+@pytest.mark.parametrize("physical", [False, True])
+def test_environment_indices_are_int32_and_equal_int64(states, physical, monkeypatch):
+    """Every flat index the environment hands to the table fetch is int32,
+    and equals the same computation in int64, on seeded directions and
+    uniforms and on (u, v) at the wrap and outside [0, 1]."""
+    from volxel_tpu_torch.render import gather
+
+    _, t, _ = states
+    rng = np.random.default_rng(21)
+    d = rng.normal(size=(N, 3)).astype(np.float32)
+    d[:4] = [[-1.0, 0.0, 0.0], [-1.0, 0.3, -0.0], [0.0, 1.0, 0.0], [0.0, -1.0, 0.0]]  # u = 0 or 1, v = 0 or 1
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d = torch.from_numpy(d)
+    rnd2 = torch.from_numpy(rng.random((N, 2), dtype=np.float32))
+    u = np.concatenate([[-0.2, 0.0, 1e-7, 1 - 1e-7, 1.0, 1.3], rng.uniform(-0.5, 1.5, 58)]).astype(np.float32)
+    v = np.concatenate([[-0.3, 0.0, 1.0, 1.2, -1e-7, 1 + 1e-7], rng.uniform(-0.5, 1.5, 58)]).astype(np.float32)
+
+    seen, taps = [], []
+    bilinear = tenv._bilinear_wrap_clamp
+
+    def recording_gather(table, idx):
+        seen.append(idx)
+        return gather.gather_f32_plain(table, idx)
+
+    def recording_bilinear(tex, u, v):
+        taps.append(_bilinear_indices_int64(tex, u, v))
+        return bilinear(tex, u, v)
+
+    monkeypatch.setattr(gather, "gather_f32", recording_gather)
+    monkeypatch.setattr(tenv, "_bilinear_wrap_clamp", recording_bilinear)
+    tenv._bilinear_wrap_clamp(t.envmap, torch.from_numpy(u), torch.from_numpy(v))
+    tenv.lookup_environment(t, d)
+    tenv.sample_environment(t, rnd2, physical)
+    tenv.pdf_environment(t, d, physical)
+
+    du, dv = tenv._dir_to_uv(d)
+    texel = (torch.clamp((dv * tenv.IMP_DIM).to(torch.int64), 0, tenv.IMP_DIM - 1) * tenv.IMP_DIM
+             + torch.clamp((du * tenv.IMP_DIM).to(torch.int64), 0, tenv.IMP_DIM - 1))
+    want = [*taps[:3], _walk_indices_int64(t, rnd2), texel if physical else taps[3]]
+    assert len(seen) == len(want) == 5 and len(taps) == (3 if physical else 4)
+    for got, wide in zip(seen, want):
+        assert got.dtype == torch.int32 and wide.dtype == torch.int64
+        assert torch.equal(got.to(torch.int64), wide)

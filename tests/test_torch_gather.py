@@ -63,6 +63,26 @@ def test_gather_f32_bit_equal_to_mxu_gather(idx_shape):
     np.testing.assert_array_equal(got.view(np.uint32), table.reshape(-1)[idx].view(np.uint32))
 
 
+@pytest.mark.parametrize("idx_shape", [(1,), (3,), (5,), (4097,), (7, 5, 3)])
+def test_gather_f32_int32_bit_equal_to_mxu_gather(idx_shape):
+    """The card's index type: int32 indices give the same words as the
+    Pallas kernel in interpret mode; negative ones wrap as numpy's do."""
+    table = special_table(40, 33)
+    rng = np.random.default_rng(6)
+    idx = rng.integers(0, table.size, size=idx_shape).astype(np.int32)
+    special = np.flatnonzero(~np.isfinite(table) | (np.abs(table) < 1e-37) | (np.abs(table) > 1e38))
+    head = min(idx.size, special.size)
+    idx.reshape(-1)[:head] = special[:head]
+    got = gather.gather_f32(torch.from_numpy(table), torch.from_numpy(idx)).numpy()
+    want = np.asarray(mxu_gather_f32(pack_gather_table(jnp.asarray(table.reshape(-1))), jnp.asarray(idx),
+                                     interpret=True))
+    assert got.shape == idx_shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    negative = (idx - table.size).astype(np.int32)
+    wrapped = gather.gather_f32(torch.from_numpy(table), torch.from_numpy(negative)).numpy()
+    np.testing.assert_array_equal(wrapped.view(np.uint32), table.reshape(-1)[negative].view(np.uint32))
+
+
 def _densities(n: int, seed: int) -> np.ndarray:
     """Normalized densities across and beyond the LUT and the sample range,
     with the exact bin edges, NaN and +-inf."""

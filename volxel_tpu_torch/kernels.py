@@ -63,10 +63,12 @@ _SIGNATURES = {
     # vol, z_n, y_n, x_n, lut, lut_k, params, out_h, out_w, c_out, t_out,
     # stream
     "vx_shearwarp_intermediate": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P],
-    # table, idx, out, n, table_n, stream
+    # table, idx (int32), out, n, table_n, stream
     "vx_gather_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
     # lut, lut_k, range, density, out_rgba, n, stream
     "vx_lookup_transfer": [_P, _I, _P, _P, _P, ctypes.c_longlong, _P],
+    # n, stream
+    "vx_launch_floor": [ctypes.c_longlong, _P],
 }
 
 _lib = None

@@ -8,8 +8,9 @@ planes and selects each word with a one-hot matrix product
 of that is carried over. Two entry points, both in csrc/gather.cu:
 
   * gather_f32(table, idx): table.reshape(-1)[idx], bit for bit, for any
-    index shape (NaN payloads and denormals included). The environment's
-    bilinear taps and importance-texel fetches go through it.
+    index shape (NaN payloads and denormals included). The indices are
+    int32, as the TPU kernel's are (8 bytes moved per word, not 12). The
+    environment's bilinear taps and importance-texel fetches go through it.
   * lookup_transfer_fetch(lut, sample_range, density): the transfer LUT's
     NEAREST sample with range rejection (common.glsl:78-83) as one fused
     pass; sampling.lookup_transfer is this function. `sample_range` stays
@@ -29,16 +30,16 @@ from volxel_tpu_torch import kernels
 
 
 def gather_f32_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table.reshape(-1)[idx]."""
+    """table.reshape(-1)[idx] (idx int32 or int64)."""
     return table.reshape(-1)[idx]
 
 
 def gather_f32_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The same fetch as one launch of csrc/gather.cu, one thread per index;
-    indices outside [-numel, numel) give a zero word (the plain version
-    raises there)."""
+    """The same fetch as one launch of csrc/gather.cu, four int32 indices
+    per thread step; indices outside [-numel, numel) give a zero word (the
+    plain version raises there). Refuses any index type but int32."""
     kernels.require_cuda("gather_f32", table, dtype=torch.float32)
-    kernels.require_cuda("gather_f32", idx, dtype=torch.int64, device=table.device)
+    kernels.require_cuda("gather_f32", idx, dtype=torch.int32, device=table.device)
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
     code = kernels.lib().vx_gather_f32(
         table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), table.numel(), kernels.stream_of(table)
@@ -49,7 +50,7 @@ def gather_f32_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_f32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """f32 values of `table` at flat element indices `idx` (int64, any
+    """f32 values of `table` at flat element indices `idx` (int32, any
     shape) -> f32 of idx's shape, bit-equal to table.reshape(-1)[idx]."""
     if table.device.type == "cpu":
         return gather_f32_plain(table, idx)
@@ -94,3 +95,11 @@ def lookup_transfer_fetch(lut: torch.Tensor, sample_range, density) -> torch.Ten
     if density.device.type == "cpu":
         return lookup_transfer_plain(lut, sample_range, density)
     return lookup_transfer_cuda(lut.contiguous(), sample_range.contiguous(), density.contiguous())
+
+
+def launch_floor(n: int, device) -> None:
+    """One launch of csrc/gather.cu's empty kernel over the grid the LUT
+    fetch takes for `n` lanes: the floor that a call of a few microseconds
+    is measured against. It is on no render path and counts no launch."""
+    code = kernels.lib().vx_launch_floor(n, torch.cuda.current_stream(device).cuda_stream)
+    kernels.check("vx_launch_floor", code)

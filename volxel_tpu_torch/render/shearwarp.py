@@ -51,7 +51,8 @@ BACKGROUND = (0.04, 0.04, 0.05)  # the preview's dark grey (warp_to_screen's def
 # layout of the (6,) f32 scalars the kernel reads, as the JAX kernel's params
 P_SX, P_SY, P_TX, P_TY, P_INV_MAJ, P_SIGMA_DT = range(6)
 
-# the kernel stages the LUT in shared memory: at most 48 KiB without opt-in
+# the kernel stages the LUT in shared memory (48 KiB at this size; the
+# kernel opts in to more than 48 KiB of dynamic shared memory)
 MAX_LUT_ROWS = 3072
 
 
@@ -260,8 +261,9 @@ def shearwarp_intermediate_plain(vol, lut, sx: float, sy: float, inv_maj: float,
 
 def shearwarp_intermediate_cuda(vol, lut, sx: float, sy: float, inv_maj: float, sigma_dt: float,
                                 fixed_canvas: bool):
-    """The slice loop as one launch of csrc/shearwarp.cu, one thread per
-    intermediate pixel; see `shearwarp_intermediate`."""
+    """The slice loop as one launch of csrc/shearwarp.cu: each warp owns a
+    31x6 tile of the intermediate image and walks the slices that reach
+    it, classifying each voxel once; see `shearwarp_intermediate`."""
     kernels.require_cuda("shearwarp_intermediate", vol, dtype=torch.bfloat16)
     kernels.require_cuda("shearwarp_intermediate", lut, dtype=torch.float32, device=vol.device)
     if vol.dim() != 3:

@@ -147,16 +147,18 @@ def _bilinear_wrap_clamp(tex: torch.Tensor, u, v):
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
     fy = (y - y0)[..., None]
-    x0i = torch.remainder(x0.to(torch.int64), w)
+    # int32 flat indices, as gather_f32 takes them (a map holds far fewer
+    # than 2^31 words)
+    x0i = torch.remainder(x0.to(torch.int32), w)
     x1i = torch.remainder(x0i + 1, w)
     # GL CLAMP_TO_EDGE clamps each tap independently: for y0 = -1 the two
     # rows are clamp(-1)=0 and clamp(0)=0 — NOT rows 0 and 1
-    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
-    y1i = torch.clamp(y0.to(torch.int64) + 1, 0, h - 1)
+    y0i = torch.clamp(y0.to(torch.int32), 0, h - 1)
+    y1i = torch.clamp(y0.to(torch.int32) + 1, 0, h - 1)
     # the 4 taps x C channels in one fetch (the JAX package's packed form)
     c = tex.shape[2]
     base = torch.stack([y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i])
-    taps = gather.gather_f32(tex, base[..., None] * c + torch.arange(c, device=tex.device))
+    taps = gather.gather_f32(tex, base[..., None] * c + torch.arange(c, dtype=torch.int32, device=tex.device))
     t00, t10, t01, t11 = taps[0], taps[1], taps[2], taps[3]
     return t00 * (1 - fx) * (1 - fy) + t10 * fx * (1 - fy) + t01 * (1 - fx) * fy + t11 * fx * fy
 
@@ -188,8 +190,8 @@ def sample_environment(env: EnvState, rnd2, physical: bool = False):
     the reference's 1/(4*pi)-scaled texel mass.
     """
     shape = rnd2.shape[:-1]
-    pos_x = torch.zeros(shape, dtype=torch.int64, device=rnd2.device)
-    pos_y = torch.zeros(shape, dtype=torch.int64, device=rnd2.device)
+    pos_x = torch.zeros(shape, dtype=torch.int32, device=rnd2.device)
+    pos_y = torch.zeros(shape, dtype=torch.int32, device=rnd2.device)
     px = rnd2[..., 0]
     py = rnd2[..., 1]
 
@@ -210,10 +212,10 @@ def sample_environment(env: EnvState, rnd2, physical: bool = False):
         q_sel = torch.where(go_right, q1, q0)
         e = w_sel_bottom / torch.clamp_min(q_sel, 1e-8)
         px = torch.where(go_right, (px - d) / torch.clamp_min(1.0 - d, 1e-8), px / torch.clamp_min(d, 1e-8))
-        pos_x = pos_x * 2 + go_right.to(torch.int64)
+        pos_x = pos_x * 2 + go_right.to(torch.int32)
         go_up = py >= e
         py = torch.where(go_up, (py - e) / torch.clamp_min(1.0 - e, 1e-8), py / torch.clamp_min(e, 1e-8))
-        pos_y = pos_y * 2 + go_up.to(torch.int64)
+        pos_y = pos_y * 2 + go_up.to(torch.int32)
 
     inv_dim = 1.0 / IMP_DIM
     uv_x = (pos_x.to(torch.float32) + px) * inv_dim
@@ -253,8 +255,8 @@ def pdf_environment(env: EnvState, direction, physical: bool = False):
     avg_w = env.imp_mips[IMP_BASE_MIP][0, 0]
     if physical:
         u, v = _dir_to_uv(direction)
-        px = torch.clamp((u * IMP_DIM).to(torch.int64), 0, IMP_DIM - 1)
-        py = torch.clamp((v * IMP_DIM).to(torch.int64), 0, IMP_DIM - 1)
+        px = torch.clamp((u * IMP_DIM).to(torch.int32), 0, IMP_DIM - 1)
+        py = torch.clamp((v * IMP_DIM).to(torch.int32), 0, IMP_DIM - 1)
         sin_t = torch.sqrt(torch.clamp_min(1.0 - torch.clamp(direction[..., 1], -1.0, 1.0) ** 2, 0.0))
         texel = gather.gather_f32(env.imp_mips[0], py * IMP_DIM + px)
         return texel / avg_w / (2.0 * math.pi * math.pi * torch.clamp_min(sin_t, 1e-6))
