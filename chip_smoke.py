@@ -12,17 +12,24 @@ Phases, each of which raises (exit code != 0) on failure:
    - the DDA march at every call of one 1080p default-mode sample of the
      512^3 scene (bit-equal on every output of every lane), its summed
      event time beside the torch.profiler device time of the same sample;
-   - both table fetches (the transfer-LUT fetch and gather_f32) at every
-     call of one 1080p default-mode sample, and gather_f32 at one
-     environment lookup over 1920x1080 directions (bit-equal), gather_f32
-     beside torch.index_select on the same int32 indices and torch.take on
-     their int64 copy, the LUT fetch's mean call beside the launch floor
-     (an empty kernel over the same grid);
+   - both collision rounds (the camera leg's and the shadow leg's) at every
+     round of one 1080p default-mode sample, and the shadow round with
+     physical shadows at every round of one more (bit-equal on every
+     output they update in place; each call times fresh copies); the
+     rounds' -logf(1 - xi) against torch.log at all 2^24 draws;
+   - both table fetches: the transfer-LUT fetch where it still runs (the
+     default sample's premultiplied pyramid and every event of one 1080p
+     no_dda frame) and gather_f32 at every call of one 1080p default-mode
+     sample and at one environment lookup over 1920x1080 directions
+     (bit-equal), gather_f32 beside torch.index_select on the same int32
+     indices and torch.take on their int64 copy, the LUT fetch's mean call
+     beside the launch floor (an empty kernel over the same grid);
    - the importance pyramid on the default environment's 512^2 base (rtol
      1e-6) and the tonemap on a 1920x1080x3 buffer (atol 1e-6);
-   - the raymarch step loop at every call of one 1080p raymarch sample
-     (bit-equal on state, hit, t and rgb of every lane), and the
-     nearest-tap sums on that sample's camera rays at 64 steps (bit-equal);
+   - both raymarch step loops (the camera leg's and the shadow leg's) at
+     every call of one 1080p raymarch sample (bit-equal on state, hit, t
+     and rgb, or state and tau, of every lane), and the nearest-tap sums on
+     that sample's camera rays at 64 steps (bit-equal);
    - the shear-warp intermediate on the 512^3 volume, on the preview's
      fixed canvas and on one view's static canvas (bit-equal, or within
      1e-6 where the card's expf and ATen's exp round apart), and on the
@@ -36,8 +43,11 @@ Phases, each of which raises (exit code != 0) on failure:
    in the benchmark framing (bench.py), 1920x1080, 5 warm-up + 3
    accumulated frames, then image(), in the default mode and in the
    raymarch mode, each with every launch counter at 0 before it; check the
-   output and that every kernel of the path launched; in both modes split
-   one sample into its camera and shadow legs and profile one; time one
+   output, that every kernel of the path launched and that the LUT fetch
+   launched at most once per default sample and never in the raymarch
+   mode; print every kernel's launches per sample; in both modes split one
+   sample into its camera and shadow legs and profile one (device kernels,
+   torch.nonzero calls); time one
    1080p no_dda frame; then the shear-warp preview: render_preview() at six
    camera poses that use all six (principal axis, flip) volumes, each
    called 1 + 3 times, and render_dvr(screen=True) once, with the counters
@@ -100,8 +110,10 @@ PROFILE_PAD = 32
 PROFILE_ATTEMPTS = 5
 PAD_KERNEL = "empty_kernel"
 # the device symbol of the kernel behind each launch counter
-KERNEL_SYMBOLS = {"pyr_march": "pyr_march_kernel", "importance_pyramid": "pool2x2_kernel",
+KERNEL_SYMBOLS = {"pyr_march": "pyr_march_kernel", "dda_collide_sample": "dda_collide_sample_kernel",
+                  "dda_collide_shadow": "dda_collide_shadow_kernel", "importance_pyramid": "pool2x2_kernel",
                   "tonemap": "tonemap_kernel", "tile_march_sample": "tile_march_sample_kernel",
+                  "tile_march_transmittance": "tile_march_transmittance_kernel",
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
                   "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel"}
 
@@ -112,8 +124,10 @@ KERNEL_SYMBOLS = {"pyr_march": "pyr_march_kernel", "importance_pyramid": "pool2x
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per unit of work, counted from the kernels' sources: a DDA
-# step of the march; a raymarch step (nine xoshiro draws, the tricubic
-# offsets, the tap, the LUT and the tau test); a nearest-tap sum step; a
+# step of the march; a parked lane's collision round (the trilinear decode
+# of eight taps, the LUT, two or three draws, the leg's updates); a
+# raymarch step (nine xoshiro draws, the tricubic offsets, the tap, the
+# LUT and the tau test); a nearest-tap sum step; a
 # shear-warp voxel's LUT index (two products, floor, clamp), a LUT row's
 # alpha' (product, exp, difference), one canvas pixel's update per slice
 # (4-tap blend of 4 channels and the composite) and, once the pixel's t is
@@ -121,6 +135,7 @@ F32_OPS_PER_S = 67e12
 # alone; a tonemapped pixel (3 channels of Hable, exposure and pow); a LUT
 # fetch (compares, floor, clamp)
 OPS_DDA_STEP = 50
+OPS_COLLIDE = 100
 OPS_TILE_STEP = 160
 OPS_SUMS_STEP = 15
 OPS_SW_VOXEL = 5
@@ -286,24 +301,40 @@ def sample_operands(r):
     return (config, r._device_grid, r.volume_params(), r._lut, r.environment.state, inv_view, inv_proj, light_dir)
 
 
+def fresh_calls(fn, args, mutable, calls: int):
+    """A function that calls `fn` on a fresh copy of `args` each time, at
+    most `calls` times: the operands at the indices in `mutable`, which
+    `fn` updates in place, are cloned ahead (untimed). Also returns the
+    list of the copies, in the order they are used."""
+    copies = [tuple(a.clone() if i in mutable else a for i, a in enumerate(args)) for _ in range(calls)]
+    used = iter(copies)
+    return (lambda: fn(*next(used))), copies
+
+
 @contextlib.contextmanager
-def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None, others=None):
+def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None, others=None,
+                   mutable=()):
     """Replace module.<name>, for the block's duration, by a stand-in that
     sends each call's inputs through the kernel and the plain version
     (and `library_fn`, when given), raises unless they agree bit for bit
-    on every output, and returns the kernel's result. `others` maps a name
-    to a function of the call's inputs that prepares (untimed) one more
-    call to time beside them. Yields the tally: calls, lanes
-    (`lanes(args)`), the times summed over the calls, the bytes and
-    operations of the work (`work(args, outputs)`), the largest
-    difference, and the first call's arguments."""
+    on every output, and returns the kernel's result. A function that
+    updates the operands at the indices in `mutable` in place gets fresh
+    copies of them at every timed call, and the kernel's updates are then
+    copied into the caller's operands. `others` maps a name to a function
+    of the call's inputs that prepares (untimed) one more call to time
+    beside them. Yields the tally: calls, lanes (`lanes(args)`), the times
+    summed over the calls, the bytes and operations of the work
+    (`work(args, outputs)`), the largest difference, and the first call's
+    arguments."""
     others = others or {}
     tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0,
              "err": 0.0, "first_args": None, "others": dict.fromkeys(others, 0.0)}
 
     def compared(*args):
-        got, ms = device_ms(lambda: cuda_fn(*args), KERNEL_REPS)
-        want, plain_ms = device_ms(lambda: plain_fn(*args))
+        kernel_call, copies = fresh_calls(cuda_fn, args, mutable, 2 * KERNEL_REPS)
+        got, ms = device_ms(kernel_call, KERNEL_REPS)
+        plain_call, _ = fresh_calls(plain_fn, args, mutable, 2)
+        want, plain_ms = device_ms(plain_call)
         single = not isinstance(got, tuple)
         got_t, want_t = ((got,), (want,)) if single else (got, want)
         bad = [nm for nm, a, b in zip(outputs, got_t, want_t) if not bits_equal(a, b)]
@@ -325,7 +356,12 @@ def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, l
         tally["err"] = max(tally["err"], err)
         if tally["first_args"] is None:
             tally["first_args"] = args
-        return got
+        # the caller's operands take the kernel's in-place updates, and the
+        # result names them instead of the copies
+        kept = {id(copies[-1][i]): args[i] for i in mutable}
+        for i in mutable:
+            args[i].copy_(copies[-1][i])
+        return got if single else tuple(kept.get(id(o), o) for o in got)
 
     original = getattr(module, name)
     setattr(module, name, compared)
@@ -335,24 +371,30 @@ def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, l
         setattr(module, name, original)
 
 
-def check_every_call(r, module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None,
-                     others=None) -> dict:
-    """Render one sample of `r` with module.<name> compared at every call
-    (compared_calls); the plain versions of the marches synchronize at
-    every step (to test whether any lane still runs), so their time
-    includes the host's share. Returns the tally."""
+def check_every_call(r, module, names, frame: int = 0, what: str = "") -> list[dict]:
+    """Render one sample of `r` with each module.<name> compared at every
+    call (compared_calls); `names` maps a name to compared_calls' other
+    arguments. The plain versions of the marches synchronize at every step
+    (to test whether any lane still runs), so their time includes the
+    host's share. Returns the tallies in the order of `names`."""
     from volxel_tpu_torch.render.pathtrace import render_sample
 
-    with compared_calls(module, name, cuda_fn, plain_fn, outputs, lanes, work, library_fn, others) as tally:
-        render_sample(*sample_operands(r), 0)
+    with contextlib.ExitStack() as stack:
+        tallies = [stack.enter_context(compared_calls(module, name, **kw)) for name, kw in names.items()]
+        render_sample(*sample_operands(r), frame)
     config = r._config()
-    log(f"{name}: bit-equal at all {tally['calls']} calls of one {config.width}x{config.height} {config.mode} "
-        f"sample ({tally['lanes']} lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms"
-        + (f", library {tally['library_ms']:.4f} ms" if library_fn is not None else "")
+    for name, tally in zip(names, tallies):
+        log_tally(name, tally, f"one {config.width}x{config.height} {config.mode} sample{what}")
+    return tallies
+
+
+def log_tally(name: str, tally: dict, where: str) -> None:
+    log(f"{name}: bit-equal at all {tally['calls']} calls of {where} ({tally['lanes']} lanes in all); kernel "
+        f"{tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms"
+        + (f", library {tally['library_ms']:.4f} ms" if tally["library_ms"] else "")
         + "".join(f", {other} {ms:.4f} ms" for other, ms in tally["others"].items())
         + f" summed over the calls; bound {bound(tally['bytes'], tally['ops'])['bound_ms']:.4f} ms "
-        f"({tally['bytes'] / 1e6:.1f} MB, {tally['ops'] / 1e9:.3f} Gop)")
-    return tally
+        f"({tally['bytes'] / 1e6:.3f} MB, {tally['ops'] / 1e9:.4f} Gop)")
 
 
 def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms: float, moved: float, ops: float,
@@ -378,8 +420,9 @@ def check_march(r) -> dict:
         rays = int((running & (budget > 0)).sum()) * nbytes(ipos, idir, ri, far) // t.numel()
         return nbytes(t, tau, mip, budget, running, *got) + rays + min(nbytes(maj), 4 * steps), steps * OPS_DDA_STEP
 
-    tally = check_every_call(r, modes, "pyr_march", pyr_march_cuda, pyr_march_plain,
-                             ("t", "tau", "mip", "maj", "kind", "budget"), lambda a: int(a[10].sum()), work)
+    (tally,) = check_every_call(r, modes, {"pyr_march": dict(
+        cuda_fn=pyr_march_cuda, plain_fn=pyr_march_plain, outputs=("t", "tau", "mip", "maj", "kind", "budget"),
+        lanes=lambda a: int(a[10].sum()), work=work)})
     operands = sample_operands(r)
     prof_ms = profiled_device_ms(lambda: render_sample(*operands, 0), "pyr_march_kernel")
     log(f"pyr_march: summed event time {tally['ms']:.4f} ms, profiler device time {prof_ms:.4f} ms over the same "
@@ -388,18 +431,89 @@ def check_march(r) -> dict:
                  tally["err"], tally["ms"], tally["plain_ms"], tally["bytes"], tally["ops"])
 
 
+def check_collide(r) -> list[dict]:
+    """Both collision rounds at every round of one 1080p default sample (the
+    camera leg's and the shadow leg's), then the shadow round with
+    physical shadows at every round of one more sample; bit-equal on every
+    output they update in place (lanes counted: the parked ones). Their
+    work, counted from what each kernel does with these inputs: `running`
+    of every lane read, and written where a lane stops; for each running
+    lane its `kind`; for each parked lane its ray, t and majorant read, its
+    words read and written, its eight bf16 taps, and what its outcome
+    touches (sample: hit and rgb at a real collision, tau written and mip
+    read and written at a null one; shadow: tau written, mip and tr read
+    and written)."""
+    import volxel_tpu_torch.render.modes as modes
+    from volxel_tpu_torch.render import collide
+    from volxel_tpu_torch.render.pyrmarch import KIND_COLL
+
+    def parked(args):
+        return args[12] & (args[8] == KIND_COLL)
+
+    def work(args, got):
+        running, n = args[12], args[12].numel()
+        coll = parked(args)
+        lanes = int(coll.sum())
+        stopped = int((running & ~got[3]).sum())  # `running` written: done, hit or killed lanes
+        if len(got) == 6:  # a real collision writes hit and rgb; a null one tau, and reads and writes mip
+            real = int((coll & got[4]).sum())
+            leg = real * (1 + 12) + (lanes - real) * (4 + 2 * 4)
+        else:  # tau written, mip and tr read and written
+            leg = lanes * (4 + 2 * 4 + 2 * 4)
+        moved = n + 4 * int(running.sum()) + stopped + lanes * (24 + 4 + 4 + 2 * 32 + 8 * 2) + leg
+        return moved, lanes * OPS_COLLIDE
+
+    def compare(cuda_fn, plain_fn, outputs):
+        return dict(cuda_fn=cuda_fn, plain_fn=plain_fn, outputs=outputs, lanes=lambda a: int(parked(a).sum()),
+                    work=work, mutable=tuple(range(9, 9 + len(outputs))))
+
+    sample, shadow = check_every_call(r, modes, {
+        "dda_collide_sample": compare(collide.dda_collide_sample_cuda, collide.dda_collide_sample_plain,
+                                      ("state", "tau", "mip", "running", "hit", "rgb")),
+        "dda_collide_shadow": compare(collide.dda_collide_shadow_cuda, collide.dda_collide_shadow_plain,
+                                      ("state", "tau", "mip", "running", "tr")),
+    })
+    r.settings.physical_shadows = True
+    try:
+        (physical,) = check_every_call(r, modes, {"dda_collide_shadow": compare(
+            collide.dda_collide_shadow_cuda, collide.dda_collide_shadow_plain, ("state", "tau", "mip", "running", "tr"))},
+            frame=1, what=" with physical shadows")
+    finally:
+        r.settings.physical_shadows = False
+    source, replaces = "volxel_tpu_torch/csrc/dda_collide.cu", "volxel_tpu/render/mxu_gather.py:196"
+    return [entry(name, source, replaces, max(t["err"], physical["err"]), t["ms"], t["plain_ms"], t["bytes"],
+                  t["ops"]) for name, t in (("dda_collide_sample", sample), ("dda_collide_shadow", shadow))]
+
+
+def check_neg_log1m() -> None:
+    """The collision rounds' -logf(1 - xi) against -torch.log(1.0 - xi) at
+    all 2^24 values a draw takes (k * 2^-24), bit for bit."""
+    import torch
+
+    from volxel_tpu_torch.render.collide import neg_log1m_cuda
+
+    xi = torch.arange(2**24, dtype=torch.int32, device="cuda").to(torch.float32) * (1.0 / 16777216.0)
+    got, want = neg_log1m_cuda(xi), -torch.log(1.0 - xi)
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if bad:
+        raise SystemExit(f"-logf(1 - xi) differs from -torch.log(1.0 - xi) at {bad} of the 2^24 draws")
+    log(f"-logf(1 - xi) of the collision rounds: bit-equal to -torch.log(1.0 - xi) at all {xi.numel()} draws")
+
+
 def check_gather(r) -> list[dict]:
-    """K2's two entry points at every call of one 1080p default-mode
-    sample (the LUT fetch at each collision decode; gather_f32 at the
-    environment's bilinear taps and importance texels), bit-equal, beside
-    torch.index_select on the same int32 indices and torch.take on their
-    int64 copy for gather_f32; the LUT fetch's mean time per call beside
-    the launch floor, an empty kernel over the grid of the mean call,
-    timed the same way; then gather_f32 at one environment lookup over
-    1920x1080 seeded directions."""
+    """K2's two entry points, bit-equal: the LUT fetch where it still runs,
+    at every call of one 1080p default-mode sample (the premultiplied
+    pyramid) and of one 1080p no_dda frame (each event's decode), with its
+    mean time per call beside the launch floor, an empty kernel over the
+    grid of the mean call, timed the same way; gather_f32 at every call of
+    one 1080p default-mode sample (the environment's bilinear taps and
+    importance texels), beside torch.index_select on the same int32
+    indices and torch.take on their int64 copy, then at one environment
+    lookup over 1920x1080 seeded directions."""
     import torch
 
     from volxel_tpu_torch.render import gather
+    from volxel_tpu_torch.render.pathtrace import render_sample
     from volxel_tpu_torch.scene.environment import lookup_environment
 
     def gather_cuda(table, idx):
@@ -424,16 +538,26 @@ def check_gather(r) -> list[dict]:
     def lut_work(args, got):
         return nbytes(*args, *got), args[2].numel() * OPS_LUT_FETCH
 
-    lut = check_every_call(r, gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",),
-                           lambda a: a[2].numel(), lut_work)
+    with compared_calls(gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",),
+                        lambda a: a[2].numel(), lut_work) as lut:
+        render_sample(*sample_operands(r), 0)
+        premul_calls = lut["calls"]
+        r.render_mode = "no_dda"
+        try:
+            render_sample(*sample_operands(r), 0)
+        finally:
+            r.render_mode = "default"
+    log_tally("lookup_transfer", lut, f"one {r.width}x{r.height} default sample ({premul_calls}: the premultiplied "
+              f"pyramid) and one no_dda frame ({lut['calls'] - premul_calls}: its events)")
     mean_lanes = max(1, round(lut["lanes"] / max(lut["calls"], 1)))
     _, floor_ms = device_ms(lambda: gather.launch_floor(mean_lanes, torch.device("cuda")), KERNEL_REPS)
     per_call = lut["ms"] / max(lut["calls"], 1)
     log(f"lookup_transfer: {per_call * 1000:.3f} us per call (mean of {lut['calls']} calls, {mean_lanes} lanes on "
         f"average) beside a launch floor of {floor_ms * 1000:.3f} us (empty kernel, same grid): launches are "
         f"{floor_ms / per_call:.1%} of its time")
-    sel = check_every_call(r, gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
-                           lambda a: a[1].numel(), gather_work, library_fn=index_select, others=take)
+    (sel,) = check_every_call(r, gather, {"gather_f32": dict(
+        cuda_fn=gather_cuda, plain_fn=gather.gather_f32_plain, outputs=("values",), lanes=lambda a: a[1].numel(),
+        work=gather_work, library_fn=index_select, others=take)})
     log(f"gather_f32 over the sample: kernel {sel['ms']:.4f} ms, torch.index_select (int32) "
         f"{sel['library_ms']:.4f} ms, torch.take (int64) {sel['others']['torch.take (int64)']:.4f} ms, bound "
         f"{bound(sel['bytes'], sel['ops'])['bound_ms']:.4f} ms")
@@ -515,12 +639,14 @@ def check_tonemap(exposure: float, gamma: float) -> dict:
 
 
 def check_tile_march(r) -> list[dict]:
-    """K5 at every call of one 1080p raymarch sample (the camera leg of
-    each bounce; lanes counted: those inside the box), bit-equal on state,
-    hit, t and rgb of every lane, and K6 on that sample's camera rays at 64
-    steps, bit-equal. Their work: every lane's state and flag read and its
-    outputs written, each valid lane's ray read, and one tap of the bf16
-    field per step taken (a lane that hits stops)."""
+    """K5 and the shadow leg's step loop at every call of one 1080p raymarch
+    sample (the legs of each bounce; lanes counted: those inside the box),
+    bit-equal on state, hit, t and rgb, or state and tau, of every lane;
+    then K6 on that sample's camera rays at 64 steps, bit-equal. Their
+    work, as these inputs need it: every lane's `valid` and words read and
+    its outputs written (words, and hit, t and rgb, or tau); for each lane
+    inside the box its ray read and one 2-byte tap of the bf16 field per
+    step it takes (a camera lane stops at its hit)."""
     import torch
 
     import volxel_tpu_torch.render.modes as modes
@@ -530,6 +656,8 @@ def check_tile_march(r) -> list[dict]:
         tile_march_sample_plain,
         tile_march_sums_cuda,
         tile_march_sums_plain,
+        tile_march_transmittance_cuda,
+        tile_march_transmittance_plain,
     )
 
     def sample_work(args, got):
@@ -537,15 +665,33 @@ def check_tile_march(r) -> list[dict]:
         _, hit, t, _ = got
         taken = torch.clamp(torch.round((t - start) / dt) + 1, 1, STEPS)
         steps = int(torch.where(hit, taken, float(STEPS))[valid].sum())
-        rays = int(valid.sum()) * nbytes(ipos, idir, start, dt, far, tau_target) // start.numel()
-        moved = nbytes(state, valid, lut, scalars, *got) + rays + min(nbytes(dense), 2 * steps)
+        inside = int(valid.sum())
+        rays = inside * nbytes(ipos, idir, start, dt, far, tau_target) // start.numel()
+        moved = nbytes(valid, lut, scalars, state, *got) + rays + min(nbytes(dense), 2 * steps)
         return moved, steps * OPS_TILE_STEP
 
-    tally = check_every_call(r, modes, "tile_march_sample", tile_march_sample_cuda, tile_march_sample_plain,
-                             ("state", "hit", "t", "rgb"), lambda a: int(a[6].sum()), sample_work)
+    def transmittance_work(args, got):
+        dense, ipos, idir, start, dt, far, valid, state, lut, scalars, _ = args
+        inside = int(valid.sum())
+        steps = inside * STEPS
+        rays = inside * nbytes(ipos, idir, start, dt, far) // start.numel()
+        moved = nbytes(valid, lut, scalars, state, *got) + rays + min(nbytes(dense), 2 * steps)
+        return moved, steps * OPS_TILE_STEP
+
+    sample, shadow = check_every_call(r, modes, {
+        "tile_march_sample": dict(cuda_fn=tile_march_sample_cuda, plain_fn=tile_march_sample_plain,
+                                  outputs=("state", "hit", "t", "rgb"), lanes=lambda a: int(a[6].sum()),
+                                  work=sample_work),
+        "tile_march_transmittance": dict(cuda_fn=tile_march_transmittance_cuda,
+                                         plain_fn=tile_march_transmittance_plain, outputs=("state", "tau"),
+                                         lanes=lambda a: int(a[6].sum()), work=transmittance_work),
+    })
     source = "volxel_tpu_torch/csrc/tile_march.cu"
-    sample = entry("tile_march_sample", source, "volxel_tpu/render/tilemarch.py:627", tally["err"], tally["ms"],
-                   tally["plain_ms"], tally["bytes"], tally["ops"])
+    entries = [entry("tile_march_sample", source, "volxel_tpu/render/tilemarch.py:627", sample["err"], sample["ms"],
+                     sample["plain_ms"], sample["bytes"], sample["ops"]),
+               entry("tile_march_transmittance", source, "volxel_tpu/render/mxu_gather.py:196", shadow["err"],
+                     shadow["ms"], shadow["plain_ms"], shadow["bytes"], shadow["ops"])]
+    tally = sample
 
     dense, ipos, idir, start, dt, far, valid, _, _, _, _, extent = tally["first_args"]
     args = (dense, ipos, idir, start, dt, far, valid, extent, STEPS)
@@ -560,7 +706,7 @@ def check_tile_march(r) -> list[dict]:
     rays = int(valid.sum()) * nbytes(ipos, idir, start, dt, far) // start.numel()
     sums = entry("tile_march_sums", source, "volxel_tpu/render/tilemarch.py:293", err, ms, plain_ms,
                  nbytes(valid, got) + rays + min(nbytes(dense), 2 * steps), steps * OPS_SUMS_STEP)
-    return [sample, sums]
+    return entries + [sums]
 
 
 def shearwarp_pixel_slices(vol, lut, sx: float, sy: float, inv_maj: float, sigma_dt: float, fixed_canvas: bool,
@@ -651,14 +797,16 @@ def check_shearwarp(r) -> dict:
 
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
-    "default": ("pyr_march", "lookup_transfer", "gather_f32", "importance_pyramid", "tonemap"),
-    "raymarch": ("tile_march_sample", "lookup_transfer", "gather_f32", "importance_pyramid", "tonemap"),
+    "default": ("pyr_march", "dda_collide_sample", "dda_collide_shadow", "lookup_transfer", "gather_f32",
+                "importance_pyramid", "tonemap"),
+    "raymarch": ("tile_march_sample", "tile_march_transmittance", "gather_f32", "importance_pyramid", "tonemap"),
     "preview": ("shearwarp_intermediate", "tonemap"),
 }
 # the path whose run gives each kernel's launch count (K6 lies on none:
 # its count from the raymarch run is 0)
-KERNEL_PATH = {"pyr_march": "default", "lookup_transfer": "default", "gather_f32": "default",
-               "importance_pyramid": "default", "tonemap": "default", "tile_march_sample": "raymarch",
+KERNEL_PATH = {"pyr_march": "default", "dda_collide_sample": "default", "dda_collide_shadow": "default",
+               "lookup_transfer": "default", "gather_f32": "default", "importance_pyramid": "default",
+               "tonemap": "default", "tile_march_sample": "raymarch", "tile_march_transmittance": "raymarch",
                "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview"}
 
 
@@ -683,7 +831,8 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
         r.render_frame()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    per_sample = {k: (kernels.LAUNCHES[k] - launches_before[k]) / ACCUMULATED_FRAMES for k in PATH_KERNELS[mode]}
+    counted = {k: kernels.LAUNCHES[k] - launches_before[k] for k in kernels.LAUNCHES}
+    per_sample = {k: n / ACCUMULATED_FRAMES for k, n in counted.items()}
     img = r.image()
     launches = dict(kernels.LAUNCHES)
     raw = r._framebuffer
@@ -699,6 +848,12 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
     for name in PATH_KERNELS[mode]:
         if launches[name] <= 0:
             raise SystemExit(f"kernel {name} was not launched on the {mode} main path")
+    # the LUT fetch runs once per default sample (the premultiplied pyramid)
+    # and nowhere in the raymarch legs; one collision round per march round
+    if per_sample["lookup_transfer"] > (1 if mode == "default" else 0):
+        raise SystemExit(f"the LUT fetch launched {per_sample['lookup_transfer']} times per {mode} sample")
+    if counted["dda_collide_sample"] + counted["dda_collide_shadow"] != counted["pyr_march"]:
+        raise SystemExit(f"collision rounds {counted} do not match the march rounds")
     log(f"main path output ({mode}): mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
     return launches
 
@@ -749,19 +904,22 @@ def breakdown(grid, width: int, height: int, mode: str) -> None:
 
 def log_device_profile(what: str, fn, wall_ms: float) -> None:
     """Profile one call of `fn`: device kernels, device busy time against
-    an unprofiled call's `wall_ms` (the idle share) and the largest kernels."""
-    device = device_events(profile_call(fn))
+    an unprofiled call's `wall_ms` (the idle share), the largest kernels
+    and the torch.nonzero calls (each a host sync)."""
+    prof = profile_call(fn)
+    device = device_events(prof)
     busy = sum(e.device_time_total for e in device) / 1000
     count = sum(e.count for e in device)
+    nonzero = sum(e.count for e in prof.key_averages() if e.key == "aten::nonzero")
     top = sorted(device, key=lambda e: -e.device_time_total)[:4]
-    log(f"{what} profile: one call, {count} device kernels, device busy {busy:.3f} ms against an unprofiled "
-        f"call of {wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); largest: "
+    log(f"{what} profile: one call, {count} device kernels, {nonzero} torch.nonzero calls, device busy {busy:.3f} ms "
+        f"against an unprofiled call of {wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); largest: "
         + "; ".join(f"{e.key[:70]} {e.device_time_total / 1000:.3f} ms x{e.count}" for e in top))
 
 
 def no_dda_frame(grid, width: int, height: int) -> None:
-    """One 1080p no_dda frame (delta and ratio tracking in PyTorch; no
-    kernel of this repo runs in that mode's traversal)."""
+    """One 1080p no_dda frame (delta and ratio tracking in PyTorch; of this
+    repo's kernels only the LUT fetch runs in that mode's traversal)."""
     import torch
 
     r = bench_renderer(grid, width, height, "cuda", "no_dda")
@@ -967,7 +1125,8 @@ def main() -> int:
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
-    results = [check_march(r), *check_gather(r), check_pyramid(r),
+    check_neg_log1m()
+    results = [check_march(r), *check_collide(r), *check_gather(r), check_pyramid(r),
                check_tonemap(r.settings.exposure, r.settings.gamma), check_shearwarp(r)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")

@@ -1,6 +1,7 @@
 """Per-sample time of two checkouts of the PyTorch/CUDA port, in turns, on one card.
 
     python examples/ab_torch_paths.py BEFORE_DIR AFTER_DIR [--rounds 2]
+    python examples/ab_torch_paths.py --kernels DIR [DIR ...] [--rounds 2] [--reps 20]
     python examples/ab_torch_paths.py --table-fetch-turns 10
 
 Each run is a fresh process in one checkout (its own volxel_tpu_torch and
@@ -12,6 +13,14 @@ between two torch.cuda.synchronize() (ms/sample on the host clock), then
 one sample under torch.profiler (device-side kernels and their busy ms).
 Prints one JSON line per run and mode, and the card's name and power
 limit first.
+
+With --kernels it instead times the raymarch step-loop kernels of each
+checkout (tile_march_sample and, where the checkout has it,
+tile_march_transmittance) at the one call of each in a 1080p raymarch
+sample of that scene: CUDA events over --reps launches, each on a fresh
+copy of the RNG state (chip_smoke.device_ms), one process per checkout in
+the order given, then reversed, --rounds times in all; one JSON line per
+checkout and kernel.
 
 With --table-fetch-turns N it instead runs one process in this checkout
 and, in each mode, alternates samples with the table fetches (render.gather)
@@ -64,6 +73,46 @@ for mode in ("default", "raymarch"):
     torch.cuda.empty_cache()
 """
 
+KERNELS = r"""
+import json, sys
+import numpy as np
+import torch
+
+import chip_smoke
+import volxel_tpu_torch.render.modes as modes
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.render import tilemarch
+from volxel_tpu_torch.render.pathtrace import render_sample
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+kernels.lib()
+reps = int(sys.argv[2])
+vol = synthetic_ct_volume((512,) * 3, bits_stored=12, seed=0)
+grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+del vol
+r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda", "raymarch")
+
+
+def with_state_copy(args, at):
+    return args[:at] + (args[at].clone(),) + args[at + 1:]
+
+
+calls = {}
+for name, at in (("tile_march_sample", 8), ("tile_march_transmittance", 7)):
+    if hasattr(modes, name):
+        def capture(*args, name=name, at=at, original=getattr(modes, name)):
+            calls.setdefault(name, (with_state_copy(args, at), at))
+            return original(*args)
+        setattr(modes, name, capture)
+render_sample(*chip_smoke.sample_operands(r), 0)
+for name, (args, at) in calls.items():
+    copies = iter([with_state_copy(args, at) for _ in range(2 * reps)])
+    launch = getattr(tilemarch, name + "_cuda")
+    _, ms = chip_smoke.device_ms(lambda: launch(*next(copies)), reps)
+    print(json.dumps({"tree": sys.argv[1], "kernel": name, "ms": ms, "lanes": int(args[6].sum())}), flush=True)
+"""
+
 TURNS = r"""
 import json, statistics, sys, time
 import numpy as np
@@ -106,9 +155,10 @@ for mode in ("default", "raymarch"):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("before", nargs="?")
-    ap.add_argument("after", nargs="?")
+    ap.add_argument("trees", nargs="*", help="checkouts: BEFORE AFTER, or any number with --kernels")
     ap.add_argument("--rounds", type=int, default=2, help="runs of each tree (even: before, after, after, before)")
+    ap.add_argument("--kernels", action="store_true", help="time the raymarch step-loop kernels of each checkout")
+    ap.add_argument("--reps", type=int, default=20, help="launches per kernel timing with --kernels")
     ap.add_argument("--table-fetch-turns", type=int, default=0,
                     help="alternate the table fetches' kernels and plain versions in this checkout instead")
     args = ap.parse_args()
@@ -120,15 +170,23 @@ def main() -> int:
         subprocess.run([sys.executable, "-c", TURNS, str(args.table_fetch_turns)], cwd=here,
                        env=dict(os.environ, PYTHONPATH=here), check=True, timeout=900)
         return 0
-    if not (args.before and args.after):
-        ap.error("BEFORE_DIR and AFTER_DIR are needed without --table-fetch-turns")
+    if args.kernels:
+        if not args.trees:
+            ap.error("--kernels needs at least one checkout")
+        labelled = [(tree, tree) for tree in args.trees]
+        program, extra = KERNELS, [str(args.reps)]
+    else:
+        if len(args.trees) != 2:
+            ap.error("BEFORE_DIR and AFTER_DIR are needed without --kernels or --table-fetch-turns")
+        labelled = list(zip(("before", "after"), args.trees))
+        program, extra = RUN, []
     order = []
     for i in range(args.rounds):
-        order += [("before", args.before), ("after", args.after)][:: 1 if i % 2 == 0 else -1]
+        order += labelled[:: 1 if i % 2 == 0 else -1]
     for label, tree in order:
         tree = os.path.abspath(tree)
         env = dict(os.environ, PYTHONPATH=tree)
-        subprocess.run([sys.executable, "-c", RUN, label], cwd=tree, env=env, check=True, timeout=900)
+        subprocess.run([sys.executable, "-c", program, label, *extra], cwd=tree, env=env, check=True, timeout=900)
     return 0
 
 

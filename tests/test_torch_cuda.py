@@ -9,7 +9,9 @@ Without a card the tests marked `cuda` skip (a CUDA kernel has no CPU
 mode). Tolerances: the DDA march, both tile-march kernels, the shear-warp
 intermediate and both table fetches are bit-equal (the library is built
 with --fmad=false and each kernel follows its plain version's operation
-order); the pyramid rtol 1e-6 (a 4-term mean
+order), and so are both collision rounds (built with --fmad=true so that
+logf rounds as ATen's log does, with every other f32 operation written as
+a never-contracted intrinsic); the pyramid rtol 1e-6 (a 4-term mean
 summed in another order); the tonemap atol 1e-6 (powf and a division may
 round an ulp apart).
 """
@@ -24,9 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_lanes import VOL_MAJ, collide_lanes, leg_args
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
-from volxel_tpu_torch.render import gather, pallas_ops, pyrmarch, shearwarp, tilemarch
+from volxel_tpu_torch.render import collide, gather, pallas_ops, pyrmarch, shearwarp, tilemarch
 from volxel_tpu_torch.render.modes import DDA_SAMPLE_MAX_STEPS, _march_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
 from volxel_tpu_torch.render.rng import seed_rays
@@ -74,11 +77,15 @@ def _march_args(r, budget: int):
     return (grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, b, running, DDA_SAMPLE_MAX_STEPS)
 
 
-def _tile_march_args(device, n=2048, side=64):
+def _tile_march_args(device, n=2048, side=64, nan_lanes=False):
     """tile_march_sample's arguments for 2048 seeded rays through a random
     64^3 field, after the raymarch prologue. About a fifth of the rays miss
     the box, 5% are inactive, and the index extent stops short of the field
-    in x and y, so taps at the box's faces and past the extent read 0."""
+    in x and y, so taps at the box's faces and past the extent read 0. With
+    `nan_lanes` the first lanes are valid but have a NaN position, start or
+    box exit, or a position far past the extent (where the int conversion
+    saturates, the cubic weights grow huge or NaN and a quotient of the
+    reservoir overflows)."""
     rng = np.random.default_rng(8)
     dense = torch.from_numpy(rng.random((side,) * 3, dtype=np.float32) * 0.9).to(torch.bfloat16)
     grid = DeviceGrid(dense=dense.to(device), maj_mips=None,
@@ -100,13 +107,27 @@ def _tile_march_args(device, n=2048, side=64):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     active = torch.from_numpy(rng.random(n) > 0.05).to(device)
     state = seed_rays(torch.arange(n, dtype=torch.int64, device=device), 2)
-    return raymarch_prologue(grid, params, lut, torch.from_numpy(origin).to(device), torch.from_numpy(d).to(device),
+    args = raymarch_prologue(grid, params, lut, torch.from_numpy(origin).to(device), torch.from_numpy(d).to(device),
                              state, active)
+    if nan_lanes:
+        ipos, start, far, valid = (a.clone() for a in (args[1], args[3], args[5], args[6]))
+        ipos[0, 0], start[1], far[2], ipos[3] = float("nan"), float("nan"), float("nan"), 1e30
+        ipos[4, 0], ipos[5, 1] = 2e12, -2e12
+        valid[:6] = True
+        args = (args[0], ipos, args[2], start, args[4], far, valid, *args[7:])
+    return args
 
 
 def _sums_args(args):
     dense, ipos, idir, start, dt, far, valid, _, _, _, _, extent = args
     return dense, ipos, idir, start, dt, far, valid, extent, tilemarch.STEPS
+
+
+def _transmittance_args(args):
+    """tile_march_transmittance's arguments from tile_march_sample's (no tau
+    target)."""
+    dense, ipos, idir, start, dt, far, valid, _, state, lut, scalars, extent = args
+    return dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent
 
 
 def _shearwarp_args(device, view_dir, shape=(40, 24, 32)):
@@ -163,6 +184,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tilemarch.tile_march_sums_cuda(*_sums_args(args))
     with pytest.raises(ValueError, match="CUDA"):
+        tilemarch.tile_march_transmittance_cuda(*_transmittance_args(args))
+    lanes = collide_lanes("cpu", n=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        collide.dda_collide_sample_cuda(*leg_args(lanes, "sample"))
+    with pytest.raises(ValueError, match="CUDA"):
+        collide.dda_collide_shadow_cuda(*leg_args(lanes, "shadow"))
+    with pytest.raises(ValueError, match="CUDA"):
+        collide.neg_log1m_cuda(torch.zeros(4))
+    with pytest.raises(ValueError, match="CUDA"):
         shearwarp.shearwarp_intermediate_cuda(*_shearwarp_args("cpu", [0.2, 0.3, 0.9]), fixed_canvas=True)
     with pytest.raises(ValueError, match="CUDA"):
         gather.gather_f32_cuda(torch.zeros(8), torch.zeros(4, dtype=torch.int64))
@@ -194,8 +224,57 @@ def test_march_kernel_bit_equal_to_plain(cuda_device, budget):
 
 @pytest.mark.cuda
 def test_tile_march_sample_kernel_bit_equal_to_plain(cuda_device):
-    args = _tile_march_args(cuda_device)
-    _assert_bits_equal(tilemarch.tile_march_sample_cuda(*args), tilemarch.tile_march_sample_plain(*args))
+    """Every output of every lane; lanes outside the box keep their words;
+    valid lanes with NaN or far-off positions."""
+    args = _tile_march_args(cuda_device, nan_lanes=True)
+    got = tilemarch.tile_march_sample_cuda(*args)
+    _assert_bits_equal(got, tilemarch.tile_march_sample_plain(*args))
+    valid = args[6]
+    assert torch.equal(got[0][~valid], args[8][~valid]) and not torch.equal(got[0][valid], args[8][valid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 77])
+def test_tile_march_transmittance_kernel_bit_equal_to_plain(cuda_device, n):
+    """State and tau of every lane (0 outside the box), valid lanes with NaN
+    or far-off positions among them, at a lane count that fills no claim of
+    128 lanes too."""
+    args = _tile_march_args(cuda_device, n=n, nan_lanes=True)
+    got = tilemarch.tile_march_transmittance_cuda(*_transmittance_args(args))
+    _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*_transmittance_args(args)))
+    assert (got[1][~args[6]] == 0).all() and (got[1][args[6]] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow", "physical"])
+@pytest.mark.parametrize("case", ["random", "edge", "opaque"])
+def test_collide_kernels_bit_equal_to_plain(cuda_device, leg, case):
+    """Both collision rounds against their plain versions on every output of
+    every lane: random lanes (running or not, parked, done or idle,
+    positions past the extent on every side); NaN and infinite positions,
+    lattice points, degenerate majorants and Tr at the roulette threshold
+    (tests/torch_lanes.py); and an opaque LUT at maj = vol_maj, where every
+    parked lane hits or is killed."""
+    kw = {"random": {}, "edge": {"edge_cases": True},
+          "opaque": {"alpha": 1.0, "sample_range": (0.0, 10.0), "maj": VOL_MAJ}}[case]
+    lanes = collide_lanes(cuda_device, **kw)
+    which = "sample" if leg == "sample" else "shadow"
+    extra = () if leg == "sample" else (leg == "physical",)
+    cuda_fn = collide.dda_collide_sample_cuda if leg == "sample" else collide.dda_collide_shadow_cuda
+    plain_fn = collide.dda_collide_sample_plain if leg == "sample" else collide.dda_collide_shadow_plain
+    got = cuda_fn(*leg_args(lanes, which), *extra)
+    _assert_bits_equal(got, plain_fn(*leg_args(lanes, which), *extra))
+    assert not torch.equal(got[0], lanes["state"])
+
+
+@pytest.mark.cuda
+def test_neg_log1m_matches_torch_log_on_every_draw(cuda_device):
+    """The collision kernels' -logf(1 - xi) is bit-equal to
+    -torch.log(1.0 - xi) at all 2^24 values a draw takes (k * 2^-24)."""
+    xi = torch.arange(2**24, dtype=torch.int32, device=cuda_device).to(torch.float32) * (1.0 / 16777216.0)
+    got, want = collide.neg_log1m_cuda(xi), -torch.log(1.0 - xi)
+    bad = (got.view(torch.int32) != want.view(torch.int32)).nonzero()
+    assert bad.numel() == 0, f"{bad.numel()} draws differ, first xi {xi[bad[:4, 0]].tolist()}"
 
 
 @pytest.mark.cuda
@@ -343,3 +422,24 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
         assert np.isfinite(image).all() and image.shape == (32, 32, 3)
     ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
     assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"}, kernels.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_lut_fetch_left_to_the_premul_build(cuda_device):
+    """Per default sample the standalone LUT fetch launches once (the premul
+    pyramid) and each march round is followed by one collision round; a
+    raymarch sample launches no LUT fetch."""
+    r = _renderer(cuda_device, side=32)
+    for mode in ("default", "raymarch"):
+        r.render_mode = mode
+        r.render_frame()
+        kernels.reset_launch_counts()
+        for _ in range(3):
+            r.render_frame()
+        launches = dict(kernels.LAUNCHES)
+        if mode == "default":
+            assert launches["lookup_transfer"] == 3
+            assert launches["dda_collide_sample"] + launches["dda_collide_shadow"] == launches["pyr_march"] > 6
+        else:
+            assert launches["lookup_transfer"] == 0
+            assert launches["tile_march_sample"] == launches["tile_march_transmittance"] == 3 * r.settings.bounces

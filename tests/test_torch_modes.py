@@ -39,8 +39,9 @@ FIXTURE = Path(__file__).parent / "fixtures" / "reference_benchmark.json"
 N = 4096
 
 
-@pytest.fixture(scope="module")
-def scene():
+def make_scene():
+    """The JAX renderer's state for the 32^3 scene, carried into the port,
+    and the seeded lanes for both."""
     vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
     r = JRenderer(width=16, height=16)
     r.restart_from_grid(construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32)))
@@ -65,6 +66,11 @@ def scene():
                torch.from_numpy(active)),
         active=active,
     )
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return make_scene()
 
 
 def _both(scene, jfn, tfn):

@@ -177,3 +177,32 @@ def test_raymarch_sample_matches_jax(render_scene):
     assert not t_hit[~s["active"]].any()
     np.testing.assert_array_equal(t_rgb[~t_hit], 1.0)
     assert (t[4].numpy() == 0).all()
+
+
+def test_transmittance_plain_matches_jax(render_scene):
+    """tile_march_transmittance_plain after the port's box test and start
+    jitter, Tr = exp(-tau), against JAX modes.transmittance_raymarch: every
+    lane inside the box draws at all 64 steps whatever its taps, so the RNG
+    words are equal on every lane; Tr to
+    rtol 1e-5 on >= 99% of lanes (an FMA-rounded position or weight forks a
+    tap now and then) and 1 outside the box."""
+    s = render_scene
+    n = s["n"]
+    jstate, jtr = jmodes.transmittance_raymarch(*s["j"], jnp.asarray(s["origin"]), jnp.asarray(s["d"]),
+                                                jax_seed_rays(jnp.arange(n, dtype=jnp.uint32), jnp.uint32(6)),
+                                                jnp.asarray(s["active"]))
+    grid, params, lut = s["t"]
+    ipos, idir, near, far, dt, valid = tmodes._raymarch_setup(params, torch.from_numpy(s["origin"]),
+                                                              torch.from_numpy(s["d"]), torch.from_numpy(s["active"]))
+    state, xi = tmodes.rng_where(valid, seed_rays(torch.arange(n, dtype=torch.int64), 6))
+    kernels.reset_launch_counts()
+    out, tau = ttm.tile_march_transmittance_plain(grid.dense, ipos, idir, near + xi * dt, dt, far, valid, state, lut,
+                                                  ttm.volume_scalars(params), (EXT, EXT, EXT))
+    assert kernels.LAUNCHES["tile_march_transmittance"] == 0
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jstate).astype(np.int64))
+    assert torch.equal(out[~valid], state[~valid])
+    tr = torch.exp(-tau).numpy()
+    close = np.isclose(tr, np.asarray(jtr), rtol=1e-5, atol=0)
+    assert close.mean() >= 0.99, f"Tr differs on {(~close).sum()} of {n} lanes"
+    assert (tr[~valid.numpy()] == 1.0).all() and (tau[~valid] == 0).all()
+    assert 0.05 < (tr < 0.999).mean() and valid.float().mean() > 0.5

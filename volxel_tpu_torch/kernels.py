@@ -12,6 +12,10 @@ Each C entry point launches on the stream it is given (the caller passes
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
 `--fmad=false` keeps every multiply and add separately rounded, as eager
 PyTorch ops are, so a kernel can be held bit-equal to its plain version.
+The sources in FMAD_SOURCES are built with nvcc's default `--fmad=true`
+instead, so that the math library's functions (logf) round as they do in
+ATen's kernels; those sources write every f32 sum and product with the
+`__fadd_rn` / `__fmul_rn` intrinsics, which are never contracted.
 
 `LAUNCHES` counts kernel launches by name. Only the wrappers add to it,
 once per launch, so a run can show which kernels its path went through.
@@ -32,13 +36,15 @@ BUILD = Path(__file__).resolve().parent / "build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH,
-    "-O3", "--fmad=false", "-std=c++17",
+    "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
 )
+FMAD_SOURCES = ("dda_collide.cu",)
 
 LAUNCHES = {
-    "pyr_march": 0, "importance_pyramid": 0, "tonemap": 0, "tile_march_sample": 0, "tile_march_sums": 0,
-    "shearwarp_intermediate": 0, "gather_f32": 0, "lookup_transfer": 0,
+    "pyr_march": 0, "dda_collide_sample": 0, "dda_collide_shadow": 0, "importance_pyramid": 0, "tonemap": 0,
+    "tile_march_sample": 0, "tile_march_transmittance": 0, "tile_march_sums": 0, "shearwarp_intermediate": 0,
+    "gather_f32": 0, "lookup_transfer": 0,
 }
 
 _P = ctypes.c_void_p
@@ -53,10 +59,20 @@ _SIGNATURES = {
     "vx_pool2x2": [_P, _P, _I, _I, _P],
     # src, dst, n, exposure, inv_gamma, stream
     "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
+    # dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos, idir, t, maj,
+    # kind, state, tau, mip, running, hit, rgb, n, stream
+    "vx_dda_collide_sample": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 12 + [ctypes.c_longlong, _P],
+    # the same up to running, then tr, physical, n, stream
+    "vx_dda_collide_shadow": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, ctypes.c_longlong, _P],
+    # xi, out, n, stream
+    "vx_neg_log1m": [_P, _P, ctypes.c_longlong, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
     # tau_target, state, lut, lut_k, scalars, state_out, hit_out, t_out,
     # rgb_out, n, steps, stream
     "vx_tile_march_sample": [_P, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _P],
+    # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, state,
+    # lut, lut_k, scalars, state_out, tau_out, n, steps, stream
+    "vx_tile_march_transmittance": [_P, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,
     # n, steps, stream
     "vx_tile_march_sums": [_P, _I, _I, _I, _I, _I] + [_P] * 7 + [_I, _I, _P],
@@ -93,9 +109,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _flags(src: Path) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, "--fmad=true" if src.name in FMAD_SOURCES else "--fmad=false")
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
+        h.update(" ".join(_flags(src)).encode())
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"libvolxel_kernels-{h.hexdigest()[:16]}.so"
@@ -119,7 +140,7 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD) as tmpdir:
         objs = [str(Path(tmpdir) / f"{src.stem}.o") for src in _sources()]
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for obj, src in zip(objs, _sources())])
+        _run([[nvcc, *_flags(src), "-c", "-o", obj, str(src)] for obj, src in zip(objs, _sources())])
         lib_tmp = str(Path(tmpdir) / out.name)
         _run([[nvcc, "-shared", *ARCH, "-o", lib_tmp, *objs]])
         os.replace(lib_tmp, out)

@@ -6,15 +6,16 @@ PyTorch counterpart of volxel_tpu.render.modes:
     pyramid, with the structure of the JAX package's sample_volume_dda_pyr
     / transmittance_dda_pyr. The march runs in render.pyrmarch.pyr_march (a
     CUDA kernel on the card), which parks every lane at its next collision
-    candidate; the density decode and every random draw run here, on the
-    parked lanes only, and the loop re-enters the march while any lane
-    runs. Each lane has its own step budget (dda.glsl's per-pixel loop cap).
+    candidate; the density decode and every random draw at the parked
+    lanes run in render.collide (another kernel on the card), and the loop
+    re-enters the march while any lane runs. Each lane has its own step
+    budget (dda.glsl's per-pixel loop cap).
   no_dda (normal.glsl): delta tracking and ratio tracking against the
     global majorant, in PyTorch, over the lanes still running.
   raymarch (raymarch.glsl): 64 fixed steps with the stochastic tricubic
     filter. The camera leg's step loop runs in
     render.tilemarch.tile_march_sample (a CUDA kernel on the card) after a
-    PyTorch prologue; the shadow leg is PyTorch.
+    PyTorch prologue, the shadow leg's in tile_march_transmittance (another).
 
 The JAX package's compaction ladders, compacted decodes and step
 statistics are TPU workarounds or diagnostics and are not ported.
@@ -35,19 +36,19 @@ import functools
 
 import torch
 
-from volxel_tpu_torch.render.pyrmarch import KIND_COLL, KIND_DONE, _round_mip, _step_dda, pyr_march  # noqa: F401
+from volxel_tpu_torch.render.collide import dda_collide_sample, dda_collide_shadow
+from volxel_tpu_torch.render.pyrmarch import _round_mip, _step_dda, pyr_march  # noqa: F401
 from volxel_tpu_torch.render.rays import Rays, ray_box_intersection
 from volxel_tpu_torch.render.rng import rng, rng_where
 from volxel_tpu_torch.render.sampling import (
     VolumeParams,
-    lookup_density_stochastic,
     lookup_density_trilinear,
     lookup_transfer,
     world_to_index_dir,
     world_to_index_point,
 )
 from volxel_tpu_torch.render.tilemarch import STEPS as RAYMARCH_STEPS
-from volxel_tpu_torch.render.tilemarch import tile_march_sample, volume_scalars
+from volxel_tpu_torch.render.tilemarch import tile_march_sample, tile_march_transmittance, volume_scalars
 
 # per-lane step caps
 DDA_SAMPLE_MAX_STEPS = 1024
@@ -57,7 +58,6 @@ TRACKING_MAX_EVENTS = 512  # no_dda events per leg, one count for every lane as 
 # adaptive mip schedule (dda.glsl:6-8)
 MIP_START = 3.0
 MIP_SPEED_UP = 0.25
-MIP_SPEED_DOWN = 2.0
 
 
 def _to_index_space(params: VolumeParams, origin, direction):
@@ -121,7 +121,9 @@ def _march_setup(grid, params, origin, direction, state, active):
 
 def sample_volume_dda(grid, params, lut, origin, direction, state, active):
     """DDA distance sampling (dda.glsl:65-98) over grid.maj_alpha, the
-    premultiplied pyramid (build_premul_majorant)."""
+    premultiplied pyramid (build_premul_majorant): each round marches the
+    running lanes to their next collision candidate (pyr_march), then
+    decodes and draws at the parked lanes (collide.dda_collide_sample)."""
     state, ipos, idir, ri, far, t, tau, mip, running, extent = _march_setup(
         grid, params, origin, direction, state, active
     )
@@ -129,38 +131,22 @@ def sample_volume_dda(grid, params, lut, origin, direction, state, active):
     hit = torch.zeros_like(running)
     rgb = torch.ones((n, 3), dtype=torch.float32, device=origin.device)
     budget = torch.full((n,), DDA_SAMPLE_MAX_STEPS, dtype=torch.int32, device=origin.device)
+    scalars = volume_scalars(params)
     while bool(running.any()):
         t, tau, mip, maj, kind, budget = pyr_march(
             grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running,
             DDA_SAMPLE_MAX_STEPS,
         )
-        done = running & (kind == KIND_DONE)
-        lanes = torch.nonzero(running & (kind == KIND_COLL)).squeeze(1)
-        if lanes.numel():
-            # decode + draws on the parked lanes only (dda.glsl:81-96): the
-            # real/null draw at every live collision, the tau redraw only at
-            # a null one (a real collision returns before it)
-            pos = ipos[lanes] + t[lanes, None] * idir[lanes]
-            rgba = _decode_rgba(grid, params, lut, pos)
-            d = params.vol_maj * rgba[:, 3]
-            st, xi1 = rng(state[lanes])
-            real = xi1 * maj[lanes] < d
-            st, xi2 = rng_where(~real, st)
-            state[lanes] = st
-            tau[lanes] = torch.where(real, tau[lanes], -torch.log(1.0 - xi2))
-            mip[lanes] = torch.where(real, mip[lanes], torch.clamp_min(mip[lanes] - MIP_SPEED_DOWN, 0.0))
-            hit_lanes = lanes[real]
-            rgb[hit_lanes] = rgba[real, :3]
-            hit[hit_lanes] = True
-            running[hit_lanes] = False
-        running = running & ~done
+        dda_collide_sample(grid.dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running,
+                           hit, rgb)
     le_add = torch.zeros((n, 3), dtype=torch.float32, device=origin.device)  # emission stub
     return state, hit, t, rgb, le_add
 
 
 def transmittance_dda(grid, params, lut, origin, direction, state, active, physical: bool = False):
     """Ratio-tracking shadow transmittance (dda.glsl:21-62 draw protocol:
-    real collisions keep marching with a redrawn tau; RR under 0.1).
+    real collisions keep marching with a redrawn tau; RR under 0.1), in
+    rounds of pyr_march and collide.dda_collide_shadow.
 
     physical=False keeps the reference quirk Tr *= max(0, 1 - global/local)
     (dda.glsl:48), which makes real collisions opaque; physical=True is
@@ -171,40 +157,14 @@ def transmittance_dda(grid, params, lut, origin, direction, state, active, physi
     n = origin.shape[0]
     tr = torch.ones((n,), dtype=torch.float32, device=origin.device)
     budget = torch.full((n,), DDA_TRANSMITTANCE_MAX_STEPS, dtype=torch.int32, device=origin.device)
+    scalars = volume_scalars(params)
     while bool(running.any()):
         t, tau, mip, maj, kind, budget = pyr_march(
             grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running,
             DDA_TRANSMITTANCE_MAX_STEPS,
         )
-        done = running & (kind == KIND_DONE)
-        lanes = torch.nonzero(running & (kind == KIND_COLL)).squeeze(1)
-        if lanes.numel():
-            pos = ipos[lanes] + t[lanes, None] * idir[lanes]
-            rgba = _decode_rgba(grid, params, lut, pos)
-            d = params.vol_maj * rgba[:, 3]
-            maj_l = maj[lanes]
-            st, xi1 = rng(state[lanes])
-            real = xi1 * maj_l < d
-            if physical:
-                ratio = torch.clamp_min(1.0 - d / torch.clamp_min(maj_l, 1e-20), 0.0)
-            else:
-                ratio = torch.clamp_min(1.0 - params.vol_maj / torch.clamp_min(maj_l, 1e-20), 0.0)
-            tr_l = tr[lanes]
-            tr_new = torch.where(real, tr_l * ratio, tr_l)
-            # russian roulette only when a real collision dropped Tr below
-            # the threshold (dda.glsl:50-54); a killed lane returns before
-            # the tau redraw
-            rr_active = real & (tr_new < 0.1)
-            st, xi_rr = rng_where(rr_active, st)
-            killed = rr_active & (xi_rr < (1.0 - tr_new))
-            tr_new = torch.where(rr_active & ~killed, tr_new / torch.clamp_min(tr_new, 1e-20), tr_new)
-            tr[lanes] = torch.where(killed, 0.0, tr_new)
-            st, xi2 = rng_where(~killed, st)
-            state[lanes] = st
-            tau[lanes] = -torch.log(1.0 - xi2)
-            mip[lanes] = torch.clamp_min(mip[lanes] - MIP_SPEED_DOWN, 0.0)
-            running[lanes[killed]] = False
-        running = running & ~done
+        dda_collide_shadow(grid.dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running,
+                           tr, physical)
     return state, tr
 
 
@@ -316,25 +276,18 @@ def sample_volume_raymarch(grid, params, lut, origin, direction, state, active):
 
 
 def transmittance_raymarch(grid, params, lut, origin, direction, state, active):
-    """Raymarched shadow transmittance (raymarch.glsl:8-23): every lane
-    inside the box takes all RAYMARCH_STEPS steps and their draws (no early
-    out), Tr = exp(-tau). Plain PyTorch over those lanes only."""
+    """Raymarched shadow transmittance (raymarch.glsl:8-23): the box test
+    and the start jitter here, then every lane inside the box takes all
+    RAYMARCH_STEPS steps and their draws (no early out) in
+    tilemarch.tile_march_transmittance, a kernel on the card; Tr =
+    exp(-tau), 1 outside the box."""
     ipos, idir, near, far, dt, valid = _raymarch_setup(params, origin, direction, active)
     state, xi_j = rng_where(valid, state)  # raymarch.glsl:17
     start = near + xi_j * dt
-    lanes = torch.nonzero(valid).squeeze(1)
-    ipos, idir, start, dt, far = ipos[lanes], idir[lanes], start[lanes], dt[lanes], far[lanes]
-    st = state[lanes]
-    tau = torch.zeros_like(start)
-    for i in range(RAYMARCH_STEPS):
-        t = torch.minimum(start + i * dt, far)
-        st, d_raw = lookup_density_stochastic(grid, params, ipos + t[:, None] * idir, st)
-        alpha = lookup_transfer(lut, params.sample_range, d_raw * params.inv_maj)[:, 3]
-        tau = tau + alpha * params.vol_maj * dt
-    state[lanes] = st
-    tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    tr[lanes] = torch.exp(-tau)
-    return state, tr
+    extent = tuple(int(v) for v in grid.extent.tolist())
+    state, tau = tile_march_transmittance(grid.dense, ipos, idir, start, dt, far, valid, state, lut,
+                                          volume_scalars(params), extent)
+    return state, torch.exp(-tau)
 
 
 def get_mode_functions(mode: str, physical_shadows: bool = False):

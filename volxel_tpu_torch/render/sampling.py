@@ -10,7 +10,9 @@ common.glsl), cut to what the ported render modes run:
     resolution and stacked into one (4, bz, by, bx) majorant pyramid, so
     the traced mip index is one more gather coordinate;
   * the transfer LUT is sampled NEAREST with sample-range rejection
-    (common.glsl:78-83), one fused fetch on the card (render.gather);
+    (common.glsl:78-83), one fused fetch on the card (render.gather); the
+    default and raymarch legs fetch it inside their own kernels
+    (render.collide, render.tilemarch);
   * out-of-extent voxel taps return 0.0 like GL texelFetch robust access.
 
 The JAX package's pair/quad/octo packings, MXU byte planes and slab grids
@@ -165,10 +167,24 @@ def lookup_majorant_premul(grid: DeviceGrid, ipos, mip):
 
 # the 8 stencil taps in the JAX package's order (dz outer, dx inner)
 _TAPS = tuple((dx, dy, dz) for dz in (0, 1) for dy in (0, 1) for dx in (0, 1))
+_TAP_OFFSETS: dict = {}  # _TAPS as an (8, 3) int64 tensor, per device
+
+
+def _tap_offsets(device) -> torch.Tensor:
+    offsets = _TAP_OFFSETS.get(device)
+    if offsets is None:
+        offsets = _TAP_OFFSETS[device] = torch.tensor(_TAPS, dtype=torch.int64, device=device)
+    return offsets
 
 
 def lookup_density_trilinear(grid: DeviceGrid, params: VolumeParams, ipos):
-    """Trilinear filtered scaled density (common.glsl:61-69).
+    """Trilinear filtered scaled density (common.glsl:61-69):
+    density_scale * trilinear_sum."""
+    return params.density_scale * trilinear_sum(grid, ipos)
+
+
+def trilinear_sum(grid: DeviceGrid, ipos):
+    """The unscaled trilinear sum of the dense field at index-space points.
 
     The 8 taps are fetched in one gather; each weight is
     ((wx * wy) * wz) and the weighted taps are summed one after another in
@@ -177,7 +193,7 @@ def lookup_density_trilinear(grid: DeviceGrid, params: VolumeParams, ipos):
     p = ipos - 0.5
     base = torch.floor(p).to(torch.int64)
     f = p - base.to(torch.float32)
-    offsets = torch.tensor(_TAPS, dtype=torch.int64, device=ipos.device)
+    offsets = _tap_offsets(ipos.device)
     taps = lookup_density_brick_int(grid, base[..., None, :] + offsets)  # (..., 8)
     w1 = torch.stack([1 - f, f], dim=-1)  # (..., 3 axes, 2): weight of offset 0 / 1
     idx = offsets.T  # (3, 8)
@@ -186,7 +202,7 @@ def lookup_density_trilinear(grid: DeviceGrid, params: VolumeParams, ipos):
     acc = terms[..., 0]
     for k in range(1, len(_TAPS)):
         acc = acc + terms[..., k]
-    return params.density_scale * acc
+    return acc
 
 
 def stochastic_tricubic_offsets(ipos, state, mask=None):
@@ -215,12 +231,6 @@ def stochastic_tricubic_offsets(ipos, state, mask=None):
         take = r < w / torch.clamp_min(sum_w, 1e-3)
         idx = torch.where(take, tap, idx)
     return state, iipos + idx - 1
-
-
-def lookup_density_stochastic(grid: DeviceGrid, params: VolumeParams, ipos, state, mask=None):
-    """Stochastic tricubic density (common.glsl:71-76) -> (state, density)."""
-    state, tap = stochastic_tricubic_offsets(ipos, state, mask)
-    return state, params.density_scale * lookup_density_brick_int(grid, tap)
 
 
 # -- transfer function ---------------------------------------------------------

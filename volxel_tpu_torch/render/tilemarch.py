@@ -1,6 +1,6 @@
-"""Tile-march: the raymarch camera leg's step loop, and nearest-tap density
-sums, as hand-written CUDA kernels on the card beside their plain PyTorch
-versions.
+"""Tile-march: the raymarch mode's step loops (camera leg and shadow leg),
+and nearest-tap density sums, as hand-written CUDA kernels on the card
+beside their plain PyTorch versions.
 
 Counterpart of volxel_tpu.render.tilemarch. There, Mosaic cannot gather
 per lane, so each (tile, step) streams a block window of the dense field
@@ -14,12 +14,15 @@ form those are pinned bit-identical to:
     (nine masked xoshiro128++ draws), the transfer LUT with range
     rejection and tau += alpha * vol_maj * dt; a lane stops at its first
     step with tau >= tau_target.
+  tile_march_transmittance: modes.transmittance_raymarch's step loop (no
+    TPU kernel there). The same steps with no hit test: every lane inside
+    the box takes all STEPS steps and their draws, and returns its tau.
   tile_march_sums: serial_march_sums. The sum over `steps` of the nearest
     tap dense[floor(p - 0.5)], 0 outside the volume and on invalid lanes.
 
 Here every thread gathers its own taps (csrc/tile_march.cu), so there is
 no window, no freeze and no fallback, and the TPU sums kernel's `miss`
-output (window misses) has no counterpart. Both kernels are built with
+output (window misses) has no counterpart. The kernels are built with
 --fmad=false and follow the plain versions' op order, so on the card they
 agree bit for bit on every output of every lane.
 """
@@ -33,9 +36,9 @@ from volxel_tpu_torch.render.sampling import (
     DeviceGrid,
     VolumeParams,
     lookup_density_brick_int,
-    lookup_transfer,
     stochastic_tricubic_offsets,
 )
+from volxel_tpu_torch.render.gather import lookup_transfer_plain
 
 STEPS = 64  # RAYMARCH_STEPS (raymarch.glsl:6)
 
@@ -46,7 +49,7 @@ S_DEN_SCALE = 2
 S_RANGE_LO = 3
 S_RANGE_HI = 4
 
-# the kernel stages the LUT in shared memory: at most 48 KiB without opt-in
+# the step loops stage the LUT in shared memory: at most 48 KiB of it
 MAX_LUT_ROWS = 3072
 
 
@@ -63,10 +66,12 @@ def _dense_grid(dense, extent) -> DeviceGrid:
     )
 
 
-def tile_march_sample_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
-    """Plain PyTorch step loop: every lane in lockstep under a mask, at
-    most STEPS steps, each lane stopping at its hit; see
-    `tile_march_sample`."""
+def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
+    """Plain PyTorch step loop of both legs: every lane in lockstep under a
+    mask, at most STEPS steps. With a `tau_target` each lane stops at its
+    hit (`tile_march_sample`); with None every lane inside the box takes
+    all STEPS steps (`tile_march_transmittance`). Returns (state, hit, t,
+    rgb, tau)."""
     grid = _dense_grid(dense, extent)
     inv_maj, vol_maj, density_scale = scalars[S_INV_MAJ], scalars[S_VOL_MAJ], scalars[S_DEN_SCALE]
     sample_range = scalars[S_RANGE_LO:S_RANGE_HI + 1]
@@ -81,16 +86,29 @@ def tile_march_sample_plain(dense, ipos, idir, start, dt, far, valid, tau_target
         t = torch.minimum(start + i * dt, far)
         state, tap = stochastic_tricubic_offsets(ipos + t[:, None] * idir, state, marching)
         d_raw = density_scale * lookup_density_brick_int(grid, tap)
-        rgba = lookup_transfer(lut, sample_range, d_raw * inv_maj)
+        rgba = lookup_transfer_plain(lut, sample_range, d_raw * inv_maj)
         tau_new = tau + rgba[:, 3] * vol_maj * dt
-        new_hit = marching & (tau_new >= tau_target)
-        hit = hit | new_hit
-        t_out = torch.where(new_hit, t, t_out)
-        rgb_out = torch.where(new_hit[:, None], rgba[:, :3], rgb_out)
         tau = torch.where(marching, tau_new, tau)
-        marching = marching & ~new_hit
+        if tau_target is not None:
+            new_hit = marching & (tau_new >= tau_target)
+            hit = hit | new_hit
+            t_out = torch.where(new_hit, t, t_out)
+            rgb_out = torch.where(new_hit[:, None], rgba[:, :3], rgb_out)
+            marching = marching & ~new_hit
         i += 1
-    return state, hit, t_out, rgb_out
+    return state, hit, t_out, rgb_out, tau
+
+
+def tile_march_sample_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
+    """Plain PyTorch camera leg; see `tile_march_sample`."""
+    return tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent)[:4]
+
+
+def tile_march_transmittance_plain(dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent):
+    """Plain PyTorch shadow leg; see `tile_march_transmittance`."""
+    state, _, _, _, tau = tile_march_plain(dense, ipos, idir, start, dt, far, valid, None, state, lut, scalars,
+                                           extent)
+    return state, tau
 
 
 def _check_lanes(name, n, vectors, scalars_per_lane):
@@ -113,25 +131,32 @@ def _check_dense(name, dense, extent):
     return ex, ey, ez
 
 
+def _check_march(name, dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent, per_lane=()):
+    """Device, type, shape and contiguity of a step loop's operands;
+    returns the extent and the lane count."""
+    ext = _check_dense(name, dense, extent)
+    dev = dense.device
+    kernels.require_cuda(name, ipos, idir, start, dt, far, lut, scalars, *(a for _, a in per_lane),
+                         dtype=torch.float32, device=dev)
+    kernels.require_cuda(name, valid, dtype=torch.bool, device=dev)
+    kernels.require_cuda(name, state, dtype=torch.int64, device=dev)
+    n = ipos.shape[0]
+    _check_lanes(name, n, (("ipos", ipos), ("idir", idir)),
+                 (("start", start), ("dt", dt), ("far", far), ("valid", valid), *per_lane))
+    if tuple(state.shape) != (n, 4):
+        raise ValueError(f"{name}: state must be ({n}, 4), got {tuple(state.shape)}")
+    if lut.dim() != 2 or lut.shape[1] != 4 or not 0 < lut.shape[0] <= MAX_LUT_ROWS:
+        raise ValueError(f"{name}: lut must be (K, 4) with K <= {MAX_LUT_ROWS}, got {tuple(lut.shape)}")
+    if tuple(scalars.shape) != (S_RANGE_HI + 1,):
+        raise ValueError(f"{name}: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
+    return ext, n
+
+
 def tile_march_sample_cuda(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
     """The step loop as one launch of csrc/tile_march.cu; see
     `tile_march_sample`."""
-    ex, ey, ez = _check_dense("tile_march_sample", dense, extent)
-    dev = dense.device
-    kernels.require_cuda("tile_march_sample", ipos, idir, start, dt, far, tau_target, lut, scalars,
-                         dtype=torch.float32, device=dev)
-    kernels.require_cuda("tile_march_sample", valid, dtype=torch.bool, device=dev)
-    kernels.require_cuda("tile_march_sample", state, dtype=torch.int64, device=dev)
-    n = ipos.shape[0]
-    _check_lanes("tile_march_sample", n, (("ipos", ipos), ("idir", idir)),
-                 (("start", start), ("dt", dt), ("far", far), ("valid", valid), ("tau_target", tau_target)))
-    if tuple(state.shape) != (n, 4):
-        raise ValueError(f"tile_march_sample: state must be ({n}, 4), got {tuple(state.shape)}")
-    if lut.dim() != 2 or lut.shape[1] != 4 or not 0 < lut.shape[0] <= MAX_LUT_ROWS:
-        raise ValueError(f"tile_march_sample: lut must be (K, 4) with K <= {MAX_LUT_ROWS}, "
-                         f"got {tuple(lut.shape)}")
-    if tuple(scalars.shape) != (S_RANGE_HI + 1,):
-        raise ValueError(f"tile_march_sample: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
+    (ex, ey, ez), n = _check_march("tile_march_sample", dense, ipos, idir, start, dt, far, valid, state, lut,
+                                   scalars, extent, (("tau_target", tau_target),))
     _, ny, nx = dense.shape
     state_o = torch.empty_like(state)
     hit = torch.empty_like(valid)
@@ -141,8 +166,8 @@ def tile_march_sample_cuda(dense, ipos, idir, start, dt, far, valid, tau_target,
         dense.data_ptr(), ny, nx, ex, ey, ez,
         ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
         valid.data_ptr(), tau_target.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0],
-        scalars.data_ptr(), state_o.data_ptr(), hit.data_ptr(), t_o.data_ptr(), rgb.data_ptr(),
-        n, STEPS, kernels.stream_of(ipos),
+        scalars.data_ptr(), state_o.data_ptr(), hit.data_ptr(), t_o.data_ptr(), rgb.data_ptr(), n, STEPS,
+        kernels.stream_of(ipos),
     )
     kernels.check("vx_tile_march_sample", code)
     kernels.LAUNCHES["tile_march_sample"] += 1
@@ -169,6 +194,38 @@ def tile_march_sample(
     if ipos.device.type == "cpu":
         return tile_march_sample_plain(*args)
     return tile_march_sample_cuda(*args)
+
+
+def tile_march_transmittance_cuda(dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent):
+    """The step loop as one launch of csrc/tile_march.cu; see
+    `tile_march_transmittance`."""
+    (ex, ey, ez), n = _check_march("tile_march_transmittance", dense, ipos, idir, start, dt, far, valid, state,
+                                   lut, scalars, extent)
+    _, ny, nx = dense.shape
+    state_o = torch.empty_like(state)
+    tau = torch.empty_like(start)
+    code = kernels.lib().vx_tile_march_transmittance(
+        dense.data_ptr(), ny, nx, ex, ey, ez,
+        ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
+        valid.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0], scalars.data_ptr(),
+        state_o.data_ptr(), tau.data_ptr(), n, STEPS, kernels.stream_of(ipos),
+    )
+    kernels.check("vx_tile_march_transmittance", code)
+    kernels.LAUNCHES["tile_march_transmittance"] += 1
+    return state_o, tau
+
+
+def tile_march_transmittance(dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent):
+    """The raymarch shadow leg after its box test and start jitter
+    (raymarch.glsl:18-22): every lane inside the box takes all STEPS steps
+    and their nine draws each, tau += alpha * vol_maj * dt. Arguments as
+    in `tile_march_sample` (no tau target). Returns (state, tau): the words
+    after each lane's draws and tau (0 outside the box). A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
+    args = (dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent)
+    if ipos.device.type == "cpu":
+        return tile_march_transmittance_plain(*args)
+    return tile_march_transmittance_cuda(*args)
 
 
 def tile_march_sums_plain(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):
