@@ -7,16 +7,19 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from volxel_tpu_torch/csrc and print the time;
+   build csrc/dda_leg.cu once more with `-Xptxas -v` (registers and spills
+   of each kernel) and check in its SASS (cuobjdump) that the leg kernels'
+   own code holds no FFMA;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
-   - the DDA march at every call of one 1080p default-mode sample of the
-     512^3 scene (bit-equal on every output of every lane), its summed
-     event time beside the torch.profiler device time of the same sample;
-   - both collision rounds (the camera leg's and the shadow leg's) at every
-     round of one 1080p default-mode sample, and the shadow round with
-     physical shadows at every round of one more (bit-equal on every
-     output they update in place; each call times fresh copies); the
-     rounds' -logf(1 - xi) against torch.log at all 2^24 draws;
+   - both default-mode legs (the camera leg's and the shadow leg's kernel:
+     the DDA march and its collisions, each lane until it ends) at every
+     call of one 1080p default-mode sample of the 512^3 scene, and the
+     shadow leg with physical shadows at every call of one more (bit-equal
+     on every output of every lane), with the launches' warp efficiency
+     (the mean over the max of the march steps the lanes of a warp take)
+     and a bound recounted for the work the lanes need; the legs'
+     -logf(1 - xi) against torch.log at all 2^24 draws;
    - both table fetches: the transfer-LUT fetch where it still runs (the
      default sample's premultiplied pyramid and every event of one 1080p
      no_dda frame) and gather_f32 at every call of one 1080p default-mode
@@ -43,11 +46,13 @@ Phases, each of which raises (exit code != 0) on failure:
    in the benchmark framing (bench.py), 1920x1080, 5 warm-up + 3
    accumulated frames, then image(), in the default mode and in the
    raymarch mode, each with every launch counter at 0 before it; check the
-   output, that every kernel of the path launched and that the LUT fetch
-   launched at most once per default sample and never in the raymarch
-   mode; print every kernel's launches per sample; in both modes split one
-   sample into its camera and shadow legs and profile one (device kernels,
-   torch.nonzero calls); time one
+   output, that every kernel of the path launched, that each default leg
+   is one launch per bounce and that the LUT fetch launched at most once
+   per default sample and never in the raymarch mode; print every kernel's
+   launches per sample; in both modes split one sample into its camera and
+   shadow legs (their ms, launches and host syncs) and profile one (device
+   kernels, torch.nonzero calls), and the default mode once more at
+   bounces 3; time one
    1080p no_dda frame; then the shear-warp preview: render_preview() at six
    camera poses that use all six (principal axis, flip) volumes, each
    called 1 + 3 times, and render_dvr(screen=True) once, with the counters
@@ -69,9 +74,12 @@ import argparse
 import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -88,7 +96,7 @@ ACCUMULATED_FRAMES = 3
 PARITY_FRAMES = 12  # frames 5..11 accumulate, as tests/test_parity_oracle.py
 # a kernel's time at one call is the mean of this many back-to-back launches
 # of the call, so the few microseconds the events add per timed region are
-# spread over them (the DDA march's calls take ~30 us on average at 1080p)
+# spread over them (the LUT fetch's calls take ~3 us at 1080p)
 KERNEL_REPS = 5
 # the preview's camera poses, applied one after the other to the bench
 # framing: each turns the view onto another (principal axis, flip)
@@ -110,8 +118,8 @@ PROFILE_PAD = 32
 PROFILE_ATTEMPTS = 5
 PAD_KERNEL = "empty_kernel"
 # the device symbol of the kernel behind each launch counter
-KERNEL_SYMBOLS = {"pyr_march": "pyr_march_kernel", "dda_collide_sample": "dda_collide_sample_kernel",
-                  "dda_collide_shadow": "dda_collide_shadow_kernel", "importance_pyramid": "pool2x2_kernel",
+KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "dda_leg_shadow_kernel",
+                  "importance_pyramid": "pool2x2_kernel",
                   "tonemap": "tonemap_kernel", "tile_march_sample": "tile_march_sample_kernel",
                   "tile_march_transmittance": "tile_march_transmittance_kernel",
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
@@ -124,8 +132,8 @@ KERNEL_SYMBOLS = {"pyr_march": "pyr_march_kernel", "dda_collide_sample": "dda_co
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per unit of work, counted from the kernels' sources: a DDA
-# step of the march; a parked lane's collision round (the trilinear decode
-# of eight taps, the LUT, two or three draws, the leg's updates); a
+# step of the march; a collision (the trilinear decode of eight taps, the
+# LUT, two or three draws, the leg's updates); a
 # raymarch step (nine xoshiro draws, the tricubic offsets, the tap, the
 # LUT and the tau test); a nearest-tap sum step; a
 # shear-warp voxel's LUT index (two products, floor, clamp), a LUT row's
@@ -150,7 +158,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bench_renderer(grid, width: int, height: int, device, mode: str = "default"):
+def bench_renderer(grid, width: int, height: int, device, mode: str = "default", bounces: int = 1):
     from volxel_tpu_torch import Renderer
 
     r = Renderer(width, height, device=device)
@@ -158,7 +166,7 @@ def bench_renderer(grid, width: int, height: int, device, mode: str = "default")
     r.render_mode = mode
     r.camera.rotate_around_view(0.6, 0.4)
     r.camera.zoom(2.0)
-    r.settings.bounces = 1
+    r.settings.bounces = bounces
     r.set_transfer_colors(BENCH_TRANSFER)
     r.settings.sample_range = list(BENCH_SAMPLE_RANGE)
     r.restart_rendering()
@@ -403,101 +411,152 @@ def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms
             "plain_ms": plain_ms, **bound(moved, ops), "library_ms": library_ms}
 
 
-def check_march(r) -> dict:
-    """K1 at every call of one full 1080p sample (camera march and NEE
-    shadow marches; lanes counted: the running ones), and its summed event
-    time beside the profiler's device time of the same sample. Its work:
-    the per-lane state read and written, each marching lane's ray read,
-    and one majorant fetch and one DDA step per step taken (the budget
-    each lane spent)."""
+def check_legs(r) -> list[dict]:
+    """Both leg kernels at every call of one 1080p default sample (the
+    camera leg and the shadow leg; lanes counted: the running ones), then
+    the shadow leg with physical shadows at every call of one more sample;
+    bit-equal on every output of every lane. Their work, recounted for what
+    these lanes need: every lane's `running` and words read and its outputs
+    written once (the camera leg also reads every lane's t, the shadow leg
+    its tr), each running lane's ray and march state read once, one
+    majorant fetch and one DDA step per march step taken (the budget each
+    lane spent), and per collision (counted by the plain leg's rounds) the
+    decode with its eight 2-byte bf16 taps (at most the field's bytes, as
+    for the raymarch step loops); the pyramid, the LUT and the scalars
+    read once. Also the warp efficiency of the launches: the march steps
+    the lanes took over 32 times the most a lane of their warp (32 lanes
+    in pixel order) took."""
+    import torch
+
     import volxel_tpu_torch.render.modes as modes
-    from volxel_tpu_torch.render.pathtrace import render_sample
-    from volxel_tpu_torch.render.pyrmarch import pyr_march_cuda, pyr_march_plain
-
-    def work(args, got):
-        maj, _, ipos, idir, ri, t, tau, mip, far, budget, running, _ = args
-        steps = int((budget - got[5]).sum())
-        rays = int((running & (budget > 0)).sum()) * nbytes(ipos, idir, ri, far) // t.numel()
-        return nbytes(t, tau, mip, budget, running, *got) + rays + min(nbytes(maj), 4 * steps), steps * OPS_DDA_STEP
-
-    (tally,) = check_every_call(r, modes, {"pyr_march": dict(
-        cuda_fn=pyr_march_cuda, plain_fn=pyr_march_plain, outputs=("t", "tau", "mip", "maj", "kind", "budget"),
-        lanes=lambda a: int(a[10].sum()), work=work)})
-    operands = sample_operands(r)
-    prof_ms = profiled_device_ms(lambda: render_sample(*operands, 0), "pyr_march_kernel")
-    log(f"pyr_march: summed event time {tally['ms']:.4f} ms, profiler device time {prof_ms:.4f} ms over the same "
-        f"sample (event/profiler {tally['ms'] / max(prof_ms, 1e-9):.3f})")
-    return entry("pyr_march", "volxel_tpu_torch/csrc/pyr_march.cu", "volxel_tpu/render/pyrmarch.py:313",
-                 tally["err"], tally["ms"], tally["plain_ms"], tally["bytes"], tally["ops"])
-
-
-def check_collide(r) -> list[dict]:
-    """Both collision rounds at every round of one 1080p default sample (the
-    camera leg's and the shadow leg's), then the shadow round with
-    physical shadows at every round of one more sample; bit-equal on every
-    output they update in place (lanes counted: the parked ones). Their
-    work, counted from what each kernel does with these inputs: `running`
-    of every lane read, and written where a lane stops; for each running
-    lane its `kind`; for each parked lane its ray, t and majorant read, its
-    words read and written, its eight bf16 taps, and what its outcome
-    touches (sample: hit and rgb at a real collision, tau written and mip
-    read and written at a null one; shadow: tau written, mip and tr read
-    and written)."""
-    import volxel_tpu_torch.render.modes as modes
-    from volxel_tpu_torch.render import collide
+    from volxel_tpu_torch.render import ddaleg
     from volxel_tpu_torch.render.pyrmarch import KIND_COLL
 
-    def parked(args):
-        return args[12] & (args[8] == KIND_COLL)
+    collisions = []  # per plain leg call, the collisions its rounds decoded
+    warps = {}  # per leg: [steps taken, 32 x the warps' most, collisions]
 
-    def work(args, got):
-        running, n = args[12], args[12].numel()
-        coll = parked(args)
-        lanes = int(coll.sum())
-        stopped = int((running & ~got[3]).sum())  # `running` written: done, hit or killed lanes
-        if len(got) == 6:  # a real collision writes hit and rgb; a null one tau, and reads and writes mip
-            real = int((coll & got[4]).sum())
-            leg = real * (1 + 12) + (lanes - real) * (4 + 2 * 4)
-        else:  # tau written, mip and tr read and written
-            leg = lanes * (4 + 2 * 4 + 2 * 4)
-        moved = n + 4 * int(running.sum()) + stopped + lanes * (24 + 4 + 4 + 2 * 32 + 8 * 2) + leg
-        return moved, lanes * OPS_COLLIDE
+    def counting(plain_fn, round_name):
+        def run(*args):
+            seen = [0]
+            original = getattr(ddaleg, round_name)
 
-    def compare(cuda_fn, plain_fn, outputs):
-        return dict(cuda_fn=cuda_fn, plain_fn=plain_fn, outputs=outputs, lanes=lambda a: int(parked(a).sum()),
-                    work=work, mutable=tuple(range(9, 9 + len(outputs))))
+            def collide(dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running, *rest):
+                seen[0] += int((running & (kind == KIND_COLL)).sum())
+                return original(dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running,
+                                *rest)
 
-    sample, shadow = check_every_call(r, modes, {
-        "dda_collide_sample": compare(collide.dda_collide_sample_cuda, collide.dda_collide_sample_plain,
-                                      ("state", "tau", "mip", "running", "hit", "rgb")),
-        "dda_collide_shadow": compare(collide.dda_collide_shadow_cuda, collide.dda_collide_shadow_plain,
-                                      ("state", "tau", "mip", "running", "tr")),
-    })
+            setattr(ddaleg, round_name, collide)
+            try:
+                out = plain_fn(*args)
+            finally:
+                setattr(ddaleg, round_name, original)
+            collisions.append(seen[0])
+            return out
+        return run
+
+    def work_of(leg, key, cap):
+        def work(args, got):
+            dense, maj, _, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running = args[:14]
+            n = t.numel()
+            steps = torch.where(running, cap - got[-1], 0)
+            pad = (-n) % 32
+            most = torch.nn.functional.pad(steps, (0, pad)).reshape(-1, 32).amax(dim=1)
+            taken = int(steps.sum())
+            w = warps.setdefault(key, [0, 0, 0])
+            w[0] += taken
+            w[1] += 32 * int(most.sum())
+            w[2] += collisions[-1]
+            lanes = int(running.sum())
+            every = nbytes(running, state, *got) + nbytes(t if leg == "sample" else args[14])
+            per_running = nbytes(ipos, idir, ri, far, tau, mip) + (nbytes(t) if leg != "sample" else 0)
+            coll = collisions[-1]
+            moved = every + lanes * per_running // n + min(nbytes(dense), coll * 8 * 2) + nbytes(maj, lut, scalars)
+            return moved, taken * OPS_DDA_STEP + coll * OPS_COLLIDE
+        return work
+
+    def compare(leg, key):
+        name = f"dda_leg_{leg}"
+        cap = ddaleg.DDA_SAMPLE_MAX_STEPS if leg == "sample" else ddaleg.DDA_TRANSMITTANCE_MAX_STEPS
+        plain = counting(getattr(ddaleg, f"{name}_plain"), f"dda_collide_{leg}_plain")
+        outputs = ("state", "hit", "t", "rgb", "budget") if leg == "sample" else ("state", "tr", "budget")
+        return dict(cuda_fn=getattr(ddaleg, f"{name}_cuda"), plain_fn=plain, outputs=outputs,
+                    lanes=lambda a: int(a[13].sum()), work=work_of(leg, key, cap))
+
+    sample, shadow = check_every_call(r, modes, {"dda_leg_sample": compare("sample", "sample"),
+                                                 "dda_leg_shadow": compare("shadow", "shadow")})
     r.settings.physical_shadows = True
     try:
-        (physical,) = check_every_call(r, modes, {"dda_collide_shadow": compare(
-            collide.dda_collide_shadow_cuda, collide.dda_collide_shadow_plain, ("state", "tau", "mip", "running", "tr"))},
-            frame=1, what=" with physical shadows")
+        (physical,) = check_every_call(r, modes, {"dda_leg_shadow": compare("shadow", "physical")}, frame=1,
+                                       what=" with physical shadows")
     finally:
         r.settings.physical_shadows = False
-    source, replaces = "volxel_tpu_torch/csrc/dda_collide.cu", "volxel_tpu/render/mxu_gather.py:196"
-    return [entry(name, source, replaces, max(t["err"], physical["err"]), t["ms"], t["plain_ms"], t["bytes"],
-                  t["ops"]) for name, t in (("dda_collide_sample", sample), ("dda_collide_shadow", shadow))]
+    entries = []
+    for name, t, w in (("dda_leg_sample", sample, warps["sample"]), ("dda_leg_shadow", shadow, warps["shadow"]),
+                       ("dda_leg_shadow (physical)", physical, warps["physical"])):
+        least = bound(t["bytes"], t["ops"])
+        log(f"{name}: {t['calls']} launches, warp efficiency {w[0] / max(w[1], 1):.4f} ({w[0]} march steps of "
+            f"{w[1]} warp lane-steps), {w[2]} collisions; bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
+            f"({least['bound_ms'] / max(t['ms'], 1e-9):.1%} of the kernel's {t['ms']:.4f} ms)")
+        if not name.endswith("(physical)"):
+            entries.append(entry(name, "volxel_tpu_torch/csrc/dda_leg.cu", "volxel_tpu/render/pyrmarch.py:313",
+                                 max(t["err"], physical["err"] if name == "dda_leg_shadow" else 0.0), t["ms"],
+                                 t["plain_ms"], t["bytes"], t["ops"]))
+    return entries
 
 
 def check_neg_log1m() -> None:
-    """The collision rounds' -logf(1 - xi) against -torch.log(1.0 - xi) at
-    all 2^24 values a draw takes (k * 2^-24), bit for bit."""
+    """The legs' -logf(1 - xi) against -torch.log(1.0 - xi) at all 2^24
+    values a draw takes (k * 2^-24), bit for bit."""
     import torch
 
-    from volxel_tpu_torch.render.collide import neg_log1m_cuda
+    from volxel_tpu_torch.render.ddaleg import neg_log1m_cuda
 
     xi = torch.arange(2**24, dtype=torch.int32, device="cuda").to(torch.float32) * (1.0 / 16777216.0)
     got, want = neg_log1m_cuda(xi), -torch.log(1.0 - xi)
     bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
     if bad:
         raise SystemExit(f"-logf(1 - xi) differs from -torch.log(1.0 - xi) at {bad} of the 2^24 draws")
-    log(f"-logf(1 - xi) of the collision rounds: bit-equal to -torch.log(1.0 - xi) at all {xi.numel()} draws")
+    log(f"-logf(1 - xi) of the legs: bit-equal to -torch.log(1.0 - xi) at all {xi.numel()} draws")
+
+
+def check_leg_sass() -> None:
+    """Build csrc/dda_leg.cu once more, to a cubin with `-Xptxas -v` (each
+    kernel's registers, stack and spills, printed), and count the FFMA in
+    each kernel of its SASS (cuobjdump -sass): the leg kernels' own code
+    must hold none, so no f32 operation of theirs is contracted. The log
+    and the IEEE division, whose code needs FFMA, are out-of-line functions:
+    cuobjdump lists each after the code of the kernel that calls it (at the
+    address of a CALL), and their FFMA are counted apart."""
+    from volxel_tpu_torch import kernels
+
+    src = kernels.CSRC / "dda_leg.cu"
+    nvcc = kernels._nvcc()
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD) as tmp:
+        cubin = str(Path(tmp) / "dda_leg.cubin")
+        ptxas = subprocess.run([nvcc, *kernels._flags(src), "-Xptxas", "-v", "-cubin", "-o", cubin, str(src)],
+                               capture_output=True, text=True, check=True, timeout=300).stderr
+        sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", cubin], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+    log("dda_leg.cu, nvcc -Xptxas -v:\n" + "\n".join(line for line in ptxas.splitlines() if "ptxas" in line
+                                                    or "bytes" in line))
+    legs = {}
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        # the kernel's own code, then each out-of-line function from the
+        # address a CALL jumps to
+        calls = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)})
+        counts = {}
+        for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
+            starts = [c for c in calls if c <= int(addr, 16)]
+            part = hex(starts[-1]) if starts else "own"
+            ffma, total = counts.get(part, (0, 0))
+            counts[part] = (ffma + ("FFMA" in text), total + 1)
+        log(f"dda_leg.cu SASS of {name}: (FFMA, instructions) of its own code and of the function at each call "
+            f"target {counts}")
+        if re.search(r"dda_leg_(sample|shadow)_kernel", name):
+            legs[name] = counts["own"][0]
+    if len(legs) != 3 or any(legs.values()):
+        raise SystemExit(f"the leg kernels' own SASS holds FFMA, or not every leg kernel was found: {legs}")
 
 
 def check_gather(r) -> list[dict]:
@@ -797,14 +856,14 @@ def check_shearwarp(r) -> dict:
 
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
-    "default": ("pyr_march", "dda_collide_sample", "dda_collide_shadow", "lookup_transfer", "gather_f32",
+    "default": ("dda_leg_sample", "dda_leg_shadow", "lookup_transfer", "gather_f32",
                 "importance_pyramid", "tonemap"),
     "raymarch": ("tile_march_sample", "tile_march_transmittance", "gather_f32", "importance_pyramid", "tonemap"),
     "preview": ("shearwarp_intermediate", "tonemap"),
 }
 # the path whose run gives each kernel's launch count (K6 lies on none:
 # its count from the raymarch run is 0)
-KERNEL_PATH = {"pyr_march": "default", "dda_collide_sample": "default", "dda_collide_shadow": "default",
+KERNEL_PATH = {"dda_leg_sample": "default", "dda_leg_shadow": "default",
                "lookup_transfer": "default", "gather_f32": "default", "importance_pyramid": "default",
                "tonemap": "default", "tile_march_sample": "raymarch", "tile_march_transmittance": "raymarch",
                "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview"}
@@ -849,34 +908,63 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
         if launches[name] <= 0:
             raise SystemExit(f"kernel {name} was not launched on the {mode} main path")
     # the LUT fetch runs once per default sample (the premultiplied pyramid)
-    # and nowhere in the raymarch legs; one collision round per march round
+    # and nowhere in the raymarch legs; each default leg is one launch per
+    # bounce
     if per_sample["lookup_transfer"] > (1 if mode == "default" else 0):
         raise SystemExit(f"the LUT fetch launched {per_sample['lookup_transfer']} times per {mode} sample")
-    if counted["dda_collide_sample"] + counted["dda_collide_shadow"] != counted["pyr_march"]:
-        raise SystemExit(f"collision rounds {counted} do not match the march rounds")
+    legs = (per_sample["dda_leg_sample"], per_sample["dda_leg_shadow"])
+    if mode == "default" and legs != (r.settings.bounces,) * 2:
+        raise SystemExit(f"the default legs launched {legs} times per sample at bounces {r.settings.bounces}")
     log(f"main path output ({mode}): mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
     return launches
 
 
-def breakdown(grid, width: int, height: int, mode: str) -> None:
+def host_syncs(fn):
+    """(output, where) of one call of `fn`: `where` lists the file:line of
+    each synchronizing call PyTorch made inside it, which
+    torch.cuda.set_sync_debug_mode("warn") reports as a warning."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def breakdown(grid, width: int, height: int, mode: str, bounces: int = 1) -> None:
     """One sample with a synchronize around each leg (the mode's
-    sample_volume and transmittance), then one unprofiled and one profiled
+    sample_volume and transmittance): each leg's ms, the repo's kernel
+    launches in the legs and the host syncs inside them (host_syncs, which
+    must first see a known sync), then one unprofiled and one profiled
     sample (log_device_profile)."""
     import torch
 
     import volxel_tpu_torch.render.pathtrace as pathtrace
+    from volxel_tpu_torch import kernels
 
-    r = bench_renderer(grid, width, height, "cuda", mode)
+    if not host_syncs(lambda: bool(torch.ones(1, device="cuda").any()))[1]:
+        raise SystemExit("the host-sync count does not see bool() of a CUDA tensor")
+    r = bench_renderer(grid, width, height, "cuda", mode, bounces)
     r.render_frame()  # warm
     legs = {"camera": 0.0, "shadow": 0.0}
+    syncs = {"camera": [], "shadow": []}
+    launches = {"camera": 0, "shadow": 0}
 
     def timed(name, fn):
         def run(*args):
             torch.cuda.synchronize()
+            before = sum(kernels.LAUNCHES.values())
             t0 = time.perf_counter()
-            out = fn(*args)
+            out, where = host_syncs(lambda: fn(*args))
             torch.cuda.synchronize()
             legs[name] += (time.perf_counter() - t0) * 1000
+            syncs[name] += where
+            launches[name] += sum(kernels.LAUNCHES.values()) - before
             return out
         return run
 
@@ -895,11 +983,13 @@ def breakdown(grid, width: int, height: int, mode: str) -> None:
         total = (time.perf_counter() - t0) * 1000
     finally:
         pathtrace.get_mode_functions = original
-    log(f"{mode} legs: one sample {total:.3f} ms with a synchronize around each leg: camera leg "
-        f"{legs['camera']:.3f} ms, shadow leg {legs['shadow']:.3f} ms, rest {total - legs['camera'] - legs['shadow']:.3f} ms")
+    log(f"{mode} legs at bounces {bounces}: one sample {total:.3f} ms with a synchronize around each leg: camera "
+        f"leg {legs['camera']:.3f} ms, shadow leg {legs['shadow']:.3f} ms, rest "
+        f"{total - legs['camera'] - legs['shadow']:.3f} ms; launches of the repo's kernels in the legs {launches}, "
+        f"host syncs in the legs {({k: len(v) for k, v in syncs.items()})} at {syncs}")
 
     _, wall = timed_call(r.render_frame)
-    log_device_profile(mode, r.render_frame, wall)
+    log_device_profile(f"{mode} (bounces {bounces})", r.render_frame, wall)
 
 
 def log_device_profile(what: str, fn, wall_ms: float) -> None:
@@ -1116,6 +1206,7 @@ def main() -> int:
     path = kernels.build()
     kernels.lib()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {path.name}")
+    check_leg_sass()
 
     t0 = time.perf_counter()
     vol = synthetic_ct_volume((args.size,) * 3, bits_stored=12, seed=0)
@@ -1126,7 +1217,7 @@ def main() -> int:
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
     check_neg_log1m()
-    results = [check_march(r), *check_collide(r), *check_gather(r), check_pyramid(r),
+    results = [*check_legs(r), *check_gather(r), check_pyramid(r),
                check_tonemap(r.settings.exposure, r.settings.gamma), check_shearwarp(r)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
@@ -1140,6 +1231,7 @@ def main() -> int:
     launches["raymarch"] = main_path(grid, args.width, args.height, "raymarch")
     for mode in ("default", "raymarch"):
         breakdown(grid, args.width, args.height, mode)
+    breakdown(grid, args.width, args.height, "default", bounces=3)
     no_dda_frame(grid, args.width, args.height)
     launches["preview"] = preview_path(grid, args.width, args.height)
     for e in results:

@@ -3,6 +3,7 @@
     python examples/ab_torch_paths.py BEFORE_DIR AFTER_DIR [--rounds 2]
     python examples/ab_torch_paths.py --kernels DIR [DIR ...] [--rounds 2] [--reps 20]
     python examples/ab_torch_paths.py --table-fetch-turns 10
+    python examples/ab_torch_paths.py --legs BEFORE_DIR AFTER_DIR
 
 Each run is a fresh process in one checkout (its own volxel_tpu_torch and
 chip_smoke.py, its kernels built from its own sources), in the order
@@ -22,6 +23,19 @@ copy of the RNG state (chip_smoke.device_ms), one process per checkout in
 the order given, then reversed, --rounds times in all; one JSON line per
 checkout and kernel.
 
+With --legs it instead renders one 1080p default-mode sample of that scene
+in each checkout (one process each), once with the reference's shadow
+quirk and once with physical shadows, and records a SHA-256 digest of
+every output of every call of the two default legs (modes.sample_volume_dda
+and transmittance_dda) and each call's time between two
+torch.cuda.synchronize(); it prints one JSON line per checkout and sample
+and exits 1 unless every digest agrees between the checkouts: the legs of
+the two give the same bits. It guards a change to the default legs that
+must keep their bits (a redesign of csrc/dda_leg.cu, of render/ddaleg.py's
+plain legs or of modes._march_setup): chip_smoke.py holds each leg kernel
+only to the plain leg of its own checkout, so a change to both at once
+shows only here.
+
 With --table-fetch-turns N it instead runs one process in this checkout
 and, in each mode, alternates samples with the table fetches (render.gather)
 launching their kernels and taking their plain PyTorch versions (the code
@@ -32,6 +46,7 @@ kernel, ...; it prints the mean and median ms/sample of each.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -113,6 +128,43 @@ for name, (args, at) in calls.items():
     print(json.dumps({"tree": sys.argv[1], "kernel": name, "ms": ms, "lanes": int(args[6].sum())}), flush=True)
 """
 
+LEGS = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+
+import chip_smoke
+import volxel_tpu_torch.render.modes as modes
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.render.pathtrace import render_sample
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+kernels.lib()
+vol = synthetic_ct_volume((512,) * 3, bits_stored=12, seed=0)
+grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+del vol
+r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda")
+calls = []
+for name in ("sample_volume_dda", "transmittance_dda"):
+    def recorded(*args, name=name, original=getattr(modes, name), **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000
+        calls.append({"leg": name, "ms": ms,
+                      "digests": [hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest() for o in out]})
+        return out
+    setattr(modes, name, recorded)
+render_sample(*chip_smoke.sample_operands(r), 0)  # warm
+for physical in (False, True):
+    r.settings.physical_shadows = physical
+    calls.clear()
+    render_sample(*chip_smoke.sample_operands(r), 0)
+    print(json.dumps({"tree": sys.argv[1], "physical": physical, "legs": calls}), flush=True)
+"""
+
 TURNS = r"""
 import json, statistics, sys, time
 import numpy as np
@@ -159,6 +211,8 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=2, help="runs of each tree (even: before, after, after, before)")
     ap.add_argument("--kernels", action="store_true", help="time the raymarch step-loop kernels of each checkout")
     ap.add_argument("--reps", type=int, default=20, help="launches per kernel timing with --kernels")
+    ap.add_argument("--legs", action="store_true",
+                    help="compare the default legs' outputs of BEFORE and AFTER bit for bit at one 1080p sample")
     ap.add_argument("--table-fetch-turns", type=int, default=0,
                     help="alternate the table fetches' kernels and plain versions in this checkout instead")
     args = ap.parse_args()
@@ -170,6 +224,20 @@ def main() -> int:
         subprocess.run([sys.executable, "-c", TURNS, str(args.table_fetch_turns)], cwd=here,
                        env=dict(os.environ, PYTHONPATH=here), check=True, timeout=900)
         return 0
+    if args.legs:
+        if len(args.trees) != 2:
+            ap.error("--legs needs BEFORE_DIR and AFTER_DIR")
+        lines = {}
+        for label, tree in zip(("before", "after"), args.trees):
+            tree = os.path.abspath(tree)
+            out = subprocess.run([sys.executable, "-c", LEGS, label], cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
+                                 check=True, timeout=900, capture_output=True, text=True).stdout
+            print(out, end="", flush=True)
+            lines[label] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        digests = {label: [[c["digests"] for c in line["legs"]] for line in found] for label, found in lines.items()}
+        same = digests["before"] == digests["after"] and len(digests["after"]) == 2
+        print(json.dumps({"legs_bit_equal": same, "calls": [len(line["legs"]) for line in lines["after"]]}))
+        return 0 if same else 1
     if args.kernels:
         if not args.trees:
             ap.error("--kernels needs at least one checkout")

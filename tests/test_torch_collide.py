@@ -1,8 +1,10 @@
-"""The port's default-mode legs and its DDA collision step (render/collide.py).
+"""The port's default-mode legs (render/ddaleg.py) and its DDA collision
+step (render/collide.py).
 
 Legs: the port's sample_volume_dda and transmittance_dda (the reference
-quirk and physical=True), each a loop of pyr_march and one collision round,
-against volxel_tpu.render.modes' on tests/test_torch_modes.py's scene:
+quirk and physical=True), each its setup and then the plain leg (rounds of
+pyr_march_plain and one collision round) on the CPU, against
+volxel_tpu.render.modes' on tests/test_torch_modes.py's scene:
 4096 lanes, below the 6144 at which the JAX default path and its pyr path
 part. The JAX side reads its majorant inline and the port the premultiplied
 pyramid, which the JAX package pins bit-identical
@@ -15,7 +17,9 @@ equality of state and outcome on >= 99% of lanes, and t or Tr to rtol 1e-5
 on the lanes whose draws agree.
 
 The collision step itself: the plain round on constructed lanes
-(tests/torch_lanes.py), against what its contract says of each lane.
+(tests/torch_lanes.py), against what its contract says of each lane; and
+the whole plain legs on constructed lanes: step budgets spent, russian
+roulette kills, densities the sample range rejects, NaN and far-off lanes.
 """
 
 from __future__ import annotations
@@ -24,11 +28,12 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from tests.test_torch_modes import N, make_scene
-from tests.torch_lanes import VOL_MAJ, collide_lanes, leg_args
+from tests.torch_lanes import VOL_MAJ, collide_lanes, leg_args, leg_call, leg_lanes
 from volxel_tpu.render import modes as jmodes
 from volxel_tpu_torch import kernels
-from volxel_tpu_torch.render import collide
+from volxel_tpu_torch.render import collide, ddaleg
 from volxel_tpu_torch.render import modes as tmodes
 from volxel_tpu_torch.render.pyrmarch import KIND_COLL, KIND_DONE
 from volxel_tpu_torch.render.rng import next_u32
@@ -91,7 +96,7 @@ def test_collision_step_leaves_other_lanes_and_ends_done_ones(leg):
     march is done stops."""
     lanes = collide_lanes("cpu", edge_cases=True)
     args = leg_args(lanes, leg)
-    fn = collide.dda_collide_sample if leg == "sample" else collide.dda_collide_shadow
+    fn = collide.dda_collide_sample_plain if leg == "sample" else collide.dda_collide_shadow_plain
     out = fn(*args)
     assert all(o is a for o, a in zip(out, args[9:]))
     parked = lanes["running"] & (lanes["kind"] == KIND_COLL)
@@ -115,7 +120,7 @@ def test_rejected_density_is_a_null_collision(leg):
     (at least 0), still running."""
     lanes = collide_lanes("cpu", sample_range=(2.0, 3.0), alpha=1.0)
     args = leg_args(lanes, leg)
-    fn = collide.dda_collide_sample if leg == "sample" else collide.dda_collide_shadow
+    fn = collide.dda_collide_sample_plain if leg == "sample" else collide.dda_collide_shadow_plain
     out = fn(*args)
     parked = lanes["running"] & (lanes["kind"] == KIND_COLL)
     state, tau, mip, running = out[:4]
@@ -137,7 +142,7 @@ def test_real_collision_hits_with_the_lut_colour():
     real (xi * maj < vol_maj): the lane hits with its LUT row's colour,
     stops, and consumes one draw; tau and mip stay."""
     lanes = collide_lanes("cpu", alpha=1.0, sample_range=(0.0, 10.0), maj=VOL_MAJ)
-    state, tau, mip, running, hit, rgb = collide.dda_collide_sample(*leg_args(lanes, "sample"))
+    state, tau, mip, running, hit, rgb = collide.dda_collide_sample_plain(*leg_args(lanes, "sample"))
     parked = lanes["running"] & (lanes["kind"] == KIND_COLL)
     assert torch.equal(hit, parked)
     assert not running[parked].any()
@@ -153,7 +158,7 @@ def test_russian_roulette_kill_stops_the_lane():
     two draws (real/null, roulette); its tau is -log(1 - the next draw),
     which stays unconsumed."""
     lanes = collide_lanes("cpu", alpha=1.0, sample_range=(0.0, 10.0), maj=VOL_MAJ)
-    state, tau, mip, running, tr = collide.dda_collide_shadow(*leg_args(lanes, "shadow"))
+    state, tau, mip, running, tr = collide.dda_collide_shadow_plain(*leg_args(lanes, "shadow"))
     parked = lanes["running"] & (lanes["kind"] == KIND_COLL)
     assert (tr[parked] == 0).all() and not running[parked].any()
     after = _words_after(lanes["state"][parked], 2)
@@ -168,8 +173,100 @@ def test_exhausted_budget_ends_the_lane():
     or it left the box) stops at the next collision round, with no draw."""
     lanes = collide_lanes("cpu")
     lanes["kind"][:] = KIND_DONE
-    for leg, fn in (("sample", collide.dda_collide_sample), ("shadow", collide.dda_collide_shadow)):
+    for leg, fn in (("sample", collide.dda_collide_sample_plain), ("shadow", collide.dda_collide_shadow_plain)):
         args = leg_args(lanes, leg)
         out = fn(*args)
         assert not out[3].any()
         assert torch.equal(out[0], lanes["state"])
+
+
+def _draws(before, after, most):
+    """Per lane, how many xoshiro draws lead from the words `before` to
+    `after` (-1 if more than `most`)."""
+    count = torch.full((before.shape[0],), -1, dtype=torch.int64)
+    for k in range(most + 1):
+        count = torch.where((count < 0) & (before == after).all(dim=-1), k, count)
+        before, _ = next_u32(before)
+    return count
+
+
+def _leg(leg):
+    return ddaleg.dda_leg_sample if leg == "sample" else ddaleg.dda_leg_shadow
+
+
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+def test_leg_spends_its_budget_where_nothing_collides(leg):
+    """With every majorant 0 tau never runs out, and a box exit 1e6 voxels
+    on lies past any budget: each running lane spends its whole budget and
+    draws nothing, a lane that does not run keeps it; no hit, rgb 1 and t
+    moved on (sample), Tr unchanged (shadow). No launch on the CPU."""
+    lanes = leg_lanes("cpu", maj=0.0, far=1e6)
+    kernels.reset_launch_counts()
+    out = _leg(leg)(*leg_call(lanes, leg))
+    assert not any(kernels.LAUNCHES.values())
+    run, cap = lanes["running"], ddaleg.DDA_SAMPLE_MAX_STEPS if leg == "sample" else ddaleg.DDA_TRANSMITTANCE_MAX_STEPS
+    assert (out[-1][run] == 0).all() and (out[-1][~run] == cap).all()
+    assert torch.equal(out[0], lanes["state"])
+    if leg == "sample":
+        _, hit, t, rgb, _ = out
+        assert not hit.any() and (rgb == 1).all()
+        assert (t[run] > lanes["t"][run] + 1000).all() and torch.equal(t[~run], lanes["t"][~run])
+    else:
+        assert torch.equal(out[1], lanes["tr"])
+
+
+def test_russian_roulette_kill_ends_the_shadow_leg():
+    """Under the reference quirk, majorants of vol_maj everywhere and an
+    opaque LUT make a lane's first collision real with a ratio of 0, and
+    russian roulette then always kills: a running lane either escapes
+    before any collision (no draw, Tr kept) or ends at its first one with
+    Tr = 0 after two draws (real/null, roulette)."""
+    lanes = leg_lanes("cpu", alpha=1.0, sample_range=(0.0, 10.0), maj=VOL_MAJ)
+    state, tr, _ = ddaleg.dda_leg_shadow(*leg_call(lanes, "shadow"))
+    run = lanes["running"]
+    draws = _draws(lanes["state"], state, 2)
+    killed = run & (draws == 2)
+    escaped = run & (draws == 0)
+    assert torch.equal(killed | escaped, run) and killed.sum() > 100 and escaped.any()
+    assert (tr[killed] == 0).all() and torch.equal(tr[~killed], lanes["tr"][~killed])
+
+
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+def test_rejected_density_never_ends_a_leg(leg):
+    """With a sample range above every density each collision is null: two
+    draws (the real/null test and the tau redraw) and the lane marches on,
+    so every running lane draws an even number of times, some of them at
+    several collisions; no hit (sample), Tr unchanged (shadow)."""
+    lanes = leg_lanes("cpu", sample_range=(2.0, 3.0), alpha=1.0)
+    out = _leg(leg)(*leg_call(lanes, leg))
+    run = lanes["running"]
+    draws = _draws(lanes["state"], out[0], 400)
+    assert (draws[run] >= 0).all() and (draws[run] % 2 == 0).all() and (draws[~run] == 0).all()
+    assert (draws >= 6).sum() > 100
+    if leg == "sample":
+        assert not out[1].any() and (out[3] == 1).all()
+    else:
+        assert torch.equal(out[1], lanes["tr"])
+
+
+@pytest.mark.parametrize("leg", ["sample", "shadow", "physical"])
+def test_nan_and_far_off_lanes_through_the_leg(leg):
+    """Lanes with a NaN or infinite position or start never collide: they
+    spend their budget and draw nothing (no hit, t NaN; Tr kept). Lanes 2e12
+    voxels out, on lattice points, at degenerate majorants and Tr at the
+    roulette threshold end within their budget. The inputs are left as they
+    are."""
+    lanes = leg_lanes("cpu", edge_cases=True)
+    before = {k: v.clone() for k, v in lanes.items() if isinstance(v, torch.Tensor)}
+    out = _leg(leg)(*leg_call(lanes, leg))
+    for k, v in before.items():
+        assert torch.equal(v.view(torch.int32) if v.is_floating_point() else v,
+                           lanes[k].view(torch.int32) if v.is_floating_point() else lanes[k]), k
+    nan = slice(0, 4)
+    assert (out[-1][nan] == 0).all() and torch.equal(out[0][nan], lanes["state"][nan])
+    assert ((out[-1] >= 0) & (out[-1] <= ddaleg.DDA_SAMPLE_MAX_STEPS)).all()
+    if leg == "sample":
+        assert not out[1][nan].any() and out[2][nan].isnan().all()
+    else:
+        assert torch.equal(out[1][nan], lanes["tr"][nan])
+        assert not torch.equal(out[0][4:16], lanes["state"][4:16])

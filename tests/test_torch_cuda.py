@@ -6,14 +6,14 @@ machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a card the tests marked `cuda` skip (a CUDA kernel has no CPU
-mode). Tolerances: the DDA march, both tile-march kernels, the shear-warp
-intermediate and both table fetches are bit-equal (the library is built
-with --fmad=false and each kernel follows its plain version's operation
-order), and so are both collision rounds (built with --fmad=true so that
-logf rounds as ATen's log does, with every other f32 operation written as
-a never-contracted intrinsic); the pyramid rtol 1e-6 (a 4-term mean
-summed in another order); the tonemap atol 1e-6 (powf and a division may
-round an ulp apart).
+mode). Tolerances: the tile-march kernels, the shear-warp intermediate and
+both table fetches are bit-equal (the library is built with --fmad=false
+and each kernel follows its plain version's operation order), and so are
+both default-mode legs (built with --fmad=true so that logf rounds as
+ATen's log does, with every other f32 operation written as a
+never-contracted intrinsic); the pyramid rtol 1e-6 (a 4-term mean summed
+in another order); the tonemap atol 1e-6 (powf and a division may round
+an ulp apart).
 """
 
 from __future__ import annotations
@@ -26,14 +26,16 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_lanes import VOL_MAJ, collide_lanes, leg_args
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
+from tests.torch_lanes import VOL_MAJ, leg_call, leg_lanes
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
-from volxel_tpu_torch.render import collide, gather, pallas_ops, pyrmarch, shearwarp, tilemarch
-from volxel_tpu_torch.render.modes import DDA_SAMPLE_MAX_STEPS, _march_setup, raymarch_prologue
+from volxel_tpu_torch.render import ddaleg, gather, pallas_ops, shearwarp, tilemarch
+from volxel_tpu_torch.render.modes import _march_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
 from volxel_tpu_torch.render.rng import seed_rays
 from volxel_tpu_torch.render.sampling import DeviceGrid, VolumeParams
+from volxel_tpu_torch.render.tilemarch import volume_scalars
 from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
 
 REPO = Path(__file__).resolve().parent.parent
@@ -54,9 +56,10 @@ def _renderer(device, side=48):
     return r
 
 
-def _march_args(r, budget: int):
-    """Camera lanes of the 32^3 scene, half of them moved to seeded
-    mid-march states."""
+def _scene_leg_args(r, leg: str):
+    """The arguments of dda_leg_sample (leg "sample") or dda_leg_shadow
+    (leg "shadow" or "physical") for the camera lanes of the 32^3 scene,
+    half of them moved to seeded mid-march states."""
     config = r._config()
     params = r.volume_params()
     grid = with_premul_majorant(config, r._device_grid, params, r._lut)
@@ -65,7 +68,7 @@ def _march_args(r, budget: int):
     pixels = torch.arange(n, dtype=torch.int64, device=r.device)
     state, rays = camera_wavefront(config, inv_view, inv_proj, pixels, 0)
     active = torch.ones(n, dtype=torch.bool, device=r.device)
-    _, ipos, idir, ri, far, t, tau, mip, running, extent = _march_setup(
+    state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(
         grid, params, rays.origin, rays.direction, state, active
     )
     rng = np.random.default_rng(4)
@@ -73,8 +76,9 @@ def _march_args(r, budget: int):
     u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(r.device)
     t = torch.where(mid & running, t + u * (far - t), t)
     mip = torch.where(mid, torch.from_numpy(rng.integers(0, 13, n).astype(np.float32) * 0.25).to(r.device), mip)
-    b = torch.full((n,), budget, dtype=torch.int32, device=r.device)
-    return (grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, b, running, DDA_SAMPLE_MAX_STEPS)
+    args = [grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), r._lut, ipos, idir, ri, far, t,
+            tau, mip, state, running]
+    return args if leg == "sample" else args + [torch.ones_like(t), leg == "physical"]
 
 
 def _tile_march_args(device, n=2048, side=64, nan_lanes=False):
@@ -88,8 +92,7 @@ def _tile_march_args(device, n=2048, side=64, nan_lanes=False):
     reservoir overflows)."""
     rng = np.random.default_rng(8)
     dense = torch.from_numpy(rng.random((side,) * 3, dtype=np.float32) * 0.9).to(torch.bfloat16)
-    grid = DeviceGrid(dense=dense.to(device), maj_mips=None,
-                      extent=torch.tensor([side - 5, side - 2, side], dtype=torch.int32, device=device))
+    grid = DeviceGrid(dense=dense.to(device), maj_mips=None, extent=(side - 5, side - 2, side))
 
     def f32(*v):
         return torch.tensor(v if len(v) > 1 else v[0], dtype=torch.float32, device=device)
@@ -173,7 +176,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     """A wrapper called with CPU tensors raises instead of running anything."""
     r = _renderer("cpu", side=8)
     with pytest.raises(ValueError, match="CUDA"):
-        pyrmarch.pyr_march_cuda(*_march_args(r, 8))
+        ddaleg.dda_leg_sample_cuda(*_scene_leg_args(r, "sample"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ddaleg.dda_leg_shadow_cuda(*_scene_leg_args(r, "shadow"))
     with pytest.raises(ValueError, match="CUDA"):
         pallas_ops.build_importance_pyramid_cuda(r.environment.state.imp_mips[0])
     with pytest.raises(ValueError, match="CUDA"):
@@ -185,13 +190,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tilemarch.tile_march_sums_cuda(*_sums_args(args))
     with pytest.raises(ValueError, match="CUDA"):
         tilemarch.tile_march_transmittance_cuda(*_transmittance_args(args))
-    lanes = collide_lanes("cpu", n=64)
     with pytest.raises(ValueError, match="CUDA"):
-        collide.dda_collide_sample_cuda(*leg_args(lanes, "sample"))
+        ddaleg.dda_leg_shadow_cuda(*leg_call(leg_lanes("cpu", n=64), "physical"))
     with pytest.raises(ValueError, match="CUDA"):
-        collide.dda_collide_shadow_cuda(*leg_args(lanes, "shadow"))
-    with pytest.raises(ValueError, match="CUDA"):
-        collide.neg_log1m_cuda(torch.zeros(4))
+        ddaleg.neg_log1m_cuda(torch.zeros(4))
     with pytest.raises(ValueError, match="CUDA"):
         shearwarp.shearwarp_intermediate_cuda(*_shearwarp_args("cpu", [0.2, 0.3, 0.9]), fixed_canvas=True)
     with pytest.raises(ValueError, match="CUDA"):
@@ -212,14 +214,20 @@ def test_chip_smoke_fails_without_a_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("budget", [DDA_SAMPLE_MAX_STEPS, 3])
-def test_march_kernel_bit_equal_to_plain(cuda_device, budget):
-    args = _march_args(_renderer(cuda_device), budget)
-    got, want = pyrmarch.pyr_march_cuda(*args), pyrmarch.pyr_march_plain(*args)
-    for a, b in zip(got, want):
-        if a.is_floating_point():
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        assert torch.equal(a, b)
+@pytest.mark.parametrize("leg", ["sample", "shadow", "physical"])
+def test_march_kernel_bit_equal_to_plain(cuda_device, leg):
+    """Both leg kernels (the march with its collisions) against their plain
+    legs on every output of the 32^3 scene's camera lanes, half of them
+    starting mid-march; the inputs are left as they are."""
+    args = _scene_leg_args(_renderer(cuda_device), leg)
+    before = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    cuda_fn = ddaleg.dda_leg_sample_cuda if leg == "sample" else ddaleg.dda_leg_shadow_cuda
+    plain_fn = ddaleg.dda_leg_sample_plain if leg == "sample" else ddaleg.dda_leg_shadow_plain
+    got = cuda_fn(*args)
+    _assert_bits_equal(got, plain_fn(*args))
+    _assert_bits_equal([a for a in args if isinstance(a, torch.Tensor)],
+                       [a for a in before if isinstance(a, torch.Tensor)])
+    assert not torch.equal(got[0], args[12]) and (got[-1] < got[-1].max()).any()
 
 
 @pytest.mark.cuda
@@ -245,34 +253,79 @@ def test_tile_march_transmittance_kernel_bit_equal_to_plain(cuda_device, n):
     assert (got[1][~args[6]] == 0).all() and (got[1][args[6]] > 0).any()
 
 
+LEG_CASES = {"random": {}, "edge": {"edge_cases": True},
+             "opaque": {"alpha": 1.0, "sample_range": (0.0, 10.0), "maj": VOL_MAJ},
+             "exhausted": {"maj": 0.0, "far": 1e6}, "rejected": {"sample_range": (2.0, 3.0), "alpha": 1.0}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("leg", ["sample", "shadow", "physical"])
-@pytest.mark.parametrize("case", ["random", "edge", "opaque"])
+@pytest.mark.parametrize("case", list(LEG_CASES))
 def test_collide_kernels_bit_equal_to_plain(cuda_device, leg, case):
-    """Both collision rounds against their plain versions on every output of
-    every lane: random lanes (running or not, parked, done or idle,
-    positions past the extent on every side); NaN and infinite positions,
-    lattice points, degenerate majorants and Tr at the roulette threshold
-    (tests/torch_lanes.py); and an opaque LUT at maj = vol_maj, where every
-    parked lane hits or is killed."""
-    kw = {"random": {}, "edge": {"edge_cases": True},
-          "opaque": {"alpha": 1.0, "sample_range": (0.0, 10.0), "maj": VOL_MAJ}}[case]
-    lanes = collide_lanes(cuda_device, **kw)
-    which = "sample" if leg == "sample" else "shadow"
-    extra = () if leg == "sample" else (leg == "physical",)
-    cuda_fn = collide.dda_collide_sample_cuda if leg == "sample" else collide.dda_collide_shadow_cuda
-    plain_fn = collide.dda_collide_sample_plain if leg == "sample" else collide.dda_collide_shadow_plain
-    got = cuda_fn(*leg_args(lanes, which), *extra)
-    _assert_bits_equal(got, plain_fn(*leg_args(lanes, which), *extra))
-    assert not torch.equal(got[0], lanes["state"])
+    """Both leg kernels against their plain legs on every output of every
+    lane of tests/torch_lanes.py's constructed lanes: random lanes (running
+    or not, positions past the extent on every side); NaN and infinite
+    positions and starts, lanes 2e12 voxels out, lattice points,
+    degenerate majorants in the pyramid and Tr at the roulette threshold;
+    an opaque LUT at maj = vol_maj, where every collision hits or kills;
+    majorants of 0 and a far box exit, where every lane spends its budget;
+    and a sample range that rejects every density."""
+    lanes = leg_lanes(cuda_device, **LEG_CASES[case])
+    cuda_fn = ddaleg.dda_leg_sample_cuda if leg == "sample" else ddaleg.dda_leg_shadow_cuda
+    plain_fn = ddaleg.dda_leg_sample_plain if leg == "sample" else ddaleg.dda_leg_shadow_plain
+    got = cuda_fn(*leg_call(lanes, leg))
+    _assert_bits_equal(got, plain_fn(*leg_call(lanes, leg)))
+    assert not torch.equal(got[0], lanes["state"]) or case == "exhausted"
+
+
+@pytest.mark.cuda
+def test_legs_launch_on_the_operands_card(cuda_device, monkeypatch):
+    """With cuda:0 current and every operand on cuda:1, each wrapper calls
+    its library entry point with cuda:1 current (a device guard), so that
+    the launch and what the entry point asks of the current card (the
+    gather's SM count, K7's shared-memory attribute) concern the operands'
+    card; the legs, the gather, K7 and the tonemap agree with their plain
+    versions there, and cuda:0 is current again afterwards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    library, current = kernels.lib(), []
+
+    class Recording:
+        def __getattr__(self, name):
+            def call(*args):
+                current.append(torch.cuda.current_device())
+                return getattr(library, name)(*args)
+            return call
+
+    monkeypatch.setattr(kernels, "lib", Recording)
+    second = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        lanes = leg_lanes(second)
+        for leg, cuda_fn, plain_fn in (("sample", ddaleg.dda_leg_sample_cuda, ddaleg.dda_leg_sample_plain),
+                                       ("physical", ddaleg.dda_leg_shadow_cuda, ddaleg.dda_leg_shadow_plain)):
+            got = cuda_fn(*leg_call(lanes, leg))
+            assert got[0].device == second
+            _assert_bits_equal(got, plain_fn(*leg_call(lanes, leg)))
+        table = _random_words(5000).to(second)
+        idx = torch.arange(-4999, 5000, 3, dtype=torch.int32, device=second)
+        _assert_bits_equal([gather.gather_f32_cuda(table, idx)], [gather.gather_f32_plain(table, idx)])
+        args = _shearwarp_args(second, [0.2, 0.3, 0.9])
+        _assert_bits_equal(shearwarp.shearwarp_intermediate_cuda(*args, fixed_canvas=True),
+                           shearwarp.shearwarp_intermediate_plain(*args, fixed_canvas=True))
+        fb = torch.rand((1000, 3), device=second)
+        torch.testing.assert_close(pallas_ops.tonemap_cuda(fb, 5.5, 2.2), pallas_ops.tonemap_plain(fb, 5.5, 2.2),
+                                   rtol=0.0, atol=1e-6)
+        torch.cuda.synchronize(second)
+        assert torch.cuda.current_device() == 0
+    assert len(current) == 5 and set(current) == {1}, current
 
 
 @pytest.mark.cuda
 def test_neg_log1m_matches_torch_log_on_every_draw(cuda_device):
-    """The collision kernels' -logf(1 - xi) is bit-equal to
-    -torch.log(1.0 - xi) at all 2^24 values a draw takes (k * 2^-24)."""
+    """The leg kernels' -logf(1 - xi) is bit-equal to -torch.log(1.0 - xi)
+    at all 2^24 values a draw takes (k * 2^-24)."""
     xi = torch.arange(2**24, dtype=torch.int32, device=cuda_device).to(torch.float32) * (1.0 / 16777216.0)
-    got, want = collide.neg_log1m_cuda(xi), -torch.log(1.0 - xi)
+    got, want = ddaleg.neg_log1m_cuda(xi), -torch.log(1.0 - xi)
     bad = (got.view(torch.int32) != want.view(torch.int32)).nonzero()
     assert bad.numel() == 0, f"{bad.numel()} draws differ, first xi {xi[bad[:4, 0]].tolist()}"
 
@@ -427,8 +480,8 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
 @pytest.mark.cuda
 def test_lut_fetch_left_to_the_premul_build(cuda_device):
     """Per default sample the standalone LUT fetch launches once (the premul
-    pyramid) and each march round is followed by one collision round; a
-    raymarch sample launches no LUT fetch."""
+    pyramid) and each leg is one launch per bounce; a raymarch sample
+    launches no LUT fetch."""
     r = _renderer(cuda_device, side=32)
     for mode in ("default", "raymarch"):
         r.render_mode = mode
@@ -439,7 +492,7 @@ def test_lut_fetch_left_to_the_premul_build(cuda_device):
         launches = dict(kernels.LAUNCHES)
         if mode == "default":
             assert launches["lookup_transfer"] == 3
-            assert launches["dda_collide_sample"] + launches["dda_collide_shadow"] == launches["pyr_march"] > 6
+            assert launches["dda_leg_sample"] == launches["dda_leg_shadow"] == 3 * r.settings.bounces
         else:
             assert launches["lookup_transfer"] == 0
             assert launches["tile_march_sample"] == launches["tile_march_transmittance"] == 3 * r.settings.bounces

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.scene import environment as jenv
 from volxel_tpu_torch.scene import environment as tenv
 

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.render import sampling as jsampling
 from volxel_tpu.render.mxu_gather import mxu_gather_f32, pack_gather_table
 from volxel_tpu.scene import environment as jenv

@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.api import settings as j_settings
 from volxel_tpu.grid import brick as j_brick
 from volxel_tpu.scene.camera import Camera as JCamera

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu import Renderer as JRenderer
 from volxel_tpu.grid import construct_brick_grid
 from volxel_tpu.render import modes as jmodes

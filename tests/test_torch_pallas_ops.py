@@ -14,6 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.render.pallas_ops import build_importance_pyramid_xla
 from volxel_tpu.render.pathtrace import tonemap as jax_tonemap
 from volxel_tpu_torch import kernels

@@ -2,9 +2,10 @@
 
 The JAX side is volxel_tpu.render.pyrmarch.pyr_march in interpret mode
 (its CPU form), on the byte-plane packing of the same premultiplied
-pyramid; the port's side is the plain PyTorch version the CPU dispatch
-takes. Both get identical f32 lanes of the 32^3 scene: camera rays at
-their first march and at random mid-march states.
+pyramid; the port's side is its plain PyTorch march (render.pyrmarch),
+which the plain default legs run in rounds. Both get identical f32 lanes
+of the 32^3 scene: camera rays at their first march and at random
+mid-march states.
 
 Tolerance: XLA:CPU contracts `tau - maj * dt` into a fused multiply-add and
 eager PyTorch does not, so the two can disagree where tau_new lands within
@@ -23,6 +24,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu import Renderer as JRenderer
 from volxel_tpu.grid import construct_brick_grid
 from volxel_tpu.render import modes as jmodes
@@ -86,12 +88,12 @@ def test_plain_march_matches_jax_pallas_march(lanes, budget):
     j_t, j_tau, j_mip, j_maj, j_kind, j_budget = (np.asarray(a) for a in j)
 
     kernels.reset_launch_counts()
-    out = tpyr.pyr_march(
+    out = tpyr.pyr_march_plain(
         torch.from_numpy(lanes["maj_alpha"]), lanes["extent"],
         *(torch.from_numpy(lanes[k]) for k in ("ipos", "idir", "ri", "t", "tau", "mip", "far")),
         torch.full((n,), budget, dtype=torch.int32), torch.from_numpy(lanes["running"]), CAP,
     )
-    assert kernels.LAUNCHES["pyr_march"] == 0  # CPU tensors take the plain version
+    assert not any(kernels.LAUNCHES.values())  # the plain march launches nothing
     t_t, t_tau, t_mip, t_maj, t_kind, t_budget = (a.numpy() for a in out)
 
     running = lanes["running"]

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.render import rays as jrays
 from volxel_tpu.scene.camera import Camera
 from volxel_tpu_torch.render import rays as trays

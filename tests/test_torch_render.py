@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu import Renderer as JRenderer
 from volxel_tpu.grid import construct_brick_grid as jax_construct
 from volxel_tpu.render.pathtrace import accumulate_progressive as jax_accumulate
@@ -106,6 +107,24 @@ def test_renderer_matches_jax_renderer(mode, bounces, use_env, physical):
     assert tr.export_settings() == jr.export_settings()
 
 
+@pytest.mark.parametrize("samples", [4, 9])
+def test_render_after_a_prior_frame_matches_jax(samples):
+    """Renderer.render(samples) after one render_frame(), in both packages:
+    up to WARMUP_SAMPLES + 1 it renders `samples` more frames, beyond that
+    the image is the mean of frames [5, samples), recomputed whatever came
+    before. Frame index and framebuffer agree (the contract above)."""
+    data = _volume()
+    eye = np.eye(4, dtype=np.float32)
+    jr = _setup(JRenderer(width=W, height=H), jax_construct(data, transform=eye), 1, True)
+    tr = _setup(TRenderer(W, H, device="cpu"), torch_construct(data, transform=eye), 1, True)
+    jr.render_frame()
+    tr.render_frame()
+    jimg, timg = jr.render(samples), tr.render(samples)
+    assert tr.frame_index == jr.frame_index == (1 + samples if samples <= 6 else samples)
+    _assert_contract(tr._framebuffer.numpy(), np.asarray(jr._framebuffer), 0.98)
+    np.testing.assert_allclose(timg, jimg, rtol=0, atol=2e-2)
+
+
 class _DenseOracle(Oracle):
     """The scalar GLSL oracle reading its voxels from the port's bf16 dense
     field, the port's only decode (the oracle's own exact brick decode
@@ -165,6 +184,27 @@ def test_dense_decode_bit_equal():
     atlas = decode_dense_device(*(torch.from_numpy(np.array(a)) for a in
                                   (jgrid.atlas, jgrid.range_lo, jgrid.range_hi, jgrid.ptr)))
     assert torch.equal(atlas.view(torch.int16), ours.view(torch.int16))
+
+
+def test_device_grid_carries_its_extent_on_the_host():
+    """The grid's extent, which the legs read without a sync, is a tuple of
+    host ints equal to the volume's index extent, whether the grid is built
+    here or carried from the JAX package's state."""
+    grid = torch_construct(_volume()[:, :30, :27])
+    built = device_grid_from_brick(grid, "cpu")
+    jgrid = jax.tree_util.tree_map(np.asarray, jax_device_grid(jax_construct(_volume()[:, :30, :27])))
+    carried = from_jax_state(jgrid, *_jax_scene_state(), device="cpu")[0]
+    for g in (built, carried):
+        assert g.extent == tuple(grid.index_extent)
+        assert all(type(v) is int for v in g.extent)
+
+
+def _jax_scene_state():
+    """(params, lut, env) of a JAX Renderer's scene, as numpy."""
+    jr = JRenderer(width=8, height=8)
+    jr.restart_from_grid(jax_construct(_volume()))
+    _, _, params, lut, env, *_ = jr._prime_operands(jr._config())
+    return jax.tree_util.tree_map(np.asarray, (params, lut, env))
 
 
 def test_unported_modes_raise():

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.render import rng as jrng
 from volxel_tpu_torch.render import rng as trng
 

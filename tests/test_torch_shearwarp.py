@@ -24,6 +24,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu import Renderer as JRenderer
 from volxel_tpu.grid import construct_brick_grid as jax_construct
 from volxel_tpu.render import shearwarp as jsw

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.render import modes as jmodes
 from volxel_tpu.render import sampling as jsampling
 from volxel_tpu.render.rng import seed_rays as jax_seed_rays
@@ -143,7 +144,7 @@ def render_scene():
     d[::97] = rng.normal(size=d[::97].shape)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     active = rng.random(n) > 0.05
-    tgrid = tsampling.DeviceGrid(dense=_bf16(dense), maj_mips=None, extent=torch.tensor([EXT] * 3, dtype=torch.int32))
+    tgrid = tsampling.DeviceGrid(dense=_bf16(dense), maj_mips=None, extent=(EXT,) * 3)
     tparams = tsampling.VolumeParams(*(_t(getattr(jparams, f), torch.float32) for f in JParams._fields))
     return dict(
         j=(jgrid, jparams, jnp.asarray(lut)), t=(tgrid, tparams, torch.from_numpy(lut)),

@@ -1,6 +1,7 @@
-"""Seeded operands for the port's collision step (render/collide.py), shared
-by tests/test_torch_collide.py (CPU) and tests/test_torch_cuda.py (card).
-Imports neither JAX nor volxel_tpu."""
+"""Seeded operands for the port's collision step (render/collide.py) and the
+default-mode legs (render/ddaleg.py), shared by tests/test_torch_collide.py
+(CPU) and tests/test_torch_cuda.py (card). Imports neither JAX nor
+volxel_tpu."""
 
 from __future__ import annotations
 
@@ -78,3 +79,67 @@ def leg_args(lanes, leg):
     names = SAMPLE_ARGS if leg == "sample" else SHADOW_ARGS
     return [lanes[k].clone() if isinstance(lanes[k], torch.Tensor) and k not in ("dense", "lut", "scalars") else
             lanes[k] for k in names]
+
+
+LEG_ARGS = ("dense", "maj_alpha", "extent", "scalars", "lut", "ipos", "idir", "ri", "far", "t", "tau", "mip", "state",
+            "running")
+
+
+def leg_lanes(device, n=1024, seed=41, alpha=None, sample_range=(0.05, 0.9), maj=None, far=None, edge_cases=False):
+    """The operands of ddaleg.dda_leg_sample (LEG_ARGS) and the shadow
+    leg's tr for `n` lanes through tests' random 12^3 bf16 field and a
+    random (4, 2, 2, 2) premultiplied pyramid.
+
+    Lanes start anywhere within 2 voxels of the field, at t in [0, 2) with
+    a box exit 1 to 40 further on (`far`, when given, for every lane), at a
+    random mip; 85% of them run. `alpha` fixes the LUT's alpha column, `maj`
+    every majorant of the pyramid. With `edge_cases` the first 16 lanes
+    run: some positions or starts are NaN or +-inf, some lie 2e12 voxels
+    out, some start on lattice points; Tr sits at the roulette threshold
+    or is NaN; and pyramid cells hold 0, 1e-30, +inf and a negative
+    majorant."""
+    rng = np.random.default_rng(seed)
+    dense = torch.from_numpy(rng.random((SIDE,) * 3, dtype=np.float32)).to(torch.bfloat16)
+    lut = rng.uniform(0.05, 1.0, (8, 4)).astype(np.float32)
+    if alpha is not None:
+        lut[:, 3] = alpha
+    pyramid = rng.uniform(0.3, 4.0, (4, 2, 2, 2)).astype(np.float32)
+    if maj is not None:
+        pyramid[:] = maj
+    inv_maj = np.float32(1.0) / np.float32(VOL_MAJ)
+    scalars = np.array([inv_maj, VOL_MAJ, 1.0, *sample_range], dtype=np.float32)
+    ipos = rng.uniform(-2.0, SIDE + 2.0, (n, 3)).astype(np.float32)
+    idir = rng.normal(size=(n, 3)).astype(np.float32)
+    idir /= np.linalg.norm(idir, axis=-1, keepdims=True)
+    t = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    exit_ = t + rng.uniform(1.0, 40.0, n).astype(np.float32) if far is None else np.full(n, far, np.float32)
+    tau = (-np.log1p(-rng.random(n))).astype(np.float32)
+    mip = (rng.integers(0, 13, n) * 0.25).astype(np.float32)
+    running = rng.random(n) < 0.85
+    tr = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    if edge_cases:
+        ipos[0:3, 0] = [np.nan, np.inf, -np.inf]
+        t[3] = np.nan
+        ipos[4, 0], ipos[5, 1] = 2e12, -2e12
+        ipos[6:10] = np.floor(ipos[6:10]) + 0.5
+        t[6:10] = 0.0
+        tr[8:16] = [0.0, 1e-30, 0.1, np.float32(0.1) * (1 + 2**-23), 1.0, np.nan, 0.05, 0.0999]
+        running[:16] = True
+        pyramid[0, 0, 0, 0], pyramid[1, 1, 0, 1], pyramid[2, 0, 1, 1], pyramid[0, 1, 1, 0] = 0.0, 1e-30, np.inf, -1.0
+
+    def dev(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    return dict(
+        dense=dense.to(device), maj_alpha=dev(pyramid), extent=EXTENT, scalars=dev(scalars), lut=dev(lut),
+        ipos=dev(ipos), idir=dev(idir), ri=dev(np.float32(1.0) / idir), far=dev(exit_), t=dev(t), tau=dev(tau),
+        mip=dev(mip), state=seed_rays(torch.arange(n, dtype=torch.int64), 9).to(device), running=dev(running),
+        tr=dev(tr),
+    )
+
+
+def leg_call(lanes, leg):
+    """The positional operands of dda_leg_sample (leg "sample") or
+    dda_leg_shadow (leg "shadow" or "physical")."""
+    args = [lanes[k] for k in LEG_ARGS]
+    return args if leg == "sample" else args + [lanes["tr"], leg == "physical"]

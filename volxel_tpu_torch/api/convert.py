@@ -45,7 +45,7 @@ def from_jax_state(grid, params, lut, env, device):
     t_grid = DeviceGrid(
         dense=dense,
         maj_mips=_tensor(grid.maj_mips, device),
-        extent=_tensor(grid.extent, device, torch.int32),
+        extent=tuple(int(v) for v in np.asarray(grid.extent)),
     )
     t_params = VolumeParams(*(_tensor(getattr(params, f), device) for f in VolumeParams._fields))
     t_env = EnvState(

@@ -41,8 +41,6 @@ from volxel_tpu_torch.scene.environment import Environment, default_environment
 from volxel_tpu_torch.scene.volume import Volume
 from volxel_tpu_torch.transfer.function import DEFAULT_COLOR_STOPS, generate_transfer_function
 
-LOW_RESOLUTION_DURATION = WARMUP_SAMPLES  # warm-up samples (viewer.ts:132)
-
 
 class Renderer:
     def __init__(self, width: int = 1920, height: int = 1080, *, device, settings: ViewerSettings | None = None):
@@ -195,16 +193,22 @@ class Renderer:
         return self._framebuffer
 
     def render(self, samples: int | None = None) -> np.ndarray:
-        """Render up to `samples` progressive frames (or maxSamples) and
-        return the tonemapped image.
+        """Render `samples` progressive frames (or maxSamples) and return the
+        tonemapped image, as the JAX package's Renderer.render does.
 
-        Warm-up frames carry zero weight and are overwritten by the first
-        accumulated frame, so when the target reaches past the warm-up they
-        are skipped: the converged image is the same.
+        Up to WARMUP_SAMPLES + 1 frames, that many more frames are rendered
+        from the current frame index. Beyond that the image is the mean of
+        frames [WARMUP_SAMPLES, samples), whatever was rendered before:
+        warm-up frames carry zero weight and frame WARMUP_SAMPLES overwrites
+        the accumulator (viewer.ts:1356), so rendering those frames in order
+        gives that mean. The frame index then stands at `samples`.
         """
         total = samples if samples is not None else self.settings.max_samples
-        if total > LOW_RESOLUTION_DURATION:
-            self.frame_index = max(self.frame_index, LOW_RESOLUTION_DURATION)
+        if total <= WARMUP_SAMPLES + 1:
+            for _ in range(total):
+                self.render_frame()
+            return self.image()
+        self.frame_index = WARMUP_SAMPLES
         while self.frame_index < total:
             self.render_frame()
         return self.image()

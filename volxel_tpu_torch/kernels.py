@@ -7,9 +7,12 @@ and flags, so an edited source rebuilds), loaded with ctypes. Nothing is
 compiled or loaded at import: the CPU tests import every module on
 machines without `nvcc` or a card.
 
-Each C entry point launches on the stream it is given (the caller passes
-`torch.cuda.current_stream()`), never synchronises, and returns
-`cudaGetLastError()`; `check` turns a non-zero code into an exception.
+Each C entry point launches on the stream it is given, never
+synchronises, and returns `cudaGetLastError()`. The wrappers call it
+through `launch`, which enters the operands' device (a device guard, so
+that the launch and whatever the entry point asks of the current device go
+to the card the tensors lie on), passes that device's current stream and
+turns a non-zero code into an exception.
 `--fmad=false` keeps every multiply and add separately rounded, as eager
 PyTorch ops are, so a kernel can be held bit-equal to its plain version.
 The sources in FMAD_SOURCES are built with nvcc's default `--fmad=true`
@@ -39,33 +42,33 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
 )
-FMAD_SOURCES = ("dda_collide.cu",)
+FMAD_SOURCES = ("dda_leg.cu",)
 
 LAUNCHES = {
-    "pyr_march": 0, "dda_collide_sample": 0, "dda_collide_shadow": 0, "importance_pyramid": 0, "tonemap": 0,
-    "tile_march_sample": 0, "tile_march_transmittance": 0, "tile_march_sums": 0, "shearwarp_intermediate": 0,
-    "gather_f32": 0, "lookup_transfer": 0,
+    "dda_leg_sample": 0, "dda_leg_shadow": 0, "importance_pyramid": 0, "tonemap": 0, "tile_march_sample": 0,
+    "tile_march_transmittance": 0, "tile_march_sums": 0, "shearwarp_intermediate": 0, "gather_f32": 0,
+    "lookup_transfer": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # maj, bz, by, bx, ex, ey, ez, ipos, idir, ri, t, tau, mip, far, budget,
-    # running, t_out, tau_out, mip_out, maj_out, kind_out, budget_out,
-    # n, steps_cap, stream
-    "vx_pyr_march": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 15 + [_I, _I, _P],
     # src, dst, out_h, out_w, stream
     "vx_pool2x2": [_P, _P, _I, _I, _P],
     # src, dst, n, exposure, inv_gamma, stream
     "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
-    # dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos, idir, t, maj,
-    # kind, state, tau, mip, running, hit, rgb, n, stream
-    "vx_dda_collide_sample": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 12 + [ctypes.c_longlong, _P],
-    # the same up to running, then tr, physical, n, stream
-    "vx_dda_collide_shadow": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, ctypes.c_longlong, _P],
     # xi, out, n, stream
     "vx_neg_log1m": [_P, _P, ctypes.c_longlong, _P],
+    # maj, bz, by, bx, dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos,
+    # idir, ri, far, t, tau, mip, state, running, cap, state_out, hit_out,
+    # t_out, rgb_out, budget_out, n, stream
+    "vx_dda_leg_sample": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 10 + [_I] + [_P] * 5
+    + [ctypes.c_longlong, _P],
+    # the same up to running, then tr, cap, physical, state_out, tr_out,
+    # budget_out, n, stream
+    "vx_dda_leg_shadow": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3
+    + [ctypes.c_longlong, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
     # tau_target, state, lut, lut_k, scalars, state_out, hit_out, t_out,
     # rgb_out, n, steps, stream
@@ -160,15 +163,20 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def stream_of(tensor) -> int:
+def launch(symbol: str, on, *args, counter: str | None = None) -> None:
+    """Call the library's `symbol` with `args` and the current stream of the
+    device of `on` (a tensor or a device), under a device guard of that
+    device; raise on a non-zero return; add one to LAUNCHES[counter] when
+    a counter is named."""
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
-
-
-def check(name: str, code: int) -> None:
+    device = on.device if isinstance(on, torch.Tensor) else torch.device(on)
+    with torch.cuda.device(device):
+        code = getattr(lib(), symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+        raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError {code}")
+    if counter is not None:
+        LAUNCHES[counter] += 1
 
 
 def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:

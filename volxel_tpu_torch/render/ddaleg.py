@@ -1,0 +1,173 @@
+"""The default mode's two legs, each one hand-written CUDA kernel on the card
+beside its plain PyTorch version.
+
+Counterpart of volxel_tpu.render.modes.sample_volume_dda_pyr and
+transmittance_dda_pyr after their setup (dda.glsl:21-62 and :65-98): the
+DDA march over the premultiplied majorant pyramid to each lane's next
+collision candidate (render.pyrmarch), and at each candidate the density
+decode and the draws (render.collide), until the lane ends.
+
+  dda_leg_sample: the camera leg. A real collision ends the lane (hit, the
+    LUT colour); a null one redraws tau, steps the mip down, and the lane
+    marches on. Step budget DDA_SAMPLE_MAX_STEPS.
+  dda_leg_shadow: the shadow leg. Ratio tracking with the reference's
+    quirk or, with `physical`, the proper ratio; russian roulette under
+    0.1 ends a lane with tr = 0. Step budget DDA_TRANSMITTANCE_MAX_STEPS.
+
+A lane also ends when it escapes past `far` or spends its budget. The
+plain versions are rounds over all lanes: pyr_march_plain, then one
+collision round, while any lane runs. The kernels (csrc/dda_leg.cu) are
+one thread per lane that marches and collides until its lane ends, one
+launch per leg and no host sync. Each lane's budget, words and march state
+are its own and a march round never cuts a lane short, so the two agree
+bit for bit on the card. Both return each lane's budget left beside the
+leg's outputs: cap - budget is the march steps the lane took.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from volxel_tpu_torch import kernels
+from volxel_tpu_torch.render.collide import dda_collide_sample_plain, dda_collide_shadow_plain
+from volxel_tpu_torch.render.pyrmarch import pyr_march_plain
+from volxel_tpu_torch.render.tilemarch import S_RANGE_HI, _check_dense, _check_lanes
+
+# per-lane step budgets
+DDA_SAMPLE_MAX_STEPS = 1024
+DDA_TRANSMITTANCE_MAX_STEPS = 100  # dda.glsl:18
+
+
+def _rounds(collide, cap, dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running,
+            outputs, *flags):
+    """March and collide in rounds while any lane runs; `collide` updates
+    state, tau, mip, running and `outputs` in place. Returns (state, t,
+    budget); the inputs are left as they are."""
+    state, tau, mip, running = state.clone(), tau.clone(), mip.clone(), running.clone()
+    budget = torch.full(t.shape, cap, dtype=torch.int32, device=t.device)
+    while bool(running.any()):
+        t, tau, mip, maj, kind, budget = pyr_march_plain(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget,
+                                                         running, cap)
+        collide(dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running, *outputs, *flags)
+    return state, t, budget
+
+
+def dda_leg_sample_plain(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running):
+    """Plain PyTorch camera leg in rounds; see `dda_leg_sample`."""
+    hit = torch.zeros_like(running)
+    rgb = torch.ones((t.shape[0], 3), dtype=torch.float32, device=t.device)
+    state, t, budget = _rounds(dda_collide_sample_plain, DDA_SAMPLE_MAX_STEPS, dense, maj_alpha, extent, scalars, lut,
+                               ipos, idir, ri, far, t, tau, mip, state, running, (hit, rgb))
+    return state, hit, t, rgb, budget
+
+
+def dda_leg_shadow_plain(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running,
+                         tr, physical: bool = False):
+    """Plain PyTorch shadow leg in rounds; see `dda_leg_shadow`."""
+    tr = tr.clone()
+    state, _, budget = _rounds(dda_collide_shadow_plain, DDA_TRANSMITTANCE_MAX_STEPS, dense, maj_alpha, extent,
+                               scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running, (tr,), physical)
+    return state, tr, budget
+
+
+def _volume_and_lanes(name, dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state,
+                      running, per_lane=()):
+    """Check a leg's operands (device, type, shape, contiguity, alignment)
+    and return the C entry point's arguments up to `running`."""
+    ex, ey, ez = _check_dense(name, dense, extent)
+    dev = dense.device
+    kernels.require_cuda(name, maj_alpha, scalars, lut, ipos, idir, ri, far, t, tau, mip,
+                         *(a for _, a in per_lane), dtype=torch.float32, device=dev)
+    kernels.require_cuda(name, running, dtype=torch.bool, device=dev)
+    kernels.require_cuda(name, state, dtype=torch.int64, device=dev)
+    n = t.shape[0]
+    _check_lanes(name, n, [("ipos", ipos), ("idir", idir), ("ri", ri)],
+                 [("far", far), ("t", t), ("tau", tau), ("mip", mip), ("running", running), *per_lane])
+    if tuple(state.shape) != (n, 4):
+        raise ValueError(f"{name}: state must be ({n}, 4), got {tuple(state.shape)}")
+    if maj_alpha.dim() != 4 or maj_alpha.shape[0] != 4:
+        raise ValueError(f"{name}: expected a (4, bz, by, bx) pyramid, got {tuple(maj_alpha.shape)}")
+    _, bz, by, bx = maj_alpha.shape
+    if 8 * bx < ex or 8 * by < ey or 8 * bz < ez:
+        raise ValueError(f"{name}: pyramid {tuple(maj_alpha.shape)} does not cover the extent {(ex, ey, ez)}")
+    if lut.dim() != 2 or lut.shape[1] != 4 or lut.shape[0] < 1:
+        raise ValueError(f"{name}: lut must be (K, 4), got {tuple(lut.shape)}")
+    if lut.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte LUT rows; lut is misaligned")
+    if tuple(scalars.shape) != (S_RANGE_HI + 1,):
+        raise ValueError(f"{name}: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
+    _, ny, nx = dense.shape
+    return (maj_alpha.data_ptr(), bz, by, bx, dense.data_ptr(), ny, nx, ex, ey, ez, lut.data_ptr(), lut.shape[0],
+            scalars.data_ptr(), *(a.data_ptr() for a in (ipos, idir, ri, far, t, tau, mip, state, running)))
+
+
+def dda_leg_sample_cuda(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running):
+    """The camera leg as one launch of csrc/dda_leg.cu; see
+    `dda_leg_sample`."""
+    args = _volume_and_lanes("dda_leg_sample", dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau,
+                             mip, state, running)
+    n = t.shape[0]
+    state_o, hit, t_o = torch.empty_like(state), torch.empty_like(running), torch.empty_like(t)
+    rgb, budget = torch.empty((n, 3), dtype=torch.float32, device=t.device), torch.empty_like(t, dtype=torch.int32)
+    kernels.launch("vx_dda_leg_sample", t, *args, DDA_SAMPLE_MAX_STEPS,
+                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, budget)), n, counter="dda_leg_sample")
+    return state_o, hit, t_o, rgb, budget
+
+
+def dda_leg_shadow_cuda(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running,
+                        tr, physical: bool = False):
+    """The shadow leg as one launch of csrc/dda_leg.cu; see
+    `dda_leg_shadow`."""
+    args = _volume_and_lanes("dda_leg_shadow", dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau,
+                             mip, state, running, (("tr", tr),))
+    state_o, tr_o, budget = torch.empty_like(state), torch.empty_like(tr), torch.empty_like(t, dtype=torch.int32)
+    kernels.launch("vx_dda_leg_shadow", t, *args, tr.data_ptr(), DDA_TRANSMITTANCE_MAX_STEPS, int(bool(physical)),
+                   *(a.data_ptr() for a in (state_o, tr_o, budget)), t.shape[0], counter="dda_leg_shadow")
+    return state_o, tr_o, budget
+
+
+def dda_leg_sample(
+    dense,  # (Z, Y, X) bf16 decoded density
+    maj_alpha,  # (4, bz, by, bx) f32 premultiplied pyramid (modes.build_premul_majorant)
+    extent,  # (ex, ey, ez) ints: the volume's index extent
+    scalars,  # (5,) f32 on the device: tilemarch.volume_scalars(params)
+    lut,  # (K, 4) f32 transfer LUT
+    ipos, idir, ri,  # (n, 3) f32 index-space rays and the caller's 1/idir
+    far, t, tau, mip,  # (n,) f32: box exit and march state
+    state,  # (n, 4) int64 xoshiro words
+    running,  # (n,) bool
+):
+    """The camera leg (sample_volume_dda after its setup). Returns (state,
+    hit, t, rgb, budget): the words after the leg's draws, whether the lane
+    hit, t at the hit (or where it stopped), the LUT colour of the hit (1
+    elsewhere) and the steps left of DDA_SAMPLE_MAX_STEPS. The inputs are
+    left as they are. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    args = (dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running)
+    if t.device.type == "cpu":
+        return dda_leg_sample_plain(*args)
+    return dda_leg_sample_cuda(*args)
+
+
+def dda_leg_shadow(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running, tr,
+                   physical: bool = False):
+    """The shadow leg (transmittance_dda after its setup): `tr` (n,) f32 is
+    each lane's transmittance before it, the other arguments are those of
+    `dda_leg_sample`. Returns (state, tr, budget), budget the steps left of
+    DDA_TRANSMITTANCE_MAX_STEPS; the inputs are left as they are. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    args = (dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running, tr, physical)
+    if t.device.type == "cpu":
+        return dda_leg_shadow_plain(*args)
+    return dda_leg_shadow_cuda(*args)
+
+
+def neg_log1m_cuda(xi: torch.Tensor) -> torch.Tensor:
+    """-log(1 - xi) as the leg kernels compute it on the card (one launch of
+    csrc/dda_leg.cu's check kernel, on no render path and counted nowhere),
+    to hold against -torch.log(1.0 - xi)."""
+    kernels.require_cuda("neg_log1m", xi, dtype=torch.float32)
+    out = torch.empty_like(xi)
+    kernels.launch("vx_neg_log1m", xi, xi.data_ptr(), out.data_ptr(), xi.numel())
+    return out

@@ -41,11 +41,8 @@ def gather_f32_cuda(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     kernels.require_cuda("gather_f32", table, dtype=torch.float32)
     kernels.require_cuda("gather_f32", idx, dtype=torch.int32, device=table.device)
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
-    code = kernels.lib().vx_gather_f32(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), table.numel(), kernels.stream_of(table)
-    )
-    kernels.check("vx_gather_f32", code)
-    kernels.LAUNCHES["gather_f32"] += 1
+    kernels.launch("vx_gather_f32", table, table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
+                   table.numel(), counter="gather_f32")
     return out
 
 
@@ -79,12 +76,8 @@ def lookup_transfer_cuda(lut: torch.Tensor, sample_range: torch.Tensor, density:
     if sample_range.numel() != 2:
         raise ValueError(f"lookup_transfer: sample_range must hold 2 values, got {sample_range.numel()}")
     out = torch.empty(density.shape + (4,), dtype=torch.float32, device=lut.device)
-    code = kernels.lib().vx_lookup_transfer(
-        lut.data_ptr(), lut.shape[0], sample_range.data_ptr(), density.data_ptr(), out.data_ptr(),
-        density.numel(), kernels.stream_of(lut),
-    )
-    kernels.check("vx_lookup_transfer", code)
-    kernels.LAUNCHES["lookup_transfer"] += 1
+    kernels.launch("vx_lookup_transfer", lut, lut.data_ptr(), lut.shape[0], sample_range.data_ptr(),
+                   density.data_ptr(), out.data_ptr(), density.numel(), counter="lookup_transfer")
     return out
 
 
@@ -101,5 +94,4 @@ def launch_floor(n: int, device) -> None:
     """One launch of csrc/gather.cu's empty kernel over the grid the LUT
     fetch takes for `n` lanes: the floor that a call of a few microseconds
     is measured against. It is on no render path and counts no launch."""
-    code = kernels.lib().vx_launch_floor(n, torch.cuda.current_stream(device).cuda_stream)
-    kernels.check("vx_launch_floor", code)
+    kernels.launch("vx_launch_floor", device, n)

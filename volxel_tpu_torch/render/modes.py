@@ -4,12 +4,11 @@ PyTorch counterpart of volxel_tpu.render.modes:
 
   default (dda.glsl): DDA null-collision tracking over the majorant
     pyramid, with the structure of the JAX package's sample_volume_dda_pyr
-    / transmittance_dda_pyr. The march runs in render.pyrmarch.pyr_march (a
-    CUDA kernel on the card), which parks every lane at its next collision
-    candidate; the density decode and every random draw at the parked
-    lanes run in render.collide (another kernel on the card), and the loop
-    re-enters the march while any lane runs. Each lane has its own step
-    budget (dda.glsl's per-pixel loop cap).
+    / transmittance_dda_pyr. After the setup here, each leg is one call of
+    render.ddaleg (one CUDA kernel on the card): every lane marches to its
+    next collision candidate, decodes and draws there, and marches on until
+    it ends. Each lane has its own step budget (dda.glsl's per-pixel loop
+    cap).
   no_dda (normal.glsl): delta tracking and ratio tracking against the
     global majorant, in PyTorch, over the lanes still running.
   raymarch (raymarch.glsl): 64 fixed steps with the stochastic tricubic
@@ -36,8 +35,7 @@ import functools
 
 import torch
 
-from volxel_tpu_torch.render.collide import dda_collide_sample, dda_collide_shadow
-from volxel_tpu_torch.render.pyrmarch import _round_mip, _step_dda, pyr_march  # noqa: F401
+from volxel_tpu_torch.render.ddaleg import dda_leg_sample, dda_leg_shadow
 from volxel_tpu_torch.render.rays import Rays, ray_box_intersection
 from volxel_tpu_torch.render.rng import rng, rng_where
 from volxel_tpu_torch.render.sampling import (
@@ -50,9 +48,6 @@ from volxel_tpu_torch.render.sampling import (
 from volxel_tpu_torch.render.tilemarch import STEPS as RAYMARCH_STEPS
 from volxel_tpu_torch.render.tilemarch import tile_march_sample, tile_march_transmittance, volume_scalars
 
-# per-lane step caps
-DDA_SAMPLE_MAX_STEPS = 1024
-DDA_TRANSMITTANCE_MAX_STEPS = 100  # dda.glsl:18
 TRACKING_MAX_EVENTS = 512  # no_dda events per leg, one count for every lane as in the JAX package
 
 # adaptive mip schedule (dda.glsl:6-8)
@@ -115,56 +110,32 @@ def _march_setup(grid, params, origin, direction, state, active):
     tau = -torch.log(1.0 - xi)
     running = active & hit_box & (t < far)
     mip = torch.full_like(t, MIP_START)
-    extent = tuple(int(v) for v in grid.extent.tolist())
-    return state, ipos, idir, ri, far, t, tau, mip, running, extent
+    return state, ipos, idir, ri, far, t, tau, mip, running
 
 
 def sample_volume_dda(grid, params, lut, origin, direction, state, active):
     """DDA distance sampling (dda.glsl:65-98) over grid.maj_alpha, the
-    premultiplied pyramid (build_premul_majorant): each round marches the
-    running lanes to their next collision candidate (pyr_march), then
-    decodes and draws at the parked lanes (collide.dda_collide_sample)."""
-    state, ipos, idir, ri, far, t, tau, mip, running, extent = _march_setup(
-        grid, params, origin, direction, state, active
-    )
-    n = origin.shape[0]
-    hit = torch.zeros_like(running)
-    rgb = torch.ones((n, 3), dtype=torch.float32, device=origin.device)
-    budget = torch.full((n,), DDA_SAMPLE_MAX_STEPS, dtype=torch.int32, device=origin.device)
-    scalars = volume_scalars(params)
-    while bool(running.any()):
-        t, tau, mip, maj, kind, budget = pyr_march(
-            grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running,
-            DDA_SAMPLE_MAX_STEPS,
-        )
-        dda_collide_sample(grid.dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running,
-                           hit, rgb)
-    le_add = torch.zeros((n, 3), dtype=torch.float32, device=origin.device)  # emission stub
+    premultiplied pyramid (build_premul_majorant): the setup, then the leg
+    (ddaleg.dda_leg_sample)."""
+    state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
+    state, hit, t, rgb, _ = dda_leg_sample(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut,
+                                           ipos, idir, ri, far, t, tau, mip, state, running)
+    le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     return state, hit, t, rgb, le_add
 
 
 def transmittance_dda(grid, params, lut, origin, direction, state, active, physical: bool = False):
     """Ratio-tracking shadow transmittance (dda.glsl:21-62 draw protocol:
-    real collisions keep marching with a redrawn tau; RR under 0.1), in
-    rounds of pyr_march and collide.dda_collide_shadow.
+    real collisions keep marching with a redrawn tau; RR under 0.1): the
+    setup, then the leg (ddaleg.dda_leg_shadow).
 
     physical=False keeps the reference quirk Tr *= max(0, 1 - global/local)
     (dda.glsl:48), which makes real collisions opaque; physical=True is
     proper ratio tracking, Tr *= 1 - density/local."""
-    state, ipos, idir, ri, far, t, tau, mip, running, extent = _march_setup(
-        grid, params, origin, direction, state, active
-    )
-    n = origin.shape[0]
-    tr = torch.ones((n,), dtype=torch.float32, device=origin.device)
-    budget = torch.full((n,), DDA_TRANSMITTANCE_MAX_STEPS, dtype=torch.int32, device=origin.device)
-    scalars = volume_scalars(params)
-    while bool(running.any()):
-        t, tau, mip, maj, kind, budget = pyr_march(
-            grid.maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running,
-            DDA_TRANSMITTANCE_MAX_STEPS,
-        )
-        dda_collide_shadow(grid.dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running,
-                           tr, physical)
+    state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
+    tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
+    state, tr, _ = dda_leg_shadow(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut, ipos,
+                                  idir, ri, far, t, tau, mip, state, running, tr, physical)
     return state, tr
 
 
@@ -262,8 +233,8 @@ def raymarch_prologue(grid, params, lut, origin, direction, state, active):
     tau_target = -torch.log(1.0 - xi_tau)
     state, xi_j = rng_where(valid, state)
     start = near + xi_j * dt
-    extent = tuple(int(v) for v in grid.extent.tolist())
-    return grid.dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, volume_scalars(params), extent
+    return (grid.dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, volume_scalars(params),
+            grid.extent)
 
 
 def sample_volume_raymarch(grid, params, lut, origin, direction, state, active):
@@ -284,9 +255,8 @@ def transmittance_raymarch(grid, params, lut, origin, direction, state, active):
     ipos, idir, near, far, dt, valid = _raymarch_setup(params, origin, direction, active)
     state, xi_j = rng_where(valid, state)  # raymarch.glsl:17
     start = near + xi_j * dt
-    extent = tuple(int(v) for v in grid.extent.tolist())
     state, tau = tile_march_transmittance(grid.dense, ipos, idir, start, dt, far, valid, state, lut,
-                                          volume_scalars(params), extent)
+                                          volume_scalars(params), grid.extent)
     return state, torch.exp(-tau)
 
 

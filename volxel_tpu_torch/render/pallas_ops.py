@@ -46,15 +46,12 @@ def build_importance_pyramid_cuda(base: torch.Tensor) -> tuple:
         raise ValueError(f"build_importance_pyramid: expected ({IMP_DIM}, {IMP_DIM}), got {tuple(base.shape)}")
     if base.data_ptr() % 8:
         raise ValueError("build_importance_pyramid: the kernel reads 8-byte pairs; base is misaligned")
-    lib = kernels.lib()
-    stream = kernels.stream_of(base)
     levels = []
     src = base
     for k in range(IMP_BASE_MIP):
         dim = IMP_DIM >> (k + 1)
         dst = torch.empty((dim, dim), dtype=torch.float32, device=base.device)
-        kernels.check("vx_pool2x2", lib.vx_pool2x2(src.data_ptr(), dst.data_ptr(), dim, dim, stream))
-        kernels.LAUNCHES["importance_pyramid"] += 1
+        kernels.launch("vx_pool2x2", base, src.data_ptr(), dst.data_ptr(), dim, dim, counter="importance_pyramid")
         levels.append(dst)
         src = dst
     return tuple(levels)
@@ -87,11 +84,8 @@ def tonemap_cuda(image: torch.Tensor, exposure: float, gamma: float) -> torch.Te
     kernels.require_cuda("tonemap_display", image, dtype=torch.float32)
     out = torch.empty_like(image)
     inv_gamma = (1.0 / torch.tensor(gamma, dtype=torch.float32)).item()
-    code = kernels.lib().vx_tonemap(
-        image.data_ptr(), out.data_ptr(), image.numel(), float(exposure), inv_gamma, kernels.stream_of(image)
-    )
-    kernels.check("vx_tonemap", code)
-    kernels.LAUNCHES["tonemap"] += 1
+    kernels.launch("vx_tonemap", image, image.data_ptr(), out.data_ptr(), image.numel(), float(exposure), inv_gamma,
+                   counter="tonemap")
     return out
 
 

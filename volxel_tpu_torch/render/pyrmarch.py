@@ -1,5 +1,5 @@
-"""Pyramid march: the default mode's DDA null-collision march, as one
-hand-written CUDA kernel on the card beside its plain PyTorch version.
+"""Pyramid march: the default mode's DDA null-collision march, in plain
+PyTorch.
 
 Counterpart of volxel_tpu.render.pyrmarch.pyr_march (dda.glsl:65-98 /
 modes._sample_compact_loop's march arm). Each running lane marches from
@@ -7,23 +7,17 @@ modes._sample_compact_loop's march arm). Each running lane marches from
 majorant fetch per step, the DDA step to the next brick boundary at the
 traced mip, tau -= majorant * dt and mip += 0.25. It stops at its first
 collision candidate (tau exhausted), at escape past `far`, or when its
-per-lane step budget runs out, and PARKS there. The caller
-(modes.sample_volume_dda / transmittance_dda) decodes the density and
-draws the random numbers for parked lanes in PyTorch and re-enters the
-march, so every draw stays where the GLSL makes it.
-
-The kernel (csrc/pyr_march.cu) is one thread per ray and reads the
-stacked f32 pyramid (4 MiB at 512^3) directly; the JAX package's int8
-byte planes exist only for the TPU's matrix unit. Its f32 operations are
-those of `pyr_march_plain`, one rounding each (built with --fmad=false),
-so on the card the two agree bit for bit on every output.
+per-lane step budget runs out, and PARKS there; render.collide then
+decodes and draws at the parked lanes. Rounds of the two are the plain
+version of the default legs (render.ddaleg), whose kernel
+(csrc/dda_leg.cu) runs the march and the collision in one thread per lane,
+reading the stacked f32 pyramid directly: the JAX package's int8 byte
+planes exist only for the TPU's matrix unit.
 """
 
 from __future__ import annotations
 
 import torch
-
-from volxel_tpu_torch import kernels
 
 KIND_IDLE = 0  # lane wasn't running
 KIND_COLL = 1  # parked at a live collision: decode + draws next
@@ -45,14 +39,20 @@ def _step_dda(pos, inv_dir, mip_i):
 
 
 def pyr_march_plain(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running, steps_cap: int):
-    """Plain PyTorch march over all lanes in lockstep under a mask; see
-    `pyr_march` for the arguments."""
+    """March every running lane to its next collision candidate (or
+    escape / budget exhaustion), all lanes in lockstep under a mask.
+
+    maj_alpha (4, bz, by, bx) f32 is the premultiplied pyramid
+    (modes.build_premul_majorant), extent the volume's (ex, ey, ez) index
+    extent, ipos / idir / ri (n, 3) f32 the index-space rays and the
+    caller's 1/idir, t / tau / mip (n,) f32 the march state, far (n,) f32
+    the box exit, budget (n,) int32 each lane's steps left, running (n,)
+    bool. Returns (t, tau, mip, majorant, kind, budget) per lane:
+    `majorant` is the fetch at the collision step (0 elsewhere), `kind`
+    one of KIND_*. The inputs are left as they are."""
     from volxel_tpu_torch.render.sampling import DeviceGrid, lookup_majorant_premul
 
-    grid = DeviceGrid(
-        dense=None, maj_mips=None, maj_alpha=maj_alpha,
-        extent=torch.tensor(extent, dtype=torch.int32, device=t.device),
-    )
+    grid = DeviceGrid(dense=None, maj_mips=None, maj_alpha=maj_alpha, extent=tuple(extent))
     t, tau, mip, budget = t.clone(), tau.clone(), mip.clone(), budget.clone()
     maj_out = torch.zeros_like(t)
     kind = torch.where(running & (budget <= 0), KIND_DONE, KIND_IDLE).to(torch.int32)
@@ -84,56 +84,3 @@ def pyr_march_plain(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget,
         march = cont & (budget > 0)
         k += 1
     return t, tau, mip, maj_out, kind, budget
-
-
-def pyr_march_cuda(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running, steps_cap: int):
-    """The march as one launch of csrc/pyr_march.cu; see `pyr_march`."""
-    f32 = (maj_alpha, ipos, idir, ri, t, tau, mip, far)
-    kernels.require_cuda("pyr_march", *f32, dtype=torch.float32)
-    kernels.require_cuda("pyr_march", budget, dtype=torch.int32, device=t.device)
-    kernels.require_cuda("pyr_march", running, dtype=torch.bool, device=t.device)
-    n = t.shape[0]
-    if maj_alpha.dim() != 4 or maj_alpha.shape[0] != 4:
-        raise ValueError(f"pyr_march: expected a (4, bz, by, bx) pyramid, got {tuple(maj_alpha.shape)}")
-    for name, a in (("ipos", ipos), ("idir", idir), ("ri", ri)):
-        if tuple(a.shape) != (n, 3):
-            raise ValueError(f"pyr_march: {name} must be ({n}, 3), got {tuple(a.shape)}")
-    for name, a in (("tau", tau), ("mip", mip), ("far", far), ("budget", budget), ("running", running)):
-        if tuple(a.shape) != (n,):
-            raise ValueError(f"pyr_march: {name} must be ({n},), got {tuple(a.shape)}")
-    _, bz, by, bx = maj_alpha.shape
-    ex, ey, ez = (int(v) for v in extent)
-    out = [torch.empty_like(t) for _ in range(4)] + [torch.empty_like(budget), torch.empty_like(budget)]
-    t_o, tau_o, mip_o, maj_o, kind_o, budget_o = out
-    code = kernels.lib().vx_pyr_march(
-        maj_alpha.data_ptr(), bz, by, bx, ex, ey, ez,
-        ipos.data_ptr(), idir.data_ptr(), ri.data_ptr(),
-        t.data_ptr(), tau.data_ptr(), mip.data_ptr(), far.data_ptr(),
-        budget.data_ptr(), running.data_ptr(),
-        t_o.data_ptr(), tau_o.data_ptr(), mip_o.data_ptr(), maj_o.data_ptr(),
-        kind_o.data_ptr(), budget_o.data_ptr(),
-        n, int(steps_cap) + 2, kernels.stream_of(t),
-    )
-    kernels.check("vx_pyr_march", code)
-    kernels.LAUNCHES["pyr_march"] += 1
-    return t_o, tau_o, mip_o, maj_o, kind_o, budget_o
-
-
-def pyr_march(
-    maj_alpha,  # (4, bz, by, bx) f32 — modes.build_premul_majorant
-    extent,  # (ex, ey, ez) ints: the volume's index extent
-    ipos, idir, ri,  # (n, 3) f32 index-space rays + the caller's 1/idir
-    t, tau, mip,  # (n,) f32 march state
-    far,  # (n,) f32
-    budget,  # (n,) int32 remaining per-lane steps
-    running,  # (n,) bool
-    steps_cap: int,
-):
-    """March every running lane to its next collision candidate (or
-    escape / budget exhaustion). Returns (t, tau, mip, majorant, kind,
-    budget) per lane; `majorant` is the fetch at the collision step (0
-    elsewhere), `kind` one of KIND_*. The caller's 1/idir comes in as
-    `ri`, so kernel and PyTorch share the quotient bits."""
-    if t.device.type == "cpu":
-        return pyr_march_plain(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running, steps_cap)
-    return pyr_march_cuda(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running, steps_cap)

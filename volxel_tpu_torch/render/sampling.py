@@ -37,7 +37,9 @@ class DeviceGrid(NamedTuple):
     dense: torch.Tensor  # (Z, Y, X) bfloat16 decoded density
     # all range-mip levels upsampled to finest brick resolution:
     maj_mips: torch.Tensor  # (4, bz, by, bx) float32 — level 0 = range_hi
-    extent: torch.Tensor  # (3,) int32 (x, y, z) index extent
+    # (x, y, z) index extent, on the host: the legs' kernels take it as
+    # arguments and the plain lookups clip to it, with no read-back (a host sync)
+    extent: tuple[int, int, int]
     # premultiplied pyramid vol_maj * transfer_alpha(majorant), built per
     # render from the current transfer and settings
     # (modes.build_premul_majorant); the DDA march reads it directly
@@ -110,7 +112,7 @@ def device_grid_from_brick(grid: BrickGrid, device) -> DeviceGrid:
     return DeviceGrid(
         dense=dense,
         maj_mips=torch.from_numpy(build_majorant_pyramid(grid)).to(device),
-        extent=torch.tensor(grid.index_extent, dtype=torch.int32, device=device),
+        extent=tuple(int(v) for v in grid.index_extent),
     )
 
 
@@ -135,13 +137,18 @@ def world_to_index_dir(params: VolumeParams, d):
 # -- raw voxel lookups ---------------------------------------------------------
 
 
+def _clip_to_extent(grid: DeviceGrid, ip):
+    """Integer coords (..., 3) clipped to [0, extent - 1] on each axis."""
+    return torch.stack([ip[..., k].clamp(0, e - 1) for k, e in enumerate(grid.extent)], dim=-1)
+
+
 def lookup_density_brick_int(grid: DeviceGrid, iipos):
     """Decoded density at integer voxel coords (common.glsl:36-43), read
     from the dense field. iipos: (..., 3) integer (x, y, z). OOB taps
     return 0.0."""
-    ext = grid.extent.to(iipos.dtype)
-    inside = ((iipos >= 0) & (iipos < ext)).all(dim=-1)
-    ip = torch.minimum(torch.clamp_min(iipos, 0), ext - 1).to(torch.int64)
+    ip = _clip_to_extent(grid, iipos)
+    inside = (ip == iipos).all(dim=-1)
+    ip = ip.to(torch.int64)
     _, ny, nx = grid.dense.shape
     flat = (ip[..., 2] * ny + ip[..., 1]) * nx + ip[..., 0]
     value = grid.dense.reshape(-1)[flat].to(torch.float32)
@@ -151,8 +158,7 @@ def lookup_density_brick_int(grid: DeviceGrid, iipos):
 def _majorant_coords(grid: DeviceGrid, ipos):
     """Brick coordinates of a majorant tap: floor -> clip to the extent ->
     brick index."""
-    ip = torch.floor(ipos).to(torch.int32)
-    ip = torch.minimum(torch.clamp_min(ip, 0), grid.extent - 1)
+    ip = _clip_to_extent(grid, torch.floor(ipos).to(torch.int32))
     return ip[..., 0] >> 3, ip[..., 1] >> 3, ip[..., 2] >> 3
 
 

@@ -278,12 +278,10 @@ def shearwarp_intermediate_cuda(vol, lut, sx: float, sy: float, inv_maj: float, 
     scalars = upload(params, vol.device)
     c = torch.empty((out_h, out_w, 3), dtype=torch.float32, device=vol.device)
     t = torch.empty((out_h, out_w), dtype=torch.float32, device=vol.device)
-    code = kernels.lib().vx_shearwarp_intermediate(
-        vol.data_ptr(), z_n, y_n, x_n, lut.data_ptr(), lut.shape[0], scalars.data_ptr(), out_h, out_w,
-        c.data_ptr(), t.data_ptr(), kernels.stream_of(vol),
+    kernels.launch(
+        "vx_shearwarp_intermediate", vol, vol.data_ptr(), z_n, y_n, x_n, lut.data_ptr(), lut.shape[0],
+        scalars.data_ptr(), out_h, out_w, c.data_ptr(), t.data_ptr(), counter="shearwarp_intermediate",
     )
-    kernels.check("vx_shearwarp_intermediate", code)
-    kernels.LAUNCHES["shearwarp_intermediate"] += 1
     return c, t
 
 

@@ -61,9 +61,7 @@ def volume_scalars(params: VolumeParams):
 
 
 def _dense_grid(dense, extent) -> DeviceGrid:
-    return DeviceGrid(
-        dense=dense, maj_mips=None, extent=torch.tensor(extent, dtype=torch.int32, device=dense.device)
-    )
+    return DeviceGrid(dense=dense, maj_mips=None, extent=tuple(extent))
 
 
 def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
@@ -162,15 +160,13 @@ def tile_march_sample_cuda(dense, ipos, idir, start, dt, far, valid, tau_target,
     hit = torch.empty_like(valid)
     t_o = torch.empty_like(start)
     rgb = torch.empty_like(ipos)
-    code = kernels.lib().vx_tile_march_sample(
-        dense.data_ptr(), ny, nx, ex, ey, ez,
+    kernels.launch(
+        "vx_tile_march_sample", ipos, dense.data_ptr(), ny, nx, ex, ey, ez,
         ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
         valid.data_ptr(), tau_target.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0],
         scalars.data_ptr(), state_o.data_ptr(), hit.data_ptr(), t_o.data_ptr(), rgb.data_ptr(), n, STEPS,
-        kernels.stream_of(ipos),
+        counter="tile_march_sample",
     )
-    kernels.check("vx_tile_march_sample", code)
-    kernels.LAUNCHES["tile_march_sample"] += 1
     return state_o, hit, t_o, rgb
 
 
@@ -204,14 +200,12 @@ def tile_march_transmittance_cuda(dense, ipos, idir, start, dt, far, valid, stat
     _, ny, nx = dense.shape
     state_o = torch.empty_like(state)
     tau = torch.empty_like(start)
-    code = kernels.lib().vx_tile_march_transmittance(
-        dense.data_ptr(), ny, nx, ex, ey, ez,
+    kernels.launch(
+        "vx_tile_march_transmittance", ipos, dense.data_ptr(), ny, nx, ex, ey, ez,
         ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
         valid.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0], scalars.data_ptr(),
-        state_o.data_ptr(), tau.data_ptr(), n, STEPS, kernels.stream_of(ipos),
+        state_o.data_ptr(), tau.data_ptr(), n, STEPS, counter="tile_march_transmittance",
     )
-    kernels.check("vx_tile_march_transmittance", code)
-    kernels.LAUNCHES["tile_march_transmittance"] += 1
     return state_o, tau
 
 
@@ -251,13 +245,11 @@ def tile_march_sums_cuda(dense, ipos, idir, start, dt, far, valid, extent, steps
                  (("start", start), ("dt", dt), ("far", far), ("valid", valid)))
     _, ny, nx = dense.shape
     sums = torch.empty_like(start)
-    code = kernels.lib().vx_tile_march_sums(
-        dense.data_ptr(), ny, nx, ex, ey, ez,
+    kernels.launch(
+        "vx_tile_march_sums", ipos, dense.data_ptr(), ny, nx, ex, ey, ez,
         ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
-        valid.data_ptr(), sums.data_ptr(), n, int(steps), kernels.stream_of(ipos),
+        valid.data_ptr(), sums.data_ptr(), n, int(steps), counter="tile_march_sums",
     )
-    kernels.check("vx_tile_march_sums", code)
-    kernels.LAUNCHES["tile_march_sums"] += 1
     return sums
 
 
