@@ -7,9 +7,10 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from volxel_tpu_torch/csrc and print the time;
-   build csrc/dda_leg.cu once more with `-Xptxas -v` (registers and spills
-   of each kernel) and check in its SASS (cuobjdump) that the leg kernels'
-   own code holds no FFMA;
+   build csrc/dda_leg.cu, csrc/track_leg.cu and csrc/tonemap.cu once more
+   with `-Xptxas -v` (registers and spills of each kernel) and check in the
+   legs' SASS (cuobjdump) that the leg kernels' own code holds no FFMA;
+   count the tonemap's SASS instructions and its instructions per float;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -20,15 +21,22 @@ Phases, each of which raises (exit code != 0) on failure:
      (the mean over the max of the march steps the lanes of a warp take)
      and a bound recounted for the work the lanes need; the legs'
      -logf(1 - xi) against torch.log at all 2^24 draws;
+   - both no_dda legs (delta and ratio tracking, each lane until it ends)
+     at every call of one 1080p no_dda sample, bit-equal on every output
+     of every lane, with their warp efficiency (events over 32 times the
+     most a lane of the warp takes) and a bound recounted for the events
+     the lanes take;
    - both table fetches: the transfer-LUT fetch where it still runs (the
-     default sample's premultiplied pyramid and every event of one 1080p
-     no_dda frame) and gather_f32 at every call of one 1080p default-mode
+     default sample's premultiplied pyramid) and gather_f32 at every call
+     of one 1080p default-mode
      sample and at one environment lookup over 1920x1080 directions
      (bit-equal), gather_f32 beside torch.index_select on the same int32
      indices and torch.take on their int64 copy, the LUT fetch's mean call
      beside the launch floor (an empty kernel over the same grid);
    - the importance pyramid on the default environment's 512^2 base (rtol
-     1e-6) and the tonemap on a 1920x1080x3 buffer (atol 1e-6);
+     1e-6), and the tonemap, bit-equal on a 1920x1080x3 buffer and at all
+     2^32 f32 inputs, timed beside a plain 16-byte copy of the same buffer
+     (the practical floor) and torch's copy_;
    - both raymarch step loops (the camera leg's and the shadow leg's) at
      every call of one 1080p raymarch sample (bit-equal on state, hit, t
      and rgb, or state and tau, of every lane), and the nearest-tap sums on
@@ -44,16 +52,16 @@ Phases, each of which raises (exit code != 0) on failure:
    where one PyTorch call computes the same function, that call's time;
 4. run the main paths through the Renderer: the 512^3 synthetic CT volume
    in the benchmark framing (bench.py), 1920x1080, 5 warm-up + 3
-   accumulated frames, then image(), in the default mode and in the
-   raymarch mode, each with every launch counter at 0 before it; check the
-   output, that every kernel of the path launched, that each default leg
-   is one launch per bounce and that the LUT fetch launched at most once
-   per default sample and never in the raymarch mode; print every kernel's
-   launches per sample; in both modes split one sample into its camera and
-   shadow legs (their ms, launches and host syncs) and profile one (device
-   kernels, torch.nonzero calls), and the default mode once more at
-   bounces 3; time one
-   1080p no_dda frame; then the shear-warp preview: render_preview() at six
+   accumulated frames, then image(), in the default, the raymarch and the
+   no_dda mode, each with every launch counter at 0 before it; check the
+   output, that every kernel of the path launched, that each leg of the
+   default and no_dda modes is one launch per bounce and that the LUT
+   fetch launched at most once per default sample and never in the other
+   modes; print every kernel's launches per sample; in the three modes
+   split one sample into its camera and shadow legs (their ms, launches
+   and host syncs, which must be 0) and profile one (device kernels,
+   torch.nonzero calls), and the default mode once more at bounces 3; then
+   the shear-warp preview: render_preview() at six
    camera poses that use all six (principal axis, flip) volumes, each
    called 1 + 3 times, and render_dvr(screen=True) once, with the counters
    at 0 before it;
@@ -119,6 +127,7 @@ PROFILE_ATTEMPTS = 5
 PAD_KERNEL = "empty_kernel"
 # the device symbol of the kernel behind each launch counter
 KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "dda_leg_shadow_kernel",
+                  "track_leg_sample": "track_leg_sample_kernel", "track_leg_shadow": "track_leg_shadow_kernel",
                   "importance_pyramid": "pool2x2_kernel",
                   "tonemap": "tonemap_kernel", "tile_march_sample": "tile_march_sample_kernel",
                   "tile_march_transmittance": "tile_march_transmittance_kernel",
@@ -132,8 +141,9 @@ KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per unit of work, counted from the kernels' sources: a DDA
-# step of the march; a collision (the trilinear decode of eight taps, the
-# LUT, two or three draws, the leg's updates); a
+# step of the march; a collision of the default legs or an event of the
+# no_dda legs (the trilinear decode of eight taps, the LUT, two or three
+# draws, the log, the leg's updates); a
 # raymarch step (nine xoshiro draws, the tricubic offsets, the tap, the
 # LUT and the tau test); a nearest-tap sum step; a
 # shear-warp voxel's LUT index (two products, floor, clamp), a LUT row's
@@ -504,6 +514,69 @@ def check_legs(r) -> list[dict]:
     return entries
 
 
+def check_track_legs(r) -> list[dict]:
+    """Both no_dda leg kernels at every call of one 1080p no_dda sample (the
+    camera leg and the shadow leg; lanes counted: the running ones),
+    bit-equal on every output of every lane, events left included. Their
+    work, as these lanes need it: every lane's `running` and words read and
+    its outputs written once (the camera leg also reads every lane's t, the
+    shadow leg its tr), each running lane's ray, box exit (and, in the
+    shadow leg, t) read once, and per event it takes the decode's eight
+    2-byte bf16 taps (at most the field's bytes); the LUT and the scalars
+    read once. Also the warp efficiency of the launches: the events the
+    lanes took over 32 times the most a lane of their warp (32 lanes in
+    pixel order) took, and the bytes of the events' 16-byte LUT rows,
+    which the bound does not count (the LUT is read once)."""
+    import torch
+
+    import volxel_tpu_torch.render.modes as modes
+    from volxel_tpu_torch.render import trackleg
+
+    cap = trackleg.TRACKING_MAX_EVENTS
+    warps = {}  # per leg: [events taken, 32 x the warps' most, the events' taps before the field's cap]
+
+    def work_of(leg):
+        def work(args, got):
+            dense, _, scalars, lut, ipos, idir, far, t, state, running = args[:10]
+            n = t.numel()
+            events = torch.where(running, cap - got[-1], 0)
+            most = torch.nn.functional.pad(events, (0, (-n) % 32)).reshape(-1, 32).amax(dim=1)
+            taken = int(events.sum())
+            w = warps.setdefault(leg, [0, 0, 0])
+            w[0] += taken
+            w[1] += 32 * int(most.sum())
+            w[2] += taken * 8 * 2
+            lanes = int(running.sum())
+            every = nbytes(running, state, *got) + nbytes(t if leg == "sample" else args[10])
+            per_running = nbytes(ipos, idir, far) + (nbytes(t) if leg != "sample" else 0)
+            moved = every + lanes * per_running // n + min(nbytes(dense), taken * 8 * 2)
+            return moved + nbytes(lut, scalars), taken * OPS_COLLIDE
+        return work
+
+    def compare(leg):
+        name = f"track_leg_{leg}"
+        outputs = ("state", "hit", "t", "rgb", "events") if leg == "sample" else ("state", "tr", "events")
+        return dict(cuda_fn=getattr(trackleg, f"{name}_cuda"), plain_fn=getattr(trackleg, f"{name}_plain"),
+                    outputs=outputs, lanes=lambda a: int(a[9].sum()), work=work_of(leg))
+
+    r.render_mode = "no_dda"
+    try:
+        sample, shadow = check_every_call(r, modes, {"track_leg_sample": compare("sample"),
+                                                     "track_leg_shadow": compare("shadow")})
+    finally:
+        r.render_mode = "default"
+    entries = []
+    for name, t, w in (("track_leg_sample", sample, warps["sample"]), ("track_leg_shadow", shadow, warps["shadow"])):
+        least = bound(t["bytes"], t["ops"])
+        log(f"{name}: {t['calls']} launches, warp efficiency {w[0] / max(w[1], 1):.4f} ({w[0]} events of {w[1]} warp "
+            f"lane-events); bound {least['bound_ms']:.4f} ms by {least['bound_by']} ({t['bytes'] / 1e6:.1f} MB, the "
+            f"events' taps {w[2] / 1e6:.1f} MB before the field's cap, their LUT rows {16 * w[0] / 1e6:.1f} MB not "
+            f"counted; {least['bound_ms'] / max(t['ms'], 1e-9):.1%} of the kernel's {t['ms']:.4f} ms)")
+        entries.append(entry(name, "volxel_tpu_torch/csrc/track_leg.cu", "volxel_tpu/render/mxu_gather.py:196",
+                             t["err"], t["ms"], t["plain_ms"], t["bytes"], t["ops"]))
+    return entries
+
+
 def check_neg_log1m() -> None:
     """The legs' -logf(1 - xi) against -torch.log(1.0 - xi) at all 2^24
     values a draw takes (k * 2^-24), bit for bit."""
@@ -519,52 +592,79 @@ def check_neg_log1m() -> None:
     log(f"-logf(1 - xi) of the legs: bit-equal to -torch.log(1.0 - xi) at all {xi.numel()} draws")
 
 
-def check_leg_sass() -> None:
-    """Build csrc/dda_leg.cu once more, to a cubin with `-Xptxas -v` (each
-    kernel's registers, stack and spills, printed), and count the FFMA in
-    each kernel of its SASS (cuobjdump -sass): the leg kernels' own code
-    must hold none, so no f32 operation of theirs is contracted. The log
-    and the IEEE division, whose code needs FFMA, are out-of-line functions:
-    cuobjdump lists each after the code of the kernel that calls it (at the
-    address of a CALL), and their FFMA are counted apart."""
-    from volxel_tpu_torch import kernels
+# the sources phase 2 reads the SASS of, and in each the kernels whose own
+# code must hold no FFMA (the leg kernels) with how many there are
+SASS_CHECKS = {"dda_leg.cu": (r"dda_leg_(sample|shadow)_kernel", 3),
+               "track_leg.cu": (r"track_leg_(sample|shadow)_kernel", 2), "tonemap.cu": (None, 0)}
 
-    src = kernels.CSRC / "dda_leg.cu"
-    nvcc = kernels._nvcc()
-    kernels.BUILD.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=kernels.BUILD) as tmp:
-        cubin = str(Path(tmp) / "dda_leg.cubin")
-        ptxas = subprocess.run([nvcc, *kernels._flags(src), "-Xptxas", "-v", "-cubin", "-o", cubin, str(src)],
-                               capture_output=True, text=True, check=True, timeout=300).stderr
-        sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", cubin], capture_output=True,
-                              text=True, check=True, timeout=300).stdout
-    log("dda_leg.cu, nvcc -Xptxas -v:\n" + "\n".join(line for line in ptxas.splitlines() if "ptxas" in line
-                                                    or "bytes" in line))
-    legs = {}
+
+def sass_counts(sass: str) -> dict:
+    """Per function of a cuobjdump -sass listing: {part: (FFMA, MUFU,
+    instructions)} of its own code ("own") and of the out-of-line function
+    at each CALL target, which cuobjdump lists after the code of the kernel
+    that calls it."""
+    found = {}
     for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
-        # the kernel's own code, then each out-of-line function from the
-        # address a CALL jumps to
         calls = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)})
         counts = {}
         for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
             starts = [c for c in calls if c <= int(addr, 16)]
             part = hex(starts[-1]) if starts else "own"
-            ffma, total = counts.get(part, (0, 0))
-            counts[part] = (ffma + ("FFMA" in text), total + 1)
-        log(f"dda_leg.cu SASS of {name}: (FFMA, instructions) of its own code and of the function at each call "
-            f"target {counts}")
-        if re.search(r"dda_leg_(sample|shadow)_kernel", name):
-            legs[name] = counts["own"][0]
-    if len(legs) != 3 or any(legs.values()):
-        raise SystemExit(f"the leg kernels' own SASS holds FFMA, or not every leg kernel was found: {legs}")
+            ffma, mufu, total = counts.get(part, (0, 0, 0))
+            counts[part] = (ffma + ("FFMA" in text), mufu + ("MUFU" in text), total + 1)
+        found[name] = counts
+    return found
+
+
+def check_sass() -> dict:
+    """Build csrc/dda_leg.cu, csrc/track_leg.cu and csrc/tonemap.cu once
+    more, each to a cubin with `-Xptxas -v` (each kernel's registers, stack
+    and spills, printed), all at once, and count the FFMA, MUFU and
+    instructions in each kernel of their SASS (cuobjdump -sass): the leg
+    kernels' own code must hold no FFMA, so no f32 operation of theirs is
+    contracted. The log and the IEEE division, whose code needs FFMA, are
+    out-of-line functions, counted apart. Returns the counts per source."""
+    from volxel_tpu_torch import kernels
+
+    nvcc = kernels._nvcc()
+    kernels.BUILD.mkdir(parents=True, exist_ok=True)
+    found = {}
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD) as tmp:
+        procs = {}
+        for name in SASS_CHECKS:
+            src = kernels.CSRC / name
+            cubin = str(Path(tmp) / f"{src.stem}.cubin")
+            procs[name] = (cubin, subprocess.Popen([nvcc, *kernels._flags(src), "-Xptxas", "-v", "-cubin", "-o", cubin,
+                                                    str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                   text=True))
+        for name, (cubin, proc) in procs.items():
+            _, ptxas = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise SystemExit(f"nvcc -cubin failed on {name}:\n{ptxas}")
+            sass = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass", cubin], capture_output=True,
+                                  text=True, check=True, timeout=300).stdout
+            log(f"{name}, nvcc -Xptxas -v:\n" + "\n".join(line for line in ptxas.splitlines() if "ptxas" in line
+                                                          or "bytes" in line))
+            found[name] = sass_counts(sass)
+    for name, (pattern, expected) in SASS_CHECKS.items():
+        legs = {}
+        for fn, counts in found[name].items():
+            log(f"{name} SASS of {fn}: (FFMA, MUFU, instructions) of its own code and of the function at each call "
+                f"target {counts}")
+            if pattern and re.search(pattern, fn):
+                legs[fn] = counts["own"][0]
+        if pattern and (len(legs) != expected or any(legs.values())):
+            raise SystemExit(f"the leg kernels' own SASS in {name} holds FFMA, or not every leg kernel was found: "
+                             f"{legs}")
+    return found
 
 
 def check_gather(r) -> list[dict]:
     """K2's two entry points, bit-equal: the LUT fetch where it still runs,
     at every call of one 1080p default-mode sample (the premultiplied
-    pyramid) and of one 1080p no_dda frame (each event's decode), with its
-    mean time per call beside the launch floor, an empty kernel over the
-    grid of the mean call, timed the same way; gather_f32 at every call of
+    pyramid, its only call), with its mean time per call beside the launch
+    floor, an empty kernel over the grid of the mean call, timed the same
+    way; gather_f32 at every call of
     one 1080p default-mode sample (the environment's bilinear taps and
     importance texels), beside torch.index_select on the same int32
     indices and torch.take on their int64 copy, then at one environment
@@ -600,14 +700,7 @@ def check_gather(r) -> list[dict]:
     with compared_calls(gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",),
                         lambda a: a[2].numel(), lut_work) as lut:
         render_sample(*sample_operands(r), 0)
-        premul_calls = lut["calls"]
-        r.render_mode = "no_dda"
-        try:
-            render_sample(*sample_operands(r), 0)
-        finally:
-            r.render_mode = "default"
-    log_tally("lookup_transfer", lut, f"one {r.width}x{r.height} default sample ({premul_calls}: the premultiplied "
-              f"pyramid) and one no_dda frame ({lut['calls'] - premul_calls}: its events)")
+    log_tally("lookup_transfer", lut, f"one {r.width}x{r.height} default sample (the premultiplied pyramid)")
     mean_lanes = max(1, round(lut["lanes"] / max(lut["calls"], 1)))
     _, floor_ms = device_ms(lambda: gather.launch_floor(mean_lanes, torch.device("cuda")), KERNEL_REPS)
     per_call = lut["ms"] / max(lut["calls"], 1)
@@ -676,25 +769,66 @@ def check_pyramid(r) -> dict:
                  library_ms=library_ms)
 
 
-def check_tonemap(exposure: float, gamma: float) -> dict:
-    """K4 on a 1920x1080x3 buffer of seeded radiances."""
+def tonemap_every_input(exposure: float, gamma: float) -> None:
+    """K4 against its plain version at all 2^32 f32 bit patterns (NaN
+    payloads, +-inf, denormals and negatives among them), 2^28 at a time:
+    bit-equal, NaN included."""
     import torch
 
     from volxel_tpu_torch.render.pallas_ops import tonemap_cuda, tonemap_plain
+
+    chunk = 2**28
+    bad = 0
+    for first in range(-(2**31), 2**31, chunk):
+        x = torch.arange(first, first + chunk, dtype=torch.int32, device="cuda").view(torch.float32).reshape(-1, 4)
+        got = tonemap_cuda(x, exposure, gamma)
+        bad += int((got.view(torch.int32) != tonemap_plain(x, exposure, gamma).view(torch.int32)).sum())
+        del x, got
+    if bad:
+        raise SystemExit(f"tonemap differs from its plain version at {bad} of the 2^32 f32 inputs")
+    log(f"tonemap: bit-equal to its plain version at all 2^32 f32 inputs (exposure {exposure}, gamma {gamma})")
+
+
+def check_tonemap(exposure: float, gamma: float, sass: dict) -> dict:
+    """K4 on a 1920x1080x3 buffer of seeded radiances, bit-equal, timed
+    beside a plain 16-byte copy of the same buffer in the kernel's layout
+    (the practical floor of a kernel that reads and writes it once) and
+    torch's copy_; then at every f32 input. Its SASS instructions per float
+    (the static count of the vector kernel's own code over the 4 floats a
+    thread maps, the powf's slow paths included) against the card's issue
+    rate (132 SMs x 4 warp instructions a clock at the card's top SM
+    clock)."""
+    import torch
+
+    from volxel_tpu_torch.render.pallas_ops import copy16, tonemap_cuda, tonemap_plain
 
     fb = np.random.default_rng(1).uniform(0.0, 4.0, (1920 * 1080, 3)).astype(np.float32)
     fb = torch.from_numpy(fb).cuda()
     got = tonemap_cuda(fb, exposure, gamma)
     want = tonemap_plain(fb, exposure, gamma)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not err <= 1e-6:
-        raise SystemExit(f"tonemap kernel differs from its plain version by {err} > 1e-6")
+    err = max_abs([got], [want])
+    if not bits_equal(got, want):
+        raise SystemExit(f"tonemap kernel differs from its plain version (max abs {err})")
     _, ms = device_ms(lambda: tonemap_cuda(fb, exposure, gamma), 50)
     _, plain_ms = device_ms(lambda: tonemap_plain(fb, exposure, gamma), 50)
-    log(f"tonemap: within atol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    _, copy_ms = device_ms(lambda: copy16(fb), 50)
+    out = torch.empty_like(fb)
+    _, torch_copy_ms = device_ms(lambda: out.copy_(fb), 50)
+    moved, ops = nbytes(fb, got), fb.shape[0] * OPS_TONEMAP_PIXEL
+    least = bound(moved, ops)
+    (counts,) = [c for fn, c in sass["tonemap.cu"].items() if re.search(r"tonemap_kernel", fn)]
+    per_float = counts["own"][2] / 4  # one float4 a thread
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    issue_ms = per_float * fb.numel() / 32 / (132 * 4 * mhz * 1e6) * 1e3
+    log(f"tonemap: bit-equal on {fb.numel()} floats (max abs {err}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"16-byte copy of the same buffer {copy_ms:.4f} ms, torch copy_ {torch_copy_ms:.4f} ms; bound "
+        f"{least['bound_ms']:.4f} ms by {least['bound_by']} ({least['bound_ms'] / ms:.1%} of the kernel's time, the "
+        f"copy at {least['bound_ms'] / copy_ms:.1%}); SASS of tonemap_kernel {counts} for its 4 floats a thread: "
+        f"{per_float:.1f} instructions a float, {issue_ms:.4f} ms of issue at {mhz:.0f} MHz")
+    tonemap_every_input(exposure, gamma)
     return entry("tonemap", "volxel_tpu_torch/csrc/tonemap.cu", "volxel_tpu/render/pallas_ops.py:115", err, ms,
-                 plain_ms, nbytes(fb, got), fb.shape[0] * OPS_TONEMAP_PIXEL)
+                 plain_ms, moved, ops)
 
 
 def check_tile_march(r) -> list[dict]:
@@ -859,12 +993,17 @@ PATH_KERNELS = {
     "default": ("dda_leg_sample", "dda_leg_shadow", "lookup_transfer", "gather_f32",
                 "importance_pyramid", "tonemap"),
     "raymarch": ("tile_march_sample", "tile_march_transmittance", "gather_f32", "importance_pyramid", "tonemap"),
+    "no_dda": ("track_leg_sample", "track_leg_shadow", "gather_f32", "importance_pyramid", "tonemap"),
     "preview": ("shearwarp_intermediate", "tonemap"),
 }
+# each mode's two legs, each one launch per bounce
+MODE_LEGS = {"default": ("dda_leg_sample", "dda_leg_shadow"),
+             "raymarch": ("tile_march_sample", "tile_march_transmittance"),
+             "no_dda": ("track_leg_sample", "track_leg_shadow")}
 # the path whose run gives each kernel's launch count (K6 lies on none:
 # its count from the raymarch run is 0)
-KERNEL_PATH = {"dda_leg_sample": "default", "dda_leg_shadow": "default",
-               "lookup_transfer": "default", "gather_f32": "default", "importance_pyramid": "default",
+KERNEL_PATH = {"dda_leg_sample": "default", "dda_leg_shadow": "default", "track_leg_sample": "no_dda",
+               "track_leg_shadow": "no_dda", "lookup_transfer": "default", "gather_f32": "default", "importance_pyramid": "default",
                "tonemap": "default", "tile_march_sample": "raymarch", "tile_march_transmittance": "raymarch",
                "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview"}
 
@@ -908,13 +1047,13 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
         if launches[name] <= 0:
             raise SystemExit(f"kernel {name} was not launched on the {mode} main path")
     # the LUT fetch runs once per default sample (the premultiplied pyramid)
-    # and nowhere in the raymarch legs; each default leg is one launch per
+    # and nowhere in the other modes' legs; each leg is one launch per
     # bounce
-    if per_sample["lookup_transfer"] > (1 if mode == "default" else 0):
+    if per_sample["lookup_transfer"] != (1 if mode == "default" else 0):
         raise SystemExit(f"the LUT fetch launched {per_sample['lookup_transfer']} times per {mode} sample")
-    legs = (per_sample["dda_leg_sample"], per_sample["dda_leg_shadow"])
-    if mode == "default" and legs != (r.settings.bounces,) * 2:
-        raise SystemExit(f"the default legs launched {legs} times per sample at bounces {r.settings.bounces}")
+    legs = tuple(per_sample[name] for name in MODE_LEGS[mode])
+    if legs != (r.settings.bounces,) * 2:
+        raise SystemExit(f"the {mode} legs launched {legs} times per sample at bounces {r.settings.bounces}")
     log(f"main path output ({mode}): mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
     return launches
 
@@ -941,7 +1080,8 @@ def breakdown(grid, width: int, height: int, mode: str, bounces: int = 1) -> Non
     sample_volume and transmittance): each leg's ms, the repo's kernel
     launches in the legs and the host syncs inside them (host_syncs, which
     must first see a known sync), then one unprofiled and one profiled
-    sample (log_device_profile)."""
+    sample (log_device_profile). Raises if the legs synchronize with the
+    host."""
     import torch
 
     import volxel_tpu_torch.render.pathtrace as pathtrace
@@ -987,6 +1127,8 @@ def breakdown(grid, width: int, height: int, mode: str, bounces: int = 1) -> Non
         f"leg {legs['camera']:.3f} ms, shadow leg {legs['shadow']:.3f} ms, rest "
         f"{total - legs['camera'] - legs['shadow']:.3f} ms; launches of the repo's kernels in the legs {launches}, "
         f"host syncs in the legs {({k: len(v) for k, v in syncs.items()})} at {syncs}")
+    if any(syncs.values()):
+        raise SystemExit(f"the {mode} legs synchronized with the host at {syncs}")
 
     _, wall = timed_call(r.render_frame)
     log_device_profile(f"{mode} (bounces {bounces})", r.render_frame, wall)
@@ -1005,23 +1147,6 @@ def log_device_profile(what: str, fn, wall_ms: float) -> None:
     log(f"{what} profile: one call, {count} device kernels, {nonzero} torch.nonzero calls, device busy {busy:.3f} ms "
         f"against an unprofiled call of {wall_ms:.3f} ms (idle share {1 - busy / wall_ms:.3f}); largest: "
         + "; ".join(f"{e.key[:70]} {e.device_time_total / 1000:.3f} ms x{e.count}" for e in top))
-
-
-def no_dda_frame(grid, width: int, height: int) -> None:
-    """One 1080p no_dda frame (delta and ratio tracking in PyTorch; of this
-    repo's kernels only the LUT fetch runs in that mode's traversal)."""
-    import torch
-
-    r = bench_renderer(grid, width, height, "cuda", "no_dda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fb = r.render_frame()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1000
-    mean = float(fb.mean())
-    if not (bool(torch.isfinite(fb).all()) and mean > 0.0):
-        raise SystemExit(f"no_dda frame not finite or mean radiance {mean} <= 0")
-    log(f"no_dda: one {width}x{height} frame {ms:.3f} ms, mean radiance {mean:.6f}")
 
 
 def timed_call(fn):
@@ -1206,7 +1331,7 @@ def main() -> int:
     path = kernels.build()
     kernels.lib()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {path.name}")
-    check_leg_sass()
+    sass = check_sass()
 
     t0 = time.perf_counter()
     vol = synthetic_ct_volume((args.size,) * 3, bits_stored=12, seed=0)
@@ -1217,8 +1342,8 @@ def main() -> int:
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
     check_neg_log1m()
-    results = [*check_legs(r), *check_gather(r), check_pyramid(r),
-               check_tonemap(r.settings.exposure, r.settings.gamma), check_shearwarp(r)]
+    results = [*check_legs(r), *check_track_legs(r), *check_gather(r), check_pyramid(r),
+               check_tonemap(r.settings.exposure, r.settings.gamma, sass), check_shearwarp(r)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
     results += check_tile_march(r)
@@ -1226,13 +1351,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 4: the main paths, each with the counters at 0 before it
-    launches = {"default": main_path(grid, args.width, args.height, "default")}
-    torch.cuda.empty_cache()
-    launches["raymarch"] = main_path(grid, args.width, args.height, "raymarch")
-    for mode in ("default", "raymarch"):
+    launches = {}
+    for mode in MODE_LEGS:
+        launches[mode] = main_path(grid, args.width, args.height, mode)
+        torch.cuda.empty_cache()
+    for mode in MODE_LEGS:
         breakdown(grid, args.width, args.height, mode)
     breakdown(grid, args.width, args.height, "default", bounces=3)
-    no_dda_frame(grid, args.width, args.height)
     launches["preview"] = preview_path(grid, args.width, args.height)
     for e in results:
         e["launches"] = launches[KERNEL_PATH[e["name"]]][e["name"]]

@@ -1,15 +1,16 @@
 """Per-sample time of two checkouts of the PyTorch/CUDA port, in turns, on one card.
 
-    python examples/ab_torch_paths.py BEFORE_DIR AFTER_DIR [--rounds 2]
+    python examples/ab_torch_paths.py BEFORE_DIR AFTER_DIR [--rounds 2] [--modes default,raymarch]
     python examples/ab_torch_paths.py --kernels DIR [DIR ...] [--rounds 2] [--reps 20]
     python examples/ab_torch_paths.py --table-fetch-turns 10
-    python examples/ab_torch_paths.py --legs BEFORE_DIR AFTER_DIR
+    python examples/ab_torch_paths.py --legs BEFORE_DIR AFTER_DIR [--modes default]
 
 Each run is a fresh process in one checkout (its own volxel_tpu_torch and
 chip_smoke.py, its kernels built from its own sources), in the order
 before, after, after, before (repeated `--rounds` / 2 times). A run renders
 chip_smoke.py's bench scene (512^3 synthetic CT, 1920x1080, bounces 1) in
-the default and the raymarch mode: 5 warm-up frames, then 5 frames timed
+each of --modes (default: the default and the raymarch mode; no_dda is
+the third): 5 warm-up frames, then 5 frames timed
 between two torch.cuda.synchronize() (ms/sample on the host clock), then
 one sample under torch.profiler (device-side kernels and their busy ms).
 Prints one JSON line per run and mode, and the card's name and power
@@ -23,16 +24,18 @@ copy of the RNG state (chip_smoke.device_ms), one process per checkout in
 the order given, then reversed, --rounds times in all; one JSON line per
 checkout and kernel.
 
-With --legs it instead renders one 1080p default-mode sample of that scene
-in each checkout (one process each), once with the reference's shadow
-quirk and once with physical shadows, and records a SHA-256 digest of
-every output of every call of the two default legs (modes.sample_volume_dda
-and transmittance_dda) and each call's time between two
+With --legs it instead renders one 1080p sample of that scene in each
+mode of --modes (default: the default mode; no_dda is the other) in each
+checkout (one process each), in the default mode once with the
+reference's shadow quirk and once with physical shadows, and records a
+SHA-256 digest of every output of every call of the mode's two legs
+(modes.sample_volume_dda and transmittance_dda, or sample_volume_simple
+and transmittance_simple) and each call's time between two
 torch.cuda.synchronize(); it prints one JSON line per checkout and sample
 and exits 1 unless every digest agrees between the checkouts: the legs of
-the two give the same bits. It guards a change to the default legs that
-must keep their bits (a redesign of csrc/dda_leg.cu, of render/ddaleg.py's
-plain legs or of modes._march_setup): chip_smoke.py holds each leg kernel
+the two give the same bits. It guards a change to the legs that must keep
+their bits (a redesign of csrc/dda_leg.cu or csrc/track_leg.cu, of the
+plain legs or of the modes' setup): chip_smoke.py holds each leg kernel
 only to the plain leg of its own checkout, so a change to both at once
 shows only here.
 
@@ -67,7 +70,7 @@ kernels.lib()
 vol = synthetic_ct_volume((512,) * 3, bits_stored=12, seed=0)
 grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
 del vol
-for mode in ("default", "raymarch"):
+for mode in sys.argv[2].split(","):
     r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda", mode)
     for _ in range(5):
         r.render_frame()
@@ -144,9 +147,12 @@ kernels.lib()
 vol = synthetic_ct_volume((512,) * 3, bits_stored=12, seed=0)
 grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
 del vol
-r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda")
+mode = sys.argv[2]
+r = chip_smoke.bench_renderer(grid, 1920, 1080, "cuda", mode)
 calls = []
-for name in ("sample_volume_dda", "transmittance_dda"):
+legs = {"default": ("sample_volume_dda", "transmittance_dda"),
+        "no_dda": ("sample_volume_simple", "transmittance_simple")}[mode]
+for name in legs:
     def recorded(*args, name=name, original=getattr(modes, name), **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -158,11 +164,11 @@ for name in ("sample_volume_dda", "transmittance_dda"):
         return out
     setattr(modes, name, recorded)
 render_sample(*chip_smoke.sample_operands(r), 0)  # warm
-for physical in (False, True):
+for physical in (False, True) if mode == "default" else (False,):
     r.settings.physical_shadows = physical
     calls.clear()
     render_sample(*chip_smoke.sample_operands(r), 0)
-    print(json.dumps({"tree": sys.argv[1], "physical": physical, "legs": calls}), flush=True)
+    print(json.dumps({"tree": sys.argv[1], "mode": mode, "physical": physical, "legs": calls}), flush=True)
 """
 
 TURNS = r"""
@@ -212,7 +218,8 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true", help="time the raymarch step-loop kernels of each checkout")
     ap.add_argument("--reps", type=int, default=20, help="launches per kernel timing with --kernels")
     ap.add_argument("--legs", action="store_true",
-                    help="compare the default legs' outputs of BEFORE and AFTER bit for bit at one 1080p sample")
+                    help="compare the legs' outputs of BEFORE and AFTER bit for bit at one 1080p sample")
+    ap.add_argument("--modes", help="comma-separated render modes (default: default,raymarch; with --legs default)")
     ap.add_argument("--table-fetch-turns", type=int, default=0,
                     help="alternate the table fetches' kernels and plain versions in this checkout instead")
     args = ap.parse_args()
@@ -227,15 +234,19 @@ def main() -> int:
     if args.legs:
         if len(args.trees) != 2:
             ap.error("--legs needs BEFORE_DIR and AFTER_DIR")
-        lines = {}
-        for label, tree in zip(("before", "after"), args.trees):
-            tree = os.path.abspath(tree)
-            out = subprocess.run([sys.executable, "-c", LEGS, label], cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
-                                 check=True, timeout=900, capture_output=True, text=True).stdout
-            print(out, end="", flush=True)
-            lines[label] = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        modes = (args.modes or "default").split(",")
+        lines = {"before": [], "after": []}
+        for mode in modes:
+            for label, tree in zip(("before", "after"), args.trees):
+                tree = os.path.abspath(tree)
+                out = subprocess.run([sys.executable, "-c", LEGS, label, mode], cwd=tree,
+                                     env=dict(os.environ, PYTHONPATH=tree), check=True, timeout=900,
+                                     capture_output=True, text=True).stdout
+                print(out, end="", flush=True)
+                lines[label] += [json.loads(line) for line in out.splitlines() if line.startswith("{")]
         digests = {label: [[c["digests"] for c in line["legs"]] for line in found] for label, found in lines.items()}
-        same = digests["before"] == digests["after"] and len(digests["after"]) == 2
+        expected = sum(2 if mode == "default" else 1 for mode in modes)
+        same = digests["before"] == digests["after"] and len(digests["after"]) == expected
         print(json.dumps({"legs_bit_equal": same, "calls": [len(line["legs"]) for line in lines["after"]]}))
         return 0 if same else 1
     if args.kernels:
@@ -247,7 +258,7 @@ def main() -> int:
         if len(args.trees) != 2:
             ap.error("BEFORE_DIR and AFTER_DIR are needed without --kernels or --table-fetch-turns")
         labelled = list(zip(("before", "after"), args.trees))
-        program, extra = RUN, []
+        program, extra = RUN, [args.modes or "default,raymarch"]
     order = []
     for i in range(args.rounds):
         order += labelled[:: 1 if i % 2 == 0 else -1]

@@ -9,11 +9,10 @@ Without a card the tests marked `cuda` skip (a CUDA kernel has no CPU
 mode). Tolerances: the tile-march kernels, the shear-warp intermediate and
 both table fetches are bit-equal (the library is built with --fmad=false
 and each kernel follows its plain version's operation order), and so are
-both default-mode legs (built with --fmad=true so that logf rounds as
-ATen's log does, with every other f32 operation written as a
-never-contracted intrinsic); the pyramid rtol 1e-6 (a 4-term mean summed
-in another order); the tonemap atol 1e-6 (powf and a division may round
-an ulp apart).
+both default-mode legs, both no_dda legs and the tonemap (built with
+--fmad=true so that logf and powf round as ATen's log and pow do, with
+every other f32 operation written as a never-contracted intrinsic); the
+pyramid rtol 1e-6 (a 4-term mean summed in another order).
 """
 
 from __future__ import annotations
@@ -27,11 +26,11 @@ import pytest
 import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
-from tests.torch_lanes import VOL_MAJ, leg_call, leg_lanes
+from tests.torch_lanes import VOL_MAJ, leg_call, leg_lanes, track_call, track_lanes
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
-from volxel_tpu_torch.render import ddaleg, gather, pallas_ops, shearwarp, tilemarch
-from volxel_tpu_torch.render.modes import _march_setup, raymarch_prologue
+from volxel_tpu_torch.render import ddaleg, gather, modes, pallas_ops, shearwarp, tilemarch, trackleg
+from volxel_tpu_torch.render.modes import _march_setup, _tracking_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
 from volxel_tpu_torch.render.rng import seed_rays
 from volxel_tpu_torch.render.sampling import DeviceGrid, VolumeParams
@@ -79,6 +78,27 @@ def _scene_leg_args(r, leg: str):
     args = [grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), r._lut, ipos, idir, ri, far, t,
             tau, mip, state, running]
     return args if leg == "sample" else args + [torch.ones_like(t), leg == "physical"]
+
+
+def _scene_track_args(r, leg: str):
+    """The arguments of track_leg_sample (leg "sample") or track_leg_shadow
+    (leg "shadow") for the camera lanes of the 32^3 scene after the no_dda
+    setup, half of them moved to seeded points further along their ray."""
+    config = r._config()
+    params = r.volume_params()
+    inv_view, inv_proj, _ = r._camera_operands(config)
+    n = config.width * config.height
+    pixels = torch.arange(n, dtype=torch.int64, device=r.device)
+    state, rays = camera_wavefront(config, inv_view, inv_proj, pixels, 0)
+    active = torch.ones(n, dtype=torch.bool, device=r.device)
+    state, ipos, idir, far, t, running = _tracking_setup(params, rays.origin, rays.direction, state, active)
+    rng = np.random.default_rng(5)
+    mid = torch.from_numpy(rng.random(n) < 0.5).to(r.device)
+    u = torch.from_numpy(rng.random(n, dtype=np.float32)).to(r.device)
+    t = torch.where(mid & running, t + u * (far - t), t)
+    args = [r._device_grid.dense, r._device_grid.extent, volume_scalars(params), r._lut, ipos, idir, far, t, state,
+            running]
+    return args if leg == "sample" else args + [torch.ones_like(t)]
 
 
 def _tile_march_args(device, n=2048, side=64, nan_lanes=False):
@@ -182,7 +202,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pallas_ops.build_importance_pyramid_cuda(r.environment.state.imp_mips[0])
     with pytest.raises(ValueError, match="CUDA"):
+        trackleg.track_leg_sample_cuda(*_scene_track_args(r, "sample"))
+    with pytest.raises(ValueError, match="CUDA"):
+        trackleg.track_leg_shadow_cuda(*track_call(track_lanes("cpu", n=64), "shadow"))
+    with pytest.raises(ValueError, match="CUDA"):
         pallas_ops.tonemap_cuda(torch.zeros((4, 3)), 1.0, 2.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        pallas_ops.copy16(torch.zeros((4, 3)))
     args = _tile_march_args("cpu", n=64)
     with pytest.raises(ValueError, match="CUDA"):
         tilemarch.tile_march_sample_cuda(*args)
@@ -278,14 +304,90 @@ def test_collide_kernels_bit_equal_to_plain(cuda_device, leg, case):
     assert not torch.equal(got[0], lanes["state"]) or case == "exhausted"
 
 
+TRACK_CASES = {"random": {}, "edge": {"edge_cases": True}, "opaque": {"alpha": 1.0, "sample_range": (0.0, 10.0)},
+               "capped": {"alpha": 0.0, "far": 1e30}, "rejected": {"sample_range": (2.0, 3.0), "alpha": 1.0}}
+
+
+def _track_fns(leg):
+    if leg == "sample":
+        return trackleg.track_leg_sample_cuda, trackleg.track_leg_sample_plain
+    return trackleg.track_leg_shadow_cuda, trackleg.track_leg_shadow_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+@pytest.mark.parametrize("case", list(TRACK_CASES))
+def test_track_leg_kernels_bit_equal_to_plain(cuda_device, leg, case):
+    """Both no_dda leg kernels against their plain legs on every output of
+    every lane, events left included, on tests/torch_lanes.py's constructed
+    lanes: random lanes (running or not, some starting at or past their
+    exit, positions past the extent on every side); NaN and infinite
+    positions, starts and exits, lanes 2e12 voxels out, lattice points and
+    Tr at the roulette threshold; an opaque LUT, where the first event hits
+    or kills; alpha 0 and an exit 1e30 away, where lanes spend all
+    TRACKING_MAX_EVENTS; and a sample range that rejects every density."""
+    lanes = track_lanes(cuda_device, **TRACK_CASES[case])
+    cuda_fn, plain_fn = _track_fns(leg)
+    got = cuda_fn(*track_call(lanes, leg))
+    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
+    assert not torch.equal(got[0], lanes["state"])
+    if case == "capped":
+        assert (got[-1] == 0).sum() > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+def test_track_leg_kernels_on_scene_lanes(cuda_device, leg):
+    """Both no_dda leg kernels against their plain legs on every output of
+    the 32^3 scene's camera lanes, half of them starting further along
+    their ray; the inputs are left as they are."""
+    args = _scene_track_args(_renderer(cuda_device), leg)
+    before = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    cuda_fn, plain_fn = _track_fns(leg)
+    got = cuda_fn(*args)
+    _assert_bits_equal(got, plain_fn(*args))
+    _assert_bits_equal([a for a in args if isinstance(a, torch.Tensor)],
+                       [a for a in before if isinstance(a, torch.Tensor)])
+    assert (got[-1] < trackleg.TRACKING_MAX_EVENTS - 1).any()
+
+
+@pytest.mark.cuda
+def test_legs_make_no_host_sync(cuda_device):
+    """The legs of every mode (their setup and their kernel) run with
+    torch.cuda.set_sync_debug_mode("error"), which raises at any call that
+    waits for the card."""
+    r = _renderer(cuda_device, side=32)
+    for mode in ("default", "raymarch", "no_dda"):
+        r.render_mode = mode
+        r.render_frame()  # builds the library and the premultiplied pyramid
+        config = r._config()
+        params = r.volume_params()
+        grid = with_premul_majorant(config, r._device_grid, params, r._lut)
+        inv_view, inv_proj, _ = r._camera_operands(config)
+        n = config.width * config.height
+        state, rays = camera_wavefront(config, inv_view, inv_proj, torch.arange(n, device=cuda_device), 1)
+        active = torch.ones(n, dtype=torch.bool, device=cuda_device)
+        sample_volume, transmittance = modes.get_mode_functions(mode)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, hit, *_ = sample_volume(grid, params, r._lut, rays.origin, rays.direction, state, active)
+            state, tr = transmittance(grid, params, r._lut, rays.origin, rays.direction, state, active)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert bool(hit.any()) and bool((tr < 1).any())
+
+
 @pytest.mark.cuda
 def test_legs_launch_on_the_operands_card(cuda_device, monkeypatch):
     """With cuda:0 current and every operand on cuda:1, each wrapper calls
     its library entry point with cuda:1 current (a device guard), so that
     the launch and what the entry point asks of the current card (the
     gather's SM count, K7's shared-memory attribute) concern the operands'
-    card; the legs, the gather, K7 and the tonemap agree with their plain
-    versions there, and cuda:0 is current again afterwards."""
+    card; the default and no_dda legs, the gather, K7 and the tonemap agree
+    with their plain
+    versions there (the tonemap bit for bit, through its 16-byte path and
+    its scalar tail), and cuda:0 is current again afterwards."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two cards")
     library, current = kernels.lib(), []
@@ -306,18 +408,23 @@ def test_legs_launch_on_the_operands_card(cuda_device, monkeypatch):
             got = cuda_fn(*leg_call(lanes, leg))
             assert got[0].device == second
             _assert_bits_equal(got, plain_fn(*leg_call(lanes, leg)))
+        tracks = track_lanes(second, edge_cases=True)
+        for leg in ("sample", "shadow"):
+            cuda_fn, plain_fn = _track_fns(leg)
+            got = cuda_fn(*track_call(tracks, leg))
+            assert got[0].device == second
+            _assert_bits_equal(got, plain_fn(*track_call(tracks, leg)))
         table = _random_words(5000).to(second)
         idx = torch.arange(-4999, 5000, 3, dtype=torch.int32, device=second)
         _assert_bits_equal([gather.gather_f32_cuda(table, idx)], [gather.gather_f32_plain(table, idx)])
         args = _shearwarp_args(second, [0.2, 0.3, 0.9])
         _assert_bits_equal(shearwarp.shearwarp_intermediate_cuda(*args, fixed_canvas=True),
                            shearwarp.shearwarp_intermediate_plain(*args, fixed_canvas=True))
-        fb = torch.rand((1000, 3), device=second)
-        torch.testing.assert_close(pallas_ops.tonemap_cuda(fb, 5.5, 2.2), pallas_ops.tonemap_plain(fb, 5.5, 2.2),
-                                   rtol=0.0, atol=1e-6)
+        fb = _tonemap_input(1001, second)
+        _assert_bits_equal([pallas_ops.tonemap_cuda(fb, 5.5, 2.2)], [pallas_ops.tonemap_plain(fb, 5.5, 2.2)])
         torch.cuda.synchronize(second)
         assert torch.cuda.current_device() == 0
-    assert len(current) == 5 and set(current) == {1}, current
+    assert len(current) == 7 and set(current) == {1}, current
 
 
 @pytest.mark.cuda
@@ -343,12 +450,39 @@ def test_pyramid_kernel_matches_plain(cuda_device):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)
 
 
+def _tonemap_input(rows, device, seed=1):
+    """(rows, 3) f32 radiances, seeded in [-0.5, 4), with NaN, +-inf, -0,
+    negatives, denormals and the largest floats among the first values."""
+    fb = np.random.default_rng(seed).uniform(-0.5, 4.0, rows * 3).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, -1.0, 1e-40, -1e-40, 3.4e38, -3.4e38, 11.2, 1e4],
+                       dtype=np.float32)
+    k = min(special.size, fb.size)
+    fb[:k] = special[:k]
+    return torch.from_numpy(fb.reshape(rows, 3)).to(device)
+
+
 @pytest.mark.cuda
-def test_tonemap_kernel_matches_plain(cuda_device):
-    fb = np.random.default_rng(1).uniform(0, 4, (1920 * 1080 // 64 + 1, 3)).astype(np.float32)  # ragged tail
-    fb = torch.from_numpy(fb).to(cuda_device)
-    torch.testing.assert_close(pallas_ops.tonemap_cuda(fb, 5.5, 2.2), pallas_ops.tonemap_plain(fb, 5.5, 2.2),
-                               rtol=0.0, atol=1e-6)
+@pytest.mark.parametrize("rows", [1920 * 1080, 1920 * 1080 // 64 + 1, 1001, 1])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_tonemap_kernel_matches_plain(cuda_device, rows, offset):
+    """Bit-equal at 1080p, on buffers whose 3N floats leave a scalar tail
+    of N * 3 % 4 floats (an odd count among them) and at one pixel, with
+    NaN, +-inf, negative and denormal radiances, on a buffer that starts at
+    its storage (16-byte aligned) and on one 4 bytes past it (the scalar
+    path); NaN stays NaN. Also the 16-byte copy that the kernel is timed
+    against."""
+    fb = _tonemap_input(rows, cuda_device)
+    storage = torch.empty(fb.numel() + offset, dtype=torch.float32, device=cuda_device)
+    src = storage[offset:].view(fb.shape)
+    src.copy_(fb)
+    assert src.data_ptr() % 16 == 4 * offset
+    for exposure, gamma in ((5.5, 2.2), (1.0, 1.0), (0.37, 2.4)):
+        got = pallas_ops.tonemap_cuda(src, exposure, gamma)
+        _assert_bits_equal([got], [pallas_ops.tonemap_plain(fb, exposure, gamma)])
+        assert bool(got.reshape(-1)[0].isnan())
+    if offset == 0:
+        n4 = 4 * (fb.numel() // 4)
+        _assert_bits_equal([pallas_ops.copy16(fb).reshape(-1)[:n4]], [fb.reshape(-1)[:n4]])
 
 
 # one view per (principal axis, flip), two of them with |s| = 1 or nearly
@@ -480,19 +614,18 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
 @pytest.mark.cuda
 def test_lut_fetch_left_to_the_premul_build(cuda_device):
     """Per default sample the standalone LUT fetch launches once (the premul
-    pyramid) and each leg is one launch per bounce; a raymarch sample
-    launches no LUT fetch."""
+    pyramid) and each leg is one launch per bounce; a raymarch or no_dda
+    sample launches no LUT fetch, and each of its legs once per bounce."""
     r = _renderer(cuda_device, side=32)
-    for mode in ("default", "raymarch"):
+    legs = {"default": ("dda_leg_sample", "dda_leg_shadow"),
+            "raymarch": ("tile_march_sample", "tile_march_transmittance"),
+            "no_dda": ("track_leg_sample", "track_leg_shadow")}
+    for mode, (camera, shadow) in legs.items():
         r.render_mode = mode
         r.render_frame()
         kernels.reset_launch_counts()
         for _ in range(3):
             r.render_frame()
         launches = dict(kernels.LAUNCHES)
-        if mode == "default":
-            assert launches["lookup_transfer"] == 3
-            assert launches["dda_leg_sample"] == launches["dda_leg_shadow"] == 3 * r.settings.bounces
-        else:
-            assert launches["lookup_transfer"] == 0
-            assert launches["tile_march_sample"] == launches["tile_march_transmittance"] == 3 * r.settings.bounces
+        assert launches["lookup_transfer"] == (3 if mode == "default" else 0)
+        assert launches[camera] == launches[shadow] == 3 * r.settings.bounces

@@ -1,7 +1,8 @@
-"""Seeded operands for the port's collision step (render/collide.py) and the
-default-mode legs (render/ddaleg.py), shared by tests/test_torch_collide.py
-(CPU) and tests/test_torch_cuda.py (card). Imports neither JAX nor
-volxel_tpu."""
+"""Seeded operands for the port's collision step (render/collide.py), the
+default-mode legs (render/ddaleg.py) and the no_dda legs
+(render/trackleg.py), shared by tests/test_torch_collide.py and
+tests/test_torch_trackleg.py (CPU) and tests/test_torch_cuda.py (card).
+Imports neither JAX nor volxel_tpu."""
 
 from __future__ import annotations
 
@@ -143,3 +144,60 @@ def leg_call(lanes, leg):
     dda_leg_shadow (leg "shadow" or "physical")."""
     args = [lanes[k] for k in LEG_ARGS]
     return args if leg == "sample" else args + [lanes["tr"], leg == "physical"]
+
+
+TRACK_ARGS = ("dense", "extent", "scalars", "lut", "ipos", "idir", "far", "t", "state", "running")
+
+
+def track_lanes(device, n=1024, seed=51, alpha=None, sample_range=(0.05, 0.9), far=None, edge_cases=False):
+    """The operands of trackleg.track_leg_sample (TRACK_ARGS) and the shadow
+    leg's tr for `n` lanes through tests' random 12^3 bf16 field, tracked
+    against the global majorant VOL_MAJ.
+
+    Lanes start anywhere within 2 voxels of the field, at t in [0, 2), with
+    a box exit from 0.5 before the start to 40 after it (`far`, when
+    given, for every lane), so some running lanes start at or past their
+    exit; 85% of them run. `alpha` fixes the LUT's alpha column. With
+    `edge_cases` the first 16 lanes run: some positions, starts or exits
+    are NaN or +-inf, some lie 2e12 voxels out, some start on lattice
+    points, some start exactly at their exit; Tr sits at the roulette
+    threshold or is NaN."""
+    rng = np.random.default_rng(seed)
+    dense = torch.from_numpy(rng.random((SIDE,) * 3, dtype=np.float32)).to(torch.bfloat16)
+    lut = rng.uniform(0.05, 1.0, (8, 4)).astype(np.float32)
+    if alpha is not None:
+        lut[:, 3] = alpha
+    inv_maj = np.float32(1.0) / np.float32(VOL_MAJ)
+    scalars = np.array([inv_maj, VOL_MAJ, 1.0, *sample_range], dtype=np.float32)
+    ipos = rng.uniform(-2.0, SIDE + 2.0, (n, 3)).astype(np.float32)
+    idir = rng.normal(size=(n, 3)).astype(np.float32)
+    idir /= np.linalg.norm(idir, axis=-1, keepdims=True)
+    t = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    exit_ = t + rng.uniform(-0.5, 40.0, n).astype(np.float32) if far is None else np.full(n, far, np.float32)
+    running = rng.random(n) < 0.85
+    tr = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    if edge_cases:
+        ipos[0:3, 0] = [np.nan, np.inf, -np.inf]
+        t[3], exit_[4], exit_[5] = np.nan, np.nan, np.inf
+        ipos[6, 0], ipos[7, 1] = 2e12, -2e12
+        ipos[8:12] = np.floor(ipos[8:12]) + 0.5
+        t[8:12] = 0.0
+        exit_[12:14] = t[12:14]
+        tr[8:16] = [0.0, 1e-30, 0.1, np.float32(0.1) * (1 + 2**-23), 1.0, np.nan, 0.05, 0.0999]
+        running[:16] = True
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dict(
+        dense=dense.to(device), extent=EXTENT, scalars=dev(scalars), lut=dev(lut), ipos=dev(ipos), idir=dev(idir),
+        far=dev(exit_), t=dev(t), state=seed_rays(torch.arange(n, dtype=torch.int64), 5).to(device),
+        running=dev(running), tr=dev(tr),
+    )
+
+
+def track_call(lanes, leg):
+    """The positional operands of track_leg_sample (leg "sample") or
+    track_leg_shadow (leg "shadow")."""
+    args = [lanes[k] for k in TRACK_ARGS]
+    return args if leg == "sample" else args + [lanes["tr"]]

@@ -11,11 +11,12 @@ Layer map (the module names follow volxel_tpu):
   grid/       numpy brick-grid builder (copy of volxel_tpu.grid)
   scene/      camera and volume transforms (numpy copies), environment
   transfer/   1D RGBA transfer-function LUTs (numpy copy)
-  render/     rng, rays, sampling, the DDA march, the tile march, the
-              three modes, path tracer, tonemap
+  render/     rng, rays, sampling, the three modes and their legs
+              (ddaleg, trackleg, tilemarch), path tracer, preview, tonemap
   api/        Renderer facade, settings JSON (numpy copy), JAX-state import
-  csrc/       CUDA sources: pyr_march, importance_pyramid, tonemap,
-              tile_march
+  csrc/       CUDA sources: dda_leg and track_leg (sharing
+              leg_common.cuh), tile_march, gather, importance_pyramid,
+              tonemap, shearwarp
 """
 
 __version__ = "0.1.0"

@@ -37,65 +37,23 @@
 // writes its outputs once.
 //
 // Bit-equality with the plain version: every f32 operation is the plain
-// version's, in its order. -log(1 - xi) must round as ATen's log does, and
-// ATen builds its log kernel with nvcc's default --fmad=true, so this file
-// is built with --fmad=true (kernels.FMAD_SOURCES) and every f32 sum,
-// difference and product below is written with __fadd_rn, __fsub_rn or
-// __fmul_rn, which are never contracted into an FMA. The two functions
-// whose own code needs FFMA, the log and the IEEE division (its correctly
-// rounded sequence), are kept out of line, so a SASS listing of the leg
-// kernels shows no FFMA at all (chip_smoke.py checks it). The march's
-// c / dim is c * 2^-(3 + mip), which rounds the same real number (dim is a
-// power of two) and needs no division. t_coll = t_new + tau_new / maj is
-// computed only at a collision, the one step whose t it becomes.
-// vx_neg_log1m exposes the same -log(1 - xi) so that a check can hold it
-// against torch.log over all 2^24 values xi takes. min_nan / max_nan give
-// NaN for a NaN operand as torch.amin and torch.clamp_min do, clamp_min /
-// clamp_max keep a NaN value; the float -> int casts are static_cast, as
-// ATen's are (NaN lands on 0, +-inf saturates); the constants 0.1, 1e-20
-// and 2.0 are rounded to f32 once, as PyTorch rounds a Python scalar
-// against an f32 tensor; a tap outside the extent reads 0.
+// version's, in its order, under the rules of leg_common.cuh (built with
+// --fmad=true, every other operation a never-contracted intrinsic, the log
+// and the IEEE division out of line). The march's c / dim is
+// c * 2^-(3 + mip), which rounds the same real number (dim is a power of
+// two) and needs no division. t_coll = t_new + tau_new / maj is computed
+// only at a collision, the one step whose t it becomes. vx_neg_log1m
+// exposes the same -log(1 - xi) so that a check can hold it against
+// torch.log over all 2^24 values xi takes. The constants 0.1, 1e-20 and
+// 2.0 are rounded to f32 once, as PyTorch rounds a Python scalar against
+// an f32 tensor.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "leg_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr float kSpeedUp = 0.25f;   // pyrmarch.MIP_SPEED_UP
 constexpr float kSpeedDown = 2.0f;  // collide.MIP_SPEED_DOWN
-// layout of the (5,) f32 scalars, as render/tilemarch.volume_scalars
-constexpr int kInvMaj = 0, kVolMaj = 1, kDenScale = 2, kRangeLo = 3, kRangeHi = 4;
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-// torch.clamp_min(v, lo) and clamp_max(v, hi): a NaN v is returned as it is
-__device__ __forceinline__ float clamp_min(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
-__device__ __forceinline__ float clamp_max(float v, float hi) { return v != v ? v : fminf(v, hi); }
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
-
-// the two functions whose code holds FFMA, out of line (see above)
-__device__ __noinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __noinline__ float neg_log1m(float xi) { return -logf(__fsub_rn(1.0f, xi)); }
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int k) { return (x << k) | (x >> (32 - k)); }
-
-// xoshiro128++ step and its top-24-bit float (random.glsl:80-106)
-__device__ __forceinline__ float next_float(uint32_t (&s)[4]) {
-  const uint32_t result = rotl(s[0] + s[2], 7) + s[0];
-  const uint32_t t = s[1] << 9;
-  s[2] ^= s[0];
-  s[3] ^= s[1];
-  s[1] ^= s[2];
-  s[0] ^= s[3];
-  s[2] ^= t;
-  s[3] = rotl(s[3], 11);
-  return __fmul_rn(static_cast<float>(result >> 8), 1.0f / 16777216.0f);
-}
 
 // one axis of the DDA step: distance along the ray to the next brick
 // boundary at cell size dim = 2^(3 + mip) (dda.glsl:10-16); inv_dim is
@@ -104,18 +62,6 @@ __device__ __forceinline__ float axis_step(float c, float dim, float inv_dim, fl
   const float off = r >= 0.0f ? __fadd_rn(dim, 0.5f) : -0.5f;
   return __fmul_rn(__fsub_rn(__fadd_rn(__fmul_rn(floorf(__fmul_rn(c, inv_dim)), dim), off), c), r);
 }
-
-// what every lane of a launch reads: the pyramid, the field, the LUT and
-// the volume's scalars
-struct Volume {
-  const float* maj;
-  int bz, by, bx;
-  const uint16_t* dense;
-  int ny, nx, ex, ey, ez;
-  const float4* lut;
-  int lut_k;
-  const float* scalars;
-};
 
 // one lane's ray and march state
 struct Lane {
@@ -155,55 +101,6 @@ __device__ __forceinline__ bool march(const Volume& v, Lane& l, float& m) {
     if (t_new >= l.far) return false;  // left the box
   }
   return false;  // the budget is spent
-}
-
-// sampling.lookup_density_trilinear at one point, times inv_maj: the eight
-// taps in _TAPS order (dz outer, dx inner), weights ((wx * wy) * wz), the
-// products summed one after another
-__device__ __forceinline__ float trilinear_norm(const Volume& v, const float (&pos)[3]) {
-  long long base[3];
-  float w1[3][2];
-  for (int a = 0; a < 3; ++a) {
-    const float p = __fsub_rn(pos[a], 0.5f);
-    base[a] = static_cast<long long>(floorf(p));
-    const float f = __fsub_rn(p, static_cast<float>(base[a]));
-    w1[a][0] = __fsub_rn(1.0f, f);
-    w1[a][1] = f;
-  }
-  const long long ext[3] = {v.ex, v.ey, v.ez};
-  float acc = 0.0f;
-  for (int k = 0; k < 8; ++k) {
-    const int off[3] = {k & 1, (k >> 1) & 1, k >> 2};
-    long long c[3];
-    bool inside = true;
-    for (int a = 0; a < 3; ++a) {
-      // int64 wrap-around, as ATen's int64 add
-      c[a] = static_cast<long long>(static_cast<unsigned long long>(base[a]) + off[a]);
-      inside = inside && c[a] >= 0 && c[a] < ext[a];
-    }
-    float tap = 0.0f;
-    if (inside) {
-      const uint16_t bits = __ldg(v.dense + (c[2] * v.ny + c[1]) * v.nx + c[0]);
-      tap = __uint_as_float(static_cast<uint32_t>(bits) << 16);  // bf16 -> f32 is exact
-    }
-    const float w = __fmul_rn(__fmul_rn(w1[0][off[0]], w1[1][off[1]]), w1[2][off[2]]);
-    const float term = __fmul_rn(tap, w);
-    acc = k == 0 ? term : __fadd_rn(acc, term);
-  }
-  return __fmul_rn(__fmul_rn(__ldg(v.scalars + kDenScale), acc), __ldg(v.scalars + kInvMaj));
-}
-
-// collide._parked's decode at the lane's collision point: the density,
-// then the LUT's NEAREST row (gather.lookup_transfer_plain), 0 where the
-// sample range rejects it
-__device__ __forceinline__ float4 decode(const Volume& v, const Lane& l) {
-  const float pos[3] = {__fadd_rn(l.p[0], __fmul_rn(l.t, l.d[0])), __fadd_rn(l.p[1], __fmul_rn(l.t, l.d[1])),
-                        __fadd_rn(l.p[2], __fmul_rn(l.t, l.d[2]))};
-  const float d = trilinear_norm(v, pos);
-  const bool rejected = d < __ldg(v.scalars + kRangeLo) || d > __ldg(v.scalars + kRangeHi);
-  long long j = static_cast<long long>(floorf(__fmul_rn(d, static_cast<float>(v.lut_k))));
-  j = j < 0 ? 0 : (j > v.lut_k - 1 ? v.lut_k - 1 : j);
-  return rejected ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : __ldg(v.lut + j);
 }
 
 // the per-lane operands both legs read and the outputs both write
@@ -260,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) dda_leg_sample_kernel(Volume v, Lane
     const float vol_maj = __ldg(v.scalars + kVolMaj);
     float m;
     while (march(v, l, m)) {
-      const float4 rgba = decode(v, l);
+      const float4 rgba = decode(v, l.p, l.d, l.t);
       if (__fmul_rn(next_float(s), m) < __fmul_rn(vol_maj, rgba.w)) {
         hit = true;
         rgb[0] = rgba.x;
@@ -299,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) dda_leg_shadow_kernel(Volume v, Lane
     const float vol_maj = __ldg(v.scalars + kVolMaj);
     float m;
     while (march(v, l, m)) {
-      const float d = __fmul_rn(vol_maj, decode(v, l).w);
+      const float d = __fmul_rn(vol_maj, decode(v, l.p, l.d, l.t).w);
       if (__fmul_rn(next_float(s), m) < d) {  // real
         tr = __fmul_rn(tr, clamp_min(__fsub_rn(1.0f, div_rn(kPhysical ? d : vol_maj,
                                                             clamp_min(m, static_cast<float>(1e-20)))), 0.0f));
@@ -325,8 +222,6 @@ __global__ void __launch_bounds__(kThreads) neg_log1m_kernel(const float* __rest
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n) out[i] = neg_log1m(xi[i]);
 }
-
-int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
 }  // namespace
 

@@ -4,16 +4,34 @@
 // tonemap_display_pallas (kernel _tonemap_kernel). Plain version:
 // volxel_tpu_torch/render/pallas_ops.py: tonemap_plain.
 //
-// What bounds it on an H100: memory bandwidth. At 1080p it reads and
-// writes 6,220,800 floats each (49.8 MB in all) and does ~15 flops and one
-// powf per float, far below the card's compute rate.
+// What bounds it on an H100: the instruction issue rate. At 1080p it reads
+// and writes 6,220,800 floats each (49.8 MB in all, 14.9 us at 3.35 TB/s),
+// and per float it runs two IEEE divisions and an accurate powf, ~140 SASS
+// instructions (the static count of the kernel's own code, slow paths
+// included). On an H100 at 700 W the map alone, with no load and no store,
+// takes 26.9 us at 1080p, more than a 16-byte copy of the buffer (19.0 us;
+// examples/tonemap_variants.py).
 //
-// Design: a grid-stride loop over the flat 3N floats, 4 floats per thread
-// per iteration through 16-byte loads and stores where the buffer is
-// 16-byte aligned (torch allocations are), with a scalar loop for the
-// tail. The grid is capped at a few waves of blocks so each thread streams
-// several vectors. The curve constants are folded in double and rounded to
-// float once, as Python folds them for the plain version.
+// Design: one thread per float4 and a grid sized to the work, so that no
+// thread walks a grid-stride loop and as many warps as the card holds hide
+// each other's loads behind their maps. Two, four or eight float4s a
+// thread with all their loads issued first measured no faster (two) or
+// slower (four, eight; examples/tonemap_variants.py): more loads in flight
+// do not help a kernel whose map costs more than its memory traffic. Loads
+// and stores are streaming (__ldcs / __stcs): the display copy is read
+// once, by the host. A buffer that is not 16-byte aligned takes a scalar
+// path, one float a thread, and so do the last n % 4 floats. vx_copy16 is
+// a plain 16-byte copy in the same layout, the floor the kernel is timed
+// against; it is on no render path.
+//
+// Bit-equality with the plain version: the curve constants are folded in
+// double and rounded to float once, as Python folds them for the plain
+// version; the map's products and sums are written with __fmul_rn /
+// __fadd_rn / __fsub_rn in the plain version's order, the divisions are
+// IEEE (no reciprocal for / white), and powf is the math library's
+// accurate one, which ATen's torch.pow calls. The file is built with
+// --fmad=true (kernels.FMAD_SOURCES), as ATen builds its pow kernel, so
+// that powf's own code is compiled as there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,54 +46,77 @@ constexpr float kDE = static_cast<float>(0.20 * 0.02);
 constexpr float kDF = static_cast<float>(0.20 * 0.30);
 constexpr float kEF = static_cast<float>(0.02 / 0.30);
 
+// ((x * (A x + CB) + DE) / (x * (A x + B) + DF)) - EF
 __device__ __forceinline__ float hable(float x) {
-  return ((x * (kA * x + kCB) + kDE) / (x * (kA * x + kB) + kDF)) - kEF;
+  const float ax = __fmul_rn(kA, x);
+  const float num = __fadd_rn(__fmul_rn(x, __fadd_rn(ax, kCB)), kDE);
+  const float den = __fadd_rn(__fmul_rn(x, __fadd_rn(ax, kB)), kDF);
+  return __fsub_rn(__fdiv_rn(num, den), kEF);
 }
 
 __device__ __forceinline__ float map_one(float v, float exposure, float white, float inv_gamma) {
-  const float mapped = hable(exposure * v) / white;
+  const float mapped = __fdiv_rn(hable(__fmul_rn(exposure, v)), white);
   // torch.clamp_min keeps a NaN; fmaxf alone would turn it into 0
   const float c = mapped != mapped ? mapped : fmaxf(mapped, 0.0f);
   return powf(c, inv_gamma);
 }
 
-__global__ void __launch_bounds__(kThreads) tonemap_kernel(const float* __restrict__ src,
-                                                           float* __restrict__ dst, long long n,
-                                                           float exposure, float inv_gamma) {
-  const float white = hable(11.2f);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const bool aligned = (reinterpret_cast<uintptr_t>(src) % 16 == 0) &&
-                       (reinterpret_cast<uintptr_t>(dst) % 16 == 0);
-  long long done = 0;
-  if (aligned) {
-    const long long n4 = n / 4;
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (long long j = first; j < n4; j += stride) {
-      const float4 v = s4[j];
-      d4[j] = make_float4(map_one(v.x, exposure, white, inv_gamma),
-                          map_one(v.y, exposure, white, inv_gamma),
-                          map_one(v.z, exposure, white, inv_gamma),
-                          map_one(v.w, exposure, white, inv_gamma));
-    }
-    done = n4 * 4;
-  }
-  for (long long j = done + first; j < n; j += stride) {
-    dst[j] = map_one(src[j], exposure, white, inv_gamma);
-  }
+__device__ __forceinline__ float4 map4(float4 v, float exposure, float white, float inv_gamma) {
+  return make_float4(map_one(v.x, exposure, white, inv_gamma), map_one(v.y, exposure, white, inv_gamma),
+                     map_one(v.z, exposure, white, inv_gamma), map_one(v.w, exposure, white, inv_gamma));
 }
+
+__device__ __forceinline__ long long thread_index() {
+  return static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+}
+
+__global__ void __launch_bounds__(kThreads) tonemap_kernel(const float4* __restrict__ src, float4* __restrict__ dst,
+                                                           long long n4, float exposure, float inv_gamma) {
+  const long long j = thread_index();
+  if (j < n4) __stcs(dst + j, map4(__ldcs(src + j), exposure, hable(11.2f), inv_gamma));
+}
+
+// the same map one float a thread, over the floats [first, n): a
+// misaligned buffer, or the n % 4 floats after the float4s
+__global__ void __launch_bounds__(kThreads) tonemap_scalar_kernel(const float* __restrict__ src,
+                                                                  float* __restrict__ dst, long long first,
+                                                                  long long n, float exposure, float inv_gamma) {
+  const long long j = first + thread_index();
+  if (j < n) __stcs(dst + j, map_one(__ldcs(src + j), exposure, hable(11.2f), inv_gamma));
+}
+
+__global__ void __launch_bounds__(kThreads) copy16_kernel(const float4* __restrict__ src, float4* __restrict__ dst,
+                                                          long long n4) {
+  const long long j = thread_index();
+  if (j < n4) __stcs(dst + j, __ldcs(src + j));
+}
+
+int blocks_for(long long items) { return static_cast<int>((items + kThreads - 1) / kThreads); }
 
 }  // namespace
 
-extern "C" int vx_tonemap(const float* src, float* dst, long long n, float exposure,
-                          float inv_gamma, cudaStream_t stream) {
-  if (n > 0) {
-    long long blocks = (n / 4 + kThreads - 1) / kThreads;
-    if (blocks < 1) blocks = 1;
-    if (blocks > 132 * 8) blocks = 132 * 8;  // a few waves on 132 SMs
-    tonemap_kernel<<<static_cast<int>(blocks), kThreads, 0, stream>>>(src, dst, n, exposure,
-                                                                     inv_gamma);
+extern "C" int vx_tonemap(const float* src, float* dst, long long n, float exposure, float inv_gamma,
+                          cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const bool aligned = reinterpret_cast<uintptr_t>(src) % 16 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0;
+  const long long n4 = aligned ? n / 4 : 0;
+  if (n4 > 0) {
+    tonemap_kernel<<<blocks_for(n4), kThreads, 0, stream>>>(reinterpret_cast<const float4*>(src),
+                                                            reinterpret_cast<float4*>(dst), n4, exposure, inv_gamma);
+  }
+  if (4 * n4 < n) {
+    tonemap_scalar_kernel<<<blocks_for(n - 4 * n4), kThreads, 0, stream>>>(src, dst, 4 * n4, n, exposure,
+                                                                          inv_gamma);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dst[:n4] = src[:n4] in 16-byte words, in the tonemap's layout; on no
+// render path
+extern "C" int vx_copy16(const float* src, float* dst, long long n4, cudaStream_t stream) {
+  if (n4 > 0) {
+    copy16_kernel<<<blocks_for(n4), kThreads, 0, stream>>>(reinterpret_cast<const float4*>(src),
+                                                           reinterpret_cast<float4*>(dst), n4);
   }
   return static_cast<int>(cudaGetLastError());
 }

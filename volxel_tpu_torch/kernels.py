@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources are `csrc/*.cu`. At first use each is compiled by its own
-`nvcc`, all at once, and the objects are linked into one shared library
-with a plain C interface under `build/` (keyed by a hash of the sources
-and flags, so an edited source rebuilds), loaded with ctypes. Nothing is
+The sources are `csrc/*.cu`, and the headers they include `csrc/*.cuh`. At
+first use each source is compiled by its own `nvcc`, all at once, and the
+objects are linked into one shared library with a plain C interface under
+`build/` (keyed by a hash of the sources, the headers and the flags, so an
+edited source or header rebuilds), loaded with ctypes. Nothing is
 compiled or loaded at import: the CPU tests import every module on
 machines without `nvcc` or a card.
 
@@ -16,8 +17,8 @@ turns a non-zero code into an exception.
 `--fmad=false` keeps every multiply and add separately rounded, as eager
 PyTorch ops are, so a kernel can be held bit-equal to its plain version.
 The sources in FMAD_SOURCES are built with nvcc's default `--fmad=true`
-instead, so that the math library's functions (logf) round as they do in
-ATen's kernels; those sources write every f32 sum and product with the
+instead, so that the math library's functions (logf, powf) round as they do
+in ATen's kernels; those sources write every f32 sum and product with the
 `__fadd_rn` / `__fmul_rn` intrinsics, which are never contracted.
 
 `LAUNCHES` counts kernel launches by name. Only the wrappers add to it,
@@ -42,12 +43,12 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
 )
-FMAD_SOURCES = ("dda_leg.cu",)
+FMAD_SOURCES = ("dda_leg.cu", "track_leg.cu", "tonemap.cu")
 
 LAUNCHES = {
-    "dda_leg_sample": 0, "dda_leg_shadow": 0, "importance_pyramid": 0, "tonemap": 0, "tile_march_sample": 0,
-    "tile_march_transmittance": 0, "tile_march_sums": 0, "shearwarp_intermediate": 0, "gather_f32": 0,
-    "lookup_transfer": 0,
+    "dda_leg_sample": 0, "dda_leg_shadow": 0, "track_leg_sample": 0, "track_leg_shadow": 0, "importance_pyramid": 0,
+    "tonemap": 0, "tile_march_sample": 0, "tile_march_transmittance": 0, "tile_march_sums": 0,
+    "shearwarp_intermediate": 0, "gather_f32": 0, "lookup_transfer": 0,
 }
 
 _P = ctypes.c_void_p
@@ -58,6 +59,8 @@ _SIGNATURES = {
     "vx_pool2x2": [_P, _P, _I, _I, _P],
     # src, dst, n, exposure, inv_gamma, stream
     "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
+    # src, dst, n4, stream
+    "vx_copy16": [_P, _P, ctypes.c_longlong, _P],
     # xi, out, n, stream
     "vx_neg_log1m": [_P, _P, ctypes.c_longlong, _P],
     # maj, bz, by, bx, dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos,
@@ -69,6 +72,13 @@ _SIGNATURES = {
     # budget_out, n, stream
     "vx_dda_leg_shadow": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3
     + [ctypes.c_longlong, _P],
+    # dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos, idir, far, t,
+    # state, running, cap, state_out, hit_out, t_out, rgb_out, events_out,
+    # n, stream
+    "vx_track_leg_sample": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 7 + [_I] + [_P] * 5 + [ctypes.c_longlong, _P],
+    # the same up to running, then tr, cap, state_out, tr_out, events_out,
+    # n, stream
+    "vx_track_leg_shadow": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3 + [ctypes.c_longlong, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
     # tau_target, state, lut, lut_k, scalars, state_out, hit_out, t_out,
     # rgb_out, n, steps, stream
@@ -122,6 +132,9 @@ def library_path() -> Path:
         h.update(" ".join(_flags(src)).encode())
         h.update(src.name.encode())
         h.update(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD / f"libvolxel_kernels-{h.hexdigest()[:16]}.so"
 
 

@@ -70,26 +70,12 @@ def dda_leg_shadow_plain(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri,
     return state, tr, budget
 
 
-def _volume_and_lanes(name, dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state,
-                      running, per_lane=()):
-    """Check a leg's operands (device, type, shape, contiguity, alignment)
-    and return the C entry point's arguments up to `running`."""
+def check_field(name, dense, extent, scalars, lut):
+    """Check the field, the LUT and the scalars that a leg kernel reads
+    (device, type, shape, contiguity, alignment) and return their C
+    arguments: dense, ny, nx, ex, ey, ez, lut, lut_k, scalars."""
     ex, ey, ez = _check_dense(name, dense, extent)
-    dev = dense.device
-    kernels.require_cuda(name, maj_alpha, scalars, lut, ipos, idir, ri, far, t, tau, mip,
-                         *(a for _, a in per_lane), dtype=torch.float32, device=dev)
-    kernels.require_cuda(name, running, dtype=torch.bool, device=dev)
-    kernels.require_cuda(name, state, dtype=torch.int64, device=dev)
-    n = t.shape[0]
-    _check_lanes(name, n, [("ipos", ipos), ("idir", idir), ("ri", ri)],
-                 [("far", far), ("t", t), ("tau", tau), ("mip", mip), ("running", running), *per_lane])
-    if tuple(state.shape) != (n, 4):
-        raise ValueError(f"{name}: state must be ({n}, 4), got {tuple(state.shape)}")
-    if maj_alpha.dim() != 4 or maj_alpha.shape[0] != 4:
-        raise ValueError(f"{name}: expected a (4, bz, by, bx) pyramid, got {tuple(maj_alpha.shape)}")
-    _, bz, by, bx = maj_alpha.shape
-    if 8 * bx < ex or 8 * by < ey or 8 * bz < ez:
-        raise ValueError(f"{name}: pyramid {tuple(maj_alpha.shape)} does not cover the extent {(ex, ey, ez)}")
+    kernels.require_cuda(name, scalars, lut, dtype=torch.float32, device=dense.device)
     if lut.dim() != 2 or lut.shape[1] != 4 or lut.shape[0] < 1:
         raise ValueError(f"{name}: lut must be (K, 4), got {tuple(lut.shape)}")
     if lut.data_ptr() % 16:
@@ -97,8 +83,38 @@ def _volume_and_lanes(name, dense, maj_alpha, extent, scalars, lut, ipos, idir, 
     if tuple(scalars.shape) != (S_RANGE_HI + 1,):
         raise ValueError(f"{name}: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
     _, ny, nx = dense.shape
-    return (maj_alpha.data_ptr(), bz, by, bx, dense.data_ptr(), ny, nx, ex, ey, ez, lut.data_ptr(), lut.shape[0],
-            scalars.data_ptr(), *(a.data_ptr() for a in (ipos, idir, ri, far, t, tau, mip, state, running)))
+    return dense.data_ptr(), ny, nx, ex, ey, ez, lut.data_ptr(), lut.shape[0], scalars.data_ptr()
+
+
+def check_lanes(name, device, vectors, per_lane, state, running):
+    """Check a leg's per-lane operands on `device`: the (n, 3) f32
+    `vectors` and (n,) f32 `per_lane` (label, tensor) pairs, the (n, 4)
+    int64 words and the (n,) bool `running`."""
+    kernels.require_cuda(name, *(a for _, a in (*vectors, *per_lane)), dtype=torch.float32, device=device)
+    kernels.require_cuda(name, running, dtype=torch.bool, device=device)
+    kernels.require_cuda(name, state, dtype=torch.int64, device=device)
+    n = running.shape[0]
+    _check_lanes(name, n, vectors, [*per_lane, ("running", running)])
+    if tuple(state.shape) != (n, 4):
+        raise ValueError(f"{name}: state must be ({n}, 4), got {tuple(state.shape)}")
+
+
+def _volume_and_lanes(name, dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state,
+                      running, per_lane=()):
+    """Check a leg's operands (device, type, shape, contiguity, alignment)
+    and return the C entry point's arguments up to `running`."""
+    field = check_field(name, dense, extent, scalars, lut)
+    check_lanes(name, dense.device, [("ipos", ipos), ("idir", idir), ("ri", ri)],
+                [("far", far), ("t", t), ("tau", tau), ("mip", mip), *per_lane], state, running)
+    kernels.require_cuda(name, maj_alpha, dtype=torch.float32, device=dense.device)
+    if maj_alpha.dim() != 4 or maj_alpha.shape[0] != 4:
+        raise ValueError(f"{name}: expected a (4, bz, by, bx) pyramid, got {tuple(maj_alpha.shape)}")
+    _, bz, by, bx = maj_alpha.shape
+    ex, ey, ez = field[3:6]
+    if 8 * bx < ex or 8 * by < ey or 8 * bz < ez:
+        raise ValueError(f"{name}: pyramid {tuple(maj_alpha.shape)} does not cover the extent {(ex, ey, ez)}")
+    return (maj_alpha.data_ptr(), bz, by, bx, *field,
+            *(a.data_ptr() for a in (ipos, idir, ri, far, t, tau, mip, state, running)))
 
 
 def dda_leg_sample_cuda(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running):

@@ -10,7 +10,9 @@ PyTorch counterpart of volxel_tpu.render.modes:
     it ends. Each lane has its own step budget (dda.glsl's per-pixel loop
     cap).
   no_dda (normal.glsl): delta tracking and ratio tracking against the
-    global majorant, in PyTorch, over the lanes still running.
+    global majorant. After the box test and the first free flight here,
+    each leg is one call of render.trackleg (one CUDA kernel on the card):
+    every lane decodes and draws at each event until it ends.
   raymarch (raymarch.glsl): 64 fixed steps with the stochastic tricubic
     filter. The camera leg's step loop runs in
     render.tilemarch.tile_march_sample (a CUDA kernel on the card) after a
@@ -37,18 +39,16 @@ import torch
 
 from volxel_tpu_torch.render.ddaleg import dda_leg_sample, dda_leg_shadow
 from volxel_tpu_torch.render.rays import Rays, ray_box_intersection
-from volxel_tpu_torch.render.rng import rng, rng_where
+from volxel_tpu_torch.render.rng import rng_where
 from volxel_tpu_torch.render.sampling import (
     VolumeParams,
-    lookup_density_trilinear,
     lookup_transfer,
     world_to_index_dir,
     world_to_index_point,
 )
 from volxel_tpu_torch.render.tilemarch import STEPS as RAYMARCH_STEPS
 from volxel_tpu_torch.render.tilemarch import tile_march_sample, tile_march_transmittance, volume_scalars
-
-TRACKING_MAX_EVENTS = 512  # no_dda events per leg, one count for every lane as in the JAX package
+from volxel_tpu_torch.render.trackleg import track_leg_sample, track_leg_shadow
 
 # adaptive mip schedule (dda.glsl:6-8)
 MIP_START = 3.0
@@ -88,14 +88,6 @@ def build_premul_majorant(maj_mips, params, lut, majorant_envelope: bool = False
     maj_density = params.density_scale * maj_mips
     return params.vol_maj * _majorant_alpha(
         lut, params.sample_range, maj_density * params.inv_maj, majorant_envelope
-    )
-
-
-def _decode_rgba(grid, params, lut, pos):
-    """Collision-point density decode: trilinear + transfer LUT
-    (dda.glsl:81-83)."""
-    return lookup_transfer(
-        lut, params.sample_range, lookup_density_trilinear(grid, params, pos) * params.inv_maj
     )
 
 
@@ -156,60 +148,27 @@ def _tracking_setup(params, origin, direction, state, active):
 
 
 def sample_volume_simple(grid, params, lut, origin, direction, state, active):
-    """Delta tracking (normal.glsl:36-55) against the global majorant.
-
-    Each event decodes every running lane (trilinear density, LUT), draws
-    the real/null test, and at a null collision the next free flight; a
-    real one returns first. Events run on the running lanes only, at most
-    TRACKING_MAX_EVENTS of them."""
+    """Delta tracking (normal.glsl:36-55) against the global majorant: the
+    setup, then the leg (trackleg.track_leg_sample). Each event decodes the
+    lane's point (trilinear density, LUT) and draws the real/null test, and
+    at a null collision the next free flight; a real one ends the lane. At
+    most trackleg.TRACKING_MAX_EVENTS events a lane."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
-    n = origin.shape[0]
-    hit = torch.zeros_like(running)
-    rgb = torch.ones((n, 3), dtype=torch.float32, device=origin.device)
-    lanes = torch.nonzero(running).squeeze(1)
-    for _ in range(TRACKING_MAX_EVENTS):
-        if not lanes.numel():
-            break
-        t_l = t[lanes]
-        rgba = _decode_rgba(grid, params, lut, ipos[lanes] + t_l[:, None] * idir[lanes])
-        p_real = params.vol_maj * rgba[:, 3] * params.inv_maj
-        st, xi1 = rng(state[lanes])
-        real = xi1 < p_real
-        st, xi2 = rng_where(~real, st)
-        t_l = torch.where(real, t_l, t_l - torch.log(1.0 - xi2) * params.inv_maj)
-        state[lanes] = st
-        t[lanes] = t_l
-        rgb[lanes[real]] = rgba[real, :3]
-        hit[lanes[real]] = True
-        lanes = lanes[~real & (t_l < far[lanes])]
-    le_add = torch.zeros((n, 3), dtype=torch.float32, device=origin.device)  # emission stub
+    state, hit, t, rgb, _ = track_leg_sample(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir, far,
+                                             t, state, running)
+    le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     return state, hit, t, rgb, le_add
 
 
 def transmittance_simple(grid, params, lut, origin, direction, state, active):
-    """Ratio tracking (normal.glsl:8-33): Tr *= 1 - density / majorant at
-    every event; russian roulette below 0.1, whose killed lanes return
-    before the free-flight draw. Events run on the running lanes only."""
+    """Ratio tracking (normal.glsl:8-33): the setup, then the leg
+    (trackleg.track_leg_shadow). Tr *= 1 - density / majorant at every
+    event; russian roulette below 0.1, whose killed lanes end before the
+    free-flight draw."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    lanes = torch.nonzero(running).squeeze(1)
-    for _ in range(TRACKING_MAX_EVENTS):
-        if not lanes.numel():
-            break
-        t_l = t[lanes]
-        rgba = _decode_rgba(grid, params, lut, ipos[lanes] + t_l[:, None] * idir[lanes])
-        d = params.vol_maj * rgba[:, 3]
-        tr_l = tr[lanes] * (1.0 - d * params.inv_maj)
-        rr_active = tr_l < 0.1
-        st, xi_rr = rng_where(rr_active, state[lanes])
-        killed = rr_active & (xi_rr < (1.0 - tr_l))
-        tr_l = torch.where(rr_active & ~killed, tr_l / torch.clamp_min(tr_l, 1e-20), tr_l)
-        tr[lanes] = torch.where(killed, 0.0, tr_l)
-        st, xi2 = rng_where(~killed, st)
-        t_l = t_l - torch.log(1.0 - xi2) * params.inv_maj
-        state[lanes] = st
-        t[lanes] = t_l
-        lanes = lanes[~killed & (t_l < far[lanes])]
+    state, tr, _ = track_leg_shadow(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir, far, t, state,
+                                    running, tr)
     return state, tr
 
 

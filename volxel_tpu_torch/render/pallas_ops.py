@@ -79,13 +79,27 @@ def tonemap_plain(image: torch.Tensor, exposure: float, gamma: float) -> torch.T
 
 
 def tonemap_cuda(image: torch.Tensor, exposure: float, gamma: float) -> torch.Tensor:
-    """The same map as one launch of csrc/tonemap.cu (grid-stride loop over
-    the 3N floats)."""
+    """The same map, bit for bit, as one launch of csrc/tonemap.cu over the
+    3N floats in 16-byte words (two launches where a tail of N * 3 % 4
+    floats, or a misaligned buffer, takes its scalar path)."""
     kernels.require_cuda("tonemap_display", image, dtype=torch.float32)
     out = torch.empty_like(image)
     inv_gamma = (1.0 / torch.tensor(gamma, dtype=torch.float32)).item()
     kernels.launch("vx_tonemap", image, image.data_ptr(), out.data_ptr(), image.numel(), float(exposure), inv_gamma,
                    counter="tonemap")
+    return out
+
+
+def copy16(image: torch.Tensor) -> torch.Tensor:
+    """A plain copy of the first 4 * (numel // 4) floats of a contiguous,
+    16-byte aligned f32 CUDA tensor in 16-byte words, in the tonemap
+    kernel's layout: the floor that kernel is timed against. It is on no
+    render path and counts no launch."""
+    kernels.require_cuda("copy16", image, dtype=torch.float32)
+    if image.data_ptr() % 16:
+        raise ValueError("copy16: the kernel copies 16-byte words; image is misaligned")
+    out = torch.empty_like(image)
+    kernels.launch("vx_copy16", image, image.data_ptr(), out.data_ptr(), image.numel() // 4)
     return out
 
 

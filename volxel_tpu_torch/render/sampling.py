@@ -11,8 +11,8 @@ common.glsl), cut to what the ported render modes run:
     the traced mip index is one more gather coordinate;
   * the transfer LUT is sampled NEAREST with sample-range rejection
     (common.glsl:78-83), one fused fetch on the card (render.gather); the
-    default and raymarch legs fetch it inside their own kernels
-    (render.collide, render.tilemarch);
+    legs of every mode fetch it inside their own kernels (render.ddaleg,
+    render.trackleg, render.tilemarch);
   * out-of-extent voxel taps return 0.0 like GL texelFetch robust access.
 
 The JAX package's pair/quad/octo packings, MXU byte planes and slab grids
