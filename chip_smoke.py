@@ -24,8 +24,9 @@ Phases, each of which raises (exit code != 0) on failure:
    - both no_dda legs (delta and ratio tracking, each lane until it ends)
      at every call of one 1080p no_dda sample, bit-equal on every output
      of every lane, with their warp efficiency (events over 32 times the
-     most a lane of the warp takes) and a bound recounted for the events
-     the lanes take;
+     most a lane of the warp takes), a bound recounted for the events the
+     lanes take, and each kernel's registers, resident warps per SM and
+     issue floor (its event loop's SASS at every warp iteration);
    - both table fetches: the transfer-LUT fetch where it still runs (the
      default sample's premultiplied pyramid) and gather_f32 at every call
      of one 1080p default-mode
@@ -514,7 +515,14 @@ def check_legs(r) -> list[dict]:
     return entries
 
 
-def check_track_legs(r) -> list[dict]:
+def sm_clock_mhz() -> float:
+    """The card's largest SM clock (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def check_track_legs(r, sass: dict, registers: dict) -> list[dict]:
     """Both no_dda leg kernels at every call of one 1080p no_dda sample (the
     camera leg and the shadow leg; lanes counted: the running ones),
     bit-equal on every output of every lane, events left included. Their
@@ -523,10 +531,15 @@ def check_track_legs(r) -> list[dict]:
     shadow leg its tr), each running lane's ray, box exit (and, in the
     shadow leg, t) read once, and per event it takes the decode's eight
     2-byte bf16 taps (at most the field's bytes); the LUT and the scalars
-    read once. Also the warp efficiency of the launches: the events the
-    lanes took over 32 times the most a lane of their warp (32 lanes in
-    pixel order) took, and the bytes of the events' 16-byte LUT rows,
-    which the bound does not count (the LUT is read once)."""
+    read once. Also, per leg: the warp efficiency of the launches (the
+    events the lanes took over 32 times the most a lane of their warp, 32
+    lanes in pixel order, took: the kernels keep that order, one thread a
+    lane); the bytes of the events' 16-byte LUT rows, which the bound does
+    not count (the LUT is read once); the kernel's registers (`registers`:
+    ptxas's report) and resident warps per SM (trackleg.resident_warps);
+    its issue floor, the SASS instructions of its event loop (`sass`:
+    track_leg.cu's functions, event_loop) at every warp iteration over 4 a
+    cycle on every SM at the card's largest clock."""
     import torch
 
     import volxel_tpu_torch.render.modes as modes
@@ -565,13 +578,25 @@ def check_track_legs(r) -> list[dict]:
                                                      "track_leg_shadow": compare("shadow")})
     finally:
         r.render_mode = "default"
+    clock, sms = sm_clock_mhz(), torch.cuda.get_device_properties(0).multi_processor_count
     entries = []
-    for name, t, w in (("track_leg_sample", sample, warps["sample"]), ("track_leg_shadow", shadow, warps["shadow"])):
+    for leg, name, t, w in (("sample", "track_leg_sample", sample, warps["sample"]),
+                            ("shadow", "track_leg_shadow", shadow, warps["shadow"])):
         least = bound(t["bytes"], t["ops"])
+        kernel = next(fn for fn in sass if f"{name}_kernel" in fn)
+        loop = event_loop(sass[kernel])
+        if loop is None:
+            raise SystemExit(f"{name}: no event loop found in its SASS")
+        floor = issue_floor_ms(loop["per_event"], w[1] // 32, clock, sms)
         log(f"{name}: {t['calls']} launches, warp efficiency {w[0] / max(w[1], 1):.4f} ({w[0]} events of {w[1]} warp "
             f"lane-events); bound {least['bound_ms']:.4f} ms by {least['bound_by']} ({t['bytes'] / 1e6:.1f} MB, the "
             f"events' taps {w[2] / 1e6:.1f} MB before the field's cap, their LUT rows {16 * w[0] / 1e6:.1f} MB not "
             f"counted; {least['bound_ms'] / max(t['ms'], 1e-9):.1%} of the kernel's {t['ms']:.4f} ms)")
+        log(f"{name}: {registers[kernel]} registers, {trackleg.resident_warps(leg, 'cuda')} resident warps per SM; "
+            f"event loop {loop['loop_instructions']} SASS instructions a pass of {loop['phases']} events + the log's "
+            f"{loop['log_instructions']} = {loop['per_event']:.1f} an event; issue floor {floor:.4f} ms "
+            f"({w[1] // 32} warp iterations, {sms} SMs at {clock:.0f} MHz; "
+            f"{floor / max(t['ms'], 1e-9):.1%} of the kernel's time)")
         entries.append(entry(name, "volxel_tpu_torch/csrc/track_leg.cu", "volxel_tpu/render/mxu_gather.py:196",
                              t["err"], t["ms"], t["plain_ms"], t["bytes"], t["ops"]))
     return entries
@@ -604,7 +629,7 @@ def sass_counts(sass: str) -> dict:
     at each CALL target, which cuobjdump lists after the code of the kernel
     that calls it."""
     found = {}
-    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+    for name, body in sass_functions(sass).items():
         calls = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)})
         counts = {}
         for addr, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body):
@@ -616,19 +641,84 @@ def sass_counts(sass: str) -> dict:
     return found
 
 
-def check_sass() -> dict:
+def sass_functions(sass: str) -> dict:
+    """{function: its part of a cuobjdump -sass listing}."""
+    return dict(re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S))
+
+
+def event_loop(body: str, phases: int | None = None) -> dict | None:
+    """The static size of a leg kernel's event loop in one function's SASS
+    (`body`): of the loops in its own code (a BRA back to an address at or
+    before it), the innermost one that calls the log (the out-of-line
+    function called from the most sites) at least `phases` times, `phases`
+    being how many events one pass of it takes (a loop unrolled over a ring
+    of slots; by default as many as the innermost loop that calls the log
+    at all calls it, one free flight an event). Returns its instructions,
+    the log's, `phases`, and their sum per event: every instruction of the
+    loop once a pass, branches not taken included, and one log an event.
+    None where no such loop is found."""
+    instrs = [(int(a, 16), text) for a, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    sites = re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)
+    calls = sorted({int(a, 16) for a in sites})
+    if not calls:
+        return None
+    ends = [*calls[1:], float("inf")]
+    size = {c: sum(1 for a, _ in instrs if c <= a < e) for c, e in zip(calls, ends)}
+    mufu = {c: sum(1 for a, text in instrs if c <= a < e and "MUFU" in text) for c, e in zip(calls, ends)}
+    # the log: the function called from the most sites, and of those the
+    # one without MUFU (logf is a polynomial; the division's reciprocal is
+    # a MUFU.RCP)
+    log_at = min(calls, key=lambda c: (-sites.count(f"{c:x}"), mufu[c]))
+    own_end, log_instrs = calls[0], size[log_at]
+    found = None
+    for addr, text in instrs:
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(?:[^,;]*,\s*)?0x([0-9a-f]+)", text)
+        if addr >= own_end or not m or int(m.group(1), 16) > addr:
+            continue
+        start = int(m.group(1), 16)
+        span = [text2 for a2, text2 in instrs if start <= a2 <= addr]
+        log_calls = sum(1 for t2 in span if re.search(rf"CALL\.REL\S*\s+0x0*{log_at:x}\b", t2))
+        if log_calls >= (phases or 1) and (found is None or len(span) < found["loop_instructions"]):
+            events = phases or log_calls
+            found = {"loop_instructions": len(span), "log_instructions": log_instrs, "phases": events,
+                     "per_event": len(span) / events + log_instrs}
+    return found
+
+
+def issue_floor_ms(per_event: float, warp_iterations: int, clock_mhz: float, sms: int) -> float:
+    """The least time the card takes to issue `per_event` instructions at
+    each of `warp_iterations` warp iterations of an event loop: 4
+    warp-instructions a cycle per SM."""
+    return per_event * warp_iterations / (sms * 4 * clock_mhz * 1e3)
+
+
+def ptxas_registers(report: str) -> dict:
+    """{kernel: registers} from an `nvcc -Xptxas -v` report."""
+    found, kernel = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        kernel = m.group(1) if m else kernel
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            found[kernel] = int(m.group(1))
+    return found
+
+
+def check_sass() -> tuple[dict, dict, dict]:
     """Build csrc/dda_leg.cu, csrc/track_leg.cu and csrc/tonemap.cu once
     more, each to a cubin with `-Xptxas -v` (each kernel's registers, stack
     and spills, printed), all at once, and count the FFMA, MUFU and
     instructions in each kernel of their SASS (cuobjdump -sass): the leg
     kernels' own code must hold no FFMA, so no f32 operation of theirs is
     contracted. The log and the IEEE division, whose code needs FFMA, are
-    out-of-line functions, counted apart. Returns the counts per source."""
+    out-of-line functions, counted apart. Returns the counts per source,
+    and per source each function's SASS (sass_functions) and each kernel's
+    registers (ptxas_registers)."""
     from volxel_tpu_torch import kernels
 
     nvcc = kernels._nvcc()
     kernels.BUILD.mkdir(parents=True, exist_ok=True)
-    found = {}
+    found, bodies, registers = {}, {}, {}
     with tempfile.TemporaryDirectory(dir=kernels.BUILD) as tmp:
         procs = {}
         for name in SASS_CHECKS:
@@ -646,6 +736,8 @@ def check_sass() -> dict:
             log(f"{name}, nvcc -Xptxas -v:\n" + "\n".join(line for line in ptxas.splitlines() if "ptxas" in line
                                                           or "bytes" in line))
             found[name] = sass_counts(sass)
+            bodies[name] = sass_functions(sass)
+            registers[name] = ptxas_registers(ptxas)
     for name, (pattern, expected) in SASS_CHECKS.items():
         legs = {}
         for fn, counts in found[name].items():
@@ -656,7 +748,7 @@ def check_sass() -> dict:
         if pattern and (len(legs) != expected or any(legs.values())):
             raise SystemExit(f"the leg kernels' own SASS in {name} holds FFMA, or not every leg kernel was found: "
                              f"{legs}")
-    return found
+    return found, bodies, registers
 
 
 def check_gather(r) -> list[dict]:
@@ -1331,7 +1423,7 @@ def main() -> int:
     path = kernels.build()
     kernels.lib()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {path.name}")
-    sass = check_sass()
+    sass, sass_bodies, registers = check_sass()
 
     t0 = time.perf_counter()
     vol = synthetic_ct_volume((args.size,) * 3, bits_stored=12, seed=0)
@@ -1342,8 +1434,9 @@ def main() -> int:
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
     check_neg_log1m()
-    results = [*check_legs(r), *check_track_legs(r), *check_gather(r), check_pyramid(r),
-               check_tonemap(r.settings.exposure, r.settings.gamma, sass), check_shearwarp(r)]
+    results = [*check_legs(r), *check_track_legs(r, sass_bodies["track_leg.cu"], registers["track_leg.cu"]),
+               *check_gather(r), check_pyramid(r), check_tonemap(r.settings.exposure, r.settings.gamma, sass),
+               check_shearwarp(r)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
     results += check_tile_march(r)

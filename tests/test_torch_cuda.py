@@ -26,7 +26,8 @@ import pytest
 import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
-from tests.torch_lanes import VOL_MAJ, leg_call, leg_lanes, track_call, track_lanes
+from tests.torch_lanes import (VOL_MAJ, field_end_lanes, leg_call, leg_lanes, select_lanes, shadow_leg_draws,
+                               track_call, track_lanes)
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
 from volxel_tpu_torch.render import ddaleg, gather, modes, pallas_ops, shearwarp, tilemarch, trackleg
@@ -333,6 +334,97 @@ def test_track_leg_kernels_bit_equal_to_plain(cuda_device, leg, case):
     assert not torch.equal(got[0], lanes["state"])
     if case == "capped":
         assert (got[-1] == 0).sum() > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+def test_track_leg_kernels_at_the_field_end(cuda_device, leg):
+    """Both no_dda leg kernels against their plain legs on lanes whose
+    cells straddle the last x column of a field with an odd nx and ex ==
+    nx, its last rows and its final element (tests/torch_lanes.py's
+    field_end_lanes, 315 elements: the loads at the row's end and at the
+    allocation's end), every output of every lane."""
+    lanes = field_end_lanes(cuda_device)
+    cuda_fn, plain_fn = _track_fns(leg)
+    got = cuda_fn(*track_call(lanes, leg))
+    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
+    assert (got[-1] < trackleg.TRACKING_MAX_EVENTS - 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+@pytest.mark.parametrize("n", [1, 31, 129])
+def test_track_leg_kernels_on_few_lanes(cuda_device, leg, n):
+    """Both no_dda leg kernels against their plain legs on 1 lane, on 31
+    (less than a warp) and on 129 (a block and one lane more), the first
+    lane running."""
+    lanes = track_lanes(cuda_device, n=n, seed=50 + n)
+    lanes["running"][0] = True
+    cuda_fn, plain_fn = _track_fns(leg)
+    got = cuda_fn(*track_call(lanes, leg))
+    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
+    assert got[-1][0] < trackleg.TRACKING_MAX_EVENTS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+def test_track_leg_kernels_on_shuffled_edge_lanes(cuda_device, leg):
+    """Both no_dda leg kernels against their plain legs on the edge-case
+    lanes (NaN and infinite positions, starts and exits, lanes 2e12 voxels
+    out, lattice points, Tr at the roulette threshold) in a seeded order,
+    so that they share warps with other lanes than in pixel order."""
+    lanes = track_lanes(cuda_device, edge_cases=True)
+    perm = torch.from_numpy(np.random.default_rng(8).permutation(lanes["t"].shape[0])).to(cuda_device)
+    lanes = select_lanes(lanes, perm)
+    cuda_fn, plain_fn = _track_fns(leg)
+    _assert_bits_equal(cuda_fn(*track_call(lanes, leg)), plain_fn(*track_call(lanes, leg)))
+
+
+@pytest.mark.cuda
+def test_track_leg_shadow_kernel_with_many_roulette_draws(cuda_device):
+    """The shadow leg kernel against its plain leg on lanes that start just
+    above and below the roulette threshold through a thin medium, so that
+    thousands of roulette draws are made and over a hundred lanes survive
+    one (tr renormalised to 1) and fly on; every output of every lane."""
+    lanes = track_lanes("cpu", n=4096, seed=71, alpha=0.2, far=60.0)
+    lanes["tr"] = torch.from_numpy(np.random.default_rng(72).uniform(0.02, 0.12, 4096).astype(np.float32))
+    _, roulette, killed = shadow_leg_draws(track_call(lanes, "shadow"))
+    assert roulette.sum() > 2000 and (roulette - killed.to(torch.int64)).sum() > 100
+    lanes = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in lanes.items()}
+    _assert_bits_equal(trackleg.track_leg_shadow_cuda(*track_call(lanes, "shadow")),
+                       trackleg.track_leg_shadow_plain(*track_call(lanes, "shadow")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
+def test_track_leg_kernels_index_a_field_past_int32(cuda_device, leg):
+    """A field of 2^31 + 2^20 bf16 elements (4 GiB), which the kernels'
+    64-bit tap index reaches: lanes whose cells lie in its last planes,
+    past index 2^31, agree with the plain legs bit for bit."""
+    shape = (2049, 1024, 1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    dense = torch.rand(shape, generator=gen, device=cuda_device, dtype=torch.bfloat16)
+    lanes = track_lanes("cpu", n=2048, seed=73)
+    rng = np.random.default_rng(74)
+    ipos = np.stack([rng.uniform(0.0, 1024.0, 2048), rng.uniform(0.0, 1024.0, 2048),
+                     rng.uniform(2046.0, 2049.5, 2048)], axis=-1).astype(np.float32)
+    lanes = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in lanes.items()}
+    lanes.update(dense=dense, extent=(1024, 1024, 2049), ipos=torch.from_numpy(ipos).to(cuda_device))
+    cuda_fn, plain_fn = _track_fns(leg)
+    got = cuda_fn(*track_call(lanes, leg))
+    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
+    del dense, lanes
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_track_leg_resident_warps(cuda_device):
+    """trackleg.resident_warps reads from the card the warps each no_dda leg
+    kernel keeps resident on one SM: at least one block of 4 warps, at most
+    the SM's 64; the camera leg, which keeps more events in flight, no more
+    than the shadow leg."""
+    sample, shadow = trackleg.resident_warps("sample", cuda_device), trackleg.resident_warps("shadow", cuda_device)
+    assert 4 <= sample <= shadow <= 64 and sample % 4 == 0 and shadow % 4 == 0
 
 
 @pytest.mark.cuda

@@ -28,7 +28,7 @@ import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from tests.test_torch_modes import N, make_scene
-from tests.torch_lanes import track_call, track_lanes
+from tests.torch_lanes import advance_words, select_lanes, shadow_leg_draws, track_call, track_lanes
 from volxel_tpu.render import modes as jmodes
 from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render import modes as tmodes
@@ -139,11 +139,6 @@ def _lanes(which, scene):
     return track_lanes("cpu", **({"edge_cases": True} if which == "edge" else {}))
 
 
-def _select(lanes, idx):
-    return {k: v[idx] if isinstance(v, torch.Tensor) and v.dim() and k not in ("dense", "lut", "scalars") else v
-            for k, v in lanes.items()}
-
-
 def _bits(a):
     return a.view(torch.int32) if a.is_floating_point() else a
 
@@ -161,7 +156,7 @@ def test_lanes_are_independent(scene, leg, which):
     n = lanes["t"].shape[0]
     perm = torch.from_numpy(np.random.default_rng(3).permutation(n))
     for idx in (perm, torch.arange(0, n, 3)):
-        part = fn(*track_call(_select(lanes, idx), leg))
+        part = fn(*track_call(select_lanes(lanes, idx), leg))
         for a, b in zip(part, whole):
             assert torch.equal(_bits(a), _bits(b[idx]))
     for k, v in before.items():
@@ -215,3 +210,80 @@ def test_rejected_and_edge_lanes_through_the_legs():
         events = fn(*track_call(edge, leg))[-1]
         one = torch.tensor([3, 4, 12, 13])  # t NaN, exit NaN, starting at the exit
         assert (events[one] == trackleg.TRACKING_MAX_EVENTS - 1).all()
+
+
+@pytest.mark.parametrize("which", ["random", "edge"])
+def test_camera_leg_draws_two_a_null_event_and_one_a_hit(which):
+    """The camera leg's kernels issue an event's taps before the previous
+    event is decoded: a null event takes exactly two draws (real/null, free
+    flight) and a hit ends the lane after one, so the next event's t is a
+    function of the words and t alone. In the plain leg every lane's words
+    after the leg are its input words advanced by exactly 2 * events taken
+    - hit draws (none where the lane does not run)."""
+    lanes = track_lanes("cpu", **({"edge_cases": True} if which == "edge" else {}))
+    state, hit, _, _, events = trackleg.track_leg_sample_plain(*track_call(lanes, "sample"))
+    taken = torch.where(lanes["running"], trackleg.TRACKING_MAX_EVENTS - events, 0).to(torch.int64)
+    assert hit.any() and (taken > 1).any() and not hit[~lanes["running"]].any()
+    assert torch.equal(state, advance_words(lanes["state"], 2 * taken - hit.to(torch.int64)))
+
+
+@pytest.mark.parametrize("which", ["random", "edge"])
+def test_shadow_leg_draws_one_an_event_and_one_a_roulette(which):
+    """The plain shadow leg's draw law: an event makes one roulette draw
+    where tr < 0.1 and then, unless that draw killed the lane, one free
+    flight. So every lane's words advance by events taken + roulette draws
+    (counted at the events where tr < 0.1) - 1 if the roulette killed the
+    lane (no free flight after it); lanes that survive a roulette draw
+    exist, and a killed lane ends with tr = 0."""
+    lanes = track_lanes("cpu", **({"edge_cases": True} if which == "edge" else {}))
+    (state, tr, events), roulette, killed = shadow_leg_draws(track_call(lanes, "shadow"))
+    run = lanes["running"]
+    taken = torch.where(run, trackleg.TRACKING_MAX_EVENTS - events, 0).to(torch.int64)
+    assert (roulette > killed.to(torch.int64)).sum() > 10 and killed.sum() > 10
+    assert not (roulette[~run].any() or killed[~run].any()) and (tr[killed] == 0).all()
+    assert torch.equal(state, advance_words(lanes["state"], taken + roulette - killed.to(torch.int64)))
+
+
+def test_field_end_lanes_tap_the_last_column_and_element():
+    """tests/torch_lanes.py's field_end_lanes (the card tests' paired-load
+    edge) reach what they are built for: at the first event some running
+    lanes' cells start on the last x column (the x + 1 tap outside, ex ==
+    nx), some on the column before it, some on the field's final element;
+    and both plain legs run over them with every lane's events and words
+    accounted for."""
+    from tests.torch_lanes import FIELD_END_SHAPE, field_end_lanes
+
+    lanes = field_end_lanes("cpu")
+    nz, ny, nx = FIELD_END_SHAPE
+    run = lanes["running"]
+    pos = lanes["ipos"] + lanes["t"][:, None] * lanes["idir"]
+    base = torch.floor(pos - 0.5).to(torch.int64)[run]
+    assert (base[:, 0] == nx - 1).sum() > 50 and (base[:, 0] == nx - 2).sum() > 50
+    assert ((base == torch.tensor([nx - 1, ny - 1, nz - 1])).all(dim=1)).sum() > 5
+    state, hit, _, _, events = trackleg.track_leg_sample_plain(*track_call(lanes, "sample"))
+    taken = torch.where(run, trackleg.TRACKING_MAX_EVENTS - events, 0).to(torch.int64)
+    assert hit.any() and (~hit & run).any()
+    assert torch.equal(state, advance_words(lanes["state"], 2 * taken - hit.to(torch.int64)))
+
+
+def _c_params(source: str, name: str) -> list[str]:
+    """The parameters of the extern "C" function `name` in `source`."""
+    import re
+
+    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
+    assert m, f"{name} is not an extern \"C\" int function"
+    return [" ".join(p.split()) for p in m.group(1).split(",")] if m.group(1).strip() else []
+
+
+@pytest.mark.parametrize("name", ["vx_track_leg_sample", "vx_track_leg_shadow", "vx_track_leg_resident_warps"])
+def test_track_leg_entry_points_bound_as_declared(name):
+    """kernels binds each C entry point of csrc/track_leg.cu with ctypes
+    types that match its declaration, one for one: a pointer or a stream
+    as a void pointer, `long long` as c_longlong, `int` as c_int."""
+    import ctypes
+
+    source = (kernels.CSRC / "track_leg.cu").read_text()
+    want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
+            ctypes.c_longlong if p.startswith("long long") else ctypes.c_int if p.startswith("int ") else p
+            for p in _c_params(source, name)]
+    assert kernels._SIGNATURES[name] == want

@@ -196,8 +196,93 @@ def track_lanes(device, n=1024, seed=51, alpha=None, sample_range=(0.05, 0.9), f
     )
 
 
+def select_lanes(lanes, idx):
+    """The lanes at `idx` of a track_lanes dict (the field, the LUT and the
+    scalars are shared)."""
+    return {k: v[idx] if isinstance(v, torch.Tensor) and v.dim() and k not in ("dense", "lut", "scalars") else v
+            for k, v in lanes.items()}
+
+
 def track_call(lanes, leg):
     """The positional operands of track_leg_sample (leg "sample") or
     track_leg_shadow (leg "shadow")."""
     args = [lanes[k] for k in TRACK_ARGS]
     return args if leg == "sample" else args + [lanes["tr"]]
+
+
+def _words_key(row) -> tuple:
+    return tuple(int(w) for w in row)
+
+
+def shadow_leg_draws(args):
+    """The plain shadow leg (trackleg.track_leg_shadow_plain) on `args`, and
+    per lane the roulette draws it made and whether a roulette draw killed
+    the lane. The leg draws through trackleg.rng_where twice an event: first
+    where tr < 0.1 (the roulette), then where the lane was not killed (the
+    free flight). Each drawn row is matched to its lane by the lane's
+    current words (every lane's words are its own)."""
+    from volxel_tpu_torch.render import trackleg
+
+    state = args[8]
+    n = state.shape[0]
+    lane_of = {_words_key(row): i for i, row in enumerate(state.tolist())}
+    roulette = torch.zeros(n, dtype=torch.int64)
+    killed = torch.zeros(n, dtype=torch.bool)
+    calls = [0]
+    original = trackleg.rng_where
+
+    def counting(mask, words):
+        lanes = [lane_of.pop(_words_key(row)) for row in words.tolist()]
+        idx = torch.tensor(lanes, dtype=torch.int64)
+        out, xi = original(mask, words)
+        if calls[0] % 2 == 0:
+            roulette[idx] += mask.cpu().to(torch.int64)
+        else:
+            killed[idx] |= ~mask.cpu()
+        calls[0] += 1
+        lane_of.update({_words_key(row): i for i, row in zip(lanes, out.tolist())})
+        return out, xi
+
+    trackleg.rng_where = counting
+    try:
+        out = trackleg.track_leg_shadow_plain(*args)
+    finally:
+        trackleg.rng_where = original
+    return out, roulette, killed
+
+
+def advance_words(state, draws):
+    """Each lane's xoshiro words advanced by its own number of draws."""
+    from volxel_tpu_torch.render.rng import next_u32
+
+    words = state.clone()
+    for k in range(int(draws.max()) if draws.numel() else 0):
+        stepped, _ = next_u32(words)
+        words = torch.where((k < draws)[:, None], stepped, words)
+    return words
+
+
+FIELD_END_SHAPE = (5, 7, 9)  # (Z, Y, X): odd nx, and an odd count of elements
+
+
+def field_end_lanes(device, n=2048, seed=61):
+    """track_lanes' operands for `n` lanes that start in the last voxels of a
+    seeded (5, 7, 9) bf16 field whose extent is the whole field (ex == nx,
+    nx odd, 315 elements): their first taps straddle the last x column, the
+    last rows and the field's final element. Directions are seeded unit
+    vectors, starts t in [0, 0.3), exits 0.5 to 6 further; tr in (0, 1)."""
+    rng = np.random.default_rng(seed)
+    nz, ny, nx = FIELD_END_SHAPE
+    lanes = track_lanes(device, n=n, seed=seed)
+    dense = torch.from_numpy(rng.random(FIELD_END_SHAPE, dtype=np.float32)).to(torch.bfloat16)
+    ipos = np.stack([rng.uniform(d - 1.5, d + 0.5, n) for d in (nx, ny, nz)], axis=-1).astype(np.float32)
+    idir = rng.normal(size=(n, 3)).astype(np.float32)
+    idir /= np.linalg.norm(idir, axis=-1, keepdims=True)
+    t = rng.uniform(0.0, 0.3, n).astype(np.float32)
+    far = t + rng.uniform(0.5, 6.0, n).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    lanes.update(dense=dense.to(device), extent=(nx, ny, nz), ipos=dev(ipos), idir=dev(idir), t=dev(t), far=dev(far))
+    return lanes

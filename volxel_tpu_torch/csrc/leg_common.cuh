@@ -1,8 +1,10 @@
 // Device code shared by the render legs' kernels (dda_leg.cu, track_leg.cu):
-// the volume a launch reads, the xoshiro128++ draw, and the collision
-// decode (the trilinear density, then the transfer LUT's NEAREST row with
-// range rejection: the LUT site of the Pallas kernel
-// volxel_tpu/render/mxu_gather.py: mxu_gather_f32).
+// the launch shape, the scalars' layout, the xoshiro128++ draw, the log and
+// the IEEE division; and the default legs' collision decode (dda_leg.cu:
+// the volume a launch reads, the trilinear density, then the transfer
+// LUT's NEAREST row with range rejection: the LUT site of the Pallas kernel
+// volxel_tpu/render/mxu_gather.py: mxu_gather_f32). track_leg.cu keeps its
+// own tap fetch and decode, the same arithmetic in fewer instructions.
 //
 // Both files are built with --fmad=true (kernels.FMAD_SOURCES), so that
 // -log(1 - xi) rounds as ATen's log does (ATen builds its log kernel with

@@ -16,146 +16,317 @@
 // lanes with one global counter (it < TRACKING_MAX_EVENTS), but every lane
 // enters at event 0 and a lane that stops never runs again, so at global
 // event k every running lane has had exactly k events: a per-lane cap of
-// `cap` events is the same cap. Each lane's words, t and tr are its own.
+// `cap` events is the same cap. Each lane's words, t and tr are its own,
+// so its outputs do not depend on which thread tracks it or on the other
+// lanes of the launch.
 //
-// What bounds it on an H100: latency. An event is eight bf16 taps of the
-// field at a point that the previous event's draw decided (four to eight
-// 32-byte sectors), one 16-byte LUT row, two or three draws, a log and a
-// few dozen f32 operations; nothing of the next event can start before
-// them. Lanes diverge: a ray through air takes a few long free flights, one
-// through tissue hundreds of short ones.
+// What bounds it on an H100: not bytes (the kernels run at 13-22% of their
+// bytes bound) but each lane's chain of events and the instructions they
+// issue. An event's point is the previous event's free flight, and an
+// event is ~170-180 SASS instructions besides the out-of-line log: the
+// cell and predicates of the eight bf16 taps, the trilinear sum, the LUT
+// row, two or three xoshiro draws. With every load replaced by a register
+// constant (examples/trackleg_variants.py's issue-only variants) the
+// camera leg takes ~0.9 ms at a 1080p sample, with its taps fetched only
+// when an event is reached ~1.7 ms: fetched then, the taps' latency sits on
+// the chain. Lanes diverge: a ray through air takes a few long free
+// flights, one through tissue hundreds of short ones, and a warp lives
+// until its slowest lane ends (warp efficiency 0.78 in the camera leg, 0.22
+// in the shadow leg, whose median lane takes 3 events).
 //
 // Design: one thread per lane, lanes in pixel order, 128 threads a block,
-// the lane's state in registers, the field and the LUT read through the
-// read-only cache (__ldg). A warp lives until its slowest lane ends; in
-// exchange a leg is one launch with no host sync, one lane's taps overlap
-// other lanes' arithmetic, and no lane state goes through device memory
-// between events. Every lane writes its outputs once, with the events it
-// has left of `cap`.
+// the lane's state in registers. The kernels declare
+// __launch_bounds__(kThreads, 1): with the block size alone, ptxas saved
+// registers (40 instead of 48 in the shadow leg) by issuing the z + 1 rows'
+// four taps only after the first four were decoded, two memory round trips
+// an event, and the shadow leg took 0.49 ms instead of 0.36.
+// - The tap fetch: the cell is located with 32-bit saturating casts, which
+//   reject exactly the taps that the 64-bit casts of the plain form reject
+//   (a base of 2^31 or more, or below -2^31, has both offsets outside any
+//   extent; NaN lands on 0 in both), and float(base) of the 64-bit form is
+//   floor(q) clamped to +-2^63, where that cast saturates. One 64-bit index
+//   for the cell's first corner (a 32-bit one measured no faster), the four
+//   (y, z) rows from it, the x + 1 tap two bytes on, each of the eight
+//   2-byte loads predicated on its tap being inside (0 outside).
+// - Events ahead, in the camera leg: it keeps the taps of the next
+//   kSampleAhead events in flight while it decodes the current one. A null
+//   event takes exactly two draws (real/null, then the free flight) and a
+//   real one ends the lane, so the point of event k + j is a function of
+//   the lane's words and t alone: a second copy of the words (q) takes each
+//   real/null draw (kept for the event it belongs to) and each free flight,
+//   while the true words (s) advance as the events resolve. The arithmetic
+//   and its order are the plain version's; only when the loads are issued
+//   changes, and what was fetched past the lane's end is dropped. The ring
+//   of kSampleAhead + 1 events is unrolled, so every slot stays in
+//   registers.
+// - The shadow leg fetches each event's taps when it takes the event. Its
+//   speculation (no roulette draw, the point re-derived after one) and a
+//   persistent grid refilled per warp or per lane from a device counter
+//   were measured and left out, as were x taps paired in one 4- or 8-byte
+//   load in both legs (their unpacking costs more instructions than the
+//   loads save) and more events ahead in the camera leg (registers): at
+//   1080p there are about as many running shadow lanes as resident
+//   threads, so refills recover little, and their votes and atomics cost
+//   more (PERF.md section 6; examples/trackleg_variants.py).
 //
 // Bit-equality with the plain version: leg_common.cuh's rules, and every
 // f32 operation the plain version's in its order: p_real = (vol_maj * a) *
 // inv_maj; t - log(1 - xi) * inv_maj with log(1 - xi) = -neg_log1m(xi)
 // exactly (negation is exact); tr * (1 - d * inv_maj); the renormalisation
-// tr / clamp_min(tr, 1e-20) an IEEE division. The constants 0.1 and 1e-20
-// are rounded to f32 once, as PyTorch rounds a Python scalar against an
-// f32 tensor.
+// tr / clamp_min(tr, 1e-20) an IEEE division; the LUT row clamp(floor(y),
+// 0, K - 1) as floor(clamp(y, 0, K - 1)) (fmaxf takes a NaN y to 0, as the
+// cast does). The constants 0.1 and 1e-20 are rounded to f32 once, as
+// PyTorch rounds a Python scalar against an f32 tensor.
+
+#include <utility>
 
 #include "leg_common.cuh"
 
 namespace {
 
-// the per-lane operands both legs read and the outputs both write
+// the camera leg's events whose taps are in flight beyond the one it
+// decodes (the shadow leg's: none)
+constexpr int kSampleAhead = 2;
+static_assert(kSampleAhead >= 1, "the camera leg's real/null draw is kept in its event's slot");
+constexpr int kSample = 0, kShadow = 1;
+
+// what every lane of a launch reads
+struct Field {
+  const uint16_t* dense;
+  int ny, nx, ex, ey, ez;
+  long long plane;  // nx * ny
+  const float4* lut;
+  float lut_k, lut_top;  // K and K - 1 as f32
+  const float* scalars;  // render/tilemarch.volume_scalars, on the card
+};
+
+// the volume's scalars, read once by each thread
+struct Scalars {
+  float vol_maj, inv_maj, den_scale, range_lo, range_hi;
+};
+
+// the per-lane operands both legs read and the outputs they write
 struct Tracks {
   const float *ipos, *idir, *far, *t;
   const int64_t* state;
   const bool* running;
+  const float* tr_in;
   int cap;
   int64_t* state_out;
   int* events_out;
+  bool* hit_out;
+  float *t_out, *rgb_out, *tr_out;
   long long n;
 };
 
-// one lane's ray
-struct Ray {
-  float p[3], d[3], far;
+// one event in flight: its t, its real/null draw (camera leg), the
+// trilinear fractions and each tap's bf16 bits (0 outside the extent)
+struct Event {
+  float t, xr, f[3];
+  uint32_t bits[8];
 };
-
-__device__ __forceinline__ Ray load_ray(const Tracks& a, long long i) {
-  Ray r;
-  for (int k = 0; k < 3; ++k) {
-    r.p[k] = a.ipos[3 * i + k];
-    r.d[k] = a.idir[3 * i + k];
-  }
-  r.far = a.far[i];
-  return r;
-}
-
-__device__ __forceinline__ void load_state(const Tracks& a, long long i, uint32_t (&s)[4]) {
-  for (int j = 0; j < 4; ++j) s[j] = static_cast<uint32_t>(a.state[4 * i + j]);
-}
-
-__device__ __forceinline__ void store_common(const Tracks& a, long long i, const uint32_t (&s)[4], int events) {
-  for (int j = 0; j < 4; ++j) a.state_out[4 * i + j] = static_cast<int64_t>(s[j]);
-  a.events_out[i] = events;
-}
 
 // the next free flight: t - log(1 - xi) * inv_maj
 __device__ __forceinline__ float fly(float t, float xi, float inv_maj) {
   return __fsub_rn(t, __fmul_rn(-neg_log1m(xi), inv_maj));
 }
 
-// modes.sample_volume_simple's leg (normal.glsl:36-55): at each event the
-// decode and the real/null draw; a real collision ends the lane with the
-// LUT colour, a null one draws the next free flight
-__global__ void __launch_bounds__(kThreads) track_leg_sample_kernel(Volume v, Tracks a, bool* __restrict__ hit_out,
-                                                                    float* __restrict__ t_out,
-                                                                    float* __restrict__ rgb_out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  uint32_t s[4];
-  load_state(a, i, s);
-  float t = a.t[i];
-  int events = a.cap;
-  bool hit = false;
-  float rgb[3] = {1.0f, 1.0f, 1.0f};
-  if (a.running[i]) {
-    const Ray r = load_ray(a, i);
-    const float vol_maj = __ldg(v.scalars + kVolMaj), inv_maj = __ldg(v.scalars + kInvMaj);
-    while (events > 0) {
-      const float4 rgba = decode(v, r.p, r.d, t);
-      events -= 1;
-      if (next_float(s) < __fmul_rn(__fmul_rn(vol_maj, rgba.w), inv_maj)) {
+// sampling.lookup_density_trilinear's taps at p + t * d, issued
+__device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const float (&d)[3], float t, Event& e) {
+  e.t = t;
+  const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
+                        __fadd_rn(p[2], __fmul_rn(t, d[2]))};
+  const int ext[3] = {v.ex, v.ey, v.ez};
+  int b[3];
+  bool in[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float q = __fsub_rn(pos[a], 0.5f);
+    b[a] = __float2int_rd(q);
+    e.f[a] = __fsub_rn(q, fminf(fmaxf(floorf(q), -0x1p63f), 0x1p63f));
+    in[a][0] = static_cast<unsigned>(b[a]) < static_cast<unsigned>(ext[a]);
+    in[a][1] = static_cast<unsigned>(b[a]) + 1u < static_cast<unsigned>(ext[a]);
+  }
+  const uint16_t* row[4];
+  row[0] = v.dense + ((static_cast<long long>(b[2]) * v.ny + b[1]) * v.nx + b[0]);
+  row[1] = row[0] + v.nx;
+  row[2] = row[0] + v.plane;
+  row[3] = row[2] + v.nx;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    uint32_t x = 0;
+    if (in[0][k & 1] && in[1][(k >> 1) & 1] && in[2][k >> 2]) x = __ldg(row[k >> 1] + (k & 1));
+    e.bits[k] = x;
+  }
+}
+
+// the decode of an event: the trilinear sum in _TAPS order (dz outer, dx
+// inner), weights ((wx * wy) * wz), the products summed one after another,
+// times den_scale and inv_maj; then the LUT's NEAREST row, 0 where the
+// sample range rejects the density
+__device__ __forceinline__ float4 decode(const Field& v, const Scalars& c, const Event& e) {
+  float w1[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    w1[a][0] = __fsub_rn(1.0f, e.f[a]);
+    w1[a][1] = e.f[a];
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = __fmul_rn(__fmul_rn(w1[0][k & 1], w1[1][(k >> 1) & 1]), w1[2][k >> 2]);
+    const float term = __fmul_rn(__uint_as_float(e.bits[k] << 16), w);  // bf16 -> f32 is exact
+    acc = k == 0 ? term : __fadd_rn(acc, term);
+  }
+  const float dn = __fmul_rn(__fmul_rn(c.den_scale, acc), c.inv_maj);
+  float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (!(dn < c.range_lo || dn > c.range_hi)) {
+    rgba = __ldg(v.lut + __float2int_rd(fminf(fmaxf(__fmul_rn(dn, v.lut_k), 0.0f), v.lut_top)));
+  }
+  return rgba;
+}
+
+// one lane of a leg: its operands, its words (s the true ones, q the
+// events ahead's), its ring of kAhead + 1 events, its outputs
+template <int Leg>
+struct Lane {
+  static constexpr int kAhead = Leg == kSample ? kSampleAhead : 0, kRing = kAhead + 1;
+  long long i;
+  Scalars c;
+  uint32_t s[4], q[4];
+  float p[3], d[3], far, t, tr;
+  int events;
+  bool hit;
+  float rgb[3];
+  Event ring[kRing];
+
+  __host__ __device__ static constexpr int at(int phase, int k) { return (phase + k) % kRing; }
+
+  // the lane's words, t and outputs as a lane that does not run leaves them
+  __device__ __forceinline__ void begin(const Tracks& a, long long lane) {
+    i = lane;
+    for (int j = 0; j < 4; ++j) s[j] = static_cast<uint32_t>(a.state[4 * i + j]);
+    t = a.t[i];
+    events = a.cap;
+    hit = false;
+    rgb[0] = rgb[1] = rgb[2] = 1.0f;
+    if constexpr (Leg == kShadow) tr = a.tr_in[i];
+  }
+  // the ray of a running lane, and its first kAhead events fetched
+  __device__ __forceinline__ void start(const Field& v, const Tracks& a) {
+    for (int k = 0; k < 3; ++k) {
+      p[k] = a.ipos[3 * i + k];
+      d[k] = a.idir[3 * i + k];
+    }
+    far = a.far[i];
+    if constexpr (kAhead > 0) {
+      for (int j = 0; j < 4; ++j) q[j] = s[j];
+      fetch(v, p, d, t, ring[0]);
+#pragma unroll
+      for (int k = 1; k < kAhead; ++k) fetch_next(v, ring[k - 1], ring[k]);
+    }
+  }
+
+  // the camera leg's event after `prev`, fetched before `prev` is decoded:
+  // q's next draw is prev's real/null draw, the one after it the free
+  // flight to `next`
+  __device__ __forceinline__ void fetch_next(const Field& v, Event& prev, Event& next) {
+    if constexpr (Leg == kSample) prev.xr = next_float(q);
+    fetch(v, p, d, fly(prev.t, next_float(q), c.inv_maj), next);
+  }
+
+  __device__ __forceinline__ void finish(const Tracks& a) const {
+    for (int j = 0; j < 4; ++j) a.state_out[4 * i + j] = static_cast<int64_t>(s[j]);
+    a.events_out[i] = events;
+    if constexpr (Leg == kSample) {
+      a.hit_out[i] = hit;
+      a.t_out[i] = t;
+      for (int k = 0; k < 3; ++k) a.rgb_out[3 * i + k] = rgb[k];
+    } else {
+      a.tr_out[i] = tr;
+    }
+  }
+
+  // one event at ring phase `Phase`; returns whether the lane ended
+  template <int Phase>
+  __device__ __forceinline__ bool step(const Field& v) {
+    Event& cur = ring[at(Phase, 0)];
+    if constexpr (kAhead == 0) {
+      fetch(v, p, d, t, cur);
+    } else {
+      fetch_next(v, ring[at(Phase, kAhead - 1)], ring[at(Phase, kAhead)]);
+    }
+    const float4 rgba = decode(v, c, cur);
+    events -= 1;
+    if constexpr (Leg == kSample) {
+      // modes.sample_volume_simple's event (normal.glsl:36-55): a real
+      // collision ends the lane with the LUT colour (one draw), a null one
+      // flies on (two draws)
+      (void)next_float(s);
+      if (cur.xr < __fmul_rn(__fmul_rn(c.vol_maj, rgba.w), c.inv_maj)) {
         hit = true;
         rgb[0] = rgba.x;
         rgb[1] = rgba.y;
         rgb[2] = rgba.z;
-        break;
+        return true;
       }
-      t = fly(t, next_float(s), inv_maj);
-      if (!(t < r.far)) break;
-    }
-  }
-  store_common(a, i, s, events);
-  hit_out[i] = hit;
-  t_out[i] = t;
-  for (int k = 0; k < 3; ++k) rgb_out[3 * i + k] = rgb[k];
-}
-
-// modes.transmittance_simple's leg (normal.glsl:8-33): at each event the
-// decode and tr *= 1 - d / majorant; russian roulette under 0.1 (a killed
-// lane ends with tr = 0 before the free-flight draw), then the next free
-// flight
-__global__ void __launch_bounds__(kThreads) track_leg_shadow_kernel(Volume v, Tracks a,
-                                                                    const float* __restrict__ tr_in,
-                                                                    float* __restrict__ tr_out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  uint32_t s[4];
-  load_state(a, i, s);
-  float tr = tr_in[i];
-  int events = a.cap;
-  if (a.running[i]) {
-    const Ray r = load_ray(a, i);
-    const float vol_maj = __ldg(v.scalars + kVolMaj), inv_maj = __ldg(v.scalars + kInvMaj);
-    float t = a.t[i];
-    while (events > 0) {
-      const float d = __fmul_rn(vol_maj, decode(v, r.p, r.d, t).w);
-      events -= 1;
-      tr = __fmul_rn(tr, __fsub_rn(1.0f, __fmul_rn(d, inv_maj)));
+      (void)next_float(s);
+      t = ring[at(Phase, 1)].t;
+    } else {
+      // modes.transmittance_simple's event (normal.glsl:8-33): tr *= 1 -
+      // d / majorant; russian roulette under 0.1 (a killed lane ends with
+      // tr = 0 before the free-flight draw), then the free flight
+      tr = __fmul_rn(tr, __fsub_rn(1.0f, __fmul_rn(__fmul_rn(c.vol_maj, rgba.w), c.inv_maj)));
       if (tr < static_cast<float>(0.1)) {
         if (next_float(s) < __fsub_rn(1.0f, tr)) {
           tr = 0.0f;
-          break;
+          return true;
         }
         tr = div_rn(tr, clamp_min(tr, static_cast<float>(1e-20)));
       }
-      t = fly(t, next_float(s), inv_maj);
-      if (!(t < r.far)) break;
+      t = fly(t, next_float(s), c.inv_maj);
+    }
+    return !(t < far) || events <= 0;
+  }
+
+  // the events until the lane ends, the ring's phases unrolled
+  template <int... Phase>
+  __device__ __forceinline__ bool cycle(const Field& v, std::integer_sequence<int, Phase...>) {
+    return (step<Phase>(v) || ...);
+  }
+};
+
+template <int Leg>
+__device__ __forceinline__ void track(const Field& v, const Tracks& a) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  Lane<Leg> lane;
+  lane.c = Scalars{__ldg(v.scalars + kVolMaj), __ldg(v.scalars + kInvMaj), __ldg(v.scalars + kDenScale),
+                   __ldg(v.scalars + kRangeLo), __ldg(v.scalars + kRangeHi)};
+  lane.begin(a, i);
+  if (a.running[i]) {
+    lane.start(v, a);
+    while (!lane.cycle(v, std::make_integer_sequence<int, Lane<Leg>::kRing>{})) {
     }
   }
-  store_common(a, i, s, events);
-  tr_out[i] = tr;
+  lane.finish(a);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) track_leg_sample_kernel(Field v, Tracks a) { track<kSample>(v, a); }
+__global__ void __launch_bounds__(kThreads, 1) track_leg_shadow_kernel(Field v, Tracks a) { track<kShadow>(v, a); }
+
+using Kernel = void (*)(Field, Tracks);
+
+Kernel kernel_of(int leg) { return leg == kSample ? track_leg_sample_kernel : track_leg_shadow_kernel; }
+
+int launch(int leg, const uint16_t* dense, int ny, int nx, int ex, int ey, int ez, const float* lut, int lut_k,
+           const float* scalars, const Tracks& a, cudaStream_t stream) {
+  if (a.n > 0) {
+    const Field v{dense, ny, nx, ex, ey, ez, static_cast<long long>(nx) * ny, reinterpret_cast<const float4*>(lut),
+                  static_cast<float>(lut_k), static_cast<float>(lut_k - 1), scalars};
+    kernel_of(leg)<<<blocks_for(a.n), kThreads, 0, stream>>>(v, a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -165,13 +336,9 @@ extern "C" int vx_track_leg_sample(const uint16_t* dense, int ny, int nx, int ex
                                    const float* far, const float* t, const int64_t* state, const bool* running,
                                    int cap, int64_t* state_out, bool* hit_out, float* t_out, float* rgb_out,
                                    int* events_out, long long n, cudaStream_t stream) {
-  if (n > 0) {
-    const Volume v{nullptr, 0, 0, 0, dense, ny, nx, ex, ey, ez, reinterpret_cast<const float4*>(lut), lut_k,
-                   scalars};
-    const Tracks a{ipos, idir, far, t, state, running, cap, state_out, events_out, n};
-    track_leg_sample_kernel<<<blocks_for(n), kThreads, 0, stream>>>(v, a, hit_out, t_out, rgb_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Tracks a{ipos, idir, far, t, state, running, nullptr, cap, state_out, events_out, hit_out, t_out, rgb_out,
+                 nullptr, n};
+  return launch(kSample, dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, a, stream);
 }
 
 extern "C" int vx_track_leg_shadow(const uint16_t* dense, int ny, int nx, int ex, int ey, int ez, const float* lut,
@@ -179,11 +346,16 @@ extern "C" int vx_track_leg_shadow(const uint16_t* dense, int ny, int nx, int ex
                                    const float* far, const float* t, const int64_t* state, const bool* running,
                                    const float* tr, int cap, int64_t* state_out, float* tr_out, int* events_out,
                                    long long n, cudaStream_t stream) {
-  if (n > 0) {
-    const Volume v{nullptr, 0, 0, 0, dense, ny, nx, ex, ey, ez, reinterpret_cast<const float4*>(lut), lut_k,
-                   scalars};
-    const Tracks a{ipos, idir, far, t, state, running, cap, state_out, events_out, n};
-    track_leg_shadow_kernel<<<blocks_for(n), kThreads, 0, stream>>>(v, a, tr, tr_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Tracks a{ipos, idir, far, t, state, running, tr, cap, state_out, events_out, nullptr, nullptr, nullptr,
+                 tr_out, n};
+  return launch(kShadow, dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, a, stream);
+}
+
+// the warps that leg `leg`'s kernel (0 camera, 1 shadow) keeps resident on
+// one SM of the current card
+extern "C" int vx_track_leg_resident_warps(int leg, int* warps) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_of(leg), kThreads, 0);
+  *warps = blocks * kThreads / 32;
+  return static_cast<int>(err);
 }

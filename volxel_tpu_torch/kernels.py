@@ -79,6 +79,8 @@ _SIGNATURES = {
     # the same up to running, then tr, cap, state_out, tr_out, events_out,
     # n, stream
     "vx_track_leg_shadow": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3 + [ctypes.c_longlong, _P],
+    # leg, warps* (no stream)
+    "vx_track_leg_resident_warps": [_I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
     # tau_target, state, lut, lut_k, scalars, state_out, hit_out, t_out,
     # rgb_out, n, steps, stream

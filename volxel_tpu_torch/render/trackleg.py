@@ -15,16 +15,36 @@ lane's point (trilinear, then the transfer LUT) and draws.
 A lane also ends when its free flight reaches `far`, or after
 TRACKING_MAX_EVENTS events. The plain versions are the event loop over the
 lanes still running (one host sync an event, to find them). The kernels
-(csrc/track_leg.cu) are one thread per lane that tracks until its lane
-ends: one launch per leg and no host sync.
+(csrc/track_leg.cu) are one thread per lane, in pixel order, that tracks
+until its lane ends: one launch per leg and no host sync.
+
+What bounds the kernels on an H100 is each lane's chain of events and the
+instructions an event issues, not bytes and not, once the taps are issued
+early enough, their latency (PERF.md section 6). So the design
+spends few instructions an event and keeps taps in flight:
+
+  * the cell of the eight taps is located with 32-bit casts that reject
+    exactly the taps the plain version's 64-bit casts reject, and indexed
+    from one 64-bit index of its first corner; each tap is one 2-byte load
+    predicated on the tap being inside;
+  * the camera leg keeps the taps of the next two events in flight while
+    it decodes the current one: a null event takes exactly two draws and a
+    real one ends the lane, so where the next event lies depends only on
+    the lane's words and t, and a second copy of the words runs ahead to
+    find it;
+  * the shadow leg fetches each event's taps as it takes it: speculating
+    past a roulette draw, and refilling the lanes of a persistent grid from
+    a device counter, were measured slower (examples/trackleg_variants.py).
 
 Why the two agree: the JAX loop caps all lanes with one global counter
 (it < TRACKING_MAX_EVENTS), but every lane enters at event 0 and a lane
 that stops never runs again, so at global event k every running lane has
 had exactly k events and a per-lane cap is the same cap. Each lane's
 words, t and tr are its own, so a lane that tracks alone until it ends
-computes, bit for bit, what the loop computes for it
+computes, bit for bit, what the loop computes for it, whichever thread
+tracks it and whenever its taps are loaded
 (tests/test_torch_trackleg.py holds the plain legs to that on the CPU,
+with the draw counts the camera leg's look-ahead rests on, and
 tests/test_torch_cuda.py the kernels to the plain legs on the card). Both
 return each lane's events left of TRACKING_MAX_EVENTS beside the leg's
 outputs.
@@ -108,10 +128,16 @@ def track_leg_shadow_plain(dense, extent, scalars, lut, ipos, idir, far, t, stat
     return state, tr, events
 
 
+# K - 1 must be exact in f32 for the kernels' LUT row (floor(clamp(y, 0, K - 1)))
+LUT_ROWS_LIMIT = 2**24
+
+
 def _field_and_lanes(name, dense, extent, scalars, lut, ipos, idir, far, t, state, running, per_lane=()):
     """Check a leg's operands and return the C entry point's arguments up
     to `running`."""
     field = check_field(name, dense, extent, scalars, lut)
+    if lut.shape[0] > LUT_ROWS_LIMIT:
+        raise ValueError(f"{name}: the kernel takes at most {LUT_ROWS_LIMIT} LUT rows, got {lut.shape[0]}")
     check_lanes(name, dense.device, [("ipos", ipos), ("idir", idir)], [("far", far), ("t", t), *per_lane], state,
                 running)
     return (*field, *(a.data_ptr() for a in (ipos, idir, far, t, state, running)))
@@ -138,6 +164,19 @@ def track_leg_shadow_cuda(dense, extent, scalars, lut, ipos, idir, far, t, state
     kernels.launch("vx_track_leg_shadow", t, *args, tr.data_ptr(), TRACKING_MAX_EVENTS,
                    *(a.data_ptr() for a in (state_o, tr_o, events)), t.shape[0], counter="track_leg_shadow")
     return state_o, tr_o, events
+
+
+def resident_warps(leg: str, device) -> int:
+    """The warps that leg `leg`'s ("sample" or "shadow") kernel keeps
+    resident on one SM of `device`."""
+    import ctypes
+
+    warps = ctypes.c_int()
+    with torch.cuda.device(device):
+        code = kernels.lib().vx_track_leg_resident_warps(int(leg == "shadow"), ctypes.byref(warps))
+    if code:
+        raise RuntimeError(f"vx_track_leg_resident_warps: cudaError {code}")
+    return warps.value
 
 
 def track_leg_sample(
