@@ -15,12 +15,17 @@ Phases, each of which raises (exit code != 0) on failure:
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
      the DDA march and its collisions, each lane until it ends) at every
-     call of one 1080p default-mode sample of the 512^3 scene, and the
-     shadow leg with physical shadows at every call of one more (bit-equal
-     on every output of every lane), with the launches' warp efficiency
-     (the mean over the max of the march steps the lanes of a warp take)
-     and a bound recounted for the work the lanes need; the legs'
-     -logf(1 - xi) against torch.log at all 2^24 draws;
+     call of one 1080p default-mode sample of the 512^3 scene, the shadow
+     leg with physical shadows at every call of one more, and both legs at
+     every call of one sample at bounces 3 (bit-equal on every output of
+     every lane), with a bound recounted for the work the lanes need, each
+     kernel's registers and resident warps per SM, and the march as the
+     warps execute it: march steps, collisions, warp iterations and warp
+     efficiency of the nested loop (march, then decode) and of a flat one
+     (a step an iteration), the longest lane, the spread of the warps'
+     iterations, the SASS sizes of a march step and a collision and the
+     issue floor of the loop the kernel runs; the legs' -logf(1 - xi)
+     against torch.log at all 2^24 draws;
    - both no_dda legs (delta and ratio tracking, each lane until it ends)
      at every call of one 1080p no_dda sample, bit-equal on every output
      of every lane, with their warp efficiency (events over 32 times the
@@ -422,11 +427,177 @@ def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms
             "plain_ms": plain_ms, **bound(moved, ops), "library_ms": library_ms}
 
 
-def check_legs(r) -> list[dict]:
+def march_stats() -> dict:
+    """Zeroed tallies of the default legs' march as the plain rounds take
+    it (march_rounds)."""
+    return {"steps": 0, "collisions": 0, "flat": 0, "nested": 0, "coll_iters": 0, "flat_coll_iters": 0,
+            "longest_steps": 0, "longest_collisions": 0, "warp_nested": []}
+
+
+def march_rounds(stats: dict, rounds: list, n: int) -> None:
+    """Add one leg call's plain rounds to `stats`. `rounds` holds, per
+    round of the plain leg, each lane's march steps in it (the budget it
+    spent) and whether it collided. Warps are 32 lanes in pixel order, as
+    the kernels take them. A warp of the nested loop (march, then decode)
+    takes in each round as many step iterations as its longest lane takes
+    in that round, and a collision iteration where any of its lanes
+    collides; a flat loop (one step an iteration) takes as many as its
+    longest lane's total steps, and a collision iteration at each step
+    index at which any of its lanes collides."""
+    import torch
+
+    if not rounds:
+        return
+    pad = (-n) % 32
+    warp_steps = warp_colls = lane_steps = lane_colls = 0
+    longest = int(sum(s.to(torch.int64) for s, _ in rounds).max())
+    at = torch.zeros(((n + pad) // 32, longest + 1), dtype=torch.bool, device=rounds[0][0].device)
+    warp = torch.arange((n + pad) // 32, device=at.device)[:, None].expand(-1, 32)
+    for steps, collided in rounds:
+        steps = torch.nn.functional.pad(steps.to(torch.int64), (0, pad)).reshape(-1, 32)
+        collided = torch.nn.functional.pad(collided.to(torch.int64), (0, pad)).reshape(-1, 32)
+        warp_steps = warp_steps + steps.amax(dim=1)
+        warp_colls = warp_colls + collided.amax(dim=1)
+        lane_steps = lane_steps + steps
+        lane_colls = lane_colls + collided
+        hit = collided.bool()
+        at[warp[hit], lane_steps[hit]] = True
+    stats["steps"] += int(lane_steps.sum())
+    stats["collisions"] += int(lane_colls.sum())
+    stats["flat"] += int(lane_steps.amax(dim=1).sum())
+    stats["nested"] += int(warp_steps.sum())
+    stats["coll_iters"] += int(warp_colls.sum())
+    stats["flat_coll_iters"] += int(at.sum())
+    stats["longest_steps"] = max(stats["longest_steps"], int(lane_steps.max()))
+    stats["longest_collisions"] = max(stats["longest_collisions"], int(lane_colls.max()))
+    stats["warp_nested"].append(warp_steps.cpu())
+
+
+def march_report(name: str, stats: dict, loop, clock: float, sms: int, ms: float) -> str:
+    """One line of a default leg's march as its warps execute it: warp
+    efficiency of the flat and the nested loop, warp iterations, the
+    longest lane, the spread of the warps' step iterations (quantiles and
+    the share of the 10% longest warps) and, from `loop` (march_loops),
+    the issue floor of the loop the kernel runs (nested or flat): the
+    step's instructions at every warp step iteration and the collision's
+    at every collision iteration."""
+    import torch
+
+    per_warp = torch.cat(stats["warp_nested"]).double() if stats["warp_nested"] else torch.zeros(1)
+    q = {f"p{k}": float(per_warp.quantile(k / 100)) for k in (50, 90, 99)}
+    ordered = per_warp.sort(descending=True).values
+    top = float(ordered[:max(1, len(ordered) // 10)].sum() / max(float(ordered.sum()), 1.0))
+    line = (f"{name}: {stats['steps']} march steps and {stats['collisions']} collisions; warp efficiency "
+            f"{stats['steps'] / max(32 * stats['flat'], 1):.4f} as a flat loop ({stats['flat']} warp step "
+            f"iterations, {stats['flat_coll_iters']} with a collision), "
+            f"{stats['steps'] / max(32 * stats['nested'], 1):.4f} as the nested loop "
+            f"({stats['nested']} warp step iterations, {stats['coll_iters']} warp collision iterations); longest "
+            f"lane {stats['longest_steps']} steps, {stats['longest_collisions']} collisions; per-warp step "
+            f"iterations {q}, max {float(per_warp.max()):.0f}, the longest 10% of warps take {top:.1%}")
+    if loop is not None:
+        steps, colls = ((stats["nested"], stats["coll_iters"]) if loop["loop"] == "nested"
+                        else (stats["flat"], stats["flat_coll_iters"]))
+        floor = (loop["step"] * steps + loop["collision"] * colls) / (sms * 4 * clock * 1e3)
+        line += (f"; SASS of its {loop['loop']} loop ({loop['step_loop']} instructions"
+                 + (f", {loop['steps_per_pass']} steps a pass" if loop["loop"] == "nested" else "")
+                 + f"): march step {loop['step']:.1f} instructions, collision {loop['collision']:.1f} (its own "
+                 f"{loop['collision_own']} + the log's {loop['log']} + the division's {loop['division']}); issue "
+                 f"floor {floor:.4f} ms ({sms} SMs at {clock:.0f} MHz; {floor / max(ms, 1e-9):.1%} of the "
+                 f"kernel's {ms:.4f} ms)")
+    return line
+
+
+def march_loops(body: str) -> dict | None:
+    """The static SASS sizes of a default leg kernel's march step and
+    collision (`body`: one function's cuobjdump -sass listing). The step
+    loop is the innermost loop of the kernel's own code (a BRA back to an
+    address at or before it) that holds a 4-byte global load (the
+    majorant) and no call of the log; it takes as many steps a pass as it
+    holds such loads (a ring of steps unrolled). The collision is the
+    innermost loop around it that calls the log, less the step loop, plus
+    one log (the tau redraw) and one IEEE division (t at the collision),
+    the out-of-line functions at the kernel's CALL targets. Every
+    instruction counts once a pass, branches not taken included. None
+    where no such loops are found."""
+    instrs = [(int(a, 16), text) for a, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    calls = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)})
+    if not calls:
+        return None
+    own_end = calls[0]
+
+    def function(start):  # an out-of-line function's instructions, up to its first RET
+        code = [text for a, text in instrs if a >= start]
+        return code[:next((k + 1 for k, text in enumerate(code) if text.startswith("RET")), len(code))]
+
+    # the functions the kernel's own code calls: the log (a polynomial) and
+    # the division (its reciprocal a MUFU.RCP; its slow path, called from
+    # it, is left out)
+    called = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)",
+                                                    "\n".join(t for a, t in instrs if a < own_end))})
+    logs = [c for c in called if not any("MUFU" in t for t in function(c))]
+    divs = [c for c in called if any("MUFU.RCP" in t for t in function(c))]
+    if len(logs) != 1:
+        return None
+    log_at = logs[0]
+    size = {c: len(function(c)) for c in called}
+    div = divs
+    loops = []
+    for addr, text in instrs:
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(?:[^,;]*,\s*)?0x([0-9a-f]+)", text)
+        if addr < own_end and m and int(m.group(1), 16) <= addr:
+            span = [t2 for a2, t2 in instrs if int(m.group(1), 16) <= a2 <= addr]
+            loops.append((int(m.group(1), 16), addr, span))
+
+    def calls_log(span):
+        return any(re.search(rf"CALL\.REL\S*\s+0x0*{log_at:x}\b", t2) for t2 in span)
+
+    def majorant_loads(span):
+        return sum(1 for t2 in span if re.match(r"(@!?U?P\d+\s+)?LDG\.E(\.CONSTANT)?(\.STRONG\.\w+)?\s", t2))
+
+    division = size[div[0]] if div else 0
+    steps = [lp for lp in loops if majorant_loads(lp[2]) and not calls_log(lp[2])]
+    if steps:  # nested: a step loop inside the loop that decodes
+        step = min(steps, key=lambda lp: len(lp[2]))
+        outer = [lp for lp in loops if lp[0] <= step[0] and lp[1] >= step[1] and lp is not step
+                 and calls_log(lp[2])]
+        if not outer:
+            return None
+        coll = min(outer, key=lambda lp: len(lp[2]))
+        per_pass = majorant_loads(step[2])
+        own = len(coll[2]) - len(step[2])
+        return {"loop": "nested", "step_loop": len(step[2]), "steps_per_pass": per_pass,
+                "step": len(step[2]) / per_pass, "collision_own": own, "log": size[log_at], "division": division,
+                "collision": own + size[log_at] + division}
+    # flat: one loop a step; its collision branch is the code from the
+    # conditional branch that skips it (the first after the BSSY of the
+    # outermost region of the loop around the log's call) to that branch's
+    # target
+    flat = [lp for lp in loops if majorant_loads(lp[2]) and calls_log(lp[2])]
+    if not flat:
+        return None
+    lp = min(flat, key=lambda x: len(x[2]))
+    site = next(a for a, t in instrs if lp[0] <= a <= lp[1] and re.search(rf"CALL\.REL\S*\s+0x0*{log_at:x}\b", t))
+    regions = [(a, int(m.group(1), 16)) for a, t in instrs if lp[0] <= a <= lp[1]
+               for m in [re.search(r"BSSY\s+B\d+,\s*0x([0-9a-f]+)", t)] if m and a < site < int(m.group(1), 16)]
+    if not regions:
+        return None
+    start, end = min(regions)  # the outermost: the branch on the collision test
+    skip = next(((a, int(m.group(1), 16)) for a, t in instrs if start < a < site
+                 for m in [re.search(r"@!?P\d+\s+BRA\s+0x([0-9a-f]+)", t)] if m and site < int(m.group(1), 16) <= end),
+                None)
+    if skip is None:
+        return None
+    branch = sum(1 for a, _ in instrs if skip[0] < a < skip[1])
+    return {"loop": "flat", "step_loop": len(lp[2]), "step": len(lp[2]) - branch, "collision_own": branch, "log": size[log_at], "division": division,
+            "collision": branch + size[log_at] + division}
+
+
+def check_legs(r, sass: dict, registers: dict) -> list[dict]:
     """Both leg kernels at every call of one 1080p default sample (the
     camera leg and the shadow leg; lanes counted: the running ones), then
-    the shadow leg with physical shadows at every call of one more sample;
-    bit-equal on every output of every lane. Their work, recounted for what
+    the shadow leg with physical shadows at every call of one more sample,
+    then both legs at every call of one sample at bounces 3; bit-equal on
+    every output of every lane. Their work, recounted for what
     these lanes need: every lane's `running` and words read and its outputs
     written once (the camera leg also reads every lane's t, the shadow leg
     its tr), each running lane's ray and march state read once, one
@@ -434,34 +605,37 @@ def check_legs(r) -> list[dict]:
     lane spent), and per collision (counted by the plain leg's rounds) the
     decode with its eight 2-byte bf16 taps (at most the field's bytes, as
     for the raymarch step loops); the pyramid, the LUT and the scalars
-    read once. Also the warp efficiency of the launches: the march steps
-    the lanes took over 32 times the most a lane of their warp (32 lanes
-    in pixel order) took."""
+    read once. Also, per leg, the march as the warps execute it
+    (march_rounds, march_report: warp efficiency of a flat and of the
+    nested loop, warp iterations, the longest lane, the warps' spread, the
+    issue floor from the kernel's SASS, `sass`: dda_leg.cu's functions,
+    march_loops) and the kernel's registers (`registers`: ptxas's report)
+    and resident warps per SM (ddaleg.resident_warps)."""
     import torch
 
     import volxel_tpu_torch.render.modes as modes
     from volxel_tpu_torch.render import ddaleg
     from volxel_tpu_torch.render.pyrmarch import KIND_COLL
 
-    collisions = []  # per plain leg call, the collisions its rounds decoded
-    warps = {}  # per leg: [steps taken, 32 x the warps' most, collisions]
+    calls = []  # per plain leg call, its rounds: (steps per lane, collided per lane)
+    stats = {}  # per leg and sample: march_stats()
 
-    def counting(plain_fn, round_name):
+    def counting(plain_fn):
         def run(*args):
-            seen = [0]
-            original = getattr(ddaleg, round_name)
+            rounds = []
+            original = ddaleg.pyr_march_plain
 
-            def collide(dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running, *rest):
-                seen[0] += int((running & (kind == KIND_COLL)).sum())
-                return original(dense, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running,
-                                *rest)
+            def march(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running, cap):
+                out = original(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far, budget, running, cap)
+                rounds.append((budget - out[-1], running & (out[4] == KIND_COLL)))
+                return out
 
-            setattr(ddaleg, round_name, collide)
+            ddaleg.pyr_march_plain = march
             try:
                 out = plain_fn(*args)
             finally:
-                setattr(ddaleg, round_name, original)
-            collisions.append(seen[0])
+                ddaleg.pyr_march_plain = original
+            calls.append(rounds)
             return out
         return run
 
@@ -470,17 +644,13 @@ def check_legs(r) -> list[dict]:
             dense, maj, _, scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running = args[:14]
             n = t.numel()
             steps = torch.where(running, cap - got[-1], 0)
-            pad = (-n) % 32
-            most = torch.nn.functional.pad(steps, (0, pad)).reshape(-1, 32).amax(dim=1)
+            st = stats.setdefault(key, march_stats())
+            march_rounds(st, calls[-1], n)
+            coll = sum(int(c.sum()) for _, c in calls[-1])
             taken = int(steps.sum())
-            w = warps.setdefault(key, [0, 0, 0])
-            w[0] += taken
-            w[1] += 32 * int(most.sum())
-            w[2] += collisions[-1]
             lanes = int(running.sum())
             every = nbytes(running, state, *got) + nbytes(t if leg == "sample" else args[14])
             per_running = nbytes(ipos, idir, ri, far, tau, mip) + (nbytes(t) if leg != "sample" else 0)
-            coll = collisions[-1]
             moved = every + lanes * per_running // n + min(nbytes(dense), coll * 8 * 2) + nbytes(maj, lut, scalars)
             return moved, taken * OPS_DDA_STEP + coll * OPS_COLLIDE
         return work
@@ -488,10 +658,9 @@ def check_legs(r) -> list[dict]:
     def compare(leg, key):
         name = f"dda_leg_{leg}"
         cap = ddaleg.DDA_SAMPLE_MAX_STEPS if leg == "sample" else ddaleg.DDA_TRANSMITTANCE_MAX_STEPS
-        plain = counting(getattr(ddaleg, f"{name}_plain"), f"dda_collide_{leg}_plain")
         outputs = ("state", "hit", "t", "rgb", "budget") if leg == "sample" else ("state", "tr", "budget")
-        return dict(cuda_fn=getattr(ddaleg, f"{name}_cuda"), plain_fn=plain, outputs=outputs,
-                    lanes=lambda a: int(a[13].sum()), work=work_of(leg, key, cap))
+        return dict(cuda_fn=getattr(ddaleg, f"{name}_cuda"), plain_fn=counting(getattr(ddaleg, f"{name}_plain")),
+                    outputs=outputs, lanes=lambda a: int(a[13].sum()), work=work_of(leg, key, cap))
 
     sample, shadow = check_every_call(r, modes, {"dda_leg_sample": compare("sample", "sample"),
                                                  "dda_leg_shadow": compare("shadow", "shadow")})
@@ -501,14 +670,32 @@ def check_legs(r) -> list[dict]:
                                        what=" with physical shadows")
     finally:
         r.settings.physical_shadows = False
+    r.settings.bounces = 3
+    try:
+        sample3, shadow3 = check_every_call(r, modes, {"dda_leg_sample": compare("sample", "sample3"),
+                                                       "dda_leg_shadow": compare("shadow", "shadow3")},
+                                            frame=2, what=" at bounces 3")
+    finally:
+        r.settings.bounces = 1
+    clock, sms = sm_clock_mhz(), torch.cuda.get_device_properties(0).multi_processor_count
+    kernels_of = {"sample": "dda_leg_sample_kernel", "shadow": "dda_leg_shadow_kernelILb0E",
+                  "physical": "dda_leg_shadow_kernelILb1E"}
     entries = []
-    for name, t, w in (("dda_leg_sample", sample, warps["sample"]), ("dda_leg_shadow", shadow, warps["shadow"]),
-                       ("dda_leg_shadow (physical)", physical, warps["physical"])):
+    for name, leg, t, key in (("dda_leg_sample", "sample", sample, "sample"),
+                              ("dda_leg_shadow", "shadow", shadow, "shadow"),
+                              ("dda_leg_shadow (physical)", "physical", physical, "physical"),
+                              ("dda_leg_sample at bounces 3", "sample", sample3, "sample3"),
+                              ("dda_leg_shadow at bounces 3", "shadow", shadow3, "shadow3")):
         least = bound(t["bytes"], t["ops"])
-        log(f"{name}: {t['calls']} launches, warp efficiency {w[0] / max(w[1], 1):.4f} ({w[0]} march steps of "
-            f"{w[1]} warp lane-steps), {w[2]} collisions; bound {least['bound_ms']:.4f} ms by {least['bound_by']} "
-            f"({least['bound_ms'] / max(t['ms'], 1e-9):.1%} of the kernel's {t['ms']:.4f} ms)")
-        if not name.endswith("(physical)"):
+        kernel = next(fn for fn in sass if kernels_of[leg] in fn)
+        loop = march_loops(sass[kernel])
+        if loop is None:
+            raise SystemExit(f"{name}: no march step loop and collision loop found in its SASS")
+        log(f"{name}: {t['calls']} launches, kernel {t['ms']:.4f} ms; bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({least['bound_ms'] / max(t['ms'], 1e-9):.1%} of the kernel's time); "
+            f"{registers[kernel]} registers, {ddaleg.resident_warps(leg, 'cuda')} resident warps per SM")
+        log(march_report(name, stats[key], loop, clock, sms, t["ms"]))
+        if name in ("dda_leg_sample", "dda_leg_shadow"):
             entries.append(entry(name, "volxel_tpu_torch/csrc/dda_leg.cu", "volxel_tpu/render/pyrmarch.py:313",
                                  max(t["err"], physical["err"] if name == "dda_leg_shadow" else 0.0), t["ms"],
                                  t["plain_ms"], t["bytes"], t["ops"]))
@@ -1434,7 +1621,7 @@ def main() -> int:
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
     check_neg_log1m()
-    results = [*check_legs(r), *check_track_legs(r, sass_bodies["track_leg.cu"], registers["track_leg.cu"]),
+    results = [*check_legs(r, sass_bodies["dda_leg.cu"], registers["dda_leg.cu"]), *check_track_legs(r, sass_bodies["track_leg.cu"], registers["track_leg.cu"]),
                *check_gather(r), check_pyramid(r), check_tonemap(r.settings.exposure, r.settings.gamma, sass),
                check_shearwarp(r)]
     del r

@@ -56,7 +56,7 @@ struct Cfg {
   using Unit = typename std::conditional<K_ == 4, unsigned long long, uint32_t>::type;
 };
 
-struct Field {
+struct Grid {
   const uint16_t* dense;
   int ny, nx;
   long long ex, ey, ez;
@@ -142,7 +142,7 @@ __device__ __forceinline__ uint32_t half_of(typename C::Unit a, int p) {
 // one index for the cell's first corner, the other taps at constant
 // offsets from it, each load predicated on its tap being inside
 template <class C>
-__device__ __forceinline__ void issue_tight(const Field& v, const float (&p)[3], const float (&d)[3], float t,
+__device__ __forceinline__ void issue_tight(const Grid& v, const float (&p)[3], const float (&d)[3], float t,
                                             Slot<C>& s) {
   s.t = t;
   const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
@@ -186,7 +186,7 @@ __device__ __forceinline__ void issue_tight(const Field& v, const float (&p)[3],
 }
 
 template <class C>
-__device__ __forceinline__ void issue(const Field& v, const float (&p)[3], const float (&d)[3], float t,
+__device__ __forceinline__ void issue(const Grid& v, const float (&p)[3], const float (&d)[3], float t,
                                       Slot<C>& s) {
   if constexpr (C::Tight) {
     issue_tight(v, p, d, t, s);
@@ -262,7 +262,7 @@ __device__ __forceinline__ void issue(const Field& v, const float (&p)[3], const
 // outer, dx inner), weights ((wx * wy) * wz), then the LUT's NEAREST row
 // with range rejection
 template <class C>
-__device__ __forceinline__ float4 consume(const Field& v, const Slot<C>& s, float den_scale, float inv_maj,
+__device__ __forceinline__ float4 consume(const Grid& v, const Slot<C>& s, float den_scale, float inv_maj,
                                           float lo, float hi) {
   float w1[3][2];
 #pragma unroll
@@ -349,7 +349,7 @@ struct Lane {
   // load lane i; a lane that does not run writes its outputs at once.
   // Returns whether it runs.
   template <int J>
-  __device__ __forceinline__ bool begin(const Field& v, const Tracks& a, long long lane, float inv_maj) {
+  __device__ __forceinline__ bool begin(const Grid& v, const Tracks& a, long long lane, float inv_maj) {
     i = lane;
     for (int j = 0; j < 4; ++j) s[j] = static_cast<uint32_t>(a.state[4 * i + j]);
     t = a.t[i];
@@ -394,7 +394,7 @@ struct Lane {
 
   // one event at ring phase J; returns whether the lane ended
   template <int J>
-  __device__ __forceinline__ bool step(const Field& v, float vol_maj, float inv_maj, float den_scale, float lo,
+  __device__ __forceinline__ bool step(const Grid& v, float vol_maj, float inv_maj, float den_scale, float lo,
                                        float hi) {
     ++steps;
     Slot<C>& cur = sl[at(J, 0)];
@@ -468,7 +468,7 @@ struct Lane {
 template <class C, int Leg>
 struct Run {
   using L = Lane<C, Leg>;
-  const Field& v;
+  const Grid& v;
   const Tracks& a;
   L& lane;
   float vol_maj, inv_maj, den_scale, lo, hi;
@@ -519,7 +519,7 @@ struct Run {
 };
 
 template <class C, int Leg>
-__device__ __forceinline__ void leg_body(const Field& v, const Tracks& a) {
+__device__ __forceinline__ void leg_body(const Grid& v, const Tracks& a) {
   const float* sc = v.scalars;
   Lane<C, Leg> lane;
   lane.steps = 0;
@@ -603,16 +603,16 @@ __device__ __forceinline__ void leg_body(const Field& v, const Tracks& a) {
 // one kernel per variant and leg, named variant<num>_<leg>
 #define BOUNDS(MINB) __launch_bounds__(kThreads, (MINB) > 0 ? (MINB) : 1)
 #define KERNELS(num, I, K, D, R, FAKE, LEAN, MINB, ...)                                     \
-  __global__ void BOUNDS(MINB) variant##num##_sample(Field v, Tracks a) {              \
+  __global__ void BOUNDS(MINB) variant##num##_sample(Grid v, Tracks a) {              \
     leg_body<Cfg<I, K, D, R, FAKE, LEAN, ##__VA_ARGS__>, kSample>(v, a);                              \
   }                                                                                     \
-  __global__ void BOUNDS(MINB) variant##num##_shadow(Field v, Tracks a) {              \
+  __global__ void BOUNDS(MINB) variant##num##_shadow(Grid v, Tracks a) {              \
     leg_body<Cfg<I, K, D, R, FAKE, LEAN, ##__VA_ARGS__>, kShadow>(v, a);                              \
   }
 VARIANTS(KERNELS)
 #undef KERNELS
 
-int launch(void (*kernel)(Field, Tracks), bool persistent, const Field& v, const Tracks& a, int* regs, int* per_sm,
+int launch(void (*kernel)(Grid, Tracks), bool persistent, const Grid& v, const Tracks& a, int* regs, int* per_sm,
            cudaStream_t stream) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
@@ -644,7 +644,7 @@ extern "C" int vx_trackleg_variant(int leg, int variant, const uint16_t* dense, 
                                    int cap, int64_t* state_out, bool* hit_out, float* t_out, float* rgb_out,
                                    float* tr_out, int* events_out, unsigned long long* work, long long n, int* regs,
                                    int* per_sm, cudaStream_t stream) {
-  const Field v{dense,
+  const Grid v{dense,
                 ny,
                 nx,
                 ex,

@@ -26,8 +26,8 @@ import pytest
 import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
-from tests.torch_lanes import (VOL_MAJ, field_end_lanes, leg_call, leg_lanes, select_lanes, shadow_leg_draws,
-                               track_call, track_lanes)
+from tests.torch_lanes import (VOL_MAJ, dda_lanes_of, field_end_lanes, leg_call, leg_lanes, select_lanes,
+                               shadow_leg_draws, track_call, track_lanes)
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
 from volxel_tpu_torch.render import ddaleg, gather, modes, pallas_ops, shearwarp, tilemarch, trackleg
@@ -315,6 +315,20 @@ def _track_fns(leg):
     return trackleg.track_leg_shadow_cuda, trackleg.track_leg_shadow_plain
 
 
+def _family(family, leg):
+    """(kernel, plain leg, operands of a lanes dict) of a leg of the no_dda
+    family ("track": csrc/track_leg.cu) or the default family ("dda":
+    csrc/dda_leg.cu, the shadow leg with the reference's quirk)."""
+    if family == "track":
+        return (*_track_fns(leg), lambda lanes: track_call(lanes, leg))
+    if leg == "sample":
+        return ddaleg.dda_leg_sample_cuda, ddaleg.dda_leg_sample_plain, lambda lanes: leg_call(lanes, leg)
+    return ddaleg.dda_leg_shadow_cuda, ddaleg.dda_leg_shadow_plain, lambda lanes: leg_call(lanes, leg)
+
+
+FAMILIES = ["track", "dda"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("leg", ["sample", "shadow"])
 @pytest.mark.parametrize("case", list(TRACK_CASES))
@@ -337,47 +351,61 @@ def test_track_leg_kernels_bit_equal_to_plain(cuda_device, leg, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("leg", ["sample", "shadow"])
-def test_track_leg_kernels_at_the_field_end(cuda_device, leg):
-    """Both no_dda leg kernels against their plain legs on lanes whose
-    cells straddle the last x column of a field with an odd nx and ex ==
-    nx, its last rows and its final element (tests/torch_lanes.py's
-    field_end_lanes, 315 elements: the loads at the row's end and at the
-    allocation's end), every output of every lane."""
+def test_track_leg_kernels_at_the_field_end(cuda_device, family, leg):
+    """The leg kernels of both families (the no_dda legs and the default
+    legs, which share leg_common.cuh's tap fetch) against their plain legs
+    on lanes whose cells straddle the last x column of a field with an odd
+    nx and ex == nx, its last rows and its final element
+    (tests/torch_lanes.py's field_end_lanes, 315 elements: the loads at the
+    row's end and at the allocation's end; for the default legs under a
+    pyramid of majorant 50, so that each lane's first collision lies within
+    a fraction of a voxel of its start), every output of every lane."""
     lanes = field_end_lanes(cuda_device)
-    cuda_fn, plain_fn = _track_fns(leg)
-    got = cuda_fn(*track_call(lanes, leg))
-    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
-    assert (got[-1] < trackleg.TRACKING_MAX_EVENTS - 1).any()
+    if family == "dda":
+        lanes = dda_lanes_of(lanes, 50.0, seed=62)
+    cuda_fn, plain_fn, call = _family(family, leg)
+    got = cuda_fn(*call(lanes))
+    _assert_bits_equal(got, plain_fn(*call(lanes)))
+    cap = trackleg.TRACKING_MAX_EVENTS if family == "track" else int(got[-1].max())
+    assert (got[-1] < cap - 1).any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("leg", ["sample", "shadow"])
 @pytest.mark.parametrize("n", [1, 31, 129])
-def test_track_leg_kernels_on_few_lanes(cuda_device, leg, n):
-    """Both no_dda leg kernels against their plain legs on 1 lane, on 31
-    (less than a warp) and on 129 (a block and one lane more), the first
-    lane running."""
-    lanes = track_lanes(cuda_device, n=n, seed=50 + n)
+def test_track_leg_kernels_on_few_lanes(cuda_device, family, leg, n):
+    """The leg kernels of both families against their plain legs on 1 lane,
+    on 31 (less than a warp) and on 129 (a block and one lane more), the
+    first lane running."""
+    lanes = track_lanes(cuda_device, n=n, seed=50 + n) if family == "track" else leg_lanes(cuda_device, n=n,
+                                                                                           seed=50 + n)
     lanes["running"][0] = True
-    cuda_fn, plain_fn = _track_fns(leg)
-    got = cuda_fn(*track_call(lanes, leg))
-    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
-    assert got[-1][0] < trackleg.TRACKING_MAX_EVENTS
+    cuda_fn, plain_fn, call = _family(family, leg)
+    got = cuda_fn(*call(lanes))
+    _assert_bits_equal(got, plain_fn(*call(lanes)))
+    cap = (trackleg.TRACKING_MAX_EVENTS if family == "track" else ddaleg.DDA_SAMPLE_MAX_STEPS if leg == "sample"
+           else ddaleg.DDA_TRANSMITTANCE_MAX_STEPS)
+    assert got[-1][0] < cap
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("leg", ["sample", "shadow"])
-def test_track_leg_kernels_on_shuffled_edge_lanes(cuda_device, leg):
-    """Both no_dda leg kernels against their plain legs on the edge-case
-    lanes (NaN and infinite positions, starts and exits, lanes 2e12 voxels
-    out, lattice points, Tr at the roulette threshold) in a seeded order,
-    so that they share warps with other lanes than in pixel order."""
-    lanes = track_lanes(cuda_device, edge_cases=True)
+def test_track_leg_kernels_on_shuffled_edge_lanes(cuda_device, family, leg):
+    """The leg kernels of both families against their plain legs on the
+    edge-case lanes (NaN and infinite positions, starts and exits, lanes
+    2e12 voxels out, lattice points, Tr at the roulette threshold; for the
+    default legs also degenerate majorants in the pyramid) in a seeded
+    order, so that they share warps with other lanes than in pixel
+    order."""
+    lanes = (track_lanes if family == "track" else leg_lanes)(cuda_device, edge_cases=True)
     perm = torch.from_numpy(np.random.default_rng(8).permutation(lanes["t"].shape[0])).to(cuda_device)
     lanes = select_lanes(lanes, perm)
-    cuda_fn, plain_fn = _track_fns(leg)
-    _assert_bits_equal(cuda_fn(*track_call(lanes, leg)), plain_fn(*track_call(lanes, leg)))
+    cuda_fn, plain_fn, call = _family(family, leg)
+    _assert_bits_equal(cuda_fn(*call(lanes)), plain_fn(*call(lanes)))
 
 
 @pytest.mark.cuda
@@ -396,11 +424,15 @@ def test_track_leg_shadow_kernel_with_many_roulette_draws(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("leg", ["sample", "shadow"])
-def test_track_leg_kernels_index_a_field_past_int32(cuda_device, leg):
+def test_track_leg_kernels_index_a_field_past_int32(cuda_device, family, leg):
     """A field of 2^31 + 2^20 bf16 elements (4 GiB), which the kernels'
     64-bit tap index reaches: lanes whose cells lie in its last planes,
-    past index 2^31, agree with the plain legs bit for bit."""
+    past index 2^31, agree with the plain legs bit for bit, in both
+    families (the default legs under a pyramid of majorant 5, whose 32-bit
+    index covers its 16.8M entries, so that their collisions fall near
+    their starts)."""
     shape = (2049, 1024, 1024)
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     dense = torch.rand(shape, generator=gen, device=cuda_device, dtype=torch.bfloat16)
@@ -410,21 +442,29 @@ def test_track_leg_kernels_index_a_field_past_int32(cuda_device, leg):
                      rng.uniform(2046.0, 2049.5, 2048)], axis=-1).astype(np.float32)
     lanes = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in lanes.items()}
     lanes.update(dense=dense, extent=(1024, 1024, 2049), ipos=torch.from_numpy(ipos).to(cuda_device))
-    cuda_fn, plain_fn = _track_fns(leg)
-    got = cuda_fn(*track_call(lanes, leg))
-    _assert_bits_equal(got, plain_fn(*track_call(lanes, leg)))
+    if family == "dda":
+        lanes = dda_lanes_of(lanes, 5.0, seed=75)
+    cuda_fn, plain_fn, call = _family(family, leg)
+    got = cuda_fn(*call(lanes))
+    _assert_bits_equal(got, plain_fn(*call(lanes)))
     del dense, lanes
     torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda
-def test_track_leg_resident_warps(cuda_device):
-    """trackleg.resident_warps reads from the card the warps each no_dda leg
-    kernel keeps resident on one SM: at least one block of 4 warps, at most
-    the SM's 64; the camera leg, which keeps more events in flight, no more
-    than the shadow leg."""
-    sample, shadow = trackleg.resident_warps("sample", cuda_device), trackleg.resident_warps("shadow", cuda_device)
-    assert 4 <= sample <= shadow <= 64 and sample % 4 == 0 and shadow % 4 == 0
+@pytest.mark.parametrize("family", FAMILIES)
+def test_track_leg_resident_warps(cuda_device, family):
+    """trackleg.resident_warps and ddaleg.resident_warps read from the card
+    the warps each leg kernel keeps resident on one SM: at least one block
+    of 4 warps, at most the SM's 64; the no_dda camera leg, which keeps
+    more events in flight, no more than its shadow leg."""
+    if family == "track":
+        sample, shadow = trackleg.resident_warps("sample", cuda_device), trackleg.resident_warps("shadow", cuda_device)
+        assert 4 <= sample <= shadow <= 64 and sample % 4 == 0 and shadow % 4 == 0
+    else:
+        for leg in ("sample", "shadow", "physical"):
+            warps = ddaleg.resident_warps(leg, cuda_device)
+            assert 4 <= warps <= 64 and warps % 4 == 0
 
 
 @pytest.mark.cuda

@@ -275,14 +275,18 @@ def _c_params(source: str, name: str) -> list[str]:
     return [" ".join(p.split()) for p in m.group(1).split(",")] if m.group(1).strip() else []
 
 
-@pytest.mark.parametrize("name", ["vx_track_leg_sample", "vx_track_leg_shadow", "vx_track_leg_resident_warps"])
-def test_track_leg_entry_points_bound_as_declared(name):
-    """kernels binds each C entry point of csrc/track_leg.cu with ctypes
-    types that match its declaration, one for one: a pointer or a stream
-    as a void pointer, `long long` as c_longlong, `int` as c_int."""
+@pytest.mark.parametrize("source, name", [("track_leg.cu", "vx_track_leg_sample"), ("track_leg.cu", "vx_track_leg_shadow"),
+                                          ("track_leg.cu", "vx_track_leg_resident_warps"),
+                                          ("dda_leg.cu", "vx_dda_leg_sample"), ("dda_leg.cu", "vx_dda_leg_shadow"),
+                                          ("dda_leg.cu", "vx_dda_leg_resident_warps"), ("dda_leg.cu", "vx_neg_log1m")])
+def test_track_leg_entry_points_bound_as_declared(source, name):
+    """kernels binds each C entry point of the legs' sources (csrc/track_leg.cu
+    and csrc/dda_leg.cu) with ctypes types that match its declaration, one
+    for one: a pointer or a stream as a void pointer, `long long` as
+    c_longlong, `int` as c_int."""
     import ctypes
 
-    source = (kernels.CSRC / "track_leg.cu").read_text()
+    source = (kernels.CSRC / source).read_text()
     want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
             ctypes.c_longlong if p.startswith("long long") else ctypes.c_int if p.startswith("int ") else p
             for p in _c_params(source, name)]

@@ -197,9 +197,10 @@ def track_lanes(device, n=1024, seed=51, alpha=None, sample_range=(0.05, 0.9), f
 
 
 def select_lanes(lanes, idx):
-    """The lanes at `idx` of a track_lanes dict (the field, the LUT and the
-    scalars are shared)."""
-    return {k: v[idx] if isinstance(v, torch.Tensor) and v.dim() and k not in ("dense", "lut", "scalars") else v
+    """The lanes at `idx` of a track_lanes or leg_lanes dict (the field, the
+    pyramid, the LUT and the scalars are shared)."""
+    shared = ("dense", "maj_alpha", "lut", "scalars")
+    return {k: v[idx] if isinstance(v, torch.Tensor) and v.dim() and k not in shared else v
             for k, v in lanes.items()}
 
 
@@ -286,3 +287,62 @@ def field_end_lanes(device, n=2048, seed=61):
 
     lanes.update(dense=dense.to(device), extent=(nx, ny, nz), ipos=dev(ipos), idir=dev(idir), t=dev(t), far=dev(far))
     return lanes
+
+
+def pyramid_lanes(side, n=1024, seed=81, scale=1.0):
+    """ddaleg.dda_leg_sample's operands (LEG_ARGS) and the shadow leg's tr
+    for `n` lanes through the brick grid of a seeded side^3 synthetic CT
+    volume: its decoded bf16 field and its stacked majorant pyramid
+    (sampling.build_majorant_pyramid) times `scale`, which stands in for the
+    premultiplied one (any f32 values are a pyramid to the march).
+
+    Lanes start anywhere in the volume (the grid's index extent is padded
+    to whole 64-voxel blocks of bricks), at t in [0, 2), with a box exit 4
+    to 2 * side further on, a tau drawn as the legs draw it and a random
+    mip; 85% of them run. The bench's LUT shape (64 rows) and
+    sample range; tr in (0, 1)."""
+    from volxel_tpu_torch.grid import construct_brick_grid
+    from volxel_tpu_torch.render.sampling import build_majorant_pyramid, device_grid_from_brick
+    from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+    rng = np.random.default_rng(seed)
+    vol = synthetic_ct_volume((side,) * 3, bits_stored=12, seed=seed)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    dense = device_grid_from_brick(grid, "cpu").dense
+    pyramid = (build_majorant_pyramid(grid) * np.float32(scale)).astype(np.float32)
+    extent = tuple(int(v) for v in grid.index_extent)
+    lut = rng.uniform(0.05, 1.0, (64, 4)).astype(np.float32)
+    inv_maj = np.float32(1.0) / np.float32(VOL_MAJ)
+    scalars = np.array([inv_maj, VOL_MAJ, 1.0, 0.0564, 1.0], dtype=np.float32)
+    ipos = rng.uniform(0.0, side, (n, 3)).astype(np.float32)
+    idir = rng.normal(size=(n, 3)).astype(np.float32)
+    idir /= np.linalg.norm(idir, axis=-1, keepdims=True)
+    t = rng.uniform(0.0, 2.0, n).astype(np.float32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    return dict(
+        dense=dense, maj_alpha=dev(pyramid), extent=extent, scalars=dev(scalars), lut=dev(lut), ipos=dev(ipos),
+        idir=dev(idir), ri=dev(np.float32(1.0) / idir), far=dev(t + rng.uniform(4.0, 2.0 * side, n).astype(np.float32)),
+        t=dev(t), tau=dev((-np.log1p(-rng.random(n))).astype(np.float32)),
+        mip=dev((rng.integers(0, 13, n) * 0.25).astype(np.float32)),
+        state=seed_rays(torch.arange(n, dtype=torch.int64), 11), running=dev(rng.random(n) < 0.85),
+        tr=dev(rng.uniform(0.0, 1.0, n).astype(np.float32)),
+    )
+
+
+def dda_lanes_of(lanes, maj, seed=0):
+    """A track_lanes dict (field_end_lanes' among them) made into
+    leg_lanes' operands: a pyramid that covers its extent with `maj` in
+    every cell (a large one puts each lane's first collision within a
+    fraction of a voxel of its start), 1 / idir, a tau drawn as the legs
+    draw it and a random mip."""
+    rng = np.random.default_rng(seed)
+    ex, ey, ez = lanes["extent"]
+    device = lanes["t"].device
+    n = lanes["t"].shape[0]
+    pyramid = torch.full((4, -(-ez // 8), -(-ey // 8), -(-ex // 8)), maj, dtype=torch.float32, device=device)
+    tau = torch.from_numpy((-np.log1p(-rng.random(n))).astype(np.float32)).to(device)
+    mip = torch.from_numpy((rng.integers(0, 13, n) * 0.25).astype(np.float32)).to(device)
+    return {**lanes, "maj_alpha": pyramid, "ri": 1.0 / lanes["idir"], "tau": tau, "mip": mip}

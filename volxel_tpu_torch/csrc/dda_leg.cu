@@ -19,22 +19,35 @@
 // budget). So a lane that marches and collides until it ends computes, bit
 // for bit, what the rounds compute for it.
 //
-// What bounds it on an H100: latency, not bytes or FLOPs. A march step is
-// one dependent 4-byte fetch from the stacked pyramid (4 MiB at 512^3, so
-// it stays in the 50 MB L2) and ~40 scalar f32 operations whose result
-// decides the next fetch's address; a collision reads eight bf16 taps of
-// the 256 MiB field, in four to eight 32-byte sectors (the x neighbours
-// share one 15 times in 16). Lanes diverge: a ray
+// What bounds it on an H100 (examples/ddaleg_variants.py, PERF.md section
+// 6): not bytes (the parent kernels ran at 22% and 32% of their bytes
+// bound) and not the majorant fetches' latency. The stacked pyramid (4 MiB
+// at 512^3) is read by warps whose lanes walk neighbouring bricks, so a
+// step's fetch is a short wait: with every load replaced by a register
+// constant the camera leg takes 0.20 ms against 0.21 with memory, and
+// fetches issued 2 to 4 steps ahead made both legs slower (each collision
+// refills them, and they cost registers). What sets the time is the
+// instructions each lane issues, ~80 a march step and ~230 a collision
+// with its log and division, its chain of dependent arithmetic, and how
+// the warp executes the march and the collisions: lanes diverge (a ray
 // through empty space ends after a few coarse steps, one through tissue
-// takes dozens of fine ones and restarts after every null collision.
+// takes dozens of fine ones and restarts after every null collision). A
+// loop that marches every lane to its next collision and then decodes
+// runs each round as long as the round's slowest lane: 584,091 warp step
+// iterations for the camera leg's 5,966,093 steps at a 1080p sample, where
+// one step an iteration takes 299,079.
 //
 // Design: one thread per lane, lanes in pixel order, 128 threads a block,
 // the lane's state in registers, the pyramid and the field read through
-// the read-only cache (__ldg). A warp lives until its slowest lane ends;
-// in exchange there is no round boundary: one lane's scattered taps overlap
-// other lanes' march steps, no lane state goes through device memory
-// between rounds, and a leg is one launch with no host sync. Every lane
-// writes its outputs once.
+// the read-only cache (__ldg). One march step an iteration: a lane whose
+// step collides decodes there (leg_common.cuh's fetch and decode, the
+// eight taps in flight together) and makes its draws, while the others
+// have marched on; then every lane of the warp issues its next step's
+// fetch together. The pyramid's index is 32 bits (ddaleg.py refuses a
+// pyramid of 2^31 entries). __launch_bounds__(kThreads, 1): with the block
+// size alone ptxas gave the camera leg 56 registers and it ran slower. A
+// warp lives until its slowest lane ends; a leg is one launch with no host
+// sync, and every lane writes its outputs once.
 //
 // Bit-equality with the plain version: every f32 operation is the plain
 // version's, in its order, under the rules of leg_common.cuh (built with
@@ -42,7 +55,10 @@
 // and the IEEE division out of line). The march's c / dim is
 // c * 2^-(3 + mip), which rounds the same real number (dim is a power of
 // two) and needs no division. t_coll = t_new + tau_new / maj is computed
-// only at a collision, the one step whose t it becomes. vx_neg_log1m
+// only at a collision, the one step whose t it becomes. Only the
+// collision test reads a step's majorant, so where the march goes between
+// collisions does not depend on the values it reads
+// (tests/test_torch_ddaleg.py). vx_neg_log1m
 // exposes the same -log(1 - xi) so that a check can hold it against
 // torch.log over all 2^24 values xi takes. The constants 0.1, 1e-20 and
 // 2.0 are rounded to f32 once, as PyTorch rounds a Python scalar against
@@ -51,6 +67,9 @@
 #include "leg_common.cuh"
 
 namespace {
+
+// the blocks per SM the kernels' launch bounds name
+constexpr int kMinBlocks = 1;
 
 constexpr float kSpeedUp = 0.25f;   // pyrmarch.MIP_SPEED_UP
 constexpr float kSpeedDown = 2.0f;  // collide.MIP_SPEED_DOWN
@@ -63,44 +82,71 @@ __device__ __forceinline__ float axis_step(float c, float dim, float inv_dim, fl
   return __fmul_rn(__fsub_rn(__fadd_rn(__fmul_rn(floorf(__fmul_rn(c, inv_dim)), dim), off), c), r);
 }
 
-// one lane's ray and march state
+// the majorant pyramid a launch reads: (4, bz, by, bx) f32, fewer than 2^31
+// entries (ddaleg.py checks it)
+struct Pyramid {
+  const float* maj;
+  int bz, by, bx;
+};
+
+// one lane's ray and march state, and its next step, issued: the step's
+// majorant (in flight), its DDA step and the t it reaches
 struct Lane {
   float p[3], d[3], r[3];
   float far, t, tau, mip;
   int budget;
+  float m, dt, t_new;
 };
 
-// pyrmarch.pyr_march_plain for one lane: march from (t, tau, mip) to the
-// next collision candidate. True there, with `m` the majorant of the
-// collision step; false where the lane escapes at its collision, leaves
-// past `far` or spends its budget (also when it starts with none left).
-__device__ __forceinline__ bool march(const Volume& v, Lane& l, float& m) {
-  while (l.budget > 0) {
-    const int mi = clampi(static_cast<int>(floorf(__fadd_rn(l.mip, 0.5f))), 0, 3);
-    float c[3];
-    for (int a = 0; a < 3; ++a) c[a] = __fadd_rn(l.p[a], __fmul_rn(l.t, l.d[a]));
-    // _majorant_coords: floor -> clip to the extent -> brick index
-    const int vx = clampi(static_cast<int>(floorf(c[0])), 0, v.ex - 1) >> 3;
-    const int vy = clampi(static_cast<int>(floorf(c[1])), 0, v.ey - 1) >> 3;
-    const int vz = clampi(static_cast<int>(floorf(c[2])), 0, v.ez - 1) >> 3;
-    m = __ldg(v.maj + ((static_cast<int64_t>(mi) * v.bz + vz) * v.by + vy) * v.bx + vx);
-    const float dim = static_cast<float>(8 << mi);
-    const float inv_dim = __int_as_float((127 - 3 - mi) << 23);  // 2^-(3 + mi)
-    const float dt = min_nan(min_nan(axis_step(c[0], dim, inv_dim, l.r[0]), axis_step(c[1], dim, inv_dim, l.r[1])),
-                             axis_step(c[2], dim, inv_dim, l.r[2]));
-    const float t_new = __fadd_rn(l.t, dt);
-    const float tau_new = __fsub_rn(l.tau, __fmul_rn(m, dt));
+// the step from (t, mip): pyrmarch.pyr_march_plain's majorant fetch (a
+// 32-bit index) and DDA step
+__device__ __forceinline__ void issue(const Pyramid& g, const Field& v, Lane& l) {
+  const int mi = clampi(static_cast<int>(floorf(__fadd_rn(l.mip, 0.5f))), 0, 3);
+  float c[3];
+  for (int a = 0; a < 3; ++a) c[a] = __fadd_rn(l.p[a], __fmul_rn(l.t, l.d[a]));
+  // _majorant_coords: floor -> clip to the extent -> brick index
+  const int vx = clampi(static_cast<int>(floorf(c[0])), 0, v.ex - 1) >> 3;
+  const int vy = clampi(static_cast<int>(floorf(c[1])), 0, v.ey - 1) >> 3;
+  const int vz = clampi(static_cast<int>(floorf(c[2])), 0, v.ez - 1) >> 3;
+  l.m = __ldg(g.maj + (((mi * g.bz + vz) * g.by + vy) * g.bx + vx));
+  const float dim = static_cast<float>(8 << mi);
+  const float inv_dim = __int_as_float((127 - 3 - mi) << 23);  // 2^-(3 + mi)
+  l.dt = min_nan(min_nan(axis_step(c[0], dim, inv_dim, l.r[0]), axis_step(c[1], dim, inv_dim, l.r[1])),
+                 axis_step(c[2], dim, inv_dim, l.r[2]));
+  l.t_new = __fadd_rn(l.t, l.dt);
+}
+
+// one lane's march and its collisions until it ends, one march step an
+// iteration: the step's collision test; at a collision its t, the taps'
+// fetch and decode, and `collide`, which makes the leg's draws (the tau
+// redraw among them) and returns whether the lane ended; then the next
+// step, issued by every lane of the warp together. The lane ends where it
+// escapes at a collision, leaves past `far` or spends its budget (also
+// when it starts with none left), as pyr_march_plain's rounds end it.
+template <class Collide>
+__device__ __forceinline__ void walk(const Pyramid& g, const Field& v, Lane& l, Collide collide) {
+  const Scalars c = load_scalars(v);
+  if (l.budget <= 0) return;
+  issue(g, v, l);
+  for (;;) {
+    const float tau_new = __fsub_rn(l.tau, __fmul_rn(l.m, l.dt));
     l.budget -= 1;
     if (tau_new <= 0.0f) {  // collided: t moves to the collision point
-      l.t = __fadd_rn(t_new, div_rn(tau_new, max_nan(m, 1e-20f)));
-      return !(l.t >= l.far);  // a collision past far is an escape
+      l.t = __fadd_rn(l.t_new, div_rn(tau_new, max_nan(l.m, 1e-20f)));
+      if (l.t >= l.far) break;  // a collision past far is an escape
+      Taps taps;
+      fetch(v, l.p, l.d, l.t, taps);
+      if (collide(c, decode(v, c, taps), l)) break;
+      l.mip = clamp_min(__fsub_rn(l.mip, kSpeedDown), 0.0f);
+    } else {
+      l.t = l.t_new;
+      l.tau = tau_new;
+      l.mip = clamp_max(__fadd_rn(l.mip, kSpeedUp), 3.0f);
+      if (l.t_new >= l.far) break;  // left the box
     }
-    l.t = t_new;
-    l.tau = tau_new;
-    l.mip = clamp_max(__fadd_rn(l.mip, kSpeedUp), 3.0f);
-    if (t_new >= l.far) return false;  // left the box
+    if (l.budget <= 0) break;
+    issue(g, v, l);
   }
-  return false;  // the budget is spent
 }
 
 // the per-lane operands both legs read and the outputs both write
@@ -141,9 +187,10 @@ __device__ __forceinline__ void store_common(const Lanes& a, long long i, const 
 // modes.sample_volume_dda's leg (dda.glsl:65-98): at each collision the
 // real/null draw; a real collision ends the lane with the LUT colour, a
 // null one redraws tau, steps the mip down, and the lane marches on
-__global__ void __launch_bounds__(kThreads) dda_leg_sample_kernel(Volume v, Lanes a, bool* __restrict__ hit_out,
-                                                                  float* __restrict__ t_out,
-                                                                  float* __restrict__ rgb_out) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_kernel(Pyramid g, Field v, Lanes a,
+                                                                             bool* __restrict__ hit_out,
+                                                                             float* __restrict__ t_out,
+                                                                             float* __restrict__ rgb_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   uint32_t s[4];
@@ -153,23 +200,20 @@ __global__ void __launch_bounds__(kThreads) dda_leg_sample_kernel(Volume v, Lane
   bool hit = false;
   float rgb[3] = {1.0f, 1.0f, 1.0f};
   if (a.running[i]) {
-    Lane l = load_lane(a, i);
-    const float vol_maj = __ldg(v.scalars + kVolMaj);
-    float m;
-    while (march(v, l, m)) {
-      const float4 rgba = decode(v, l.p, l.d, l.t);
-      if (__fmul_rn(next_float(s), m) < __fmul_rn(vol_maj, rgba.w)) {
+    Lane w = load_lane(a, i);
+    walk(g, v, w, [&](const Scalars& c, const float4& rgba, Lane& l) {
+      if (__fmul_rn(next_float(s), l.m) < __fmul_rn(c.vol_maj, rgba.w)) {
         hit = true;
         rgb[0] = rgba.x;
         rgb[1] = rgba.y;
         rgb[2] = rgba.z;
-        break;
+        return true;
       }
       l.tau = neg_log1m(next_float(s));
-      l.mip = clamp_min(__fsub_rn(l.mip, kSpeedDown), 0.0f);
-    }
-    t = l.t;
-    budget = l.budget;
+      return false;
+    });
+    t = w.t;
+    budget = w.budget;
   }
   store_common(a, i, s, budget);
   hit_out[i] = hit;
@@ -183,8 +227,9 @@ __global__ void __launch_bounds__(kThreads) dda_leg_sample_kernel(Volume v, Lane
 // 0.1 (a killed lane ends with tr = 0 before the tau draw), then the tau
 // redraw and the mip step-down, and the lane marches on
 template <bool kPhysical>
-__global__ void __launch_bounds__(kThreads) dda_leg_shadow_kernel(Volume v, Lanes a, const float* __restrict__ tr_in,
-                                                                  float* __restrict__ tr_out) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_kernel(Pyramid g, Field v, Lanes a,
+                                                                             const float* __restrict__ tr_in,
+                                                                             float* __restrict__ tr_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   uint32_t s[4];
@@ -192,26 +237,24 @@ __global__ void __launch_bounds__(kThreads) dda_leg_shadow_kernel(Volume v, Lane
   float tr = tr_in[i];
   int budget = a.cap;
   if (a.running[i]) {
-    Lane l = load_lane(a, i);
-    const float vol_maj = __ldg(v.scalars + kVolMaj);
-    float m;
-    while (march(v, l, m)) {
-      const float d = __fmul_rn(vol_maj, decode(v, l.p, l.d, l.t).w);
-      if (__fmul_rn(next_float(s), m) < d) {  // real
-        tr = __fmul_rn(tr, clamp_min(__fsub_rn(1.0f, div_rn(kPhysical ? d : vol_maj,
-                                                            clamp_min(m, static_cast<float>(1e-20)))), 0.0f));
+    Lane w = load_lane(a, i);
+    walk(g, v, w, [&](const Scalars& c, const float4& rgba, Lane& l) {
+      const float d = __fmul_rn(c.vol_maj, rgba.w);
+      if (__fmul_rn(next_float(s), l.m) < d) {  // real
+        tr = __fmul_rn(tr, clamp_min(__fsub_rn(1.0f, div_rn(kPhysical ? d : c.vol_maj,
+                                                            clamp_min(l.m, static_cast<float>(1e-20)))), 0.0f));
         if (tr < static_cast<float>(0.1)) {
           if (next_float(s) < __fsub_rn(1.0f, tr)) {
             tr = 0.0f;
-            break;
+            return true;
           }
           tr = div_rn(tr, clamp_min(tr, static_cast<float>(1e-20)));
         }
       }
       l.tau = neg_log1m(next_float(s));
-      l.mip = clamp_min(__fsub_rn(l.mip, kSpeedDown), 0.0f);
-    }
-    budget = l.budget;
+      return false;
+    });
+    budget = w.budget;
   }
   store_common(a, i, s, budget);
   tr_out[i] = tr;
@@ -232,10 +275,10 @@ extern "C" int vx_dda_leg_sample(const float* maj, int bz, int by, int bx, const
                                  const bool* running, int cap, int64_t* state_out, bool* hit_out, float* t_out,
                                  float* rgb_out, int* budget_out, long long n, cudaStream_t stream) {
   if (n > 0) {
-    const Volume v{maj, bz, by, bx, dense, ny, nx, ex, ey, ez, reinterpret_cast<const float4*>(lut), lut_k,
-                   scalars};
+    const Pyramid g{maj, bz, by, bx};
+    const Field v = make_field(dense, ny, nx, ex, ey, ez, lut, lut_k, scalars);
     const Lanes a{ipos, idir, ri, far, t, tau, mip, state, running, cap, state_out, budget_out, n};
-    dda_leg_sample_kernel<<<blocks_for(n), kThreads, 0, stream>>>(v, a, hit_out, t_out, rgb_out);
+    dda_leg_sample_kernel<<<blocks_for(n), kThreads, 0, stream>>>(g, v, a, hit_out, t_out, rgb_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -247,16 +290,28 @@ extern "C" int vx_dda_leg_shadow(const float* maj, int bz, int by, int bx, const
                                  const bool* running, const float* tr, int cap, int physical, int64_t* state_out,
                                  float* tr_out, int* budget_out, long long n, cudaStream_t stream) {
   if (n > 0) {
-    const Volume v{maj, bz, by, bx, dense, ny, nx, ex, ey, ez, reinterpret_cast<const float4*>(lut), lut_k,
-                   scalars};
+    const Pyramid g{maj, bz, by, bx};
+    const Field v = make_field(dense, ny, nx, ex, ey, ez, lut, lut_k, scalars);
     const Lanes a{ipos, idir, ri, far, t, tau, mip, state, running, cap, state_out, budget_out, n};
     if (physical) {
-      dda_leg_shadow_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(v, a, tr, tr_out);
+      dda_leg_shadow_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(g, v, a, tr, tr_out);
     } else {
-      dda_leg_shadow_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(v, a, tr, tr_out);
+      dda_leg_shadow_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(g, v, a, tr, tr_out);
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the warps that leg `leg`'s kernel (0 camera, 1 shadow, 2 shadow with
+// physical shadows) keeps resident on one SM of the current card
+extern "C" int vx_dda_leg_resident_warps(int leg, int* warps) {
+  int blocks = 0;
+  const void* kernel = leg == 0   ? reinterpret_cast<const void*>(dda_leg_sample_kernel)
+                       : leg == 1 ? reinterpret_cast<const void*>(dda_leg_shadow_kernel<false>)
+                                  : reinterpret_cast<const void*>(dda_leg_shadow_kernel<true>);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
+  *warps = blocks * kThreads / 32;
+  return static_cast<int>(err);
 }
 
 // -log(1 - xi) as the leg kernels compute it, for a check against

@@ -1,10 +1,11 @@
 // Device code shared by the render legs' kernels (dda_leg.cu, track_leg.cu):
 // the launch shape, the scalars' layout, the xoshiro128++ draw, the log and
-// the IEEE division; and the default legs' collision decode (dda_leg.cu:
-// the volume a launch reads, the trilinear density, then the transfer
-// LUT's NEAREST row with range rejection: the LUT site of the Pallas kernel
-// volxel_tpu/render/mxu_gather.py: mxu_gather_f32). track_leg.cu keeps its
-// own tap fetch and decode, the same arithmetic in fewer instructions.
+// the IEEE division; and the one tap fetch and decode of both leg families
+// (the field a launch reads, the eight bf16 taps, the trilinear density,
+// then the transfer LUT's NEAREST row with range rejection: the LUT site of
+// the Pallas kernel volxel_tpu/render/mxu_gather.py: mxu_gather_f32). The
+// fetch only issues the loads, so a kernel can keep them in flight while
+// it does other work, and decodes when it needs the density.
 //
 // Both files are built with --fmad=true (kernels.FMAD_SOURCES), so that
 // -log(1 - xi) rounds as ATen's log does (ATen builds its log kernel with
@@ -63,65 +64,102 @@ __device__ __forceinline__ float next_float(uint32_t (&s)[4]) {
   return __fmul_rn(static_cast<float>(result >> 8), 1.0f / 16777216.0f);
 }
 
-// what every lane of a launch reads: the field, the LUT and the volume's
-// scalars, and for the default legs the premultiplied majorant pyramid
-// (null in the tracking legs, which march against the global majorant)
-struct Volume {
-  const float* maj;
-  int bz, by, bx;
+// what every lane of a leg reads: the field, the LUT and the volume's
+// scalars (render/tilemarch.volume_scalars, on the card)
+struct Field {
   const uint16_t* dense;
   int ny, nx, ex, ey, ez;
+  long long plane;  // nx * ny
   const float4* lut;
-  int lut_k;
+  float lut_k, lut_top;  // K and K - 1 as f32
   const float* scalars;
 };
 
-// sampling.lookup_density_trilinear at one point, times inv_maj: the eight
-// taps in _TAPS order (dz outer, dx inner), weights ((wx * wy) * wz), the
-// products summed one after another
-__device__ __forceinline__ float trilinear_norm(const Volume& v, const float (&pos)[3]) {
-  long long base[3];
-  float w1[3][2];
-  for (int a = 0; a < 3; ++a) {
-    const float p = __fsub_rn(pos[a], 0.5f);
-    base[a] = static_cast<long long>(floorf(p));
-    const float f = __fsub_rn(p, static_cast<float>(base[a]));
-    w1[a][0] = __fsub_rn(1.0f, f);
-    w1[a][1] = f;
-  }
-  const long long ext[3] = {v.ex, v.ey, v.ez};
-  float acc = 0.0f;
-  for (int k = 0; k < 8; ++k) {
-    const int off[3] = {k & 1, (k >> 1) & 1, k >> 2};
-    long long c[3];
-    bool inside = true;
-    for (int a = 0; a < 3; ++a) {
-      // int64 wrap-around, as ATen's int64 add
-      c[a] = static_cast<long long>(static_cast<unsigned long long>(base[a]) + off[a]);
-      inside = inside && c[a] >= 0 && c[a] < ext[a];
-    }
-    float tap = 0.0f;
-    if (inside) {
-      const uint16_t bits = __ldg(v.dense + (c[2] * v.ny + c[1]) * v.nx + c[0]);
-      tap = __uint_as_float(static_cast<uint32_t>(bits) << 16);  // bf16 -> f32 is exact
-    }
-    const float w = __fmul_rn(__fmul_rn(w1[0][off[0]], w1[1][off[1]]), w1[2][off[2]]);
-    const float term = __fmul_rn(tap, w);
-    acc = k == 0 ? term : __fadd_rn(acc, term);
-  }
-  return __fmul_rn(__fmul_rn(__ldg(v.scalars + kDenScale), acc), __ldg(v.scalars + kInvMaj));
+inline Field make_field(const uint16_t* dense, int ny, int nx, int ex, int ey, int ez, const float* lut, int lut_k,
+                        const float* scalars) {
+  return Field{dense, ny, nx, ex, ey, ez, static_cast<long long>(nx) * ny, reinterpret_cast<const float4*>(lut),
+               static_cast<float>(lut_k), static_cast<float>(lut_k - 1), scalars};
 }
 
-// the decode at the point p + t * d: the density, then the LUT's NEAREST
-// row (gather.lookup_transfer_plain), 0 where the sample range rejects it
-__device__ __forceinline__ float4 decode(const Volume& v, const float (&p)[3], const float (&d)[3], float t) {
+// the volume's scalars, read once by each thread
+struct Scalars {
+  float vol_maj, inv_maj, den_scale, range_lo, range_hi;
+};
+
+__device__ __forceinline__ Scalars load_scalars(const Field& v) {
+  return Scalars{__ldg(v.scalars + kVolMaj), __ldg(v.scalars + kInvMaj), __ldg(v.scalars + kDenScale),
+                 __ldg(v.scalars + kRangeLo), __ldg(v.scalars + kRangeHi)};
+}
+
+// one decode's taps in flight: the trilinear fractions and each tap's bf16
+// bits (0 outside the extent)
+struct Taps {
+  float f[3];
+  uint32_t bits[8];
+};
+
+// sampling.lookup_density_trilinear's taps at p + t * d, issued. The cell
+// is located with 32-bit saturating casts, which reject exactly the taps
+// that the 64-bit casts of the plain form reject (a base of 2^31 or more,
+// or below -2^31, has both offsets outside any extent; NaN lands on 0 in
+// both), and float(base) of the 64-bit form is floor(q) clamped to +-2^63,
+// where that cast saturates. One 64-bit index for the cell's first corner,
+// so a field may hold more than 2^31 elements, the four (y, z) rows from
+// it, the x + 1 tap two bytes on, each of the eight 2-byte loads
+// predicated on its tap being inside (0 outside).
+__device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const float (&d)[3], float t, Taps& e) {
   const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
                         __fadd_rn(p[2], __fmul_rn(t, d[2]))};
-  const float dn = trilinear_norm(v, pos);
-  const bool rejected = dn < __ldg(v.scalars + kRangeLo) || dn > __ldg(v.scalars + kRangeHi);
-  long long j = static_cast<long long>(floorf(__fmul_rn(dn, static_cast<float>(v.lut_k))));
-  j = j < 0 ? 0 : (j > v.lut_k - 1 ? v.lut_k - 1 : j);
-  return rejected ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : __ldg(v.lut + j);
+  const int ext[3] = {v.ex, v.ey, v.ez};
+  int b[3];
+  bool in[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float q = __fsub_rn(pos[a], 0.5f);
+    b[a] = __float2int_rd(q);
+    e.f[a] = __fsub_rn(q, fminf(fmaxf(floorf(q), -0x1p63f), 0x1p63f));
+    in[a][0] = static_cast<unsigned>(b[a]) < static_cast<unsigned>(ext[a]);
+    in[a][1] = static_cast<unsigned>(b[a]) + 1u < static_cast<unsigned>(ext[a]);
+  }
+  const uint16_t* row[4];
+  row[0] = v.dense + ((static_cast<long long>(b[2]) * v.ny + b[1]) * v.nx + b[0]);
+  row[1] = row[0] + v.nx;
+  row[2] = row[0] + v.plane;
+  row[3] = row[2] + v.nx;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    uint32_t x = 0;
+    if (in[0][k & 1] && in[1][(k >> 1) & 1] && in[2][k >> 2]) x = __ldg(row[k >> 1] + (k & 1));
+    e.bits[k] = x;
+  }
+}
+
+// the decode of fetched taps: the trilinear sum in _TAPS order (dz outer,
+// dx inner), weights ((wx * wy) * wz), the products summed one after
+// another, times den_scale and inv_maj; then the LUT's NEAREST row
+// (gather.lookup_transfer_plain), 0 where the sample range rejects the
+// density. The row clamp(floor(y), 0, K - 1) is floor(clamp(y, 0, K - 1))
+// (fmaxf takes a NaN y to 0, as the 64-bit cast does).
+__device__ __forceinline__ float4 decode(const Field& v, const Scalars& c, const Taps& e) {
+  float w1[3][2];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    w1[a][0] = __fsub_rn(1.0f, e.f[a]);
+    w1[a][1] = e.f[a];
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = __fmul_rn(__fmul_rn(w1[0][k & 1], w1[1][(k >> 1) & 1]), w1[2][k >> 2]);
+    const float term = __fmul_rn(__uint_as_float(e.bits[k] << 16), w);  // bf16 -> f32 is exact
+    acc = k == 0 ? term : __fadd_rn(acc, term);
+  }
+  const float dn = __fmul_rn(__fmul_rn(c.den_scale, acc), c.inv_maj);
+  float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (!(dn < c.range_lo || dn > c.range_hi)) {
+    rgba = __ldg(v.lut + __float2int_rd(fminf(fmaxf(__fmul_rn(dn, v.lut_k), 0.0f), v.lut_top)));
+  }
+  return rgba;
 }
 
 inline int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }

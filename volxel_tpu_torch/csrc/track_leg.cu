@@ -40,14 +40,10 @@
 // registers (40 instead of 48 in the shadow leg) by issuing the z + 1 rows'
 // four taps only after the first four were decoded, two memory round trips
 // an event, and the shadow leg took 0.49 ms instead of 0.36.
-// - The tap fetch: the cell is located with 32-bit saturating casts, which
-//   reject exactly the taps that the 64-bit casts of the plain form reject
-//   (a base of 2^31 or more, or below -2^31, has both offsets outside any
-//   extent; NaN lands on 0 in both), and float(base) of the 64-bit form is
-//   floor(q) clamped to +-2^63, where that cast saturates. One 64-bit index
-//   for the cell's first corner (a 32-bit one measured no faster), the four
-//   (y, z) rows from it, the x + 1 tap two bytes on, each of the eight
-//   2-byte loads predicated on its tap being inside (0 outside).
+// - The tap fetch and decode are leg_common.cuh's, which the default legs
+//   share: the cell located with 32-bit saturating casts, one 64-bit index
+//   for its first corner (a 32-bit one measured no faster), each of the
+//   eight 2-byte loads predicated on its tap being inside.
 // - Events ahead, in the camera leg: it keeps the taps of the next
 //   kSampleAhead events in flight while it decodes the current one. A null
 //   event takes exactly two draws (real/null, then the free flight) and a
@@ -90,21 +86,6 @@ constexpr int kSampleAhead = 2;
 static_assert(kSampleAhead >= 1, "the camera leg's real/null draw is kept in its event's slot");
 constexpr int kSample = 0, kShadow = 1;
 
-// what every lane of a launch reads
-struct Field {
-  const uint16_t* dense;
-  int ny, nx, ex, ey, ez;
-  long long plane;  // nx * ny
-  const float4* lut;
-  float lut_k, lut_top;  // K and K - 1 as f32
-  const float* scalars;  // render/tilemarch.volume_scalars, on the card
-};
-
-// the volume's scalars, read once by each thread
-struct Scalars {
-  float vol_maj, inv_maj, den_scale, range_lo, range_hi;
-};
-
 // the per-lane operands both legs read and the outputs they write
 struct Tracks {
   const float *ipos, *idir, *far, *t;
@@ -119,11 +100,10 @@ struct Tracks {
   long long n;
 };
 
-// one event in flight: its t, its real/null draw (camera leg), the
-// trilinear fractions and each tap's bf16 bits (0 outside the extent)
+// one event in flight: its t, its real/null draw (camera leg) and its taps
 struct Event {
-  float t, xr, f[3];
-  uint32_t bits[8];
+  float t, xr;
+  Taps taps;
 };
 
 // the next free flight: t - log(1 - xi) * inv_maj
@@ -131,59 +111,10 @@ __device__ __forceinline__ float fly(float t, float xi, float inv_maj) {
   return __fsub_rn(t, __fmul_rn(-neg_log1m(xi), inv_maj));
 }
 
-// sampling.lookup_density_trilinear's taps at p + t * d, issued
+// the taps of an event at t, issued
 __device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const float (&d)[3], float t, Event& e) {
   e.t = t;
-  const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
-                        __fadd_rn(p[2], __fmul_rn(t, d[2]))};
-  const int ext[3] = {v.ex, v.ey, v.ez};
-  int b[3];
-  bool in[3][2];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float q = __fsub_rn(pos[a], 0.5f);
-    b[a] = __float2int_rd(q);
-    e.f[a] = __fsub_rn(q, fminf(fmaxf(floorf(q), -0x1p63f), 0x1p63f));
-    in[a][0] = static_cast<unsigned>(b[a]) < static_cast<unsigned>(ext[a]);
-    in[a][1] = static_cast<unsigned>(b[a]) + 1u < static_cast<unsigned>(ext[a]);
-  }
-  const uint16_t* row[4];
-  row[0] = v.dense + ((static_cast<long long>(b[2]) * v.ny + b[1]) * v.nx + b[0]);
-  row[1] = row[0] + v.nx;
-  row[2] = row[0] + v.plane;
-  row[3] = row[2] + v.nx;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    uint32_t x = 0;
-    if (in[0][k & 1] && in[1][(k >> 1) & 1] && in[2][k >> 2]) x = __ldg(row[k >> 1] + (k & 1));
-    e.bits[k] = x;
-  }
-}
-
-// the decode of an event: the trilinear sum in _TAPS order (dz outer, dx
-// inner), weights ((wx * wy) * wz), the products summed one after another,
-// times den_scale and inv_maj; then the LUT's NEAREST row, 0 where the
-// sample range rejects the density
-__device__ __forceinline__ float4 decode(const Field& v, const Scalars& c, const Event& e) {
-  float w1[3][2];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    w1[a][0] = __fsub_rn(1.0f, e.f[a]);
-    w1[a][1] = e.f[a];
-  }
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float w = __fmul_rn(__fmul_rn(w1[0][k & 1], w1[1][(k >> 1) & 1]), w1[2][k >> 2]);
-    const float term = __fmul_rn(__uint_as_float(e.bits[k] << 16), w);  // bf16 -> f32 is exact
-    acc = k == 0 ? term : __fadd_rn(acc, term);
-  }
-  const float dn = __fmul_rn(__fmul_rn(c.den_scale, acc), c.inv_maj);
-  float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (!(dn < c.range_lo || dn > c.range_hi)) {
-    rgba = __ldg(v.lut + __float2int_rd(fminf(fmaxf(__fmul_rn(dn, v.lut_k), 0.0f), v.lut_top)));
-  }
-  return rgba;
+  fetch(v, p, d, t, e.taps);
 }
 
 // one lane of a leg: its operands, its words (s the true ones, q the
@@ -256,7 +187,7 @@ struct Lane {
     } else {
       fetch_next(v, ring[at(Phase, kAhead - 1)], ring[at(Phase, kAhead)]);
     }
-    const float4 rgba = decode(v, c, cur);
+    const float4 rgba = decode(v, c, cur.taps);
     events -= 1;
     if constexpr (Leg == kSample) {
       // modes.sample_volume_simple's event (normal.glsl:36-55): a real
@@ -301,8 +232,7 @@ __device__ __forceinline__ void track(const Field& v, const Tracks& a) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   Lane<Leg> lane;
-  lane.c = Scalars{__ldg(v.scalars + kVolMaj), __ldg(v.scalars + kInvMaj), __ldg(v.scalars + kDenScale),
-                   __ldg(v.scalars + kRangeLo), __ldg(v.scalars + kRangeHi)};
+  lane.c = load_scalars(v);
   lane.begin(a, i);
   if (a.running[i]) {
     lane.start(v, a);
@@ -322,8 +252,7 @@ Kernel kernel_of(int leg) { return leg == kSample ? track_leg_sample_kernel : tr
 int launch(int leg, const uint16_t* dense, int ny, int nx, int ex, int ey, int ez, const float* lut, int lut_k,
            const float* scalars, const Tracks& a, cudaStream_t stream) {
   if (a.n > 0) {
-    const Field v{dense, ny, nx, ex, ey, ez, static_cast<long long>(nx) * ny, reinterpret_cast<const float4*>(lut),
-                  static_cast<float>(lut_k), static_cast<float>(lut_k - 1), scalars};
+    const Field v = make_field(dense, ny, nx, ex, ey, ez, lut, lut_k, scalars);
     kernel_of(leg)<<<blocks_for(a.n), kThreads, 0, stream>>>(v, a);
   }
   return static_cast<int>(cudaGetLastError());

@@ -72,6 +72,8 @@ _SIGNATURES = {
     # budget_out, n, stream
     "vx_dda_leg_shadow": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3
     + [ctypes.c_longlong, _P],
+    # leg, warps* (no stream)
+    "vx_dda_leg_resident_warps": [_I, _P],
     # dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos, idir, far, t,
     # state, running, cap, state_out, hit_out, t_out, rgb_out, events_out,
     # n, stream
@@ -192,6 +194,20 @@ def launch(symbol: str, on, *args, counter: str | None = None) -> None:
         raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError {code}")
     if counter is not None:
         LAUNCHES[counter] += 1
+
+
+def resident_warps(symbol: str, kernel: int, device) -> int:
+    """The warps that kernel `kernel` of the occupancy query `symbol` (a C
+    entry point `int symbol(int kernel, int* warps)`) keeps resident on one
+    SM of `device`."""
+    import torch
+
+    warps = ctypes.c_int()
+    with torch.cuda.device(device):
+        code = getattr(lib(), symbol)(kernel, ctypes.byref(warps))
+    if code:
+        raise RuntimeError(f"{symbol}: cudaError {code}")
+    return warps.value
 
 
 def require_cuda(name: str, *tensors, dtype=None, device=None) -> None:

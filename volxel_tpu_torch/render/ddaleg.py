@@ -18,10 +18,12 @@ A lane also ends when it escapes past `far` or spends its budget. The
 plain versions are rounds over all lanes: pyr_march_plain, then one
 collision round, while any lane runs. The kernels (csrc/dda_leg.cu) are
 one thread per lane that marches and collides until its lane ends, one
-launch per leg and no host sync. Each lane's budget, words and march state
-are its own and a march round never cuts a lane short, so the two agree
-bit for bit on the card. Both return each lane's budget left beside the
-leg's outputs: cap - budget is the march steps the lane took.
+march step an iteration (a lane that collides decodes in that iteration),
+one launch per leg and no host sync. Each lane's budget, words and march
+state are its own and a march round never cuts a lane short, so the two
+agree bit for bit on the card. Both return each lane's budget left beside
+the leg's outputs: cap - budget is the march steps the lane took. The
+kernels index the pyramid in 32 bits and the field in 64.
 """
 
 from __future__ import annotations
@@ -110,6 +112,8 @@ def _volume_and_lanes(name, dense, maj_alpha, extent, scalars, lut, ipos, idir, 
     if maj_alpha.dim() != 4 or maj_alpha.shape[0] != 4:
         raise ValueError(f"{name}: expected a (4, bz, by, bx) pyramid, got {tuple(maj_alpha.shape)}")
     _, bz, by, bx = maj_alpha.shape
+    if maj_alpha.numel() >= 2**31:
+        raise ValueError(f"{name}: the kernel indexes the pyramid in 32 bits; {tuple(maj_alpha.shape)} is too large")
     ex, ey, ez = field[3:6]
     if 8 * bx < ex or 8 * by < ey or 8 * bz < ez:
         raise ValueError(f"{name}: pyramid {tuple(maj_alpha.shape)} does not cover the extent {(ex, ey, ez)}")
@@ -177,6 +181,12 @@ def dda_leg_shadow(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, 
     if t.device.type == "cpu":
         return dda_leg_shadow_plain(*args)
     return dda_leg_shadow_cuda(*args)
+
+
+def resident_warps(leg: str, device) -> int:
+    """The warps that leg `leg`'s ("sample", "shadow" or "physical") kernel
+    keeps resident on one SM of `device`."""
+    return kernels.resident_warps("vx_dda_leg_resident_warps", ("sample", "shadow", "physical").index(leg), device)
 
 
 def neg_log1m_cuda(xi: torch.Tensor) -> torch.Tensor:

@@ -169,14 +169,7 @@ def track_leg_shadow_cuda(dense, extent, scalars, lut, ipos, idir, far, t, state
 def resident_warps(leg: str, device) -> int:
     """The warps that leg `leg`'s ("sample" or "shadow") kernel keeps
     resident on one SM of `device`."""
-    import ctypes
-
-    warps = ctypes.c_int()
-    with torch.cuda.device(device):
-        code = kernels.lib().vx_track_leg_resident_warps(int(leg == "shadow"), ctypes.byref(warps))
-    if code:
-        raise RuntimeError(f"vx_track_leg_resident_warps: cudaError {code}")
-    return warps.value
+    return kernels.resident_warps("vx_track_leg_resident_warps", int(leg == "shadow"), device)
 
 
 def track_leg_sample(
