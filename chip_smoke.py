@@ -39,8 +39,9 @@ Phases, each of which raises (exit code != 0) on failure:
      (bit-equal), gather_f32 beside torch.index_select on the same int32
      indices and torch.take on their int64 copy, the LUT fetch's mean call
      beside the launch floor (an empty kernel over the same grid);
-   - the importance pyramid on the default environment's 512^2 base (rtol
-     1e-6), and the tonemap, bit-equal on a 1920x1080x3 buffer and at all
+   - the importance pyramid on the default environment's 512^2 base
+     (bit-equal, its launches per build, beside the launch floor), and the
+     tonemap, bit-equal on a 1920x1080x3 buffer and at all
      2^32 f32 inputs, timed beside a plain 16-byte copy of the same buffer
      (the practical floor) and torch's copy_;
    - both raymarch step loops (the camera leg's and the shadow leg's) at
@@ -134,7 +135,7 @@ PAD_KERNEL = "empty_kernel"
 # the device symbol of the kernel behind each launch counter
 KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "dda_leg_shadow_kernel",
                   "track_leg_sample": "track_leg_sample_kernel", "track_leg_shadow": "track_leg_shadow_kernel",
-                  "importance_pyramid": "pool2x2_kernel",
+                  "importance_pyramid": "importance_pyramid_kernel",
                   "tonemap": "tonemap_kernel", "tile_march_sample": "tile_march_sample_kernel",
                   "tile_march_transmittance": "tile_march_transmittance_kernel",
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
@@ -807,7 +808,8 @@ def check_neg_log1m() -> None:
 # the sources phase 2 reads the SASS of, and in each the kernels whose own
 # code must hold no FFMA (the leg kernels) with how many there are
 SASS_CHECKS = {"dda_leg.cu": (r"dda_leg_(sample|shadow)_kernel", 3),
-               "track_leg.cu": (r"track_leg_(sample|shadow)_kernel", 2), "tonemap.cu": (None, 0)}
+               "track_leg.cu": (r"track_leg_(sample|shadow)_kernel", 2), "tonemap.cu": (None, 0),
+               "tile_march.cu": (None, 0)}
 
 
 def sass_counts(sass: str) -> dict:
@@ -877,6 +879,42 @@ def issue_floor_ms(per_event: float, warp_iterations: int, clock_mhz: float, sms
     each of `warp_iterations` warp iterations of an event loop: 4
     warp-instructions a cycle per SM."""
     return per_event * warp_iterations / (sms * 4 * clock_mhz * 1e3)
+
+
+def step_loop(body: str) -> dict | None:
+    """The static SASS size of one step of a raymarch step-loop kernel
+    (`body`: one function's cuobjdump -sass listing): of the loops in its
+    own code (a BRA back to an address at or before it), the innermost one
+    that holds whole steps, each with its nine IEEE divisions (the
+    reservoir's compares, each with one FCHK range check). Its steps a
+    pass are its FCHKs over nine. Per step: its instructions (every
+    instruction of the loop once a pass, branches not taken included), and
+    among them the divisions' MUFU.RCP, FCHK and CALL (to the slow path,
+    whose own code at the CALL target a division reaches only outside
+    FCHK's range and is not counted) and the 2-byte tap loads. None where
+    no such loop is found."""
+    instrs = [(int(a, 16), text) for a, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    calls = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)})
+    own_end = calls[0] if calls else float("inf")
+    best = None
+    for addr, text in instrs:
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(?:[^,;]*,\s*)?0x([0-9a-f]+)", text)
+        if addr >= own_end or not m or int(m.group(1), 16) > addr:
+            continue
+        span = [t for a, t in instrs if int(m.group(1), 16) <= a <= addr]
+        fchk = sum(bool(re.search(r"\bFCHK\b", t)) for t in span)
+        if fchk >= 9 and fchk % 9 == 0 and (best is None or len(span) < len(best)):
+            best = span
+    if best is None:
+        return None
+    steps = sum(bool(re.search(r"\bFCHK\b", t)) for t in best) // 9
+
+    def per_step(pattern):
+        return sum(bool(re.search(pattern, t)) for t in best) / steps
+
+    return {"loop_instructions": len(best), "steps_per_pass": steps, "per_step": len(best) / steps,
+            "mufu_rcp": per_step(r"MUFU\.RCP"), "fchk": per_step(r"\bFCHK\b"), "call": per_step(r"\bCALL\b"),
+            "tap_loads": per_step(r"\bLDG\S*\.U16\b")}
 
 
 def ptxas_registers(report: str) -> dict:
@@ -1014,22 +1052,26 @@ def check_gather(r) -> list[dict]:
 
 
 def check_pyramid(r) -> dict:
-    """K3 on the default environment's 512^2 importance base, beside 9
-    chained F.avg_pool2d(x, 2) calls (the same means)."""
+    """K3 on the default environment's 512^2 importance base, bit-equal to
+    its plain version on every level, with its launches per build; timed
+    beside the launch floor (one launch of an empty one-block kernel) and
+    9 chained F.avg_pool2d(x, 2) calls (the same means)."""
     import torch
     import torch.nn.functional as F
 
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.render.gather import launch_floor
     from volxel_tpu_torch.render.pallas_ops import build_importance_pyramid_cuda, build_importance_pyramid_plain
 
     base = r.environment.state.imp_mips[0]
+    before = kernels.LAUNCHES["importance_pyramid"]
     got = build_importance_pyramid_cuda(base)
+    launches = kernels.LAUNCHES["importance_pyramid"] - before
     want = build_importance_pyramid_plain(base)
-    torch.cuda.synchronize()
-    err = 0.0
-    for a, b in zip(got, want):
-        if not torch.allclose(a, b, rtol=1e-6, atol=0.0):
-            raise SystemExit(f"importance pyramid level {tuple(a.shape)} differs beyond rtol 1e-6")
-        err = max(err, float((a - b).abs().max()))
+    err = max_abs(got, want)
+    bad = [tuple(a.shape) for a, b in zip(got, want) if not bits_equal(a, b)]
+    if bad:
+        raise SystemExit(f"importance pyramid levels {bad} differ from the plain version (max abs {err})")
 
     def pooled():
         level = base[None]
@@ -1040,11 +1082,15 @@ def check_pyramid(r) -> dict:
     _, ms = device_ms(lambda: build_importance_pyramid_cuda(base), 50)
     _, plain_ms = device_ms(lambda: build_importance_pyramid_plain(base), 50)
     _, library_ms = device_ms(pooled, 50)
+    _, floor_ms = device_ms(lambda: launch_floor(1, torch.device("cuda")), 50)
     out_elems = sum(level.numel() for level in got)
-    log(f"importance_pyramid: within rtol 1e-6 (max abs {err:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"avg_pool2d {library_ms:.4f} ms")
+    moved = nbytes(base, *got)
+    log(f"importance_pyramid: bit-equal on all {len(got)} levels, {launches} launches per build; kernel {ms:.4f} ms "
+        f"against a launch floor of {floor_ms:.4f} ms (one empty kernel; {launches} of them {launches * floor_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, avg_pool2d {library_ms:.4f} ms, bound "
+        f"{bound(moved, 4 * out_elems)['bound_ms']:.4f} ms")
     return entry("importance_pyramid", "volxel_tpu_torch/csrc/importance_pyramid.cu",
-                 "volxel_tpu/render/pallas_ops.py:60", err, ms, plain_ms, nbytes(base, *got), 4 * out_elems,
+                 "volxel_tpu/render/pallas_ops.py:60", err, ms, plain_ms, moved, 4 * out_elems,
                  library_ms=library_ms)
 
 
@@ -1110,7 +1156,7 @@ def check_tonemap(exposure: float, gamma: float, sass: dict) -> dict:
                  plain_ms, moved, ops)
 
 
-def check_tile_march(r) -> list[dict]:
+def check_tile_march(r, sass: dict, registers: dict) -> list[dict]:
     """K5 and the shadow leg's step loop at every call of one 1080p raymarch
     sample (the legs of each bounce; lanes counted: those inside the box),
     bit-equal on state, hit, t and rgb, or state and tau, of every lane;
@@ -1118,10 +1164,20 @@ def check_tile_march(r) -> list[dict]:
     work, as these inputs need it: every lane's `valid` and words read and
     its outputs written (words, and hit, t and rgb, or tau); for each lane
     inside the box its ray read and one 2-byte tap of the bf16 field per
-    step it takes (a camera lane stops at its hit)."""
+    step it takes (a camera lane stops at its hit). Also, per step loop:
+    its registers (`registers`: ptxas's report) and resident warps per SM
+    (tilemarch.resident_warps), the SASS of one step (`sass`: tile_march.cu's
+    functions, step_loop), the lanes inside the box and the warps (32 lanes
+    in pixel order, as the kernels take them) that hold one, the warp
+    efficiency (the steps the lanes take over 32 times the most a lane of
+    the warp takes; in the shadow leg, where every lane inside takes all
+    STEPS, the inside lanes over 32 times those warps) and the issue
+    floor (a step's SASS at every warp step over 4 a cycle on every SM at
+    the card's largest clock)."""
     import torch
 
     import volxel_tpu_torch.render.modes as modes
+    from volxel_tpu_torch.render import tilemarch
     from volxel_tpu_torch.render.tilemarch import (
         STEPS,
         tile_march_sample_cuda,
@@ -1132,11 +1188,25 @@ def check_tile_march(r) -> list[dict]:
         tile_march_transmittance_plain,
     )
 
+    warps = {}  # per leg: [lanes inside, warps with one, steps taken, warp steps]
+
+    def warp_tally(leg, valid, steps):
+        n = valid.numel()
+        pad = (-n) % 32
+        per_warp = torch.nn.functional.pad(torch.where(valid, steps, 0), (0, pad)).reshape(-1, 32)
+        w = warps.setdefault(leg, [0, 0, 0, 0])
+        w[0] += int(valid.sum())
+        w[1] += int(torch.nn.functional.pad(valid, (0, pad)).reshape(-1, 32).any(dim=1).sum())
+        w[2] += int(per_warp.sum())
+        w[3] += int(per_warp.amax(dim=1).sum())
+
     def sample_work(args, got):
         dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, _ = args
         _, hit, t, _ = got
         taken = torch.clamp(torch.round((t - start) / dt) + 1, 1, STEPS)
-        steps = int(torch.where(hit, taken, float(STEPS))[valid].sum())
+        per_lane = torch.where(hit, taken, float(STEPS)).to(torch.int64)
+        warp_tally("sample", valid, per_lane)
+        steps = int(per_lane[valid].sum())
         inside = int(valid.sum())
         rays = inside * nbytes(ipos, idir, start, dt, far, tau_target) // start.numel()
         moved = nbytes(valid, lut, scalars, state, *got) + rays + min(nbytes(dense), 2 * steps)
@@ -1144,6 +1214,7 @@ def check_tile_march(r) -> list[dict]:
 
     def transmittance_work(args, got):
         dense, ipos, idir, start, dt, far, valid, state, lut, scalars, _ = args
+        warp_tally("shadow", valid, torch.full_like(valid, STEPS, dtype=torch.int64))
         inside = int(valid.sum())
         steps = inside * STEPS
         rays = inside * nbytes(ipos, idir, start, dt, far) // start.numel()
@@ -1158,6 +1229,29 @@ def check_tile_march(r) -> list[dict]:
                                          plain_fn=tile_march_transmittance_plain, outputs=("state", "tau"),
                                          lanes=lambda a: int(a[6].sum()), work=transmittance_work),
     })
+    clock, sms = sm_clock_mhz(), torch.cuda.get_device_properties(0).multi_processor_count
+    lut_k = sample["first_args"][9].shape[0]
+    # the kernels the main path runs (the shadow leg's with its 32-bit tap index)
+    symbols = {"sample": "tile_march_sample_kernel", "shadow": "tile_march_transmittance_kernelILb1E"}
+    for leg, name, t in (("sample", "tile_march_sample", sample), ("shadow", "tile_march_transmittance", shadow)):
+        inside, with_inside, steps, warp_steps = warps[leg]
+        kernel = next(fn for fn in sass if symbols[leg] in fn)
+        loop = step_loop(sass[kernel])
+        if loop is None:
+            raise SystemExit(f"{name}: no step loop found in its SASS")
+        floor = issue_floor_ms(loop["per_step"], warp_steps, clock, sms)
+        least = bound(t["bytes"], t["ops"])
+        log(f"{name}: {t['calls']} launches, kernel {t['ms']:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+            f"{least['bound_by']} ({least['bound_ms'] / max(t['ms'], 1e-9):.1%}); {inside} lanes inside the box in "
+            f"{with_inside} warps with an inside lane; warp efficiency {steps / max(32 * warp_steps, 1):.4f} "
+            f"({steps} steps of {32 * warp_steps} warp lane-steps; inside lanes over 32 x those warps "
+            f"{inside / max(32 * with_inside, 1):.4f}); {registers[kernel]} registers, "
+            f"{tilemarch.resident_warps(leg, lut_k, 'cuda')} resident warps per SM (LUT of {lut_k} rows); step loop "
+            f"{loop['loop_instructions']} SASS instructions a pass of {loop['steps_per_pass']} steps = "
+            f"{loop['per_step']:.1f} a step (MUFU.RCP {loop['mufu_rcp']:.1f}, FCHK {loop['fchk']:.1f}, CALL "
+            f"{loop['call']:.1f}, 2-byte tap loads {loop['tap_loads']:.1f}); issue floor {floor:.4f} ms "
+            f"({warp_steps} warp steps, {sms} SMs at {clock:.0f} MHz; {floor / max(t['ms'], 1e-9):.1%} of the "
+            f"kernel's time)")
     source = "volxel_tpu_torch/csrc/tile_march.cu"
     entries = [entry("tile_march_sample", source, "volxel_tpu/render/tilemarch.py:627", sample["err"], sample["ms"],
                      sample["plain_ms"], sample["bytes"], sample["ops"]),
@@ -1626,7 +1720,7 @@ def main() -> int:
                check_shearwarp(r)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
-    results += check_tile_march(r)
+    results += check_tile_march(r, sass_bodies["tile_march.cu"], registers["tile_march.cu"])
     del r
     torch.cuda.empty_cache()
 

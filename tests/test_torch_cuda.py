@@ -11,8 +11,8 @@ both table fetches are bit-equal (the library is built with --fmad=false
 and each kernel follows its plain version's operation order), and so are
 both default-mode legs, both no_dda legs and the tonemap (built with
 --fmad=true so that logf and powf round as ATen's log and pow do, with
-every other f32 operation written as a never-contracted intrinsic); the
-pyramid rtol 1e-6 (a 4-term mean summed in another order).
+every other f32 operation written as a never-contracted intrinsic), and
+the pyramid (its plain version sums each 2x2 block in the kernel's order).
 """
 
 from __future__ import annotations
@@ -278,6 +278,73 @@ def test_tile_march_transmittance_kernel_bit_equal_to_plain(cuda_device, n):
     got = tilemarch.tile_march_transmittance_cuda(*_transmittance_args(args))
     _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*_transmittance_args(args)))
     assert (got[1][~args[6]] == 0).all() and (got[1][args[6]] > 0).any()
+
+
+def _lanes_where(args, valid, n):
+    """tile_march_transmittance's arguments for the first `n` lanes of
+    `args` (its own), with `valid` (of those n lanes) in place of theirs."""
+    dense, ipos, idir, start, dt, far, _, state, lut, scalars, extent = args
+    return (dense, ipos[:n].contiguous(), idir[:n].contiguous(), start[:n].contiguous(), dt[:n].contiguous(),
+            far[:n].contiguous(), valid, state[:n].contiguous(), lut, scalars, extent)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all", "none", "one_per_warp", "nan"])
+@pytest.mark.parametrize("n", [1, 77, 2048])
+def test_tile_march_transmittance_kernel_lane_cases(cuda_device, case, n):
+    """The shadow leg's step loop bit-equal to its plain version on the
+    state and tau of every lane with every lane inside the box (lanes that
+    miss it march from wherever their start and box exit put them), none
+    inside, one inside lane in each warp of 32 (at a place that moves from
+    warp to warp), and the NaN and far-off lanes of _tile_march_args
+    among the others; the words of the lanes outside are handed back
+    unchanged, with tau 0."""
+    args = _transmittance_args(_tile_march_args(cuda_device, n=max(n, 8), nan_lanes=case == "nan"))
+    lane = torch.arange(n, device=cuda_device)
+    valid = {"all": torch.ones(n, dtype=torch.bool, device=cuda_device),
+             "none": torch.zeros(n, dtype=torch.bool, device=cuda_device),
+             "one_per_warp": lane % 32 == (lane // 32 * 7 + 3) % 32 if n > 1 else lane == 0,
+             "nan": args[6][:n]}[case]
+    call = _lanes_where(args, valid.contiguous(), n)
+    state_in = call[7].clone()
+    got = tilemarch.tile_march_transmittance_cuda(*call)
+    _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*call))
+    assert torch.equal(got[0][~valid], state_in[~valid]) and (got[1][~valid] == 0).all()
+    assert torch.equal(call[7], state_in)  # the operands are left as they are
+    if bool(valid.any()):
+        assert not torch.equal(got[0][valid], state_in[valid])
+
+
+@pytest.mark.cuda
+def test_tile_march_transmittance_kernel_indexes_a_field_past_int32(cuda_device):
+    """On a field whose extent holds 2^31 + 2^20 bf16 elements (4 GiB), past
+    the reach of the 32-bit tap index, the shadow leg's kernel takes its
+    64-bit one: lanes that march through the field's last planes agree with
+    the plain version bit for bit. Each step-loop kernel keeps at least
+    one block of 4 warps resident on an SM."""
+    shape = (2049, 1024, 1024)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    dense = torch.rand(shape, generator=gen, device=cuda_device, dtype=torch.bfloat16)
+    n = 2048
+    rng = np.random.default_rng(76)
+    ipos = np.stack([rng.uniform(0.0, 1024.0, n), rng.uniform(0.0, 1024.0, n), rng.uniform(2040.0, 2049.0, n)], axis=-1)
+    idir = rng.normal(size=(n, 3))
+    idir /= np.linalg.norm(idir, axis=-1, keepdims=True)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda_device)
+
+    lut = f32(rng.random((128, 4)))
+    call = (dense, f32(ipos), f32(idir), f32(rng.uniform(0.0, 0.1, n)), f32(np.full(n, 0.1)), f32(np.full(n, 20.0)),
+            torch.ones(n, dtype=torch.bool, device=cuda_device),
+            seed_rays(torch.arange(n, dtype=torch.int64, device=cuda_device), 3), lut,
+            f32([1 / 1.2, 1.2, 1.0, 0.02, 0.98]), (1024, 1024, 2049))
+    got = tilemarch.tile_march_transmittance_cuda(*call)
+    _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*call))
+    assert (got[1] > 0).sum() > n // 2
+    assert min(tilemarch.resident_warps(leg, 128, cuda_device) for leg in ("sample", "shadow", "shadow_wide")) >= 4
+    del dense, call
+    torch.cuda.empty_cache()
 
 
 LEG_CASES = {"random": {}, "edge": {"edge_cases": True},
@@ -578,8 +645,53 @@ def test_tile_march_sums_kernel_bit_equal_to_plain(cuda_device):
 @pytest.mark.cuda
 def test_pyramid_kernel_matches_plain(cuda_device):
     base = torch.from_numpy(np.random.default_rng(0).uniform(0, 5, (512, 512)).astype(np.float32)).to(cuda_device)
-    for a, b in zip(pallas_ops.build_importance_pyramid_cuda(base), pallas_ops.build_importance_pyramid_plain(base)):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=0.0)
+    _assert_bits_equal(pallas_ops.build_importance_pyramid_cuda(base), pallas_ops.build_importance_pyramid_plain(base))
+
+
+@pytest.mark.cuda
+def test_pyramid_kernel_bit_equal_on_special_values_in_one_launch(cuda_device):
+    """Bit-equal on every level of a seeded base with NaN, +-inf,
+    denormals and the largest floats scattered in it, in one launch per
+    build (run twice: the ticket is reset for the next build); the nine
+    levels are contiguous views of one buffer."""
+    rng = np.random.default_rng(13)
+    base = rng.uniform(0, 5, (512, 512)).astype(np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 1e-40, -1e-40, 1e-45, 3.4e38, -3.4e38], dtype=np.float32)
+    at = rng.choice(base.size, 400, replace=False)
+    base.reshape(-1)[at] = special[np.arange(at.size) % special.size]
+    base[:2, :2] = 1e-40  # a block of denormals only
+    base = torch.from_numpy(base).to(cuda_device)
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        got = pallas_ops.build_importance_pyramid_cuda(base)
+        assert kernels.LAUNCHES["importance_pyramid"] == 1
+        _assert_bits_equal(got, pallas_ops.build_importance_pyramid_plain(base))
+    assert [tuple(level.shape) for level in got] == [(512 >> k, 512 >> k) for k in range(1, 10)]
+    assert all(level.is_contiguous() and level.untyped_storage().data_ptr() == got[0].untyped_storage().data_ptr()
+               for level in got)
+    assert bool(got[0].isnan().any() and got[0].isinf().any() and got[-1].isnan().all())
+    assert float(got[0][0, 0]) == float(np.float32(1e-40))
+
+
+@pytest.mark.cuda
+def test_pyramid_kernel_refuses_a_misaligned_base(cuda_device):
+    base = torch.zeros(512 * 512 + 1, dtype=torch.float32, device=cuda_device)[1:].view(512, 512)
+    with pytest.raises(ValueError, match="16-byte"):
+        pallas_ops.build_importance_pyramid_cuda(base)
+
+
+@pytest.mark.cuda
+def test_renderer_runs_on_the_card_by_default(cuda_device):
+    """A Renderer made without a device lives on the card and renders
+    through its kernels."""
+    kernels.reset_launch_counts()
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    r = Renderer(16, 16)
+    assert r.device.type == "cuda" and r.environment.state.imp_mips[0].is_cuda
+    r.restart_from_grid(construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32)))
+    img = r.render(6)
+    assert np.isfinite(img).all() and img.shape == (16, 16, 3)
+    assert kernels.LAUNCHES["importance_pyramid"] == 1 and kernels.LAUNCHES["dda_leg_sample"] > 0
 
 
 def _tonemap_input(rows, device, seed=1):

@@ -283,3 +283,25 @@ print(json.dumps({"jax": "jax" in sys.modules, "volxel_tpu": "volxel_tpu" in sys
     assert res["jax"] is False and res["volxel_tpu"] is False
     assert all(v == 0 for v in res["launches"].values())
     assert res["finite"] and all(m > 0 for m in res["means"])
+
+
+def test_renderer_device_defaults_to_the_card():
+    """A Renderer made without a device is made for the card ("cuda"); the
+    card test of tests/test_torch_cuda.py renders through it."""
+    import inspect
+
+    assert inspect.signature(TRenderer.__init__).parameters["device"].default == "cuda"
+
+
+def test_renderer_on_the_cpu_when_asked():
+    """A caller that asks for the CPU gets a renderer whose tensors lie on
+    the CPU and that renders 16x16 through the plain versions, launching no
+    kernel."""
+    kernels.reset_launch_counts()
+    r = TRenderer(16, 16, device="cpu")
+    r.restart_from_grid(torch_construct(_volume(), transform=np.eye(4, dtype=np.float32)))
+    img = r.render(6)
+    assert r.device.type == "cpu" and r._framebuffer.device.type == "cpu"
+    assert r.environment.state.imp_mips[0].device.type == "cpu"
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all() and float(img.mean()) > 0
+    assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -15,8 +15,9 @@ Progressive semantics: samples 0..4 are warm-up (weight 0, each overwrites
 the buffer — viewer.ts:132,1356), accumulation starts at sample 5 as a
 running average.
 
-Every tensor lives on the `device` the renderer was made for; nothing
-chooses a device on its own. Loading ZIP/DICOM series and HDR/EXR
+Every tensor lives on the `device` the renderer was made for: the card
+(`"cuda"`) unless the caller names another, such as the CPU, where every
+kernel takes its plain version. Loading ZIP/DICOM series and HDR/EXR
 environments needs the ingest layer, which is not ported yet.
 """
 
@@ -43,7 +44,10 @@ from volxel_tpu_torch.transfer.function import DEFAULT_COLOR_STOPS, generate_tra
 
 
 class Renderer:
-    def __init__(self, width: int = 1920, height: int = 1080, *, device, settings: ViewerSettings | None = None):
+    def __init__(self, width: int = 1920, height: int = 1080, *, device="cuda",
+                 settings: ViewerSettings | None = None):
+        """A renderer on `device`: the card unless the caller names another
+        device (the CPU takes every kernel's plain version)."""
         self.width = int(width)
         self.height = int(height)
         self.device = torch.device(device)

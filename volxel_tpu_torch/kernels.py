@@ -55,8 +55,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # src, dst, out_h, out_w, stream
-    "vx_pool2x2": [_P, _P, _I, _I, _P],
+    # base, out, stream
+    "vx_importance_pyramid": [_P, _P, _P],
     # src, dst, n, exposure, inv_gamma, stream
     "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
     # src, dst, n4, stream
@@ -90,6 +90,8 @@ _SIGNATURES = {
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, state,
     # lut, lut_k, scalars, state_out, tau_out, n, steps, stream
     "vx_tile_march_transmittance": [_P, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
+    # kernel, lut_k, warps* (no stream)
+    "vx_tile_march_resident_warps": [_I, _I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,
     # n, steps, stream
     "vx_tile_march_sums": [_P, _I, _I, _I, _I, _I] + [_P] * 7 + [_I, _I, _P],
@@ -196,15 +198,15 @@ def launch(symbol: str, on, *args, counter: str | None = None) -> None:
         LAUNCHES[counter] += 1
 
 
-def resident_warps(symbol: str, kernel: int, device) -> int:
+def resident_warps(symbol: str, kernel: int, device, *extra: int) -> int:
     """The warps that kernel `kernel` of the occupancy query `symbol` (a C
-    entry point `int symbol(int kernel, int* warps)`) keeps resident on one
-    SM of `device`."""
+    entry point `int symbol(int kernel, int... extra, int* warps)`) keeps
+    resident on one SM of `device`."""
     import torch
 
     warps = ctypes.c_int()
     with torch.cuda.device(device):
-        code = getattr(lib(), symbol)(kernel, ctypes.byref(warps))
+        code = getattr(lib(), symbol)(kernel, *extra, ctypes.byref(warps))
     if code:
         raise RuntimeError(f"{symbol}: cudaError {code}")
     return warps.value

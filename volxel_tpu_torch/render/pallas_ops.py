@@ -28,32 +28,32 @@ HABLE_WHITE = 11.2
 
 
 def build_importance_pyramid_plain(base: torch.Tensor) -> tuple:
-    """Successive 2x2 mean pools: (512, 512) -> (256^2, ..., 1^2)."""
+    """Successive 2x2 mean pools: (512, 512) -> (256^2, ..., 1^2). Each
+    texel is ((top-left + top-right) + (bottom-left + bottom-right)) * 0.25,
+    the kernel's order of summation, so that the two agree bit for bit."""
     levels = []
     level = base
     for _ in range(IMP_BASE_MIP):
-        h, w = level.shape
-        level = level.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+        level = ((level[0::2, 0::2] + level[0::2, 1::2]) + (level[1::2, 0::2] + level[1::2, 1::2])) * 0.25
         levels.append(level)
     return tuple(levels)
 
 
 def build_importance_pyramid_cuda(base: torch.Tensor) -> tuple:
-    """The same pools as 9 launches of csrc/importance_pyramid.cu, one
-    thread per output texel."""
+    """The same pools as one launch of csrc/importance_pyramid.cu; the nine
+    levels are views into one buffer, each contiguous."""
     kernels.require_cuda("build_importance_pyramid", base, dtype=torch.float32)
     if tuple(base.shape) != (IMP_DIM, IMP_DIM):
         raise ValueError(f"build_importance_pyramid: expected ({IMP_DIM}, {IMP_DIM}), got {tuple(base.shape)}")
-    if base.data_ptr() % 8:
-        raise ValueError("build_importance_pyramid: the kernel reads 8-byte pairs; base is misaligned")
-    levels = []
-    src = base
-    for k in range(IMP_BASE_MIP):
-        dim = IMP_DIM >> (k + 1)
-        dst = torch.empty((dim, dim), dtype=torch.float32, device=base.device)
-        kernels.launch("vx_pool2x2", base, src.data_ptr(), dst.data_ptr(), dim, dim, counter="importance_pyramid")
-        levels.append(dst)
-        src = dst
+    if base.data_ptr() % 16:
+        raise ValueError("build_importance_pyramid: the kernel reads 16-byte words; base is misaligned")
+    dims = [IMP_DIM >> (k + 1) for k in range(IMP_BASE_MIP)]
+    out = torch.empty(sum(d * d for d in dims), dtype=torch.float32, device=base.device)
+    kernels.launch("vx_importance_pyramid", base, base.data_ptr(), out.data_ptr(), counter="importance_pyramid")
+    levels, at = [], 0
+    for d in dims:
+        levels.append(out[at:at + d * d].view(d, d))
+        at += d * d
     return tuple(levels)
 
 

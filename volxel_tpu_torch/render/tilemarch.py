@@ -192,9 +192,19 @@ def tile_march_sample(
     return tile_march_sample_cuda(*args)
 
 
+def resident_warps(leg: str, lut_k: int, device) -> int:
+    """The warps that leg `leg`'s step-loop kernel ("sample"; "shadow" with
+    its 32-bit tap index, "shadow_wide" with its 64-bit one) keeps resident
+    on one SM of `device`, with a LUT of `lut_k` rows staged in its shared
+    memory."""
+    kernel = ("sample", "shadow", "shadow_wide").index(leg)
+    return kernels.resident_warps("vx_tile_march_resident_warps", kernel, device, lut_k)
+
+
 def tile_march_transmittance_cuda(dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent):
-    """The step loop as one launch of csrc/tile_march.cu; see
-    `tile_march_transmittance`."""
+    """The step loop as one launch of csrc/tile_march.cu, the taps of each
+    lane's next two steps in flight (a 32-bit tap index where the extent
+    holds at most 2^31 elements); see `tile_march_transmittance`."""
     (ex, ey, ez), n = _check_march("tile_march_transmittance", dense, ipos, idir, start, dt, far, valid, state,
                                    lut, scalars, extent)
     _, ny, nx = dense.shape
