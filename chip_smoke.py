@@ -882,32 +882,34 @@ def issue_floor_ms(per_event: float, warp_iterations: int, clock_mhz: float, sms
 
 
 def step_loop(body: str) -> dict | None:
-    """The static SASS size of one step of a raymarch step-loop kernel
-    (`body`: one function's cuobjdump -sass listing): of the loops in its
-    own code (a BRA back to an address at or before it), the innermost one
-    that holds whole steps, each with its nine IEEE divisions (the
-    reservoir's compares, each with one FCHK range check). Its steps a
-    pass are its FCHKs over nine. Per step: its instructions (every
-    instruction of the loop once a pass, branches not taken included), and
-    among them the divisions' MUFU.RCP, FCHK and CALL (to the slow path,
-    whose own code at the CALL target a division reaches only outside
-    FCHK's range and is not counted) and the 2-byte tap loads. None where
-    no such loop is found."""
+    """The static SASS size of one step of a raymarch step-loop or sums
+    kernel (`body`: one function's cuobjdump -sass listing): of the loops in
+    its own code (a BRA back to an address at or before it), the innermost
+    one that holds whole steps. A step is known by its nine IEEE divisions
+    (the reservoir's compares, each with one FCHK range check) or, in a loop
+    without them (the sums), by its one 2-byte tap load. Its steps a pass
+    are those marks over their count a step. Per step: its instructions
+    (every instruction of the loop once a pass, branches not taken
+    included), and among them the divisions' MUFU.RCP, FCHK and CALL (to the
+    slow path, whose own code at the CALL target a division reaches only
+    outside FCHK's range and is not counted) and the 2-byte tap loads. None
+    where no such loop is found."""
     instrs = [(int(a, 16), text) for a, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
     calls = sorted({int(a, 16) for a in re.findall(r"CALL\.REL\S*\s+0x([0-9a-f]+)", body)})
     own_end = calls[0] if calls else float("inf")
-    best = None
+    loops = []
     for addr, text in instrs:
         m = re.search(r"\bBRA(?:\.\S+)?\s+(?:[^,;]*,\s*)?0x([0-9a-f]+)", text)
-        if addr >= own_end or not m or int(m.group(1), 16) > addr:
-            continue
-        span = [t for a, t in instrs if int(m.group(1), 16) <= a <= addr]
-        fchk = sum(bool(re.search(r"\bFCHK\b", t)) for t in span)
-        if fchk >= 9 and fchk % 9 == 0 and (best is None or len(span) < len(best)):
-            best = span
-    if best is None:
+        if addr < own_end and m and int(m.group(1), 16) <= addr:
+            loops.append([t for a, t in instrs if int(m.group(1), 16) <= a <= addr])
+    for mark, per in ((r"\bFCHK\b", 9), (r"\bLDG\S*\.U16\b", 1)):
+        held = [span for span in loops if (n := sum(bool(re.search(mark, t)) for t in span)) >= per and n % per == 0]
+        if held:
+            best = min(held, key=len)
+            steps = sum(bool(re.search(mark, t)) for t in best) // per
+            break
+    else:
         return None
-    steps = sum(bool(re.search(r"\bFCHK\b", t)) for t in best) // 9
 
     def per_step(pattern):
         return sum(bool(re.search(pattern, t)) for t in best) / steps
@@ -1160,11 +1162,13 @@ def check_tile_march(r, sass: dict, registers: dict) -> list[dict]:
     """K5 and the shadow leg's step loop at every call of one 1080p raymarch
     sample (the legs of each bounce; lanes counted: those inside the box),
     bit-equal on state, hit, t and rgb, or state and tau, of every lane;
-    then K6 on that sample's camera rays at 64 steps, bit-equal. Their
-    work, as these inputs need it: every lane's `valid` and words read and
-    its outputs written (words, and hit, t and rgb, or tau); for each lane
-    inside the box its ray read and one 2-byte tap of the bf16 field per
-    step it takes (a camera lane stops at its hit). Also, per step loop:
+    then K6 on that sample's camera rays at 64 steps, bit-equal, with its
+    registers, resident warps, SASS a step, inside lanes and issue floor as
+    below. Their work, as these inputs need it: every lane's `valid` and
+    words read and its outputs written (words, and hit, t and rgb, or tau);
+    for each lane inside the box its ray read and one 2-byte tap of the
+    bf16 field per step it takes (a camera lane stops at its hit). Also,
+    per step loop:
     its registers (`registers`: ptxas's report) and resident warps per SM
     (tilemarch.resident_warps), the SASS of one step (`sass`: tile_march.cu's
     functions, step_loop), the lanes inside the box and the warps (32 lanes
@@ -1231,8 +1235,9 @@ def check_tile_march(r, sass: dict, registers: dict) -> list[dict]:
     })
     clock, sms = sm_clock_mhz(), torch.cuda.get_device_properties(0).multi_processor_count
     lut_k = sample["first_args"][9].shape[0]
-    # the kernels the main path runs (the shadow leg's with its 32-bit tap index)
-    symbols = {"sample": "tile_march_sample_kernel", "shadow": "tile_march_transmittance_kernelILb1E"}
+    # the kernels the main path runs: those with a 32-bit tap index
+    symbols = {"sample": "tile_march_sample_kernelILb1E", "shadow": "tile_march_transmittance_kernelILb1E",
+               "sums": "tile_march_sums_kernelILb1E"}
     for leg, name, t in (("sample", "tile_march_sample", sample), ("shadow", "tile_march_transmittance", shadow)):
         inside, with_inside, steps, warp_steps = warps[leg]
         kernel = next(fn for fn in sass if symbols[leg] in fn)
@@ -1266,12 +1271,26 @@ def check_tile_march(r, sass: dict, registers: dict) -> list[dict]:
     err = max_abs([got], [want])
     if not bits_equal(got, want):
         raise SystemExit(f"tile_march_sums differs from its plain version (max abs {err})")
+    inside = int(valid.sum())
+    with_inside = int(torch.nn.functional.pad(valid, (0, (-valid.numel()) % 32)).reshape(-1, 32).any(dim=1).sum())
+    steps = inside * STEPS
+    rays = inside * nbytes(ipos, idir, start, dt, far) // start.numel()
+    moved, ops = nbytes(valid, got) + rays + min(nbytes(dense), 2 * steps), steps * OPS_SUMS_STEP
+    least = bound(moved, ops)
+    kernel = next(fn for fn in sass if symbols["sums"] in fn)
+    loop = step_loop(sass[kernel])
+    if loop is None:
+        raise SystemExit("tile_march_sums: no step loop found in its SASS")
+    floor = issue_floor_ms(loop["per_step"], with_inside * STEPS, clock, sms)
     log(f"tile_march_sums: bit-equal on the {ipos.shape[0]} camera rays of that sample at {STEPS} steps "
-        f"(mean sum {float(got.mean()):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    steps = int(valid.sum()) * STEPS
-    rays = int(valid.sum()) * nbytes(ipos, idir, start, dt, far) // start.numel()
-    sums = entry("tile_march_sums", source, "volxel_tpu/render/tilemarch.py:293", err, ms, plain_ms,
-                 nbytes(valid, got) + rays + min(nbytes(dense), 2 * steps), steps * OPS_SUMS_STEP)
+        f"(mean sum {float(got.mean()):.4f}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{least['bound_ms']:.4f} ms by {least['bound_by']} ({least['bound_ms'] / max(ms, 1e-9):.1%}); {inside} lanes "
+        f"inside the box in {with_inside} warps with an inside lane; {registers[kernel]} registers, "
+        f"{tilemarch.resident_warps('sums', lut_k, 'cuda')} resident warps per SM; step loop "
+        f"{loop['loop_instructions']} SASS instructions a pass of {loop['steps_per_pass']} steps = "
+        f"{loop['per_step']:.2f} a step (2-byte tap loads {loop['tap_loads']:.1f}); issue floor {floor:.4f} ms "
+        f"({with_inside * STEPS} warp steps; {floor / max(ms, 1e-9):.1%} of the kernel's time)")
+    sums = entry("tile_march_sums", source, "volxel_tpu/render/tilemarch.py:293", err, ms, plain_ms, moved, ops)
     return entries + [sums]
 
 

@@ -281,47 +281,87 @@ def test_tile_march_transmittance_kernel_bit_equal_to_plain(cuda_device, n):
 
 
 def _lanes_where(args, valid, n):
-    """tile_march_transmittance's arguments for the first `n` lanes of
-    `args` (its own), with `valid` (of those n lanes) in place of theirs."""
-    dense, ipos, idir, start, dt, far, _, state, lut, scalars, extent = args
-    return (dense, ipos[:n].contiguous(), idir[:n].contiguous(), start[:n].contiguous(), dt[:n].contiguous(),
-            far[:n].contiguous(), valid, state[:n].contiguous(), lut, scalars, extent)
+    """The first `n` lanes of tile_march_sample's arguments `args`, with
+    `valid` (of those n lanes) in place of theirs."""
+    per_lane = [a[:n].contiguous() for a in args[1:6]]
+    return (args[0], *per_lane, valid, args[7][:n].contiguous(), args[8][:n].contiguous(), *args[9:])
+
+
+def _leg_fns(leg):
+    """The kernel's wrapper, its plain version and the call's arguments
+    (from tile_march_sample's) of a step loop ("sample" or "shadow")."""
+    if leg == "sample":
+        return tilemarch.tile_march_sample_cuda, tilemarch.tile_march_sample_plain, lambda args: args
+    return tilemarch.tile_march_transmittance_cuda, tilemarch.tile_march_transmittance_plain, _transmittance_args
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["sample", "shadow"])
 @pytest.mark.parametrize("case", ["all", "none", "one_per_warp", "nan"])
 @pytest.mark.parametrize("n", [1, 77, 2048])
-def test_tile_march_transmittance_kernel_lane_cases(cuda_device, case, n):
-    """The shadow leg's step loop bit-equal to its plain version on the
-    state and tau of every lane with every lane inside the box (lanes that
-    miss it march from wherever their start and box exit put them), none
-    inside, one inside lane in each warp of 32 (at a place that moves from
-    warp to warp), and the NaN and far-off lanes of _tile_march_args
-    among the others; the words of the lanes outside are handed back
-    unchanged, with tau 0."""
-    args = _transmittance_args(_tile_march_args(cuda_device, n=max(n, 8), nan_lanes=case == "nan"))
+def test_tile_march_kernel_lane_cases(cuda_device, leg, case, n):
+    """Each step loop bit-equal to its plain version on every output of
+    every lane with every lane inside the box (lanes that miss it march
+    from wherever their start and box exit put them), none inside, one
+    inside lane in each warp of 32 (at a place that moves from warp to
+    warp), and the NaN and far-off lanes of _tile_march_args among the
+    others; the words of the lanes outside are handed back unchanged, with
+    tau 0 (the shadow leg) or no hit, t 0 and colour 1 (the camera leg)."""
+    cuda_fn, plain_fn, leg_args = _leg_fns(leg)
+    args = _tile_march_args(cuda_device, n=max(n, 8), nan_lanes=case == "nan")
     lane = torch.arange(n, device=cuda_device)
     valid = {"all": torch.ones(n, dtype=torch.bool, device=cuda_device),
              "none": torch.zeros(n, dtype=torch.bool, device=cuda_device),
              "one_per_warp": lane % 32 == (lane // 32 * 7 + 3) % 32 if n > 1 else lane == 0,
              "nan": args[6][:n]}[case]
-    call = _lanes_where(args, valid.contiguous(), n)
-    state_in = call[7].clone()
-    got = tilemarch.tile_march_transmittance_cuda(*call)
-    _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*call))
-    assert torch.equal(got[0][~valid], state_in[~valid]) and (got[1][~valid] == 0).all()
-    assert torch.equal(call[7], state_in)  # the operands are left as they are
+    call = leg_args(_lanes_where(args, valid.contiguous(), n))
+    state_in = call[7 if leg == "shadow" else 8].clone()
+    got = cuda_fn(*call)
+    _assert_bits_equal(got, plain_fn(*call))
+    assert torch.equal(got[0][~valid], state_in[~valid])
+    if leg == "shadow":
+        assert (got[1][~valid] == 0).all()
+    else:
+        assert not got[1][~valid].any() and (got[2][~valid] == 0).all() and (got[3][~valid] == 1).all()
+    assert torch.equal(call[7 if leg == "shadow" else 8], state_in)  # the operands are left as they are
     if bool(valid.any()):
         assert not torch.equal(got[0][valid], state_in[valid])
 
 
 @pytest.mark.cuda
-def test_tile_march_transmittance_kernel_indexes_a_field_past_int32(cuda_device):
+@pytest.mark.parametrize("target", ["zero", "inf", "last_step"])
+def test_tile_march_sample_kernel_hits_at_the_first_and_last_step(cuda_device, target):
+    """The camera leg's kernel bit-equal to its plain version where every
+    lane hits at step 0 (a tau target of 0), where none hits (+inf: every
+    lane inside takes all 64 steps and their draws) and where lanes hit at
+    the last step (a target equal to the lane's tau after all 64 steps, the
+    shadow leg's tau on the same lanes); NaN and far-off lanes among
+    them."""
+    args = list(_tile_march_args(cuda_device, nan_lanes=True))
+    if target == "last_step":
+        args[7] = tilemarch.tile_march_transmittance_plain(*_transmittance_args(args))[1]
+    else:
+        args[7] = torch.full_like(args[7], 0.0 if target == "zero" else float("inf"))
+    got = tilemarch.tile_march_sample_cuda(*args)
+    _assert_bits_equal(got, tilemarch.tile_march_sample_plain(*args))
+    _, hit, _, _, _, taken = tilemarch.tile_march_plain(*args)
+    valid = args[6]
+    if target == "zero":
+        assert (taken[hit] == 1).all() and hit.sum() > valid.sum() - 8
+    elif target == "inf":
+        assert not hit.any() and (taken[valid] == tilemarch.STEPS).all()
+    else:
+        assert (hit & (taken == tilemarch.STEPS)).sum() > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["shadow", "sample", "sums"])
+def test_tile_march_kernels_index_a_field_past_int32(cuda_device, leg):
     """On a field whose extent holds 2^31 + 2^20 bf16 elements (4 GiB), past
-    the reach of the 32-bit tap index, the shadow leg's kernel takes its
-    64-bit one: lanes that march through the field's last planes agree with
-    the plain version bit for bit. Each step-loop kernel keeps at least
-    one block of 4 warps resident on an SM."""
+    the reach of the 32-bit tap index, each kernel of tile_march.cu takes
+    its 64-bit one: lanes that march through the field's last planes agree
+    with the plain version bit for bit. Each kernel keeps at least one
+    block of 4 warps resident on an SM."""
     shape = (2049, 1024, 1024)
     gen = torch.Generator(device=cuda_device).manual_seed(10)
     dense = torch.rand(shape, generator=gen, device=cuda_device, dtype=torch.bfloat16)
@@ -335,15 +375,28 @@ def test_tile_march_transmittance_kernel_indexes_a_field_past_int32(cuda_device)
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda_device)
 
     lut = f32(rng.random((128, 4)))
-    call = (dense, f32(ipos), f32(idir), f32(rng.uniform(0.0, 0.1, n)), f32(np.full(n, 0.1)), f32(np.full(n, 20.0)),
-            torch.ones(n, dtype=torch.bool, device=cuda_device),
-            seed_rays(torch.arange(n, dtype=torch.int64, device=cuda_device), 3), lut,
-            f32([1 / 1.2, 1.2, 1.0, 0.02, 0.98]), (1024, 1024, 2049))
-    got = tilemarch.tile_march_transmittance_cuda(*call)
-    _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*call))
-    assert (got[1] > 0).sum() > n // 2
-    assert min(tilemarch.resident_warps(leg, 128, cuda_device) for leg in ("sample", "shadow", "shadow_wide")) >= 4
-    del dense, call
+    rays = (dense, f32(ipos), f32(idir), f32(rng.uniform(0.0, 0.1, n)), f32(np.full(n, 0.1)), f32(np.full(n, 20.0)),
+            torch.ones(n, dtype=torch.bool, device=cuda_device))
+    state = seed_rays(torch.arange(n, dtype=torch.int64, device=cuda_device), 3)
+    scalars, extent = f32([1 / 1.2, 1.2, 1.0, 0.02, 0.98]), (1024, 1024, 2049)
+    if leg == "shadow":
+        call = (*rays, state, lut, scalars, extent)
+        got = tilemarch.tile_march_transmittance_cuda(*call)
+        _assert_bits_equal(got, tilemarch.tile_march_transmittance_plain(*call))
+        assert (got[1] > 0).sum() > n // 2
+    elif leg == "sample":
+        call = (*rays, f32(-np.log1p(-rng.random(n))), state, lut, scalars, extent)
+        got = tilemarch.tile_march_sample_cuda(*call)
+        _assert_bits_equal(got, tilemarch.tile_march_sample_plain(*call))
+        assert got[1].sum() > n // 4
+    else:
+        call = (*rays, extent, tilemarch.STEPS)
+        got = tilemarch.tile_march_sums_cuda(*call)
+        _assert_bits_equal([got], [tilemarch.tile_march_sums_plain(*call)])
+        assert (got > 0).sum() > n // 2
+    legs = ("sample", "sample_wide", "shadow", "shadow_wide", "sums", "sums_wide")
+    assert min(tilemarch.resident_warps(name, 128, cuda_device) for name in legs) >= 4
+    del dense, rays, call
     torch.cuda.empty_cache()
 
 
@@ -637,9 +690,15 @@ def test_neg_log1m_matches_torch_log_on_every_draw(cuda_device):
 
 
 @pytest.mark.cuda
-def test_tile_march_sums_kernel_bit_equal_to_plain(cuda_device):
-    args = _sums_args(_tile_march_args(cuda_device))
-    _assert_bits_equal([tilemarch.tile_march_sums_cuda(*args)], [tilemarch.tile_march_sums_plain(*args)])
+@pytest.mark.parametrize("steps", [64, 0, 1, 7, 65])
+def test_tile_march_sums_kernel_bit_equal_to_plain(cuda_device, steps):
+    """The sums kernel, which loads a chunk of steps' taps before it adds
+    them, at step counts that are a multiple of its chunk, 0, and not a
+    multiple (a last, guarded chunk), with NaN and far-off lanes."""
+    args = _sums_args(_tile_march_args(cuda_device, nan_lanes=True))[:-1] + (steps,)
+    got = tilemarch.tile_march_sums_cuda(*args)
+    _assert_bits_equal([got], [tilemarch.tile_march_sums_plain(*args)])
+    assert (got == 0).all() if steps == 0 else (got[args[6]] > 0).any()
 
 
 @pytest.mark.cuda

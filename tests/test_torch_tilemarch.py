@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
+from tests.torch_lanes import advance_words
 from volxel_tpu.render import modes as jmodes
 from volxel_tpu.render import sampling as jsampling
 from volxel_tpu.render.rng import seed_rays as jax_seed_rays
@@ -50,10 +51,13 @@ def _bf16(a):
     return torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
 
 
-def test_sums_match_jax_serial_march_sums():
+@pytest.mark.parametrize("steps", [16, 1, 7, 65])
+def test_sums_match_jax_serial_march_sums(steps):
     """tests/test_tilemarch.py's `scene`: 3 x 384 coherent lanes through a
-    random 64^3 field, 16 steps. Sums equal on >= 99% of lanes; where a
-    floor flipped, the sums still agree to within one tap (<= 1.0)."""
+    random 64^3 field, 16 steps, and step counts that are not a multiple of
+    the card kernel's chunk of loads (1, 7, 65: past 64, lanes leave the
+    field). Sums equal on >= 99% of lanes; where a floor flipped, the sums
+    still agree to within one tap (<= 1.0)."""
     rng = np.random.default_rng(7)
     dense = jnp.asarray(rng.random((EXT, EXT, EXT), np.float32), jnp.bfloat16)
     ntiles = 3
@@ -68,14 +72,14 @@ def test_sums_match_jax_serial_march_sums():
     far = np.full((ntiles, LANES), 80.0, np.float32)
     valid = rng.random((ntiles, LANES)) > 0.1
     rays = pack_tile_rays(*(jnp.asarray(a) for a in (ipos, idir, start, dt, far, valid)))
-    ref = np.asarray(serial_march_sums(dense, rays, jnp.asarray([EXT, EXT, EXT, 0], jnp.int32), steps=16))
+    ref = np.asarray(serial_march_sums(dense, rays, jnp.asarray([EXT, EXT, EXT, 0], jnp.int32), steps=steps))
     ref = ref.reshape(-1)
 
     kernels.reset_launch_counts()
     n = ntiles * LANES
     ours = ttm.tile_march_sums(
         _bf16(dense), _t(ipos.reshape(n, 3)), _t(idir.reshape(n, 3)), _t(start.reshape(n)),
-        _t(dt.reshape(n)), _t(far.reshape(n)), _t(valid.reshape(n)), (EXT, EXT, EXT), steps=16,
+        _t(dt.reshape(n)), _t(far.reshape(n)), _t(valid.reshape(n)), (EXT, EXT, EXT), steps=steps,
     ).numpy()
     assert kernels.LAUNCHES["tile_march_sums"] == 0  # CPU tensors take the plain version
     same = ours == ref
@@ -207,3 +211,35 @@ def test_transmittance_plain_matches_jax(render_scene):
     assert close.mean() >= 0.99, f"Tr differs on {(~close).sum()} of {n} lanes"
     assert (tr[~valid.numpy()] == 1.0).all() and (tau[~valid] == 0).all()
     assert 0.05 < (tr < 0.999).mean() and valid.float().mean() > 0.5
+
+
+@pytest.mark.parametrize("target", ["drawn", "zero", "inf"])
+def test_raymarch_camera_leg_draws_nine_a_step(render_scene, target):
+    """The camera leg's speculative designs (examples/tilemarch_variants.cu:
+    later steps' draws and taps issued before a step's hit test, each slot
+    keeping the words before its draws) rest on the plain leg's draw law,
+    and so does the words' check of its issue-only twins. Every lane's words
+    after the plain camera leg are its prologue's words advanced by 9 x the
+    steps it took (none outside the box); a lane that hit took the steps up
+    to the first with tau >= its target (at t = min(start + (taken - 1) *
+    dt, far)), one that did not took all 64. With the drawn targets lanes
+    hit at many steps and some never; a target of 0 hits at step 0, +inf
+    never."""
+    s = render_scene
+    n = s["n"]
+    args = list(tmodes.raymarch_prologue(*s["t"], torch.from_numpy(s["origin"]), torch.from_numpy(s["d"]),
+                                         seed_rays(torch.arange(n, dtype=torch.int64), 5),
+                                         torch.from_numpy(s["active"])))
+    if target != "drawn":
+        args[7] = torch.full_like(args[7], 0.0 if target == "zero" else float("inf"))
+    _, _, _, start, dt, far, valid, _, state, _, _, _ = args
+    out, hit, t, _, _, taken = ttm.tile_march_plain(*args)
+    assert torch.equal(out, advance_words(state, 9 * taken))
+    assert torch.equal(taken[~valid], torch.zeros_like(taken[~valid])) and not hit[~valid].any()
+    assert (taken[valid & ~hit] == ttm.STEPS).all()
+    at = taken[hit] - 1
+    assert torch.equal(t[hit], torch.minimum(start[hit] + at.to(torch.float32) * dt[hit], far[hit]))
+    if target == "drawn":
+        assert hit.sum() > 50 and (valid & ~hit).any() and len(set(at.tolist())) > 10
+    else:
+        assert torch.equal(hit, valid) if target == "zero" else not hit.any()

@@ -22,9 +22,16 @@ form those are pinned bit-identical to:
 
 Here every thread gathers its own taps (csrc/tile_march.cu), so there is
 no window, no freeze and no fallback, and the TPU sums kernel's `miss`
-output (window misses) has no counterpart. The kernels are built with
---fmad=false and follow the plain versions' op order, so on the card they
-agree bit for bit on every output of every lane.
+output (window misses) has no counterpart. Both step loops share one step
+body in 32-bit forms (a 32-bit tap index where the field's extent holds at
+most 2^31 elements, else a 64-bit one); the camera loop takes its steps
+one at a time up to its hit, the shadow loop keeps the taps of its next two
+steps in flight. The sums run on a grid of a few blocks an SM that walks
+the lanes at its stride, each lane issuing the loads of 16 steps before it
+adds them, so that the rays in flight are a strip of neighbouring pixels
+whose taps share L2 lines. The kernels are built with --fmad=false and
+follow the plain versions' op order, so on the card they agree bit for
+bit on every output of every lane.
 """
 
 from __future__ import annotations
@@ -69,7 +76,8 @@ def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state
     mask, at most STEPS steps. With a `tau_target` each lane stops at its
     hit (`tile_march_sample`); with None every lane inside the box takes
     all STEPS steps (`tile_march_transmittance`). Returns (state, hit, t,
-    rgb, tau)."""
+    rgb, tau, taken): `taken` is the steps each lane took (0 outside the
+    box)."""
     grid = _dense_grid(dense, extent)
     inv_maj, vol_maj, density_scale = scalars[S_INV_MAJ], scalars[S_VOL_MAJ], scalars[S_DEN_SCALE]
     sample_range = scalars[S_RANGE_LO:S_RANGE_HI + 1]
@@ -79,6 +87,7 @@ def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state
     hit = torch.zeros_like(valid)
     t_out = torch.zeros_like(tau)
     rgb_out = torch.ones((n, 3), dtype=torch.float32, device=ipos.device)
+    taken = torch.zeros((n,), dtype=torch.int64, device=ipos.device)
     i = 0
     while i < STEPS and bool(marching.any()):
         t = torch.minimum(start + i * dt, far)
@@ -87,6 +96,7 @@ def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state
         rgba = lookup_transfer_plain(lut, sample_range, d_raw * inv_maj)
         tau_new = tau + rgba[:, 3] * vol_maj * dt
         tau = torch.where(marching, tau_new, tau)
+        taken = taken + marching.to(torch.int64)
         if tau_target is not None:
             new_hit = marching & (tau_new >= tau_target)
             hit = hit | new_hit
@@ -94,7 +104,7 @@ def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state
             rgb_out = torch.where(new_hit[:, None], rgba[:, :3], rgb_out)
             marching = marching & ~new_hit
         i += 1
-    return state, hit, t_out, rgb_out, tau
+    return state, hit, t_out, rgb_out, tau, taken
 
 
 def tile_march_sample_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
@@ -104,8 +114,8 @@ def tile_march_sample_plain(dense, ipos, idir, start, dt, far, valid, tau_target
 
 def tile_march_transmittance_plain(dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent):
     """Plain PyTorch shadow leg; see `tile_march_transmittance`."""
-    state, _, _, _, tau = tile_march_plain(dense, ipos, idir, start, dt, far, valid, None, state, lut, scalars,
-                                           extent)
+    state, _, _, _, tau, _ = tile_march_plain(dense, ipos, idir, start, dt, far, valid, None, state, lut, scalars,
+                                              extent)
     return state, tau
 
 
@@ -151,7 +161,8 @@ def _check_march(name, dense, ipos, idir, start, dt, far, valid, state, lut, sca
 
 
 def tile_march_sample_cuda(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
-    """The step loop as one launch of csrc/tile_march.cu; see
+    """The step loop as one launch of csrc/tile_march.cu (a 32-bit tap
+    index where the extent holds at most 2^31 elements); see
     `tile_march_sample`."""
     (ex, ey, ez), n = _check_march("tile_march_sample", dense, ipos, idir, start, dt, far, valid, state, lut,
                                    scalars, extent, (("tau_target", tau_target),))
@@ -193,11 +204,11 @@ def tile_march_sample(
 
 
 def resident_warps(leg: str, lut_k: int, device) -> int:
-    """The warps that leg `leg`'s step-loop kernel ("sample"; "shadow" with
-    its 32-bit tap index, "shadow_wide" with its 64-bit one) keeps resident
-    on one SM of `device`, with a LUT of `lut_k` rows staged in its shared
-    memory."""
-    kernel = ("sample", "shadow", "shadow_wide").index(leg)
+    """The warps that a step-loop or sums kernel keeps resident on one SM
+    of `device`, with a LUT of `lut_k` rows staged in a step loop's shared
+    memory: `leg` is "sample", "shadow" or "sums" for the kernel with a
+    32-bit tap index, and with "_wide" for the one with a 64-bit index."""
+    kernel = ("sample", "sample_wide", "shadow", "shadow_wide", "sums", "sums_wide").index(leg)
     return kernels.resident_warps("vx_tile_march_resident_warps", kernel, device, lut_k)
 
 
@@ -245,7 +256,8 @@ def tile_march_sums_plain(dense, ipos, idir, start, dt, far, valid, extent, step
 
 
 def tile_march_sums_cuda(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):
-    """The sums as one launch of csrc/tile_march.cu; see `tile_march_sums`."""
+    """The sums as one launch of csrc/tile_march.cu (a 32-bit tap index
+    where the extent holds at most 2^31 elements); see `tile_march_sums`."""
     ex, ey, ez = _check_dense("tile_march_sums", dense, extent)
     dev = dense.device
     kernels.require_cuda("tile_march_sums", ipos, idir, start, dt, far, dtype=torch.float32, device=dev)
