@@ -11,6 +11,23 @@ Phases, each of which raises (exit code != 0) on failure:
    with `-Xptxas -v` (registers and spills of each kernel) and check in the
    legs' SASS (cuobjdump) that the leg kernels' own code holds no FFMA;
    count the tonemap's SASS instructions and its instructions per float;
+2b. ingest and the reference benchmark, in a temporary directory: write
+   the 512^3 12-bit synthetic CT volume with the port's fixture writer as a
+   deflated DICOM zip; ingest it on the native path in three timed stages
+   (parse, scan, grid) and build the grid once more on numpy (bit-equal;
+   fails if the native library does not build); write a 2048x1024 HDR map
+   and time Renderer.load_env on the card (one importance-pyramid launch,
+   its peak memory, resize_linear alone); then, with every launch counter
+   at 0 before it, Renderer.from_attributes with the zip, the map and
+   tests/fixtures/reference_benchmark.json (one entry per mode at bounces
+   1, 1536x864 and 500 samples), timing inside it the first call of
+   restart_from_zip, restart_from_grid, load_env and render_frame (ZIP
+   bytes to the first frame): print each record and the fingerprint (the
+   card's name and power limit), and check every timePerSample, the image
+   after each entry and that every kernel of the three modes launched;
+   then hold each of those kernels against its plain version on the
+   spec's grid and map (one frame a mode, every call; K4 at image(), K3 on
+   the map's base); print the host's CPU model;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -1467,22 +1484,16 @@ def host_syncs(fn):
                  if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def breakdown(grid, width: int, height: int, mode: str, bounces: int = 1) -> None:
-    """One sample with a synchronize around each leg (the mode's
-    sample_volume and transmittance): each leg's ms, the repo's kernel
-    launches in the legs and the host syncs inside them (host_syncs, which
-    must first see a known sync), then one unprofiled and one profiled
-    sample (log_device_profile). Raises if the legs synchronize with the
-    host."""
+def leg_split(r) -> tuple:
+    """One sample of `r` with a synchronize around each leg (the mode's
+    sample_volume and transmittance): (the sample's ms, each leg's ms, the
+    host syncs inside each leg (host_syncs), the repo's kernel launches in
+    each leg)."""
     import torch
 
     import volxel_tpu_torch.render.pathtrace as pathtrace
     from volxel_tpu_torch import kernels
 
-    if not host_syncs(lambda: bool(torch.ones(1, device="cuda").any()))[1]:
-        raise SystemExit("the host-sync count does not see bool() of a CUDA tensor")
-    r = bench_renderer(grid, width, height, "cuda", mode, bounces)
-    r.render_frame()  # warm
     legs = {"camera": 0.0, "shadow": 0.0}
     syncs = {"camera": [], "shadow": []}
     launches = {"camera": 0, "shadow": 0}
@@ -1515,6 +1526,22 @@ def breakdown(grid, width: int, height: int, mode: str, bounces: int = 1) -> Non
         total = (time.perf_counter() - t0) * 1000
     finally:
         pathtrace.get_mode_functions = original
+    return total, legs, syncs, launches
+
+
+def breakdown(grid, width: int, height: int, mode: str, bounces: int = 1) -> None:
+    """One sample split into its legs (leg_split: each leg's ms, the repo's
+    kernel launches in the legs and the host syncs inside them, which
+    host_syncs must first see a known sync to count), then one unprofiled
+    and one profiled sample (log_device_profile). Raises if the legs
+    synchronize with the host."""
+    import torch
+
+    if not host_syncs(lambda: bool(torch.ones(1, device="cuda").any()))[1]:
+        raise SystemExit("the host-sync count does not see bool() of a CUDA tensor")
+    r = bench_renderer(grid, width, height, "cuda", mode, bounces)
+    r.render_frame()  # warm
+    total, legs, syncs, launches = leg_split(r)
     log(f"{mode} legs at bounces {bounces}: one sample {total:.3f} ms with a synchronize around each leg: camera "
         f"leg {legs['camera']:.3f} ms, shadow leg {legs['shadow']:.3f} ms, rest "
         f"{total - legs['camera'] - legs['shadow']:.3f} ms; launches of the repo's kernels in the legs {launches}, "
@@ -1685,6 +1712,301 @@ def parity(grid, size: int, mode: str) -> None:
         raise SystemExit(f"card and CPU renders ({mode}) disagree beyond the parity contract")
 
 
+# phase 2b: the reference's own benchmark spec (three entries, one per
+# mode, at bounces 1, resolutionFactor 0.8 and 500 samples) on a DICOM zip
+# and an HDR environment that the fixture writers make here
+REFERENCE_SPEC = Path(__file__).resolve().parent / "tests" / "fixtures" / "reference_benchmark.json"
+ENV_SIZE = (2048, 1024)
+RESIZE_REPS = 3
+
+
+# phase 2b's comparisons: for each render mode, the kernels one sample
+# launches, each as (module whose attribute the sample calls, that name,
+# the CUDA entry, the plain version, the outputs held bit for bit)
+def spec_sample_kernels(mode: str) -> list:
+    import volxel_tpu_torch.render.modes as modes
+    from volxel_tpu_torch.render import ddaleg, gather, tilemarch, trackleg
+
+    def gather_cuda(table, idx):
+        return gather.gather_f32_cuda(table.contiguous(), idx.contiguous())
+
+    def lut_cuda(lut, sample_range, density):
+        return gather.lookup_transfer_cuda(lut.contiguous(), sample_range.contiguous(), density.contiguous())
+
+    taps = (gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",))
+    if mode == "default":
+        return [(modes, "dda_leg_sample", ddaleg.dda_leg_sample_cuda, ddaleg.dda_leg_sample_plain,
+                 ("state", "hit", "t", "rgb", "budget")),
+                (modes, "dda_leg_shadow", ddaleg.dda_leg_shadow_cuda, ddaleg.dda_leg_shadow_plain,
+                 ("state", "tr", "budget")),
+                (gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",)), taps]
+    if mode == "no_dda":
+        return [(modes, "track_leg_sample", trackleg.track_leg_sample_cuda, trackleg.track_leg_sample_plain,
+                 ("state", "hit", "t", "rgb", "events")),
+                (modes, "track_leg_shadow", trackleg.track_leg_shadow_cuda, trackleg.track_leg_shadow_plain,
+                 ("state", "tr", "events")), taps]
+    return [(modes, "tile_march_sample", tilemarch.tile_march_sample_cuda, tilemarch.tile_march_sample_plain,
+             ("state", "hit", "t", "rgb")),
+            (modes, "tile_march_transmittance", tilemarch.tile_march_transmittance_cuda,
+             tilemarch.tile_march_transmittance_plain, ("state", "tau")), taps]
+
+
+def hold_spec_kernels(r, spec: dict) -> None:
+    """Every kernel of the reference spec's path against its plain version
+    on the spec's own inputs: the spec renderer's ingested grid and loaded
+    map. For each entry, with its settings on `r`, one render_frame() (the
+    first frame after the restart, which image() then shows alone) with
+    each kernel of the mode's sample (spec_sample_kernels: the legs, the
+    map's taps and texels through gather_f32, the default mode's LUT fetch)
+    held bit for bit at every call, then K4 at image(); K3 on the map's
+    512^2 importance base. Launches made here are not the main path's."""
+    import volxel_tpu_torch.render.pallas_ops as pallas_ops
+    from volxel_tpu_torch.api.benchmark import apply_entry_settings
+
+    def no_work(args, got):
+        return 0, 0
+
+    for entry in spec["benchmarks"]:
+        apply_entry_settings(spec, entry, r)
+        checks = spec_sample_kernels(entry["renderMode"])
+        with contextlib.ExitStack() as stack:
+            tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, lambda a: 0,
+                                                          no_work))
+                       for module, name, cuda_fn, plain_fn, outputs in checks]
+            r.render_frame()
+        with compared_calls(pallas_ops, "tonemap_cuda", pallas_ops.tonemap_cuda, pallas_ops.tonemap_plain,
+                            ("image",), lambda a: 0, no_work) as tonemap:
+            img = r.image()
+        w, h = r._render_dims()
+        for (_, name, *_), tally in (*zip(checks, tallies), (("", "tonemap"), tonemap)):
+            if tally["calls"] == 0:
+                raise SystemExit(f"{name} was not called in one {entry['renderMode']} sample of the reference spec")
+            log(f"reference spec, {entry['renderMode']} ({w}x{h}): {name} bit-equal at all {tally['calls']} calls "
+                f"of one sample; kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms summed over them")
+        if not np.isfinite(img).all():
+            raise SystemExit(f"image() of the held {entry['renderMode']} sample is not finite")
+    base = r.environment.state.imp_mips[0]
+    got = pallas_ops.build_importance_pyramid_cuda(base)
+    want = pallas_ops.build_importance_pyramid_plain(base)
+    bad = [tuple(a.shape) for a, b in zip(got, want) if not bits_equal(a, b)]
+    if bad:
+        raise SystemExit(f"importance pyramid of the loaded map: levels {bad} differ from the plain version "
+                         f"(max abs {max_abs(got, want)})")
+    log(f"reference spec: importance_pyramid bit-equal on all {len(got)} levels of the loaded map's "
+        f"{base.shape[0]}x{base.shape[1]} base")
+
+
+@contextlib.contextmanager
+def first_calls(cls, names):
+    """While the block runs, time the first call of each method `names` of
+    `cls` (on any instance), fenced on the instance's device. Yields
+    {name: (start, end)} in time.perf_counter() seconds."""
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    seen = {}
+    originals = {name: getattr(cls, name) for name in names}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            if name in seen:
+                return fn(self, *args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            fence_device(self.device)
+            seen[name] = (t0, time.perf_counter())
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(cls, name, timed(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in originals.items():
+            setattr(cls, name, fn)
+
+
+def staged_ingest(data: bytes):
+    """read_zip_to_grid's body in three timed stages: parse (inflate and
+    parse every entry), scan (pixel arrays, the histogram and range scan,
+    the stack) and grid (normalize and build the brick grid). It leaves out
+    read_zip_series' checks of the archive (not empty, one folder), which
+    the Renderer's ingest runs. Returns the series, the grid and the
+    stages' seconds."""
+    from volxel_tpu_torch.ingest import series as series_mod
+    from volxel_tpu_torch.ingest import ziploader
+    from volxel_tpu_torch.ingest.dicom import parse_dicom
+    from volxel_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer(log=False)
+    with timer.stage("parse"):
+        with ziploader._open_zip(data) as zf:
+            files = [parse_dicom(ziploader._read_entry(zf, i)) for i in zf.infolist() if not i.is_dir()]
+    with timer.stage("scan"):
+        series = series_mod._fold_slices(files)
+    del files
+    with timer.stage("grid"):
+        grid = series_mod.series_to_grid(series)
+    return series, grid, timer.report()
+
+
+def ingest_and_reference_benchmark(size: int, env_size: tuple, width: int, height: int, spec_path: Path,
+                                   device="cuda") -> None:
+    """Phase 2b: from DICOM bytes to the reference's benchmark records
+    through the port's entry points, with every launch counter at 0 just
+    before Renderer.from_attributes and read just after; then every kernel
+    of that path held against its plain version on its inputs."""
+    import os
+
+    import torch
+
+    from volxel_tpu_torch import Renderer, kernels
+    from volxel_tpu_torch.api import benchmark
+    from volxel_tpu_torch.grid import grid_differences
+    from volxel_tpu_torch.grid.brick import construct_brick_grid
+    from volxel_tpu_torch.ingest.hdr import decode_env_bytes
+    from volxel_tpu_torch.native import loader
+    from volxel_tpu_torch.render.rays import luma
+    from volxel_tpu_torch.scene.environment import IMP_DIM, resize_linear
+    from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume, synthetic_env_hdr, write_dicom_zip
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    t_phase = time.perf_counter()
+    log(f"host: {loader._cpu_model()}, {os.cpu_count()} logical CPUs")
+    if not loader.native_available():
+        raise SystemExit(f"the native ingest library did not build or load: {loader._load_error}")
+    cuda = torch.device(device).type == "cuda"
+    spec = json.loads(spec_path.read_text())
+    with tempfile.TemporaryDirectory(prefix="volxel_ingest_") as tmpdir:
+        tmp = Path(tmpdir)
+        # 1. the DICOM zip, deflated as users' archives are
+        t0 = time.perf_counter()
+        vol = synthetic_ct_volume((size,) * 3, bits_stored=12, seed=0)
+        zip_path = tmp / f"ct{size}.zip"
+        zip_path.write_bytes(write_dicom_zip(vol, bits_stored=12))
+        del vol
+        log(f"ingest: wrote {zip_path.name} ({size} slices of {size}x{size}, 12-bit, deflated), "
+            f"{zip_path.stat().st_size} bytes in {time.perf_counter() - t0:.3f} s (the fixture writer, not the port)")
+
+        # 2. the ingest on the native path, staged; the grid again on numpy
+        series, grid, stages = staged_ingest(zip_path.read_bytes())
+        grad, gmin, gmax = series.histogram_gradient()
+        t0 = time.perf_counter()
+        plain = construct_brick_grid(series.normalized(), transform=series.transform, min_maj=(0.0, 1.0),
+                                     histogram=series.histogram, histogram_gradient=grad,
+                                     histogram_gradient_range=(gmin, gmax), use_native=False)
+        numpy_s = time.perf_counter() - t0
+        differ = grid_differences(grid, plain)
+        log(f"ingest ({size}^3, native): parse {stages['parse']:.3f} s, scan {stages['scan']:.3f} s, grid "
+            f"{stages['grid']:.3f} s, total {sum(stages.values()):.3f} s; the grid on numpy {numpy_s:.3f} s; "
+            f"{grid.brick_counter} bricks in the atlas; native and numpy grids "
+            f"{'bit-equal' if not differ else 'differ in ' + ', '.join(differ)}")
+        if differ:
+            raise SystemExit(f"the native and numpy brick grids differ in {differ}")
+        del series, grid, plain
+
+        # 3. the environment, decoded on the host and built on the device
+        env_path = tmp / "sky.hdr"
+        env_path.write_bytes(synthetic_env_hdr(*env_size))
+        env_bytes = env_path.read_bytes()
+        t0 = time.perf_counter()
+        image = decode_env_bytes(env_bytes)
+        decode_s = time.perf_counter() - t0
+        r = Renderer(width, height, device=device)
+        fence_device(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated() if cuda else 0
+        before = kernels.LAUNCHES["importance_pyramid"]
+        t0 = time.perf_counter()
+        r.load_env(env_bytes)
+        fence_device(device)
+        load_s = time.perf_counter() - t0
+        k3 = kernels.LAUNCHES["importance_pyramid"] - before
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**20 if cuda else float("nan")
+        lum = luma(r.environment.state.envmap)
+        resize_ms = []
+        for _ in range(RESIZE_REPS):
+            fence_device(device)
+            t0 = time.perf_counter()
+            resize_linear(lum, IMP_DIM, IMP_DIM)
+            fence_device(device)
+            resize_ms.append((time.perf_counter() - t0) * 1000)
+        log(f"load_env ({env_size[0]}x{env_size[1]} HDR, {len(env_bytes)} bytes): {load_s:.4f} s fenced, of which "
+            f"the host decode alone takes {decode_s:.4f} s; importance-pyramid launches {k3}; peak device memory "
+            f"above the renderer's {peak:.1f} MiB; resize_linear to {IMP_DIM}^2 alone "
+            f"{', '.join(f'{ms:.3f}' for ms in resize_ms)} ms")
+        if image.shape[:2] != (env_size[1], env_size[0]) or (cuda and k3 != 1):
+            raise SystemExit(f"load_env decoded {image.shape} and launched the pyramid {k3} times (want 1)")
+        del r, image, lum
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # 4. the spec, through from_attributes; image() after each entry;
+        # the first call of each loading step and of render_frame timed
+        looks = []
+        run_single = benchmark.run_single_benchmark
+
+        def run_and_look(renderer, name=None, warmup=1):
+            rec = run_single(renderer, name=name, warmup=warmup)
+            img = renderer.image()
+            looks.append((img.shape, bool(np.isfinite(img).all()), float(img.max()), float(img.mean())))
+            return rec
+
+        benchmark.run_single_benchmark = run_and_look
+        try:
+            with first_calls(Renderer, ("restart_from_zip", "restart_from_grid", "load_env", "render_frame")) as first:
+                fence_device(device)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                r = Renderer.from_attributes(width=width, height=height, zip_path=zip_path, env_path=env_path,
+                                             benchmark_path=spec_path, device=device)
+                fence_device(device)
+                spec_s = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+        finally:
+            benchmark.run_single_benchmark = run_single
+    span = {name: end - start for name, (start, end) in first.items()}
+    log(f"ZIP bytes to first frame in from_attributes: restart_from_zip {span['restart_from_zip']:.3f} s "
+        f"(restart_from_grid {span['restart_from_grid']:.3f} s of it, the ingest the rest), load_env "
+        f"{span['load_env']:.3f} s, first frame {span['render_frame']:.3f} s; "
+        f"{first['render_frame'][1] - first['restart_from_zip'][0]:.3f} s from the ZIP's bytes to the first frame's end")
+    records = r.last_benchmark
+    log(f"reference spec ({spec_path.name}): from_attributes {spec_s:.3f} s; launches {launches}")
+    log(f"reference spec device: {json.dumps(records[0]['device'])}")
+    for rec, (shape, finite, peak_value, mean) in zip(records, looks):
+        log("reference spec record: " + json.dumps(
+            {"name": rec["name"], "mode": rec["settings"]["renderMode"], "viewport": rec["viewport"],
+             "samples": rec["settings"]["maxSamples"], "bounces": rec["settings"]["bounces"],
+             "timePerSample": rec["timePerSample"], "totalTime": rec["totalTime"], "image_mean": mean}))
+    if len(records) != len(spec["benchmarks"]) or len(looks) != len(records):
+        raise SystemExit(f"{len(records)} records and {len(looks)} images for {len(spec['benchmarks'])} entries")
+    for rec, entry, (shape, finite, peak_value, mean) in zip(records, spec["benchmarks"], looks):
+        tps = rec["timePerSample"]
+        w, h = rec["viewport"][2:]
+        if rec["settings"]["renderMode"] != entry["renderMode"] or not (np.isfinite(tps) and tps > 0):
+            raise SystemExit(f"record {rec['settings']['renderMode']}: timePerSample {tps}")
+        if shape != (h, w, 3) or not finite or not peak_value > 0.0:
+            raise SystemExit(f"image() after the {entry['renderMode']} entry: shape {shape}, finite {finite}, "
+                             f"max {peak_value}")
+    if cuda:
+        acc = records[0]["device"]["accelerator"]
+        if acc["platform"] != "gpu" or not records[0]["device"].get("powerLimit"):
+            raise SystemExit(f"the records' fingerprint lacks the card or its power limit: {records[0]['device']}")
+        modes = {e["renderMode"] for e in spec["benchmarks"]}
+        for name in sorted({k for m in modes for k in PATH_KERNELS[m]}):
+            if launches[name] <= 0:
+                raise SystemExit(f"kernel {name} was not launched on the reference spec's path")
+        if launches["importance_pyramid"] != 2:  # the default environment, then load_env
+            raise SystemExit(f"the importance pyramid launched {launches['importance_pyramid']} times (want 2)")
+        hold_spec_kernels(r, spec)
+    del r
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"phase 2b (ingest and the reference benchmark): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=512, help="volume edge in voxels")
@@ -1730,6 +2052,10 @@ def main() -> int:
     grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
     del vol
     log(f"scene: {args.size}^3 synthetic CT volume, brick grid built in {time.perf_counter() - t0:.2f} s")
+
+    # phase 2b: ingest and the reference benchmark, through the entry points
+    ingest_and_reference_benchmark(args.size, ENV_SIZE, args.width, args.height, REFERENCE_SPEC)
+    torch.cuda.empty_cache()
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")

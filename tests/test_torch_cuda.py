@@ -932,3 +932,73 @@ def test_lut_fetch_left_to_the_premul_build(cuda_device):
         launches = dict(kernels.LAUNCHES)
         assert launches["lookup_transfer"] == (3 if mode == "default" else 0)
         assert launches[camera] == launches[shadow] == 3 * r.settings.bounces
+
+
+def _loaded(device, side=64):
+    """A Renderer on `device` after restart_from_zip and load_env of the
+    fixture writers' 32^3 DICOM zip and 64x32 HDR map."""
+    from volxel_tpu_torch.utils.fixtures import synthetic_env_hdr, write_dicom_zip
+
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    r = Renderer(side, side, device=device)
+    r.restart_from_zip(write_dicom_zip(vol, bits_stored=12))
+    r.load_env(synthetic_env_hdr(64, 32))
+    return r
+
+
+@pytest.mark.cuda
+def test_load_env_on_the_card_launches_the_pyramid_once(cuda_device):
+    from volxel_tpu_torch.utils.fixtures import synthetic_env_hdr
+
+    r = Renderer(16, 16, device=cuda_device)
+    kernels.reset_launch_counts()
+    r.load_env(synthetic_env_hdr(128, 64), strength=1.5)
+    assert kernels.LAUNCHES["importance_pyramid"] == 1
+    state = r.environment.state
+    assert state.envmap.is_cuda and all(m.is_cuda for m in state.imp_mips) and r.env_strength == 1.5
+    cpu = Renderer(16, 16, device="cpu")
+    cpu.load_env(synthetic_env_hdr(128, 64), strength=1.5)
+    torch.testing.assert_close(state.envmap.cpu(), cpu.environment.state.envmap, rtol=0, atol=0)
+    for got, want in zip(state.imp_mips, cpu.environment.state.imp_mips):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_restart_from_zip_puts_the_grid_on_the_card(cuda_device):
+    r = _loaded(cuda_device, side=16)
+    g = r._device_grid
+    assert g.dense.is_cuda and g.maj_mips.is_cuda and r.grid.brick_counter > 0
+    assert np.isfinite(r.render(6)).all()
+
+
+@pytest.mark.cuda
+def test_benchmark_record_on_the_card(cuda_device):
+    from volxel_tpu_torch.api.benchmark import run_single_benchmark
+
+    r = _loaded(cuda_device, side=32)
+    r.settings.max_samples = 3
+    rec = run_single_benchmark(r, name="card")
+    acc = rec["device"]["accelerator"]
+    assert acc["platform"] == "gpu" and acc["kind"] == torch.cuda.get_device_name(0)
+    assert rec["device"]["powerLimit"].endswith("W")
+    assert rec["device"]["torchVersion"] == torch.__version__ and rec["device"]["cudaVersion"] == torch.version.cuda
+    assert rec["timePerSample"] > 0 and rec["viewport"] == [0, 0, 32, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "raymarch", "no_dda"])
+def test_render_after_zip_matches_cpu(cuda_device, mode):
+    """64x64 after restart_from_zip + load_env, card against CPU, at
+    chip_smoke.py phase 5's contract (tests/test_parity_oracle.py's)."""
+    images = []
+    for device in (cuda_device, "cpu"):
+        r = _loaded(device)
+        r.render_mode = mode
+        for _ in range(12):
+            r.render_frame()
+        images.append(r._framebuffer.cpu().numpy().astype(np.float64))
+    gpu, cpu = images
+    rel = np.abs(gpu - cpu) / (np.abs(cpu) + 1e-3)
+    assert float((rel.max(axis=-1) < 1e-3).mean()) > 0.98
+    assert float(np.median(rel)) < 1e-4
+    assert abs(gpu.mean() - cpu.mean()) < 5e-3 * max(cpu.mean(), 1e-3) and cpu.mean() > 0

@@ -4,8 +4,10 @@ Owns the scene (volume, camera, environment, transfer LUT), the viewer
 settings and the progressive accumulation loop, with the reference web
 component's surface (viewer.ts:111+):
 
-  restart_from_grid                         (viewer.ts:963-1017)
-  load_env_default                          (viewer.ts:1019-1040)
+  from_attributes (local paths)             (viewer.ts:112, 840-848)
+  restart_from_files / restart_from_zip / restart_from_grid
+                                            (viewer.ts:963-1017)
+  load_env / load_env_default               (viewer.ts:1019-1040)
   restore_settings / export_settings        (viewer.ts:626-762)
   render_frame / render / image / raw_image (viewer.ts:1183-1293)
   render_mode property                      (viewer.ts:1442-1452)
@@ -17,8 +19,11 @@ running average.
 
 Every tensor lives on the `device` the renderer was made for: the card
 (`"cuda"`) unless the caller names another, such as the CPU, where every
-kernel takes its plain version. Loading ZIP/DICOM series and HDR/EXR
-environments needs the ingest layer, which is not ported yet.
+kernel takes its plain version. ZIP/DICOM series and HDR/EXR environments
+are decoded on the host (`ingest/`, with the native library of `native/`
+where it builds) and uploaded to that device. Errors propagate to the
+caller: the JAX package's error state (`handle_error`, `suspend`) and its
+URL loaders are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ import torch
 
 from volxel_tpu_torch.api.settings import ViewerSettings, make_settings_export
 from volxel_tpu_torch.grid.brick import BrickGrid
+from volxel_tpu_torch.ingest.hdr import decode_env_bytes
+from volxel_tpu_torch.ingest.series import read_dicoms_to_grid
+from volxel_tpu_torch.ingest.ziploader import read_zip_to_grid
 from volxel_tpu_torch.render import shearwarp
 from volxel_tpu_torch.render.pallas_ops import tonemap_display
 from volxel_tpu_torch.render.pathtrace import (
@@ -72,6 +80,67 @@ class Renderer:
     def _to_device(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, dtype=np.float32)).to(self.device)
 
+    @classmethod
+    def from_attributes(
+        cls,
+        width: int = 1920,
+        height: int = 1080,
+        zip_path=None,
+        files_dir=None,
+        settings_path=None,
+        env_path=None,
+        render_mode: str | None = None,
+        benchmark_path=None,
+        zip_url: str | None = None,
+        env_url: str | None = None,
+        *,
+        device="cuda",
+    ) -> "Renderer":
+        """Declarative construction — the embed-attribute contract
+        (data-zip-url / data-urls / data-settings-url / data-env-url /
+        data-render-mode / data-benchmark-url, viewer.ts:112,
+        index.html:24-33), from local paths.
+
+        `zip_url` / `env_url` are not ported: nothing is fetched, and
+        either raises NotImplementedError.
+
+        `benchmark_path` mirrors `attributeBenchmark` (viewer.ts:840-848):
+        after construction the benchmark collection is run immediately and
+        the results are stored on the renderer as `last_benchmark`; a spec
+        entry's `zip` and `env` name files beside the spec."""
+        from pathlib import Path
+
+        if zip_url is not None or env_url is not None:
+            raise NotImplementedError("loading from a URL is not ported (ROADMAP.md, queue 1)")
+        r = cls(width=width, height=height, device=device)
+        if zip_path is not None:
+            r.restart_from_zip(Path(zip_path).read_bytes())
+        elif files_dir is not None:
+            paths = sorted(p for p in Path(files_dir).iterdir() if p.is_file())
+            r.restart_from_files(paths)
+        if env_path is not None:
+            r.load_env(Path(env_path).read_bytes())
+        if settings_path is not None:
+            from volxel_tpu_torch.api.settings import load_settings
+
+            r.restore_settings(load_settings(Path(settings_path)))
+        if render_mode is not None:
+            r.render_mode = render_mode
+        if benchmark_path is not None:
+            import json
+
+            from volxel_tpu_torch.api.benchmark import run_benchmark_collection
+
+            spec = json.loads(Path(benchmark_path).read_text())
+            base = Path(benchmark_path).parent
+
+            def _load(rel):
+                p = base / rel
+                return p.read_bytes() if p.exists() else None
+
+            r.last_benchmark = run_benchmark_collection(spec, r, load_zip=_load, load_env=_load)
+        return r
+
     # -- volume loading (viewer.ts:963-1017, 1080-1145) ------------------------
 
     def restart_from_grid(self, grid: BrickGrid) -> None:
@@ -85,10 +154,36 @@ class Renderer:
         self._device_grid = device_grid_from_brick(grid, self.device)
         self.restart_rendering()
 
+    def restart_from_files(self, sources: list) -> None:
+        """DICOM slices (paths or bytes), in the order given."""
+        self.restart_from_grid(read_dicoms_to_grid(sources))
+
+    def restart_from_zip(self, source) -> None:
+        """A single-folder ZIP of DICOM slices (path or bytes)."""
+        self.restart_from_grid(read_zip_to_grid(source))
+
     # -- environment (viewer.ts:1019-1040, 1074-1078) --------------------------
+
+    def load_env(self, data: bytes, strength: float | None = None) -> None:
+        """An HDR or EXR environment map, built on the renderer's device;
+        the current strength carries over unless `strength` is given."""
+        image = decode_env_bytes(data)
+        self.environment = Environment(
+            image, strength if strength is not None else self.environment.strength, device=self.device
+        )
+        self.restart_rendering()
 
     def load_env_default(self) -> None:
         self.environment = default_environment(self.device)
+        self.restart_rendering()
+
+    @property
+    def env_strength(self) -> float:
+        return self.environment.strength
+
+    @env_strength.setter
+    def env_strength(self, value: float) -> None:
+        self.environment.with_strength(float(value))
         self.restart_rendering()
 
     # -- transfer function ------------------------------------------------------

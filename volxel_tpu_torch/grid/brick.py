@@ -147,13 +147,13 @@ def construct_brick_grid(
     histogram: np.ndarray | None = None,
     histogram_gradient: np.ndarray | None = None,
     histogram_gradient_range: tuple[int, int] = (0, 0),
+    use_native: bool | None = None,
 ) -> BrickGrid:
     """Build a BrickGrid from a dense (Z, Y, X) float32 density volume.
 
-    Vectorized equivalent of BrickGrid::construct (brick.rs:76-205). This
-    is the numpy builder only: the multithreaded C++ builder of the JAX
-    package (volxel_tpu/native/) is not carried into the port yet. Both
-    builders are bit-equal, so grids agree with either.
+    Vectorized equivalent of BrickGrid::construct (brick.rs:76-205).
+    use_native: True forces the multithreaded C++ builder, False the numpy
+    path, None (default) picks native when available.
     """
     data = np.ascontiguousarray(data, dtype=np.float32)
     ez, ey, ex = data.shape
@@ -165,6 +165,22 @@ def construct_brick_grid(
     bz = div_round_up(div_round_up(ez, BRICK_SIZE), align) * align
     if bx >= MAX_BRICKS or by >= MAX_BRICKS or bz >= MAX_BRICKS:
         raise ValueError("Exceeded max brick count")
+
+    if use_native is not False:
+        from volxel_tpu_torch.native.loader import native_available
+
+        if native_available():
+            return _construct_native(
+                data,
+                (bx, by, bz),
+                transform,
+                min_maj,
+                histogram,
+                histogram_gradient,
+                histogram_gradient_range,
+            )
+        if use_native:
+            raise RuntimeError("native brick builder unavailable")
 
     # dense volume padded to the full brick extent; OOB reads are 0.0
     full = np.zeros((bz * BRICK_SIZE, by * BRICK_SIZE, bx * BRICK_SIZE), np.float32)
@@ -221,6 +237,37 @@ def construct_brick_grid(
 
     return _assemble(
         (bx, by, bz),
+        counter,
+        range_lo,
+        range_hi,
+        indirection,
+        atlas,
+        transform,
+        min_maj,
+        histogram,
+        histogram_gradient,
+        histogram_gradient_range,
+    )
+
+
+def _construct_native(
+    data,
+    brick_count,
+    transform,
+    min_maj,
+    histogram,
+    histogram_gradient,
+    histogram_gradient_range,
+) -> BrickGrid:
+    """Multithreaded C++ construction path (volxel_native.cpp)."""
+    from volxel_tpu_torch.native.loader import brick_construct
+
+    bx, by, bz = brick_count
+    range_lo, range_hi, indirection, _occ, atlas, counter = brick_construct(
+        data, bx, by, bz
+    )
+    return _assemble(
+        brick_count,
         counter,
         range_lo,
         range_hi,

@@ -1,14 +1,142 @@
-"""Procedural CT-like test volume (copy of volxel_tpu.utils.fixtures).
+"""Synthetic test fixtures (copy of volxel_tpu.utils.fixtures).
 
-Only `synthetic_ct_volume` is carried over: the DICOM and HDR writers of
-the original module need the ingest layer, which the port does not have
-yet. The function is a byte-for-byte copy, so the same seed gives the same
-volume in both packages.
+The environment ships no DICOM sample data, so tests and benchmarks build
+their own: a minimal Explicit-VR-Little-Endian writer producing files that
+both this package's parser and any conformant reader accept, a procedural
+CT-like density volume with nested shells, and a sky-like HDR environment.
+The functions are copies of the JAX package's, with its imports pointed at
+this package's ingest layer, so the same seed gives the same bytes in both
+packages.
 """
 
 from __future__ import annotations
 
+import io
+import struct
+import zipfile
+
 import numpy as np
+
+from volxel_tpu_torch.ingest.hdr import encode_hdr
+
+
+def _element(group: int, elem: int, vr: bytes, value: bytes, e: str = "<") -> bytes:
+    if len(value) % 2:
+        value += b"\x00" if vr != b"UI" else b"\x00"
+    head = struct.pack(e + "HH", group, elem)
+    if vr in (b"OB", b"OW", b"SQ", b"UN", b"UT"):
+        return head + vr + b"\x00\x00" + struct.pack(e + "I", len(value)) + value
+    return head + vr + struct.pack(e + "H", len(value)) + value
+
+
+def _encapsulate(fragments: list[bytes]) -> bytes:
+    """PixelData (7FE0,0010) OB undefined length: empty Basic Offset Table
+    item, one item per fragment (even-padded), sequence delimiter."""
+    out = struct.pack("<HH", 0x7FE0, 0x0010) + b"OB\x00\x00" + struct.pack("<I", 0xFFFFFFFF)
+    out += struct.pack("<HHI", 0xFFFE, 0xE000, 0)  # empty BOT
+    for frag in fragments:
+        if len(frag) % 2:
+            frag += b"\x00"
+        out += struct.pack("<HHI", 0xFFFE, 0xE000, len(frag)) + frag
+    out += struct.pack("<HHI", 0xFFFE, 0xE0DD, 0)
+    return out
+
+
+def write_dicom_slice(
+    pixels: np.ndarray,
+    pixel_spacing: tuple[float, float] = (1.0, 1.0),
+    slice_thickness: float | None = 1.0,
+    bits_stored: int = 16,
+    instance_number: int = 1,
+    transfer_syntax: str = "1.2.840.10008.1.2.1",
+    encoded_frames: list[bytes] | None = None,
+    bits_allocated: int = 16,
+) -> bytes:
+    """Serialize one (rows, cols) slice, preamble included.
+
+    transfer_syntax selects the encoding: Explicit VR LE (default),
+    Explicit VR BE (1.2.840.10008.1.2.2), JPEG Lossless SV1
+    (1.2.840.10008.1.2.4.70, encoded in-repo), RLE Lossless
+    (1.2.840.10008.1.2.5, encoded in-repo). For other encapsulated
+    syntaxes pass pre-encoded frame bytes via encoded_frames.
+    """
+    big_endian = transfer_syntax == "1.2.840.10008.1.2.2"
+    e = ">" if big_endian else "<"
+    pixels = np.ascontiguousarray(pixels, dtype=(e + "u2") if bits_allocated == 16 else "u1")
+    rows, cols = pixels.shape
+
+    meta_body = _element(0x0002, 0x0010, b"UI", transfer_syntax.encode())
+    meta = (
+        _element(0x0002, 0x0000, b"UL", struct.pack("<I", len(meta_body))) + meta_body
+    )
+
+    ds = b""
+    ds += _element(0x0018, 0x0050, b"DS", str(slice_thickness).encode(), e) if slice_thickness is not None else b""
+    ds += _element(0x0020, 0x0013, b"IS", str(instance_number).encode(), e)
+    ds += _element(0x0028, 0x0002, b"US", struct.pack(e + "H", 1), e)
+    ds += _element(0x0028, 0x0010, b"US", struct.pack(e + "H", rows), e)
+    ds += _element(0x0028, 0x0011, b"US", struct.pack(e + "H", cols), e)
+    ds += _element(
+        0x0028, 0x0030, b"DS", f"{pixel_spacing[0]}\\{pixel_spacing[1]}".encode(), e
+    )
+    ds += _element(0x0028, 0x0100, b"US", struct.pack(e + "H", bits_allocated), e)
+    ds += _element(0x0028, 0x0101, b"US", struct.pack(e + "H", bits_stored), e)
+    ds += _element(0x0028, 0x0102, b"US", struct.pack(e + "H", bits_stored - 1), e)
+    ds += _element(0x0028, 0x0103, b"US", struct.pack(e + "H", 0), e)
+
+    if encoded_frames is not None:
+        ds += _encapsulate(encoded_frames)
+    elif transfer_syntax == "1.2.840.10008.1.2.4.70":
+        from volxel_tpu_torch.ingest.jpeg import encode_lossless_sv1
+
+        ds += _encapsulate([encode_lossless_sv1(pixels, bits_stored)])
+    elif transfer_syntax == "1.2.840.10008.1.2.5":
+        from volxel_tpu_torch.ingest.rle import encode_rle
+
+        ds += _encapsulate([encode_rle(pixels)])
+    elif transfer_syntax in ("1.2.840.10008.1.2.1", "1.2.840.10008.1.2.2"):
+        ds += _element(0x7FE0, 0x0010, b"OW", pixels.tobytes(), e)
+    else:
+        raise ValueError(
+            f"no in-repo encoder for {transfer_syntax}; pass encoded_frames"
+        )
+
+    return b"\x00" * 128 + b"DICM" + meta + ds
+
+
+def write_dicom_series(
+    volume: np.ndarray,
+    pixel_spacing: tuple[float, float] = (1.0, 1.0),
+    slice_thickness: float = 1.0,
+    bits_stored: int = 16,
+    **kwargs,
+) -> list[bytes]:
+    """(Z, Y, X) uint16 volume -> one DICOM byte blob per slice."""
+    return [
+        write_dicom_slice(
+            volume[z],
+            pixel_spacing=pixel_spacing,
+            slice_thickness=slice_thickness,
+            bits_stored=bits_stored,
+            instance_number=z + 1,
+            **kwargs,
+        )
+        for z in range(volume.shape[0])
+    ]
+
+
+def write_dicom_zip(
+    volume: np.ndarray,
+    folder: str = "series",
+    **kwargs,
+) -> bytes:
+    """(Z, Y, X) uint16 volume -> single-folder ZIP of DICOM slices."""
+    blobs = write_dicom_series(volume, **kwargs)
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        for i, blob in enumerate(blobs):
+            zf.writestr(f"{folder}/slice_{i:04d}.dcm", blob)
+    return buf.getvalue()
 
 
 def synthetic_ct_volume(
@@ -79,3 +207,20 @@ def synthetic_ct_volume(
         np.copyto(quant[:k], density[:k], casting="unsafe")
         out[z0:z1] = quant[:k]
     return out
+
+
+def synthetic_env_hdr(width: int = 64, height: int = 32) -> bytes:
+    """A small sky-like HDR environment: bright sun patch + gradient."""
+    v = np.linspace(0, 1, height, dtype=np.float32)[:, None]
+    u = np.linspace(0, 1, width, dtype=np.float32)[None, :]
+    sky = np.stack(
+        [
+            0.3 + 0.2 * (1 - v) * np.ones_like(u),
+            0.4 + 0.3 * (1 - v) * np.ones_like(u),
+            0.7 + 0.3 * (1 - v) * np.ones_like(u),
+        ],
+        axis=-1,
+    )
+    sun = np.exp(-(((u - 0.25) * 18) ** 2 + ((v - 0.25) * 12) ** 2))
+    img = sky + sun[..., None] * np.array([40.0, 35.0, 25.0], np.float32)
+    return encode_hdr(img.astype(np.float32))
