@@ -28,6 +28,31 @@ Phases, each of which raises (exit code != 0) on failure:
    then hold each of those kernels against its plain version on the
    spec's grid and map (one frame a mode, every call; K4 at image(), K3 on
    the map's base); print the host's CPU model;
+2c. the app path, on the zip and the map of phase 2b: with every launch
+   counter at 0 before it, Renderer.from_attributes at 960x540 (`serve`'s
+   default size) in bench.py's framing, then the preview server on an
+   ephemeral port, driven over HTTP: GET /, /frame.png (decoded here: its
+   size, not black), /state, /histogram (timed), /transfer; rotate
+   commands until drag previews are served (the ms from each command to
+   its first preview, the K7 and K4 launches over the drags); POST
+   /settings with gradient_shading, debug_hits and warmup_low_res, each
+   followed by a served frame; render_mode raymarch and no_dda, each
+   followed by a served frame; POST /benchmark of 16 samples and
+   /benchmark_result (the card's name and power limit); frames served a
+   second in each mode, the PNG encode's ms and the first fallback
+   histogram (the dense field to the host); the server stops, and every
+   kernel of the path must have launched. On the server's renderer
+   (960x540, bounces 3, the zip's grid and the map), after the counts are
+   read: one frame in each mode with each kernel held at every call of its
+   three bounces, one warm-up frame (the legs at 0.33 of the size, K4 on
+   its image()) and one drag preview (K7, within 1e-6 where only expf and
+   ATen's exp can round apart, and K4). Then through the Renderer at
+   1920x1080: gradient-shaded samples in each mode, timed and one
+   profiled, and one more with each of its kernels held bit for bit at
+   every call; a debug-hits sample, timed and profiled (no leg, no LUT
+   fetch; one K4 at image()). Then
+   `python -m volxel_tpu_torch render --synthetic 256 --size 512x512
+   --samples 16` and `info` in subprocesses, the PNG decoded here;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -90,9 +115,10 @@ Phases, each of which raises (exit code != 0) on failure:
    called 1 + 3 times, and render_dvr(screen=True) once, with the counters
    at 0 before it;
 5. render the same scene at 64x64 on the card and on the CPU (plain
-   versions) in each of the three modes and hold the images to the parity
-   contract of tests/test_parity_oracle.py; the preview at three poses is
-   held to max abs err 1e-5.
+   versions) in each of the three modes, plain and with gradient shading,
+   and hold the images to the parity contract of
+   tests/test_parity_oracle.py; debug hits in each mode and the preview at
+   three poses are held to max abs err 1e-5.
 
 The second-to-last line is a JSON object with one entry per kernel, the
 last line {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -106,6 +132,7 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -198,13 +225,18 @@ def bench_renderer(grid, width: int, height: int, device, mode: str = "default",
     r = Renderer(width, height, device=device)
     r.restart_from_grid(grid)
     r.render_mode = mode
+    r.settings.bounces = bounces
+    bench_look(r)
+    return r
+
+
+def bench_look(r) -> None:
+    """bench.py's framing, transfer and sample range on a loaded renderer."""
     r.camera.rotate_around_view(0.6, 0.4)
     r.camera.zoom(2.0)
-    r.settings.bounces = bounces
     r.set_transfer_colors(BENCH_TRANSFER)
     r.settings.sample_range = list(BENCH_SAMPLE_RANGE)
     r.restart_rendering()
-    return r
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,22 +387,23 @@ def fresh_calls(fn, args, mutable, calls: int):
 
 @contextlib.contextmanager
 def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, library_fn=None, others=None,
-                   mutable=()):
+                   mutable=(), atol: float = 0.0):
     """Replace module.<name>, for the block's duration, by a stand-in that
     sends each call's inputs through the kernel and the plain version
     (and `library_fn`, when given), raises unless they agree bit for bit
-    on every output, and returns the kernel's result. A function that
+    on every output (or, with `atol`, within it), and returns the kernel's
+    result. A function that
     updates the operands at the indices in `mutable` in place gets fresh
     copies of them at every timed call, and the kernel's updates are then
     copied into the caller's operands. `others` maps a name to a function
     of the call's inputs that prepares (untimed) one more call to time
     beside them. Yields the tally: calls, lanes (`lanes(args)`), the times
     summed over the calls, the bytes and operations of the work
-    (`work(args, outputs)`), the largest difference, and the first call's
-    arguments."""
+    (`work(args, outputs)`), the largest difference, whether every call
+    was bit-equal, and the first call's arguments."""
     others = others or {}
     tally = {"calls": 0, "lanes": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0,
-             "err": 0.0, "first_args": None, "others": dict.fromkeys(others, 0.0)}
+             "err": 0.0, "equal": True, "first_args": None, "others": dict.fromkeys(others, 0.0)}
 
     def compared(*args):
         kernel_call, copies = fresh_calls(cuda_fn, args, mutable, 2 * KERNEL_REPS)
@@ -381,9 +414,10 @@ def compared_calls(module, name: str, cuda_fn, plain_fn, outputs, lanes, work, l
         got_t, want_t = ((got,), (want,)) if single else (got, want)
         bad = [nm for nm, a, b in zip(outputs, got_t, want_t) if not bits_equal(a, b)]
         err = max_abs(got_t, want_t)
-        if bad:
+        if bad and not err <= atol:
             raise SystemExit(f"{name} call {tally['calls']}: kernel differs from its plain version "
                              f"in {bad} (max abs {err})")
+        tally["equal"] = tally["equal"] and not bad
         if library_fn is not None:
             tally["library_ms"] += device_ms(lambda: library_fn(*args), KERNEL_REPS)[1]
         for other, prepare in others.items():
@@ -1691,25 +1725,38 @@ def preview_parity(grid, size: int) -> None:
         raise SystemExit(f"card and CPU previews differ by {err} > {PREVIEW_PARITY_ATOL}")
 
 
-def parity(grid, size: int, mode: str) -> None:
-    """The same scene on the card and on the CPU, held to the slice contract."""
+def parity(grid, size: int, mode: str, setting: str | None = None) -> None:
+    """The same scene on the card and on the CPU, held to the slice
+    contract; with `setting` ("gradient_shading" or "debug_hits") turned
+    on. Debug hits, which draw nothing, are held to max abs err
+    DEBUG_HITS_ATOL instead."""
+    what = mode if setting is None else f"{mode}, {setting}"
     images = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
         r = bench_renderer(grid, size, size, device, mode)
+        if setting is not None:
+            setattr(r.settings, setting, True)
         for _ in range(PARITY_FRAMES):
             r.render_frame()
         images[device] = r._framebuffer.cpu().numpy().astype(np.float64)
-        log(f"parity render ({mode}) on {device}: {time.perf_counter() - t0:.2f} s")
+        log(f"parity render ({what}) on {device}: {time.perf_counter() - t0:.2f} s")
     gpu, cpu = images["cuda"], images["cpu"]
+    if setting == "debug_hits":
+        err = float(np.abs(gpu - cpu).max())
+        log(f"parity {size}x{size} ({what}): max abs err {err:.3e}, means {gpu.mean():.6f} (card) "
+            f"{cpu.mean():.6f} (cpu)")
+        if not (err <= DEBUG_HITS_ATOL and cpu.mean() > 0):
+            raise SystemExit(f"card and CPU debug-hits renders ({mode}) differ by {err} > {DEBUG_HITS_ATOL}")
+        return
     rel = np.abs(gpu - cpu) / (np.abs(cpu) + 1e-3)
     tight = float((rel.max(axis=-1) < 1e-3).mean())
     median = float(np.median(rel))
     means = (float(gpu.mean()), float(cpu.mean()))
-    log(f"parity {size}x{size} ({mode}): {tight:.4%} of pixels within 0.1%, median rel {median:.3e}, "
+    log(f"parity {size}x{size} ({what}): {tight:.4%} of pixels within 0.1%, median rel {median:.3e}, "
         f"means {means[0]:.6f} (card) {means[1]:.6f} (cpu)")
     if not (tight > 0.98 and median < 1e-4 and abs(means[0] - means[1]) < 5e-3 * max(means[1], 1e-3)):
-        raise SystemExit(f"card and CPU renders ({mode}) disagree beyond the parity contract")
+        raise SystemExit(f"card and CPU renders ({what}) disagree beyond the parity contract")
 
 
 # phase 2b: the reference's own benchmark spec (three entries, one per
@@ -1751,40 +1798,49 @@ def spec_sample_kernels(mode: str) -> list:
              tilemarch.tile_march_transmittance_plain, ("state", "tau")), taps]
 
 
-def hold_spec_kernels(r, spec: dict) -> None:
-    """Every kernel of the reference spec's path against its plain version
-    on the spec's own inputs: the spec renderer's ingested grid and loaded
-    map. For each entry, with its settings on `r`, one render_frame() (the
-    first frame after the restart, which image() then shows alone) with
-    each kernel of the mode's sample (spec_sample_kernels: the legs, the
-    map's taps and texels through gather_f32, the default mode's LUT fetch)
-    held bit for bit at every call, then K4 at image(); K3 on the map's
-    512^2 importance base. Launches made here are not the main path's."""
+def hold_frame_kernels(r, what: str) -> None:
+    """One render_frame() of `r` with each kernel of its mode's sample
+    (spec_sample_kernels: the legs, the map's taps and texels through
+    gather_f32, the default mode's LUT fetch) held bit for bit against its
+    plain version at every call, then K4 at image(); fails unless each was
+    called. Launches made here are not the main path's."""
     import volxel_tpu_torch.render.pallas_ops as pallas_ops
-    from volxel_tpu_torch.api.benchmark import apply_entry_settings
 
     def no_work(args, got):
         return 0, 0
 
+    checks = spec_sample_kernels(r.render_mode)
+    with contextlib.ExitStack() as stack:
+        tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, lambda a: 0, no_work))
+                   for module, name, cuda_fn, plain_fn, outputs in checks]
+        r.render_frame()
+    with compared_calls(pallas_ops, "tonemap_cuda", pallas_ops.tonemap_cuda, pallas_ops.tonemap_plain,
+                        ("image",), lambda a: 0, no_work) as tonemap:
+        img = r.image()
+    # a warm-up frame renders, and image() tonemaps, the low-res preview
+    w, h = r._warmup_preview[:2] if r._warmup_preview is not None else r._render_dims()
+    for (_, name, *_), tally in (*zip(checks, tallies), (("", "tonemap"), tonemap)):
+        if tally["calls"] == 0:
+            raise SystemExit(f"{name} was not called in one {r.render_mode} sample of {what}")
+        log(f"{what}, {r.render_mode} ({w}x{h}): {name} bit-equal at all {tally['calls']} calls "
+            f"of one sample; kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms summed over them")
+    if not np.isfinite(img).all():
+        raise SystemExit(f"image() of the held {r.render_mode} sample of {what} is not finite")
+
+
+def hold_spec_kernels(r, spec: dict) -> None:
+    """Every kernel of the reference spec's path against its plain version
+    on the spec's own inputs: the spec renderer's ingested grid and loaded
+    map. For each entry, with its settings on `r`, one render_frame() (the
+    first frame after the restart, which image() then shows alone) held at
+    every call (hold_frame_kernels); K3 on the map's 512^2 importance base.
+    Launches made here are not the main path's."""
+    import volxel_tpu_torch.render.pallas_ops as pallas_ops
+    from volxel_tpu_torch.api.benchmark import apply_entry_settings
+
     for entry in spec["benchmarks"]:
         apply_entry_settings(spec, entry, r)
-        checks = spec_sample_kernels(entry["renderMode"])
-        with contextlib.ExitStack() as stack:
-            tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, lambda a: 0,
-                                                          no_work))
-                       for module, name, cuda_fn, plain_fn, outputs in checks]
-            r.render_frame()
-        with compared_calls(pallas_ops, "tonemap_cuda", pallas_ops.tonemap_cuda, pallas_ops.tonemap_plain,
-                            ("image",), lambda a: 0, no_work) as tonemap:
-            img = r.image()
-        w, h = r._render_dims()
-        for (_, name, *_), tally in (*zip(checks, tallies), (("", "tonemap"), tonemap)):
-            if tally["calls"] == 0:
-                raise SystemExit(f"{name} was not called in one {entry['renderMode']} sample of the reference spec")
-            log(f"reference spec, {entry['renderMode']} ({w}x{h}): {name} bit-equal at all {tally['calls']} calls "
-                f"of one sample; kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms summed over them")
-        if not np.isfinite(img).all():
-            raise SystemExit(f"image() of the held {entry['renderMode']} sample is not finite")
+        hold_frame_kernels(r, "reference spec")
     base = r.environment.state.imp_mips[0]
     got = pallas_ops.build_importance_pyramid_cuda(base)
     want = pallas_ops.build_importance_pyramid_plain(base)
@@ -1851,14 +1907,13 @@ def staged_ingest(data: bytes):
     return series, grid, timer.report()
 
 
-def ingest_and_reference_benchmark(size: int, env_size: tuple, width: int, height: int, spec_path: Path,
-                                   device="cuda") -> None:
+def ingest_and_reference_benchmark(size: int, env_size: tuple, width: int, height: int, spec_path: Path, tmp: Path,
+                                   device="cuda") -> tuple:
     """Phase 2b: from DICOM bytes to the reference's benchmark records
     through the port's entry points, with every launch counter at 0 just
     before Renderer.from_attributes and read just after; then every kernel
-    of that path held against its plain version on its inputs."""
-    import os
-
+    of that path held against its plain version on its inputs. Writes the
+    zip and the HDR map into `tmp` and returns their paths."""
     import torch
 
     from volxel_tpu_torch import Renderer, kernels
@@ -1873,100 +1928,98 @@ def ingest_and_reference_benchmark(size: int, env_size: tuple, width: int, heigh
     from volxel_tpu_torch.utils.profiling import fence_device
 
     t_phase = time.perf_counter()
-    log(f"host: {loader._cpu_model()}, {os.cpu_count()} logical CPUs")
+    log(f"host: {loader._cpu_model()}; {host_probe()}")
     if not loader.native_available():
         raise SystemExit(f"the native ingest library did not build or load: {loader._load_error}")
     cuda = torch.device(device).type == "cuda"
     spec = json.loads(spec_path.read_text())
-    with tempfile.TemporaryDirectory(prefix="volxel_ingest_") as tmpdir:
-        tmp = Path(tmpdir)
-        # 1. the DICOM zip, deflated as users' archives are
-        t0 = time.perf_counter()
-        vol = synthetic_ct_volume((size,) * 3, bits_stored=12, seed=0)
-        zip_path = tmp / f"ct{size}.zip"
-        zip_path.write_bytes(write_dicom_zip(vol, bits_stored=12))
-        del vol
-        log(f"ingest: wrote {zip_path.name} ({size} slices of {size}x{size}, 12-bit, deflated), "
-            f"{zip_path.stat().st_size} bytes in {time.perf_counter() - t0:.3f} s (the fixture writer, not the port)")
+    # 1. the DICOM zip, deflated as users' archives are
+    t0 = time.perf_counter()
+    vol = synthetic_ct_volume((size,) * 3, bits_stored=12, seed=0)
+    zip_path = tmp / f"ct{size}.zip"
+    zip_path.write_bytes(write_dicom_zip(vol, bits_stored=12))
+    del vol
+    log(f"ingest: wrote {zip_path.name} ({size} slices of {size}x{size}, 12-bit, deflated), "
+        f"{zip_path.stat().st_size} bytes in {time.perf_counter() - t0:.3f} s (the fixture writer, not the port)")
 
-        # 2. the ingest on the native path, staged; the grid again on numpy
-        series, grid, stages = staged_ingest(zip_path.read_bytes())
-        grad, gmin, gmax = series.histogram_gradient()
-        t0 = time.perf_counter()
-        plain = construct_brick_grid(series.normalized(), transform=series.transform, min_maj=(0.0, 1.0),
-                                     histogram=series.histogram, histogram_gradient=grad,
-                                     histogram_gradient_range=(gmin, gmax), use_native=False)
-        numpy_s = time.perf_counter() - t0
-        differ = grid_differences(grid, plain)
-        log(f"ingest ({size}^3, native): parse {stages['parse']:.3f} s, scan {stages['scan']:.3f} s, grid "
-            f"{stages['grid']:.3f} s, total {sum(stages.values()):.3f} s; the grid on numpy {numpy_s:.3f} s; "
-            f"{grid.brick_counter} bricks in the atlas; native and numpy grids "
-            f"{'bit-equal' if not differ else 'differ in ' + ', '.join(differ)}")
-        if differ:
-            raise SystemExit(f"the native and numpy brick grids differ in {differ}")
-        del series, grid, plain
+    # 2. the ingest on the native path, staged; the grid again on numpy
+    series, grid, stages = staged_ingest(zip_path.read_bytes())
+    grad, gmin, gmax = series.histogram_gradient()
+    t0 = time.perf_counter()
+    plain = construct_brick_grid(series.normalized(), transform=series.transform, min_maj=(0.0, 1.0),
+                                 histogram=series.histogram, histogram_gradient=grad,
+                                 histogram_gradient_range=(gmin, gmax), use_native=False)
+    numpy_s = time.perf_counter() - t0
+    differ = grid_differences(grid, plain)
+    log(f"ingest ({size}^3, native): parse {stages['parse']:.3f} s, scan {stages['scan']:.3f} s, grid "
+        f"{stages['grid']:.3f} s, total {sum(stages.values()):.3f} s; the grid on numpy {numpy_s:.3f} s; "
+        f"{grid.brick_counter} bricks in the atlas; native and numpy grids "
+        f"{'bit-equal' if not differ else 'differ in ' + ', '.join(differ)}")
+    if differ:
+        raise SystemExit(f"the native and numpy brick grids differ in {differ}")
+    del series, grid, plain
 
-        # 3. the environment, decoded on the host and built on the device
-        env_path = tmp / "sky.hdr"
-        env_path.write_bytes(synthetic_env_hdr(*env_size))
-        env_bytes = env_path.read_bytes()
-        t0 = time.perf_counter()
-        image = decode_env_bytes(env_bytes)
-        decode_s = time.perf_counter() - t0
-        r = Renderer(width, height, device=device)
+    # 3. the environment, decoded on the host and built on the device
+    env_path = tmp / "sky.hdr"
+    env_path.write_bytes(synthetic_env_hdr(*env_size))
+    env_bytes = env_path.read_bytes()
+    t0 = time.perf_counter()
+    image = decode_env_bytes(env_bytes)
+    decode_s = time.perf_counter() - t0
+    r = Renderer(width, height, device=device)
+    fence_device(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated() if cuda else 0
+    before = kernels.LAUNCHES["importance_pyramid"]
+    t0 = time.perf_counter()
+    r.load_env(env_bytes)
+    fence_device(device)
+    load_s = time.perf_counter() - t0
+    k3 = kernels.LAUNCHES["importance_pyramid"] - before
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**20 if cuda else float("nan")
+    lum = luma(r.environment.state.envmap)
+    resize_ms = []
+    for _ in range(RESIZE_REPS):
         fence_device(device)
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        base_mem = torch.cuda.memory_allocated() if cuda else 0
-        before = kernels.LAUNCHES["importance_pyramid"]
         t0 = time.perf_counter()
-        r.load_env(env_bytes)
+        resize_linear(lum, IMP_DIM, IMP_DIM)
         fence_device(device)
-        load_s = time.perf_counter() - t0
-        k3 = kernels.LAUNCHES["importance_pyramid"] - before
-        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**20 if cuda else float("nan")
-        lum = luma(r.environment.state.envmap)
-        resize_ms = []
-        for _ in range(RESIZE_REPS):
+        resize_ms.append((time.perf_counter() - t0) * 1000)
+    log(f"load_env ({env_size[0]}x{env_size[1]} HDR, {len(env_bytes)} bytes): {load_s:.4f} s fenced, of which "
+        f"the host decode alone takes {decode_s:.4f} s; importance-pyramid launches {k3}; peak device memory "
+        f"above the renderer's {peak:.1f} MiB; resize_linear to {IMP_DIM}^2 alone "
+        f"{', '.join(f'{ms:.3f}' for ms in resize_ms)} ms")
+    if image.shape[:2] != (env_size[1], env_size[0]) or (cuda and k3 != 1):
+        raise SystemExit(f"load_env decoded {image.shape} and launched the pyramid {k3} times (want 1)")
+    del r, image, lum
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # 4. the spec, through from_attributes; image() after each entry;
+    # the first call of each loading step and of render_frame timed
+    looks = []
+    run_single = benchmark.run_single_benchmark
+
+    def run_and_look(renderer, name=None, warmup=1):
+        rec = run_single(renderer, name=name, warmup=warmup)
+        img = renderer.image()
+        looks.append((img.shape, bool(np.isfinite(img).all()), float(img.max()), float(img.mean())))
+        return rec
+
+    benchmark.run_single_benchmark = run_and_look
+    try:
+        with first_calls(Renderer, ("restart_from_zip", "restart_from_grid", "load_env", "render_frame")) as first:
             fence_device(device)
+            kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            resize_linear(lum, IMP_DIM, IMP_DIM)
+            r = Renderer.from_attributes(width=width, height=height, zip_path=zip_path, env_path=env_path,
+                                         benchmark_path=spec_path, device=device)
             fence_device(device)
-            resize_ms.append((time.perf_counter() - t0) * 1000)
-        log(f"load_env ({env_size[0]}x{env_size[1]} HDR, {len(env_bytes)} bytes): {load_s:.4f} s fenced, of which "
-            f"the host decode alone takes {decode_s:.4f} s; importance-pyramid launches {k3}; peak device memory "
-            f"above the renderer's {peak:.1f} MiB; resize_linear to {IMP_DIM}^2 alone "
-            f"{', '.join(f'{ms:.3f}' for ms in resize_ms)} ms")
-        if image.shape[:2] != (env_size[1], env_size[0]) or (cuda and k3 != 1):
-            raise SystemExit(f"load_env decoded {image.shape} and launched the pyramid {k3} times (want 1)")
-        del r, image, lum
-        if cuda:
-            torch.cuda.empty_cache()
-
-        # 4. the spec, through from_attributes; image() after each entry;
-        # the first call of each loading step and of render_frame timed
-        looks = []
-        run_single = benchmark.run_single_benchmark
-
-        def run_and_look(renderer, name=None, warmup=1):
-            rec = run_single(renderer, name=name, warmup=warmup)
-            img = renderer.image()
-            looks.append((img.shape, bool(np.isfinite(img).all()), float(img.max()), float(img.mean())))
-            return rec
-
-        benchmark.run_single_benchmark = run_and_look
-        try:
-            with first_calls(Renderer, ("restart_from_zip", "restart_from_grid", "load_env", "render_frame")) as first:
-                fence_device(device)
-                kernels.reset_launch_counts()
-                t0 = time.perf_counter()
-                r = Renderer.from_attributes(width=width, height=height, zip_path=zip_path, env_path=env_path,
-                                             benchmark_path=spec_path, device=device)
-                fence_device(device)
-                spec_s = time.perf_counter() - t0
-                launches = dict(kernels.LAUNCHES)
-        finally:
-            benchmark.run_single_benchmark = run_single
+            spec_s = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        benchmark.run_single_benchmark = run_single
     span = {name: end - start for name, (start, end) in first.items()}
     log(f"ZIP bytes to first frame in from_attributes: restart_from_zip {span['restart_from_zip']:.3f} s "
         f"(restart_from_grid {span['restart_from_grid']:.3f} s of it, the ingest the rest), load_env "
@@ -2005,6 +2058,355 @@ def ingest_and_reference_benchmark(size: int, env_size: tuple, width: int, heigh
     if cuda:
         torch.cuda.empty_cache()
     log(f"phase 2b (ingest and the reference benchmark): {time.perf_counter() - t_phase:.1f} s")
+    return zip_path, env_path
+
+
+# phase 2c: the app path. The preview server (`serve`'s default size) on
+# the zip and the HDR map that phase 2b writes, driven over HTTP; gradient
+# shading and debug hits through the Renderer at the main paths' size; the
+# CLI in subprocesses
+APP_SIZE = (960, 540)
+APP_SETTINGS = ("gradient_shading", "debug_hits", "warmup_low_res")
+APP_WAIT = 120.0  # the longest wait, in seconds, for a served frame or a result
+FPS_SECONDS = 2.0  # the window in which each mode's served frames are counted
+HOST_PROBE_ITERATIONS = 2_000_000
+DRAGS = 3  # rotate commands, each followed by its first preview
+SERVER_BENCH_SAMPLES = 16
+GRADIENT_SAMPLES = 3  # timed gradient-shaded samples a mode, after one untimed
+DEBUG_HITS_ATOL = 1e-5
+CLI_RENDER = ("render", "--synthetic", "256", "--size", "512x512", "--samples", "16")
+# every kernel the app path launches (K6 lies on no render path)
+APP_KERNELS = tuple(name for name in KERNEL_PATH if name != "tile_march_sums")
+
+
+def http(base: str, path: str, body=None) -> tuple:
+    """(status, content type, body) of a GET of `path`, or of a POST of
+    `body` as JSON."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    request = urllib.request.Request(base + path, data=data, method="GET" if body is None else "POST")
+    with urllib.request.urlopen(request, timeout=APP_WAIT) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+
+def wait_until(fn, what: str):
+    """fn()'s first truthy value, polled for at most APP_WAIT seconds."""
+    deadline = time.monotonic() + APP_WAIT
+    while time.monotonic() < deadline:
+        value = fn()
+        if value:
+            return value
+        time.sleep(0.005)
+    raise SystemExit(f"app: no {what} within {APP_WAIT} s")
+
+
+def next_served(served: list, since: float, preview: bool = False, **want) -> dict:
+    """The first frame the server encoded after `since` (perf_counter
+    seconds), a drag preview or a progressive frame, whose record holds
+    `want`."""
+    def find():
+        return next((rec for rec in list(served) if rec["t"] > since and rec["preview"] == preview
+                     and all(rec[k] == v for k, v in want.items())), None)
+
+    return wait_until(find, f"{'preview' if preview else 'frame'} served with {want}")
+
+
+def served_frame(base: str, width: int, height: int, what: str) -> np.ndarray:
+    """GET /frame.png, decoded; fails unless it has the size and is not black."""
+    from volxel_tpu_torch.utils.png import decode_png
+
+    status, ctype, png = http(base, "/frame.png")
+    img = decode_png(png)
+    if status != 200 or ctype != "image/png" or img.shape != (height, width, 3) or not img.max() > 0:
+        raise SystemExit(f"app: /frame.png after {what}: {status} {ctype}, {img.shape}, max {img.max()}")
+    return img
+
+
+def host_probe() -> str:
+    """The host's speed and load as this process sees them: the ms of a
+    fixed pure-Python loop (the kind of work that enqueues kernels) and
+    the 1-minute load average against the logical CPUs."""
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(HOST_PROBE_ITERATIONS):
+        total += i & 7
+    ms = (time.perf_counter() - t0) * 1000
+    return (f"a {HOST_PROBE_ITERATIONS:,}-iteration Python loop {ms:.1f} ms, load average "
+            f"{os.getloadavg()[0]:.2f} on {os.cpu_count()} logical CPUs")
+
+
+def hold_app_kernels(r, preview_scale: float) -> None:
+    """Every kernel of the app path against its plain version on the
+    server's renderer `r` at the shapes the server gave it: one frame in
+    each mode (every call of every bounce, hold_frame_kernels), one
+    default-mode warm-up frame (its legs at 0.33 of the size and K4 on its
+    image()) and one drag preview at `preview_scale` (K7 bit-equal, or
+    within 1e-6 where only the card's expf and ATen's exp can round apart,
+    as check_shearwarp holds it; K4 bit-equal). Launches made here are not
+    the main path's."""
+    import volxel_tpu_torch.render.pallas_ops as pallas_ops
+    from volxel_tpu_torch.render import shearwarp
+
+    def no_work(args, got):
+        return 0, 0
+
+    # default last: the server's warm-up frame was a default-mode one
+    for mode in ("raymarch", "no_dda", "default"):
+        r.render_mode = mode
+        hold_frame_kernels(r, f"app path, bounces {r.settings.bounces}")
+    r.settings.warmup_low_res = True
+    r.restart_rendering()
+    hold_frame_kernels(r, "app path warm-up")
+    r.settings.warmup_low_res = False
+    r.restart_rendering()
+    with compared_calls(shearwarp, "shearwarp_intermediate_cuda", shearwarp.shearwarp_intermediate_cuda,
+                        shearwarp.shearwarp_intermediate_plain, ("colour", "transmittance"), lambda a: 0, no_work,
+                        atol=1e-6) as k7, \
+            compared_calls(pallas_ops, "tonemap_cuda", pallas_ops.tonemap_cuda, pallas_ops.tonemap_plain,
+                           ("image",), lambda a: 0, no_work) as k4:
+        img = r.render_preview(scale=preview_scale)
+    h, w = img.shape[:2]
+    for name, tally in (("shearwarp_intermediate", k7), ("tonemap", k4)):
+        if tally["calls"] == 0:
+            raise SystemExit(f"{name} was not called in a {w}x{h} drag preview of the app path")
+        agree = "bit-equal" if tally["equal"] else f"within 1e-6 (max abs {tally['err']:.3e})"
+        log(f"app path drag preview ({w}x{h}): {name} {agree} at all {tally['calls']} calls; kernel "
+            f"{tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms summed over them")
+    check_image(img, w, h, "the held drag preview")
+
+
+def frames_per_second(served: list, mode: str) -> float:
+    """Progressive frames served in `mode` over the next FPS_SECONDS."""
+    t0 = time.perf_counter()
+    time.sleep(FPS_SECONDS)
+    n = sum(1 for rec in list(served)
+            if not rec["preview"] and rec["mode"] == mode and t0 < rec["t"] <= t0 + FPS_SECONDS)
+    return n / FPS_SECONDS
+
+
+def app_server(zip_path: Path, env_path: Path, device="cuda") -> dict:
+    """The preview server on `device`, over HTTP on an ephemeral port, with
+    every launch counter at 0 just before its renderer loads the zip and
+    the map (Renderer.from_attributes, then bench.py's framing and transfer)
+    and read after the server stopped: each route, drag previews, each of
+    APP_SETTINGS, the raymarch and no_dda modes and the server's benchmark;
+    frames a second in each mode, the PNG encode's ms, the ms from a rotate
+    command to its preview, the first /histogram and the first fallback
+    histogram (the dense field copied to the host). Returns the counts."""
+    import torch
+
+    from volxel_tpu_torch import Renderer, kernels
+    from volxel_tpu_torch.api import server as server_mod
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    cuda = torch.device(device).type == "cuda"
+    width, height = APP_SIZE
+    log(f"app: host before the server: {host_probe()}")
+    t_phase = time.perf_counter()
+    fence_device(device)
+    kernels.reset_launch_counts()
+    r = Renderer.from_attributes(width=width, height=height, zip_path=zip_path, env_path=env_path, device=device)
+    bench_look(r)
+    fence_device(device)
+    log(f"app: Renderer.from_attributes({width}x{height}, {zip_path.name}, {env_path.name}) and bench.py's look "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    s = server_mod.PreviewServer(r, port=0)
+    served, encode_ms = [], []
+    encode_frame, encode_png = s._encode_frame, server_mod.encode_png
+
+    def recorded(img=None):
+        encode_frame(img)
+        served.append({"t": time.perf_counter(), "preview": img is not None, "mode": r.render_mode,
+                       "frame": r.frame_index, **{name: getattr(r.settings, name) for name in APP_SETTINGS}})
+
+    def timed_png(rgb):
+        t0 = time.perf_counter()
+        png = encode_png(rgb)
+        encode_ms.append(((time.perf_counter() - t0) * 1000, rgb.shape[:2], len(png)))
+        return png
+
+    s._encode_frame = recorded
+    server_mod.encode_png = timed_png
+    t_start = time.perf_counter()
+    base = f"http://127.0.0.1:{s.start()}"
+    try:
+        status, ctype, page = http(base, "/")
+        if status != 200 or ctype != "text/html" or b"</html>" not in page:
+            raise SystemExit(f"app: GET / gave {status} {ctype}, {len(page)} bytes")
+        first = next_served(served, t_start)
+        img = served_frame(base, width, height, "the first frame")
+        log(f"app: first frame served {first['t'] - t_start:.3f} s after start(); /frame.png {img.shape}, "
+            f"mean {img.mean():.2f} of 255")
+        state = json.loads(http(base, "/state")[2])
+        if (state["width"], state["height"]) != APP_SIZE or state["samples"] <= 0 or state["error"] is not None:
+            raise SystemExit(f"app: /state {state['width']}x{state['height']}, samples {state['samples']}, "
+                             f"error {state['error']}")
+        t0 = time.perf_counter()
+        hist = json.loads(http(base, "/histogram")[2])
+        hist_ms = (time.perf_counter() - t0) * 1000
+        transfer = json.loads(http(base, "/transfer")[2])
+        if not hist["bars"] or transfer["type"] != "color_stops" or len(transfer["colors"]) != len(BENCH_TRANSFER):
+            raise SystemExit(f"app: /histogram {len(hist['bars'])} bars, /transfer {transfer}")
+        t0 = time.perf_counter()
+        fallback = s._fallback_histogram()
+        fallback_ms = (time.perf_counter() - t0) * 1000
+        log(f"app: /histogram (the ingest's histogram, {len(hist['bars'])} bars) {hist_ms:.1f} ms; the fallback "
+            f"histogram's first call (the {'x'.join(map(str, r._device_grid.dense.shape))} bf16 field to the "
+            f"host as f32, np.histogram) {fallback_ms:.1f} ms, {int(fallback[0].sum())} voxels")
+        fps = {"default": frames_per_second(served, "default")}
+
+        before = dict(kernels.LAUNCHES)
+        t_drag, drag_ms = time.perf_counter(), []
+        for _ in range(DRAGS):
+            wait_until(lambda: time.time() > s._motion_until + 0.05, "end of the last drag's motion")
+            t0 = time.perf_counter()
+            http(base, "/input", {"type": "rotate", "by": [0.05, 0.02]})
+            drag_ms.append((next_served(served, t0, preview=True)["t"] - t0) * 1000)
+        wait_until(lambda: time.time() > s._motion_until + 0.05, "end of the last drag's motion")
+        next_served(served, time.perf_counter())
+        drag = {name: kernels.LAUNCHES[name] - before[name] for name in ("shearwarp_intermediate", "tonemap")}
+        previews = sum(1 for rec in list(served) if rec["preview"] and rec["t"] > t_drag)
+        log(f"app: {DRAGS} rotate commands: ms to the first preview {', '.join(f'{ms:.2f}' for ms in drag_ms)}; "
+            f"{previews} previews at {r.width // 2}x{r.height // 2} served while the motion lasted; launches over "
+            f"the drags {drag}")
+        if cuda and not (drag["shearwarp_intermediate"] >= previews >= DRAGS and drag["tonemap"] >= previews):
+            raise SystemExit(f"app: {previews} previews served with launches {drag}")
+
+        for name in APP_SETTINGS:
+            t0 = time.perf_counter()
+            http(base, "/settings", {name: True})
+            rec = next_served(served, t0, **{name: True})
+            served_frame(base, width, height, f"{name} on")
+            log(f"app: {name} on: frame {rec['frame']} served {(rec['t'] - t0) * 1000:.1f} ms after the POST")
+            http(base, "/settings", {name: False})
+        next_served(served, time.perf_counter(), **dict.fromkeys(APP_SETTINGS, False))
+
+        for mode in ("raymarch", "no_dda", "default"):
+            t0 = time.perf_counter()
+            http(base, "/input", {"type": "render_mode", "mode": mode})
+            rec = next_served(served, t0, mode=mode)
+            served_frame(base, width, height, f"render_mode {mode}")
+            if mode != "default":
+                fps[mode] = frames_per_second(served, mode)
+            log(f"app: render_mode {mode}: first frame {(rec['t'] - t0) * 1000:.1f} ms after the POST")
+
+        http(base, "/benchmark", {"samples": SERVER_BENCH_SAMPLES})
+
+        def result():
+            b = json.loads(http(base, "/benchmark_result")[2])
+            return b if b.get("running") is False and "time_per_sample_ms" in b else None
+
+        bench = wait_until(result, "benchmark result")
+        fingerprint = bench["device"]
+        log(f"app: /benchmark of {SERVER_BENCH_SAMPLES} samples: {bench['time_per_sample_ms']} ms a sample served, "
+            f"{bench['done']} samples; device {json.dumps(fingerprint['accelerator'])}, "
+            f"power limit {fingerprint.get('powerLimit')}")
+        if cuda and (fingerprint["accelerator"]["kind"] != torch.cuda.get_device_name(0)
+                     or not fingerprint.get("powerLimit")):
+            raise SystemExit(f"app: the benchmark's device lacks the card or its power limit: {fingerprint}")
+        state = json.loads(http(base, "/state")[2])
+        if state["error"] is not None:
+            raise SystemExit(f"app: the server reports {state['error']}")
+    finally:
+        s.stop()
+        server_mod.encode_png = encode_png
+    if s._render_thread.is_alive():
+        raise SystemExit("app: the render thread outlived stop()")
+    launches = dict(kernels.LAUNCHES)
+    full = [(ms, n) for ms, shape, n in encode_ms if shape == (height, width)]
+    ms = [v for v, _ in full]
+    log(f"app: frames served a second at {width}x{height}: " + ", ".join(f"{m} {v:.2f}" for m, v in fps.items())
+        + f"; PNG encode of a {width}x{height} frame: median {np.median(ms):.2f} ms over {len(ms)} frames "
+        f"(min {min(ms):.2f}, max {max(ms):.2f}), {np.median([n for _, n in full]) / 1e3:.0f} kB")
+    log(f"app: launches over the server's run {launches}; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"host after the server: {host_probe()}")
+    if cuda:
+        for name in APP_KERNELS:
+            if launches[name] <= 0:
+                raise SystemExit(f"kernel {name} was not launched on the app path")
+        t0 = time.perf_counter()
+        hold_app_kernels(r, s.preview_scale)
+        log(f"app: the path's kernels held on the server's renderer in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def gradient_and_debug_hits(grid, width: int, height: int) -> None:
+    """Through the Renderer on the card at width x height: in each mode
+    gradient-shaded samples (one launch of each leg), timed and one
+    profiled, then one more with each kernel of the sample held bit for bit
+    at every call (hold_frame_kernels); a debug-hits sample, timed and
+    profiled, which launches no leg and no LUT fetch, and its image() one
+    K4."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+
+    legs = {name for names in MODE_LEGS.values() for name in names}
+    for mode, (camera, shadow) in MODE_LEGS.items():
+        r = bench_renderer(grid, width, height, "cuda", mode)
+        r.settings.gradient_shading = True
+        r.render_frame()
+        ms = []
+        for _ in range(GRADIENT_SAMPLES):
+            torch.cuda.synchronize()
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1000)
+            sample = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
+        log(f"gradient shading ({mode}, {width}x{height}): {', '.join(f'{v:.3f}' for v in ms)} ms a sample; "
+            f"launches a sample {sample}")
+        if (sample.get(camera), sample.get(shadow)) != (1, 1):
+            raise SystemExit(f"a gradient-shaded {mode} sample launched its legs {sample}")
+        log_device_profile(f"gradient shading ({mode})", r.render_frame, float(np.median(ms)))
+        hold_frame_kernels(r, "gradient shading")
+        del r
+        torch.cuda.empty_cache()
+    r = bench_renderer(grid, width, height, "cuda")
+    r.settings.debug_hits = True
+    r.render_frame()
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    r.render_frame()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000
+    frame = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
+    before = dict(kernels.LAUNCHES)
+    img = r.image()
+    shown = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
+    log(f"debug hits ({width}x{height}): {ms:.3f} ms a sample, launches {frame} (gather_f32: the environment "
+        f"behind the box); image() launches {shown}")
+    log_device_profile("debug hits", r.render_frame, ms)
+    if (legs | {"lookup_transfer", "shearwarp_intermediate", "tonemap"}) & set(frame) or shown != {"tonemap": 1}:
+        raise SystemExit(f"a debug-hits sample launched {frame} and its image() {shown}")
+    check_image(img, width, height, "debug hits")
+
+
+def cli_path(tmp: Path) -> None:
+    """`python -m volxel_tpu_torch render` (CLI_RENDER) and `info` in
+    subprocesses from this checkout, on the card; the PNG is decoded here."""
+    from volxel_tpu_torch.utils.png import decode_png
+
+    root = Path(__file__).resolve().parent
+    out = tmp / "cli.png"
+    for args in ((*CLI_RENDER, "--out", str(out)), ("info",)):
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "volxel_tpu_torch", *args], cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        if run.returncode != 0:
+            raise SystemExit(f"python -m volxel_tpu_torch {' '.join(args)} exited {run.returncode}:\n"
+                             f"{run.stderr[-3000:]}")
+        log(f"cli: {' '.join(args[:1])} in {time.perf_counter() - t0:.2f} s: "
+            + " | ".join(line.strip() for line in run.stdout.strip().splitlines()[-4:]))
+    img = decode_png(out.read_bytes())
+    size = tuple(int(v) for v in CLI_RENDER[CLI_RENDER.index("--size") + 1].split("x"))
+    if img.shape != (size[1], size[0], 3) or not img.max() > 0:
+        raise SystemExit(f"the CLI's PNG is {img.shape} with max {img.max()}")
+    if "native ingest: available" not in run.stdout or '"platform": "gpu"' not in run.stdout:
+        raise SystemExit(f"`info` did not report the card and the native library: {run.stdout}")
 
 
 def main() -> int:
@@ -2053,8 +2455,16 @@ def main() -> int:
     del vol
     log(f"scene: {args.size}^3 synthetic CT volume, brick grid built in {time.perf_counter() - t0:.2f} s")
 
-    # phase 2b: ingest and the reference benchmark, through the entry points
-    ingest_and_reference_benchmark(args.size, ENV_SIZE, args.width, args.height, REFERENCE_SPEC)
+    with tempfile.TemporaryDirectory(prefix="volxel_smoke_") as tmpdir:
+        # phase 2b: ingest and the reference benchmark, through the entry points
+        zip_path, env_path = ingest_and_reference_benchmark(args.size, ENV_SIZE, args.width, args.height,
+                                                            REFERENCE_SPEC, Path(tmpdir))
+        torch.cuda.empty_cache()
+        # phase 2c: the app path, with the counters at 0 before the server's
+        app_server(zip_path, env_path)
+        torch.cuda.empty_cache()
+        gradient_and_debug_hits(grid, args.width, args.height)
+        cli_path(Path(tmpdir))
     torch.cuda.empty_cache()
 
     # phase 3: each kernel against its plain version at the main paths' shapes
@@ -2085,6 +2495,8 @@ def main() -> int:
     # phase 5: card against CPU at a small size, in every mode and the preview
     for mode in ("default", "raymarch", "no_dda"):
         parity(grid, args.parity_size, mode)
+        parity(grid, args.parity_size, mode, "gradient_shading")
+        parity(grid, args.parity_size, mode, "debug_hits")
     preview_parity(grid, args.parity_size)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -12,6 +12,8 @@ contract against the JAX renderer.
 from __future__ import annotations
 
 import json
+import socket
+import urllib.error
 from pathlib import Path
 
 import numpy as np
@@ -171,8 +173,13 @@ def test_from_attributes_local_paths(inputs, tmp_path):
                                       settings_path=tmp_path / "settings.json", render_mode="no_dda", device="cpu")
     assert plain.render_mode == "no_dda" and plain.env_strength == 2.5
     assert plain.grid.brick_counter > 0
-    with pytest.raises(NotImplementedError):
-        TRenderer.from_attributes(width=W, height=H, zip_url="http://localhost/ct.zip", device="cpu")
+    # zip_url is fetched (tests/test_torch_app.py serves one): a port
+    # bound on 127.0.0.1 that does not listen refuses the connection
+    with socket.socket() as closed:
+        closed.bind(("127.0.0.1", 0))
+        with pytest.raises(urllib.error.URLError):
+            TRenderer.from_attributes(width=W, height=H, zip_url=f"http://127.0.0.1:{closed.getsockname()[1]}/ct.zip",
+                                      device="cpu")
 
 
 def _write_slices(folder: Path) -> Path:

@@ -13,6 +13,9 @@ both default-mode legs, both no_dda legs and the tonemap (built with
 --fmad=true so that logf and powf round as ATen's log and pow do, with
 every other f32 operation written as a never-contracted intrinsic), and
 the pyramid (its plain version sums each 2x2 block in the kernel's order).
+The app layer on the card: gradient shading's legs bit-equal at every
+call, debug hits within 1e-5 of the CPU, a frame and a drag preview served
+by PreviewServer.step(), the PNG of image() read back exactly.
 """
 
 from __future__ import annotations
@@ -1002,3 +1005,91 @@ def test_render_after_zip_matches_cpu(cuda_device, mode):
     assert float((rel.max(axis=-1) < 1e-3).mean()) > 0.98
     assert float(np.median(rel)) < 1e-4
     assert abs(gpu.mean() - cpu.mean()) < 5e-3 * max(cpu.mean(), 1e-3) and cpu.mean() > 0
+
+
+# the legs of each mode: (name in render.modes, the CUDA entry, the plain version)
+_MODE_LEGS = {
+    "default": (("dda_leg_sample", ddaleg.dda_leg_sample_cuda, ddaleg.dda_leg_sample_plain),
+                ("dda_leg_shadow", ddaleg.dda_leg_shadow_cuda, ddaleg.dda_leg_shadow_plain)),
+    "raymarch": (("tile_march_sample", tilemarch.tile_march_sample_cuda, tilemarch.tile_march_sample_plain),
+                 ("tile_march_transmittance", tilemarch.tile_march_transmittance_cuda,
+                  tilemarch.tile_march_transmittance_plain)),
+    "no_dda": (("track_leg_sample", trackleg.track_leg_sample_cuda, trackleg.track_leg_sample_plain),
+               ("track_leg_shadow", trackleg.track_leg_shadow_cuda, trackleg.track_leg_shadow_plain)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "raymarch", "no_dda"])
+def test_gradient_shading_legs_bit_equal_at_every_call(cuda_device, monkeypatch, mode):
+    """A gradient-shaded sample calls each leg of its mode once (the shadow
+    leg from the hit points, on the lanes that hit); at each call the
+    kernel equals its plain version on every output."""
+    r = _renderer(cuda_device, side=48)
+    r.render_mode = mode
+    r.settings.gradient_shading = True
+    calls = []
+
+    def held(name, cuda_fn, plain_fn):
+        def call(*args):
+            got = cuda_fn(*args)
+            _assert_bits_equal(got, plain_fn(*args))
+            calls.append(name)
+            return got
+        return call
+
+    for name, cuda_fn, plain_fn in _MODE_LEGS[mode]:
+        monkeypatch.setattr(modes, name, held(name, cuda_fn, plain_fn))
+    for _ in range(2):
+        fb = r.render_frame()
+    assert calls == [name for name, *_ in _MODE_LEGS[mode]] * 2
+    assert bool(torch.isfinite(fb).all()) and float(fb.mean()) > 0
+
+
+@pytest.mark.cuda
+def test_debug_hits_on_the_card_launch_no_leg(cuda_device):
+    r = _renderer(cuda_device, side=32)
+    r.settings.debug_hits = True
+    kernels.reset_launch_counts()
+    r.render_frame()
+    ran = {name for name, count in kernels.LAUNCHES.items() if count}
+    assert ran <= {"gather_f32"}  # the environment behind the box
+    cpu = _renderer("cpu", side=32)
+    cpu.settings.debug_hits = True
+    cpu.render_frame()
+    torch.testing.assert_close(r._framebuffer.cpu(), cpu._framebuffer, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_served_frame_through_the_preview_server_on_the_card(cuda_device):
+    """PreviewServer.step() on a renderer on the card: a progressive frame
+    (each leg once a bounce, K4 once), then a drag preview (K7 and K4);
+    each PNG decodes to its size."""
+    from volxel_tpu_torch.api.server import PreviewServer
+    from volxel_tpu_torch.utils.png import decode_png
+
+    s = PreviewServer(_renderer(cuda_device, side=32), port=0)
+    kernels.reset_launch_counts()
+    assert s.step() == "frame"
+    assert decode_png(s._png).shape == (32, 32, 3)
+    bounces = s.renderer.settings.bounces
+    assert kernels.LAUNCHES["dda_leg_sample"] == kernels.LAUNCHES["dda_leg_shadow"] == bounces
+    assert kernels.LAUNCHES["tonemap"] == 1
+    s._commands.put({"type": "rotate", "by": [0.2, 0.1]})
+    assert s.step() == "preview"
+    assert decode_png(s._png).shape == (16, 16, 3)
+    assert kernels.LAUNCHES["shearwarp_intermediate"] == 1 and kernels.LAUNCHES["tonemap"] == 2
+    assert s.last_error is None
+
+
+@pytest.mark.cuda
+def test_png_of_image_on_the_card(cuda_device, tmp_path):
+    from volxel_tpu_torch.utils.png import decode_png, write_png
+
+    r = _renderer(cuda_device, side=40)
+    img = r.render(6)
+    rgb = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    write_png(tmp_path / "frame.png", rgb)
+    got = decode_png((tmp_path / "frame.png").read_bytes())
+    np.testing.assert_array_equal(got, rgb)
+    assert got.shape == (40, 40, 3) and got.max() > 0

@@ -207,16 +207,23 @@ def _jax_scene_state():
     return jax.tree_util.tree_map(np.asarray, (params, lut, env))
 
 
-def test_unported_modes_raise():
-    """What is still unported raises with a pointer to the roadmap; every
-    render mode renders."""
+@pytest.mark.parametrize("name", ["debug_hits", "gradient_shading", "warmup_low_res"])
+def test_settings_render(name):
+    """Each of these settings renders a finite frame through render_frame()
+    and image()."""
     r = TRenderer(8, 8, device="cpu")
     r.restart_from_grid(torch_construct(_volume()))
-    for name in ("debug_hits", "gradient_shading", "warmup_low_res"):
-        setattr(r.settings, name, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            r.render_frame()
-        setattr(r.settings, name, False)
+    setattr(r.settings, name, True)
+    for _ in range(7):  # past warmup_low_res's five preview frames
+        fb = r.render_frame()
+        img = r.image()
+        assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert bool(torch.isfinite(fb).all()) and float(fb.mean()) > 0
+
+
+def test_unported_modes_raise():
+    """A render mode the port does not have raises; every render mode of
+    the JAX package has its two legs."""
     for mode in ("default", "no_dda", "raymarch"):
         assert len(tmodes.get_mode_functions(mode)) == 2
     with pytest.raises(ValueError):
@@ -256,8 +263,9 @@ def test_premul_majorant_built_for_default_mode_only(monkeypatch):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter renders 16x16 with the port on the CPU, in the
-    default mode and then one frame each of raymarch and no_dda, and never
-    loads jax or volxel_tpu; every kernel launch counter stays 0."""
+    default mode and then one frame each of raymarch and no_dda, imports the
+    preview server and the CLI, and never loads jax or volxel_tpu; every
+    kernel launch counter stays 0."""
     code = """
 import sys, json
 import numpy as np
@@ -273,6 +281,7 @@ for mode in ("raymarch", "no_dda"):
     r.render_mode = mode
     fb = r.render_frame()
     means.append(float(fb.mean()) if bool(fb.isfinite().all()) else -1.0)
+import volxel_tpu_torch.api.server, volxel_tpu_torch.__main__
 print(json.dumps({"jax": "jax" in sys.modules, "volxel_tpu": "volxel_tpu" in sys.modules,
                   "launches": kernels.LAUNCHES, "finite": bool(np.isfinite(img).all()), "means": means}))
 """

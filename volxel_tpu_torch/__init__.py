@@ -9,11 +9,20 @@ package imports neither JAX nor volxel_tpu.
 
 Layer map (the module names follow volxel_tpu):
   grid/       numpy brick-grid builder (copy of volxel_tpu.grid)
-  scene/      camera and volume transforms (numpy copies), environment
-  transfer/   1D RGBA transfer-function LUTs (numpy copy)
+  ingest/     DICOM, ZIP, HDR and EXR decoders (numpy copies); native/
+              their C++ helpers
+  scene/      camera, volume transforms and clip-box interaction (numpy
+              copies), environment
+  transfer/   1D RGBA transfer-function LUTs and the colour ramp (numpy
+              copies)
   render/     rng, rays, sampling, the three modes and their legs
-              (ddaleg, trackleg, tilemarch), path tracer, preview, tonemap
-  api/        Renderer facade, settings JSON (numpy copy), JAX-state import
+              (ddaleg, trackleg, tilemarch), path tracer, gradient
+              shading, preview, tonemap
+  api/        Renderer facade, settings JSON (numpy copy), JAX-state
+              import, benchmark, checkpoint, time series, preview server
+  utils/      fixtures, profiling, overlay, light cube, histogram view
+              (numpy copies), PNG writer
+  __main__    the CLI: render, ingest, benchmark, serve, info
   csrc/       CUDA sources: dda_leg and track_leg (sharing
               leg_common.cuh), tile_march, gather, importance_pyramid,
               tonemap, shearwarp

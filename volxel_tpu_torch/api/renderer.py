@@ -4,26 +4,31 @@ Owns the scene (volume, camera, environment, transfer LUT), the viewer
 settings and the progressive accumulation loop, with the reference web
 component's surface (viewer.ts:111+):
 
-  from_attributes (local paths)             (viewer.ts:112, 840-848)
+  from_attributes (local paths or URLs)     (viewer.ts:112, 840-848)
   restart_from_files / restart_from_zip / restart_from_grid
                                             (viewer.ts:963-1017)
   load_env / load_env_default               (viewer.ts:1019-1040)
   restore_settings / export_settings        (viewer.ts:626-762)
   render_frame / render / image / raw_image (viewer.ts:1183-1293)
   render_mode property                      (viewer.ts:1442-1452)
+  handle_error / clear_error / suspend      (viewer.ts:797-821)
+  image(show_clipping=) / make_clip_controller
+                                            (viewer.ts:1267-1288, 1359-1440)
   render_dvr / render_preview               (shear-warp preview, an extension)
 
 Progressive semantics: samples 0..4 are warm-up (weight 0, each overwrites
 the buffer — viewer.ts:132,1356), accumulation starts at sample 5 as a
-running average.
+running average. With settings.warmup_low_res the warm-up samples render at
+0.33 resolution into a display-only preview instead (viewer.ts:132,
+1185-1188).
 
 Every tensor lives on the `device` the renderer was made for: the card
 (`"cuda"`) unless the caller names another, such as the CPU, where every
 kernel takes its plain version. ZIP/DICOM series and HDR/EXR environments
 are decoded on the host (`ingest/`, with the native library of `native/`
-where it builds) and uploaded to that device. Errors propagate to the
-caller: the JAX package's error state (`handle_error`, `suspend`) and its
-URL loaders are not ported.
+where it builds) and uploaded to that device; `zip_url` and `env_url` are
+fetched with urllib. A failed load puts the renderer in its error state,
+which gates restarts and render_frame until clear_error().
 """
 
 from __future__ import annotations
@@ -47,8 +52,23 @@ from volxel_tpu_torch.render.pathtrace import (
 from volxel_tpu_torch.render.sampling import VolumeParams, device_grid_from_brick
 from volxel_tpu_torch.scene.camera import Camera
 from volxel_tpu_torch.scene.environment import Environment, default_environment
+from volxel_tpu_torch.scene.interaction import ClipBoxController
 from volxel_tpu_torch.scene.volume import Volume
-from volxel_tpu_torch.transfer.function import DEFAULT_COLOR_STOPS, generate_transfer_function
+from volxel_tpu_torch.transfer.function import (
+    DEFAULT_COLOR_STOPS,
+    generate_transfer_function,
+    parse_transfer_function,
+)
+from volxel_tpu_torch.utils.overlay import draw_clip_box
+
+def _fetch_url(url: str) -> bytes:
+    """GET a resource — the fetch() behind restartFromZipUrl /
+    loadEnvFromUrl (viewer.ts:991-1003,1035-1040). Raises on non-2xx
+    like the reference's response.ok check."""
+    from urllib.request import urlopen
+
+    with urlopen(url) as resp:  # noqa: S310 — caller-provided URL by design
+        return resp.read()
 
 
 class Renderer:
@@ -76,6 +96,16 @@ class Renderer:
         self._framebuffer = torch.zeros((self.height * self.width, 3), dtype=torch.float32, device=self.device)
         # the preview's permuted volumes per (perm, flip), for one dense field
         self._preview_vol_cache: tuple | None = None
+        # the low-res warm-up's last sample, (width, height, sample)
+        self._warmup_preview: tuple | None = None
+
+        # error handling (viewer.ts:797-821): a failed load suspends
+        # rendering and gates further restarts until cleared
+        self.errored: bool = False
+        self.last_error: Exception | None = None
+        self.suspend: bool = False
+        # the clip-box controller image(show_clipping=True) highlights
+        self.clip_controller = None  # made by make_clip_controller()
 
     def _to_device(self, array) -> torch.Tensor:
         return torch.as_tensor(np.asarray(array, dtype=np.float32)).to(self.device)
@@ -99,10 +129,11 @@ class Renderer:
         """Declarative construction — the embed-attribute contract
         (data-zip-url / data-urls / data-settings-url / data-env-url /
         data-render-mode / data-benchmark-url, viewer.ts:112,
-        index.html:24-33), from local paths.
+        index.html:24-33), with local paths OR http(s) URLs.
 
-        `zip_url` / `env_url` are not ported: nothing is fetched, and
-        either raises NotImplementedError.
+        `zip_url` / `env_url` fetch over HTTP like the reference's
+        restartFromZipUrl / loadEnvFromUrl (viewer.ts:991-1003,1035-1040);
+        the corresponding `*_path` argument wins if both are given.
 
         `benchmark_path` mirrors `attributeBenchmark` (viewer.ts:840-848):
         after construction the benchmark collection is run immediately and
@@ -110,16 +141,18 @@ class Renderer:
         entry's `zip` and `env` name files beside the spec."""
         from pathlib import Path
 
-        if zip_url is not None or env_url is not None:
-            raise NotImplementedError("loading from a URL is not ported (ROADMAP.md, queue 1)")
         r = cls(width=width, height=height, device=device)
         if zip_path is not None:
             r.restart_from_zip(Path(zip_path).read_bytes())
         elif files_dir is not None:
             paths = sorted(p for p in Path(files_dir).iterdir() if p.is_file())
             r.restart_from_files(paths)
+        elif zip_url is not None:
+            r.restart_from_zip(_fetch_url(zip_url))
         if env_path is not None:
             r.load_env(Path(env_path).read_bytes())
+        elif env_url is not None:
+            r.load_env(_fetch_url(env_url))
         if settings_path is not None:
             from volxel_tpu_torch.api.settings import load_settings
 
@@ -143,8 +176,22 @@ class Renderer:
 
     # -- volume loading (viewer.ts:963-1017, 1080-1145) ------------------------
 
+    def handle_error(self, error: Exception) -> None:
+        """Central error sink: suspend rendering, keep the error
+        (reference handleError, viewer.ts:797-821)."""
+        self.errored = True
+        self.last_error = error
+        self.suspend = True
+
+    def clear_error(self) -> None:
+        self.errored = False
+        self.last_error = None
+        self.suspend = False
+
     def restart_from_grid(self, grid: BrickGrid) -> None:
         """setupFromGrid: reset clip/scale, unit-cube rescale, upload."""
+        if self.errored:
+            return  # restarts are gated while errored (viewer.ts:1156)
         self.grid = grid
         self.density_scale = 1.0
         self.settings.volume_clip_min = [0.0, 0.0, 0.0]
@@ -155,12 +202,22 @@ class Renderer:
         self.restart_rendering()
 
     def restart_from_files(self, sources: list) -> None:
-        """DICOM slices (paths or bytes), in the order given."""
-        self.restart_from_grid(read_dicoms_to_grid(sources))
+        """DICOM slices (paths or bytes), in the order given. A failure
+        puts the renderer in its error state and propagates."""
+        try:
+            self.restart_from_grid(read_dicoms_to_grid(sources))
+        except Exception as e:
+            self.handle_error(e)
+            raise
 
     def restart_from_zip(self, source) -> None:
-        """A single-folder ZIP of DICOM slices (path or bytes)."""
-        self.restart_from_grid(read_zip_to_grid(source))
+        """A single-folder ZIP of DICOM slices (path or bytes). A failure
+        puts the renderer in its error state and propagates."""
+        try:
+            self.restart_from_grid(read_zip_to_grid(source))
+        except Exception as e:
+            self.handle_error(e)
+            raise
 
     # -- environment (viewer.ts:1019-1040, 1074-1078) --------------------------
 
@@ -200,6 +257,13 @@ class Renderer:
         self._lut = self._to_device(rgba_rows)
         self.restart_rendering()
 
+    def load_transfer_function(self, text: str) -> None:
+        """Load an `r g b density` text transfer function (data.ts:5-14)."""
+        rows = parse_transfer_function(text)
+        if not rows:
+            raise ValueError("No transfer function rows parsed")
+        self.set_transfer_full(rows)
+
     # -- render mode (viewer.ts:1442-1452) --------------------------------------
 
     @property
@@ -222,10 +286,21 @@ class Renderer:
         factor = float(self.settings.resolution_factor)
         return max(1, round(self.width * factor)), max(1, round(self.height * factor))
 
+    def _render_warmup_preview(self) -> None:
+        """One low-res warm-up sample (0.33 resolutionFactor) into the
+        display-only preview buffer; each frame replaces the previous
+        (the reference's warm-up frames have sample_weight 0)."""
+        full = self._config()
+        w = max(1, round(full.width * 0.33))
+        h = max(1, round(full.height * 0.33))
+        inv_view, inv_proj, light_dir = self._camera_operands(full)  # the full frame's aspect
+        sample = render_sample(
+            full._replace(width=w, height=h), self._device_grid, self.volume_params(), self._lut,
+            self.environment.state, inv_view, inv_proj, light_dir, self.frame_index,
+        )
+        self._warmup_preview = (w, h, sample)
+
     def _config(self) -> RenderConfig:
-        for name in ("debug_hits", "gradient_shading", "warmup_low_res"):
-            if getattr(self.settings, name):
-                raise NotImplementedError(f"setting {name} is not ported yet (ROADMAP.md, queue 1)")
         w, h = self._render_dims()
         return RenderConfig(
             width=w,
@@ -234,6 +309,8 @@ class Renderer:
             bounces=int(self.settings.bounces),
             show_environment=bool(self.settings.show_environment),
             use_env=bool(self.settings.use_env),
+            debug_hits=bool(self.settings.debug_hits),
+            gradient_shading=bool(self.settings.gradient_shading),
             physical_shadows=bool(self.settings.physical_shadows),
             physical_majorant=bool(self.settings.physical_majorant),
             physical_pdf=bool(self.settings.physical_pdf),
@@ -271,13 +348,44 @@ class Renderer:
         )
         return inv_view, inv_proj, self._to_device(self.settings.light_dir)
 
+    def maybe_sync_light(self) -> None:
+        """Backlight mode (viewer.ts:789-795): when syncLightDir is on,
+        the light points from the camera toward the look-at target."""
+        if self.settings.sync_light_dir:
+            diff = self.camera.view - self.camera.pos
+            self.settings.light_dir = [float(-v) for v in diff]
+            self.restart_rendering()
+
+    def sample_weight(self) -> float:
+        """viewer.ts:1356"""
+        f = self.frame_index
+        if f < WARMUP_SAMPLES:
+            return 0.0
+        return (f - WARMUP_SAMPLES) / (f - WARMUP_SAMPLES + 1)
+
     def render_frame(self) -> torch.Tensor:
         """Render one progressive sample and fold it into the accumulator.
 
-        Returns the accumulated (linear, pre-tonemap) framebuffer.
+        Returns the accumulated (linear, pre-tonemap) framebuffer. Raises
+        while errored; while suspended, renders nothing. With
+        warmup_low_res the warm-up frames render the low-res preview and
+        leave the accumulator alone (they have zero weight).
         """
         if self._device_grid is None:
             raise RuntimeError("No volume loaded")
+        if self.errored:
+            raise RuntimeError("Renderer is in an error state (clear_error() to resume)") from self.last_error
+        if self.suspend:
+            return self._framebuffer
+        if self.settings.warmup_low_res and self.frame_index < WARMUP_SAMPLES:
+            self._render_warmup_preview()
+            self.frame_index += 1
+            return self._framebuffer
+        self._warmup_preview = None
+        return self._accumulate_frame()
+
+    def _accumulate_frame(self) -> torch.Tensor:
+        """One full-resolution sample folded into the accumulator."""
         config = self._config()
         n = config.width * config.height
         if self._framebuffer.shape[0] != n:
@@ -300,23 +408,54 @@ class Renderer:
         frames [WARMUP_SAMPLES, samples), whatever was rendered before:
         warm-up frames carry zero weight and frame WARMUP_SAMPLES overwrites
         the accumulator (viewer.ts:1356), so rendering those frames in order
-        gives that mean. The frame index then stands at `samples`.
+        gives that mean, at full resolution whatever warmup_low_res says
+        (as the JAX package's batches do, which also pass by the error and
+        suspend gates). The frame index then stands at `samples`.
         """
         total = samples if samples is not None else self.settings.max_samples
         if total <= WARMUP_SAMPLES + 1:
             for _ in range(total):
                 self.render_frame()
             return self.image()
+        if self._device_grid is None:
+            raise RuntimeError("No volume loaded")
         self.frame_index = WARMUP_SAMPLES
         while self.frame_index < total:
-            self.render_frame()
+            self._accumulate_frame()
         return self.image()
 
-    def image(self) -> np.ndarray:
-        """Tonemapped (height, width, 3) float32 image, row 0 = top."""
+    def image(self, show_clipping: bool = False) -> np.ndarray:
+        """Tonemapped (height, width, 3) float32 image, row 0 = top.
+
+        During the low-res warm-up it is the preview, upsampled to full
+        size. show_clipping overlays the clip-box wireframe with the
+        hovered/held face highlighted (the reference's clipping cube pass,
+        viewer.ts:1267-1288).
+        """
         w, h = self._render_dims()
-        img = tonemap_display(self._framebuffer, self.settings.exposure, self.settings.gamma)
-        return img.cpu().numpy().reshape(h, w, 3)[::-1]  # GL row 0 is the bottom
+        preview = self._warmup_preview
+        if preview is not None and self.frame_index <= WARMUP_SAMPLES:
+            pw, ph, sample = preview
+            img = tonemap_display(sample, self.settings.exposure, self.settings.gamma)
+            img = img.cpu().numpy().reshape(ph, pw, 3)[::-1]
+            img = np.repeat(np.repeat(img, -(-h // ph), axis=0), -(-w // pw), axis=1)[:h, :w]
+        else:
+            img = tonemap_display(self._framebuffer, self.settings.exposure, self.settings.gamma)
+            img = img.cpu().numpy().reshape(h, w, 3)[::-1]  # GL row 0 is the bottom
+        if show_clipping and self.volume is not None:
+            lo, hi = self.volume.aabb_clipped(self.settings.volume_clip_min, self.settings.volume_clip_max)
+            ctl = self.clip_controller
+            img = draw_clip_box(
+                img, lo, hi, self.camera.view_matrix(), self.camera.proj_matrix(w / h),
+                selected_face=ctl._last_face if ctl else None,
+                adjusting=ctl.adjusting if ctl else False,
+            )
+        return img
+
+    def make_clip_controller(self):
+        """Attach and return a ClipBoxController for interactive editing."""
+        self.clip_controller = ClipBoxController(self)
+        return self.clip_controller
 
     def raw_image(self) -> np.ndarray:
         """Linear accumulated radiance, (height, width, 3), row 0 = top."""

@@ -21,17 +21,21 @@ import torch
 from volxel_tpu_torch.render.modes import build_premul_majorant, get_mode_functions
 from volxel_tpu_torch.render.pallas_ops import tonemap_plain
 from volxel_tpu_torch.render.rays import (
+    Rays,
     camera_rays,
     luma,
     phase_henyey_greenstein,
     power_heuristic,
+    ray_box_intersection,
     sample_phase_henyey_greenstein,
     sanitize,
 )
 from volxel_tpu_torch.render.rng import rng2, rng2_where, rng_where, seed_rays
 from volxel_tpu_torch.render.sampling import DeviceGrid, VolumeParams
+from volxel_tpu_torch.render.shading import trace_shaded
 from volxel_tpu_torch.scene.environment import (
     EnvState,
+    background_color,
     lookup_environment,
     lookup_environment_light,
     pdf_environment,
@@ -49,6 +53,9 @@ class RenderConfig(NamedTuple):
     bounces: int = 3
     show_environment: bool = True
     use_env: bool = True
+    debug_hits: bool = False
+    hide_envmap: bool = False  # debug hits' background: a checker in place of the map
+    gradient_shading: bool = False  # first-hit Blinn-Phong (render.shading)
     # extension: unbiased ratio-tracking shadow transmittance instead of
     # the reference's binary-shadow quirk (modes.transmittance_dda)
     physical_shadows: bool = False
@@ -151,6 +158,16 @@ def trace_path(
     return state, radiance
 
 
+def _debug_hits(config, params, env, light_dir, origin, direction):
+    """u_debugHits mode (fragment.frag:147-153): the box entry point's
+    position inside the box as a colour, the background elsewhere."""
+    hit, near, far = ray_box_intersection(Rays(origin, direction), params.aabb_lo, params.aabb_hi)
+    hit_min = torch.where((near < 0.0)[..., None], origin, origin + near[..., None] * direction)
+    rgb_hit = (hit_min - params.aabb_lo) / (params.aabb_hi - params.aabb_lo)
+    bg = background_color(env, direction, config.hide_envmap, light_dir)
+    return torch.where(hit[..., None], rgb_hit, bg)
+
+
 def render_pixels(
     config: RenderConfig,
     grid: DeviceGrid,
@@ -168,10 +185,18 @@ def render_pixels(
     pixel_index is any int64 subset of [0, width*height); RNG seeding
     depends only on the global pixel index + frame, so a subset renders
     the same per-pixel values as the whole frame.
+
+    debug_hits colours each pixel by where its ray enters the box and runs
+    no leg; gradient_shading shades each ray's first hit
+    (shading.trace_shaded) with the mode's two legs.
     """
-    if config.mode == "default" and grid.maj_alpha is None:
+    if config.mode == "default" and grid.maj_alpha is None and not config.debug_hits:
         grid = with_premul_majorant(config, grid, params, lut)
     state, rays = camera_wavefront(config, inv_view, inv_proj, pixel_index, frame_index)
+    if config.debug_hits:
+        return _debug_hits(config, params, env, light_dir, rays.origin, rays.direction)
+    if config.gradient_shading:
+        return trace_shaded(config, grid, params, lut, env, light_dir, rays.origin, rays.direction, state)[1]
     state, radiance = trace_path(config, grid, params, lut, env, light_dir, rays.origin, rays.direction, state)
     return sanitize(radiance)
 

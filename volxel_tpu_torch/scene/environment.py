@@ -262,3 +262,20 @@ def pdf_environment(env: EnvState, direction, physical: bool = False):
         return texel / avg_w / (2.0 * math.pi * math.pi * torch.clamp_min(sin_t, 1e-6))
     le = lookup_environment(env, direction)
     return luma(le) / avg_w * (1.0 / (4.0 * math.pi))
+
+
+def background_color(env: EnvState, direction, hide_envmap: bool, light_dir=None):
+    """get_background_color (environment.glsl:89-96) for debug-hits mode:
+    the environment, or with hide_envmap a faint checker."""
+    if not hide_envmap:
+        return lookup_environment(env, direction)
+    d = direction
+    xz = torch.tensor([1.0, 0.0, 1.0], dtype=torch.float32, device=d.device)
+    horiz = d / torch.clamp_min(torch.linalg.norm(d * xz, dim=-1, keepdim=True), 1e-8)
+    horiz = horiz * xz
+    angle_h = (torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=d.device) * horiz).sum(dim=-1) * 0.5 + 0.5
+    angle_h = torch.where(torch.round(angle_h * 8.0).to(torch.int32) % 2 == 0, 1.0, 0.0)
+    dn = d / torch.clamp_min(torch.linalg.norm(d, dim=-1, keepdim=True), 1e-8)
+    angle_v = (dn * horiz).sum(dim=-1)
+    angle_v = torch.where(torch.round(angle_v * 8.0).to(torch.int32) % 2 == 0, 0.0, 1.0)
+    return (torch.abs(angle_h - angle_v) * 0.05)[..., None] * torch.ones(3, dtype=torch.float32, device=d.device)
