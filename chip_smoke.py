@@ -53,6 +53,31 @@ Phases, each of which raises (exit code != 0) on failure:
    fetch; one K4 at image()). Then
    `python -m volxel_tpu_torch render --synthetic 256 --size 512x512
    --samples 16` and `info` in subprocesses, the PNG decoded here;
+2d. the mesh (parallel/), on the bench scene at the main paths' size: with
+   every launch counter at 0 before it, a DistributedRenderer on a 2x2
+   mesh whose four positions name the card, 3 steps (6 samples) in each
+   mode, each step timed beside four single samples, the framebuffer
+   bit-equal to the same steps replayed over single-position
+   render_sample calls, each leg four launches a step and the LUT fetch
+   one a default step; then one more step a mode profiled (device kernels,
+   busy ms, idle share) and one with every kernel held at every call
+   (hold_frame_kernels); render_views of 4 views in one wavefront (timed
+   and profiled, its peak memory, each leg one launch, each view bit-equal
+   to render_sample at frame * 4 + view; then one more call with every
+   kernel held at every call, at its 4 x 1080p lanes); two processes on the
+   card joined over gloo with sp = 2 spanning them (a first step equal to
+   the mean of samples 0 and 1 in each, process_info reporting 2
+   processes, the steps and the all_gather of a process's block timed), and NCCL in a
+   process group of one (its all_gather of a frame buffer); step_statistics in the default and no_dda
+   modes (the percentiles, the seconds, each leg one launch, then every
+   kernel it launched held bit-equal, budgets and events included);
+   PreviewServer over a 2x2 DistributedRenderer at 960x540, stepped
+   (frames, the server's benchmark counting sp samples a step, a drag
+   preview through K7), then on its renderer one frame with every kernel
+   held and one drag preview with K7 and K4 held;
+   `python -m volxel_tpu_torch serve --synthetic 64 --mesh 1,1,1` in a
+   subprocess (/state, /frame.png); sp = 2 over cuda:0 and cuda:1 where
+   the machine has two cards, else one line saying it was skipped;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -1798,28 +1823,46 @@ def spec_sample_kernels(mode: str) -> list:
              tilemarch.tile_march_transmittance_plain, ("state", "tau")), taps]
 
 
+def no_work(args, got):
+    return 0, 0
+
+
+def mask_lanes(args) -> int:
+    """The lanes of a leg call, by its 1-D bool mask of running lanes (0
+    for the table fetches, which take none)."""
+    import torch
+
+    return max((a.numel() for a in args if isinstance(a, torch.Tensor) and a.dtype == torch.bool and a.dim() == 1),
+               default=0)
+
+
+def held_sample_kernels(fn, mode: str) -> tuple:
+    """fn() with each kernel of a `mode` sample (spec_sample_kernels: the
+    legs, the map's taps and texels through gather_f32, the default mode's
+    LUT fetch) held bit for bit against its plain version at every call.
+    Returns fn's result and [(name, tally)] in the order of the checks."""
+    checks = spec_sample_kernels(mode)
+    with contextlib.ExitStack() as stack:
+        tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, mask_lanes, no_work))
+                   for module, name, cuda_fn, plain_fn, outputs in checks]
+        out = fn()
+    return out, [(name, tally) for (_, name, *_), tally in zip(checks, tallies)]
+
+
 def hold_frame_kernels(r, what: str) -> None:
-    """One render_frame() of `r` with each kernel of its mode's sample
-    (spec_sample_kernels: the legs, the map's taps and texels through
-    gather_f32, the default mode's LUT fetch) held bit for bit against its
-    plain version at every call, then K4 at image(); fails unless each was
+    """One render_frame() of `r` with each kernel of its mode's sample held
+    bit for bit against its plain version at every call
+    (held_sample_kernels), then K4 at image(); fails unless each was
     called. Launches made here are not the main path's."""
     import volxel_tpu_torch.render.pallas_ops as pallas_ops
 
-    def no_work(args, got):
-        return 0, 0
-
-    checks = spec_sample_kernels(r.render_mode)
-    with contextlib.ExitStack() as stack:
-        tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, lambda a: 0, no_work))
-                   for module, name, cuda_fn, plain_fn, outputs in checks]
-        r.render_frame()
+    _, tallies = held_sample_kernels(r.render_frame, r.render_mode)
     with compared_calls(pallas_ops, "tonemap_cuda", pallas_ops.tonemap_cuda, pallas_ops.tonemap_plain,
                         ("image",), lambda a: 0, no_work) as tonemap:
         img = r.image()
     # a warm-up frame renders, and image() tonemaps, the low-res preview
     w, h = r._warmup_preview[:2] if r._warmup_preview is not None else r._render_dims()
-    for (_, name, *_), tally in (*zip(checks, tallies), (("", "tonemap"), tonemap)):
+    for name, tally in (*tallies, ("tonemap", tonemap)):
         if tally["calls"] == 0:
             raise SystemExit(f"{name} was not called in one {r.render_mode} sample of {what}")
         log(f"{what}, {r.render_mode} ({w}x{h}): {name} bit-equal at all {tally['calls']} calls "
@@ -2141,16 +2184,8 @@ def hold_app_kernels(r, preview_scale: float) -> None:
     server's renderer `r` at the shapes the server gave it: one frame in
     each mode (every call of every bounce, hold_frame_kernels), one
     default-mode warm-up frame (its legs at 0.33 of the size and K4 on its
-    image()) and one drag preview at `preview_scale` (K7 bit-equal, or
-    within 1e-6 where only the card's expf and ATen's exp can round apart,
-    as check_shearwarp holds it; K4 bit-equal). Launches made here are not
-    the main path's."""
-    import volxel_tpu_torch.render.pallas_ops as pallas_ops
-    from volxel_tpu_torch.render import shearwarp
-
-    def no_work(args, got):
-        return 0, 0
-
+    image()) and one drag preview at `preview_scale` (hold_drag_preview).
+    Launches made here are not the main path's."""
     # default last: the server's warm-up frame was a default-mode one
     for mode in ("raymarch", "no_dda", "default"):
         r.render_mode = mode
@@ -2160,6 +2195,18 @@ def hold_app_kernels(r, preview_scale: float) -> None:
     hold_frame_kernels(r, "app path warm-up")
     r.settings.warmup_low_res = False
     r.restart_rendering()
+    hold_drag_preview(r, preview_scale, "app path")
+
+
+def hold_drag_preview(r, preview_scale: float, what: str) -> None:
+    """One drag preview of `r` at `preview_scale` with K7 held to its plain
+    version (bit-equal, or within 1e-6 where only the card's expf and
+    ATen's exp can round apart, as check_shearwarp holds it) and K4
+    bit-equal; fails unless each was called. Launches made here are not
+    the main path's."""
+    import volxel_tpu_torch.render.pallas_ops as pallas_ops
+    from volxel_tpu_torch.render import shearwarp
+
     with compared_calls(shearwarp, "shearwarp_intermediate_cuda", shearwarp.shearwarp_intermediate_cuda,
                         shearwarp.shearwarp_intermediate_plain, ("colour", "transmittance"), lambda a: 0, no_work,
                         atol=1e-6) as k7, \
@@ -2169,11 +2216,11 @@ def hold_app_kernels(r, preview_scale: float) -> None:
     h, w = img.shape[:2]
     for name, tally in (("shearwarp_intermediate", k7), ("tonemap", k4)):
         if tally["calls"] == 0:
-            raise SystemExit(f"{name} was not called in a {w}x{h} drag preview of the app path")
+            raise SystemExit(f"{name} was not called in a {w}x{h} drag preview of the {what}")
         agree = "bit-equal" if tally["equal"] else f"within 1e-6 (max abs {tally['err']:.3e})"
-        log(f"app path drag preview ({w}x{h}): {name} {agree} at all {tally['calls']} calls; kernel "
+        log(f"{what} drag preview ({w}x{h}): {name} {agree} at all {tally['calls']} calls; kernel "
             f"{tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms summed over them")
-    check_image(img, w, h, "the held drag preview")
+    check_image(img, w, h, f"the {what}'s held drag preview")
 
 
 def frames_per_second(served: list, mode: str) -> float:
@@ -2409,12 +2456,434 @@ def cli_path(tmp: Path) -> None:
         raise SystemExit(f"`info` did not report the card and the native library: {run.stdout}")
 
 
+# phase 2d: the mesh (parallel/). A DistributedRenderer on a 2x2 mesh whose
+# four positions name one card, in each mode; render_views; two processes
+# joined over gloo; step statistics; the preview server over a
+# DistributedRenderer and `serve --mesh 1,1,1`; positions on two cards
+# where the machine has them.
+MESH = (2, 2)  # sp, px
+MESH_STEPS = 3  # timed steps a mode, each sp samples
+VIEWS = 4
+MESH_SERVER_SIZE = (960, 540)
+MESH_BENCH_SAMPLES = 4
+MESH_WORKER_TIMEOUT = 420.0  # seconds, each of the two processes
+CLI_SERVE = ("serve", "--synthetic", "64", "--size", "320x180", "--mesh", "1,1,1")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_renderer(grid, width: int, height: int, mesh, mode: str = "default"):
+    """A DistributedRenderer on `mesh` with bench.py's scene and look."""
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+
+    r = DistributedRenderer(width, height, mesh=mesh)
+    r.restart_from_grid(grid)
+    r.render_mode = mode
+    r.settings.bounces = 1
+    bench_look(r)
+    return r
+
+
+def fenced_ms(fn, device) -> tuple:
+    """(output, host ms) of one call of `fn`, the device fenced before and after."""
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    fence_device(device)
+    t0 = time.perf_counter()
+    out = fn()
+    fence_device(device)
+    return out, (time.perf_counter() - t0) * 1000
+
+
+def mesh_steps(grid, width: int, height: int, device="cuda") -> dict:
+    """The 2x2 mesh on one device named four times, MESH_STEPS steps in
+    each mode, with every launch counter at 0 before the first mode: each
+    step timed, the framebuffer bit-equal to the replayed single-position
+    samples (tests/torch_mesh.py), each leg sp * px launches a step and the
+    LUT fetch one a default step (one card), four single samples timed
+    beside them, image() checked; then one more step profiled
+    (log_device_profile) and one with every kernel held at every call
+    (hold_frame_kernels). Returns the path's launch counts."""
+    import torch
+
+    from tests.torch_mesh import replayed_framebuffer
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.parallel import make_mesh
+    from volxel_tpu_torch.render.pathtrace import render_sample
+
+    cuda = torch.device(device).type == "cuda"
+    sp, px = MESH
+    mesh = make_mesh(sp=sp, px=px, devices=[device] * (sp * px))
+    kernels.reset_launch_counts()
+    for mode, legs in MODE_LEGS.items():
+        r = mesh_renderer(grid, width, height, mesh, mode)
+        before = dict(kernels.LAUNCHES)
+        step_ms = [fenced_ms(r.render_frame, device)[1] for _ in range(MESH_STEPS)]
+        per_step = {k: (kernels.LAUNCHES[k] - before[k]) / MESH_STEPS for k in kernels.LAUNCHES}
+        want = replayed_framebuffer(r, MESH_STEPS)
+        if not bits_equal(r._framebuffer, want):
+            raise SystemExit(f"mesh {sp}x{px} ({mode}): the framebuffer differs from the replayed single-position "
+                             f"samples (max abs {max_abs([r._framebuffer], [want])})")
+        ops = sample_operands(r)
+        singles = [fenced_ms(lambda i=i: render_sample(*ops, i), device)[1] for i in range(sp * px)]
+        img = r.image()
+        check_image(img, width, height, f"mesh {sp}x{px} ({mode}) image()")
+        log(f"mesh {sp}x{px} on one device ({mode}, {width}x{height}): steps of {sp} samples "
+            + ", ".join(f"{ms:.3f}" for ms in step_ms) + f" ms; {sp * px} single samples "
+            + ", ".join(f"{ms:.3f}" for ms in singles) + f" ms; framebuffer bit-equal to the replayed samples after "
+            f"{MESH_STEPS} steps ({r.samples_rendered()} samples); launches a step "
+            f"{ {k: v for k, v in per_step.items() if v} }")
+        if cuda and any(per_step[name] != sp * px * r.settings.bounces for name in legs):
+            raise SystemExit(f"mesh ({mode}): the legs launched {[per_step[n] for n in legs]} times a step")
+        if cuda and per_step["lookup_transfer"] != (1 if mode == "default" else 0):
+            raise SystemExit(f"mesh ({mode}): the LUT fetch launched {per_step['lookup_transfer']} times a step")
+        launches = dict(kernels.LAUNCHES)
+        if cuda:
+            log_device_profile(f"mesh {sp}x{px} step ({mode})", r.render_frame, float(np.median(step_ms[1:])))
+            hold_frame_kernels(r, f"mesh {sp}x{px} step")
+        kernels.LAUNCHES.update(launches)  # the profile's and the holds' launches are not the path's
+        del r
+    return dict(kernels.LAUNCHES)
+
+
+def mesh_views(grid, width: int, height: int, device="cuda") -> None:
+    """render_views of VIEWS views at width x height in the default mode:
+    one wavefront, each leg one launch a call, each view bit-equal to
+    render_sample at frame * VIEWS + view; its ms and peak memory beside
+    VIEWS single samples; then, after the counts are read, one more call
+    with every kernel it launches held bit for bit against its plain
+    version at every call, at the call's own shapes (VIEWS x width x
+    height lanes; held_sample_kernels), bit-equal to the first."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.parallel.multiview import render_views
+    from volxel_tpu_torch.render.pathtrace import render_sample
+
+    cuda = torch.device(device).type == "cuda"
+    r = bench_renderer(grid, width, height, device)
+    config = r._config()
+    cams = []
+    for _ in range(VIEWS):
+        r.camera.rotate_around_view(0.3, 0.0)
+        cams.append(r._camera_operands(config))
+    inv_views = torch.stack([c[0] for c in cams])
+    inv_projs = torch.stack([c[1] for c in cams])
+    ops = (r._device_grid, r.volume_params(), r._lut, r.environment.state)
+    frame = 1
+    render_views(config, *ops, inv_views, inv_projs, cams[0][2], frame)  # warm
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    before = dict(kernels.LAUNCHES)
+    views, ms = fenced_ms(lambda: render_views(config, *ops, inv_views, inv_projs, cams[0][2], frame), device)
+    calls = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES if kernels.LAUNCHES[k] != before[k]}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda else float("nan")
+    singles = []
+    for v in range(VIEWS):
+        one, one_ms = fenced_ms(lambda v=v: render_sample(config, *ops, cams[v][0], cams[v][1], cams[v][2],
+                                                          frame * VIEWS + v), device)
+        singles.append(one_ms)
+        if not bits_equal(views[v], one):
+            raise SystemExit(f"render_views: view {v} differs from render_sample at {frame * VIEWS + v} "
+                             f"(max abs {max_abs([views[v]], [one])})")
+    log(f"render_views ({VIEWS} views, {width}x{height}, default): {ms:.3f} ms a call, {peak:.1f} MiB peak above "
+        f"the operands; {VIEWS} single samples " + ", ".join(f"{v:.3f}" for v in singles) + " ms; every view "
+        f"bit-equal to render_sample at frame * {VIEWS} + view; launches a call {calls}")
+    if cuda and (calls.get("dda_leg_sample"), calls.get("dda_leg_shadow")) != (1, 1):
+        raise SystemExit(f"render_views launched its legs {calls} times in one call")
+    if cuda:
+        log_device_profile(f"render_views ({VIEWS} views)",
+                           lambda: render_views(config, *ops, inv_views, inv_projs, cams[0][2], frame), ms)
+        held, tallies = held_sample_kernels(
+            lambda: render_views(config, *ops, inv_views, inv_projs, cams[0][2], frame), "default")
+        for name, tally in tallies:
+            if tally["calls"] == 0:
+                raise SystemExit(f"{name} was not called in the held render_views call")
+            log(f"render_views ({VIEWS} views, {width}x{height}) held: {name} bit-equal at all {tally['calls']} "
+                f"calls ({tally['lanes']} leg lanes in all); kernel {tally['ms']:.4f} ms, plain {tally['plain_ms']:.4f} ms "
+                f"summed over them")
+        if not bits_equal(held, views):
+            raise SystemExit("render_views: the held call differs from the first")
+        legs = dict(tallies)
+        if legs["dda_leg_sample"]["lanes"] != VIEWS * width * height:
+            raise SystemExit(f"render_views: the held camera leg ran {legs['dda_leg_sample']['lanes']} lanes")
+
+
+def mesh_worker(addr: str, pid: int, size: int, width: int, height: int) -> None:
+    """One of two processes on the card, joined over gloo: the bench scene,
+    a DistributedRenderer whose sp = 2 spans the two processes (the mesh's
+    default, every card of every process); its first step is bit-equal to
+    the mean of samples 0 and 1 rendered here, and MESH_STEPS steps to the
+    replayed samples. Prints one JSON line."""
+    import torch
+
+    from tests.torch_mesh import replayed_framebuffer
+    from volxel_tpu_torch.grid import construct_brick_grid
+    from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, multihost, process_info
+    from volxel_tpu_torch.render.pathtrace import render_sample
+    from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+    t0 = time.perf_counter()
+    if not initialize_multihost(addr, 2, pid, backend="gloo"):
+        raise SystemExit("mesh worker: initialize_multihost did not join the group")
+    info = process_info()
+    vol = synthetic_ct_volume((size,) * 3, bits_stored=12, seed=0)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    del vol
+    r = mesh_renderer(grid, width, height, make_mesh(sp=2, px=1))
+    setup_s = time.perf_counter() - t0
+    step_ms = [fenced_ms(r.render_frame, r.device)[1]]
+    ops = sample_operands(r)
+    mean01 = (render_sample(*ops, 0) + render_sample(*ops, 1)) / 2
+    first = bits_equal(r._framebuffer, mean01)
+    step_ms += [fenced_ms(r.render_frame, r.device)[1] for _ in range(MESH_STEPS - 1)]
+    replayed = bits_equal(r._framebuffer, replayed_framebuffer(r, MESH_STEPS))
+    # the step's collective alone: the all_gather of this process's own (1, n, 3) f32 block
+    buf = torch.zeros((1, width * height, 3), dtype=torch.float32, device=r.device)
+    gather_ms = [fenced_ms(lambda: multihost.all_gather(buf), r.device)[1] for _ in range(MESH_STEPS)]
+    print(json.dumps({"pid": pid, "info": info, "mesh": repr(r.mesh), "first_step_is_mean_of_0_1": first,
+                      "replayed": replayed, "step_ms": step_ms, "gather_ms": gather_ms, "setup_s": setup_s,
+                      "mean": float(r._framebuffer.mean())}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def nccl_world_of_one(addr: str, width: int, height: int) -> None:
+    """A process group of one process on NCCL (NCCL refuses two ranks on
+    one card): multihost.all_gather of a frame-sized CUDA buffer of two
+    positions goes through NCCL unstaged and returns it unchanged. Prints
+    one JSON line."""
+    import torch
+
+    from volxel_tpu_torch.parallel import multihost
+
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://{addr}", world_size=1, rank=0)
+    buf = torch.rand((2, width * height, 3), device="cuda")
+    gathered, ms = fenced_ms(lambda: multihost.all_gather(buf), "cuda")
+    ok = (torch.distributed.get_backend() == "nccl" and len(gathered) == 1 and gathered[0].is_cuda
+          and bits_equal(gathered[0], buf))
+    print(json.dumps({"nccl_all_gather_equal": ok, "ms": ms}), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_processes(size: int, width: int, height: int) -> None:
+    """Two processes on the card (mesh_worker), over gloo: each reports 2
+    processes, a first step equal to the mean of samples 0 and 1 and the
+    replayed framebuffer after MESH_STEPS steps, and the ms of each step."""
+    addr = f"127.0.0.1:{free_port()}"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--mesh-worker", addr, str(pid),
+                               "--size", str(size), "--width", str(width), "--height", str(height)],
+                              cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p, *p.communicate(timeout=MESH_WORKER_TIMEOUT)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out, err in outs:
+        if p.returncode != 0:
+            raise SystemExit(f"mesh worker exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+        rec = json.loads(out.strip().splitlines()[-1])
+        if not (rec["info"]["process_count"] == 2 and rec["info"]["distributed"] and rec["first_step_is_mean_of_0_1"]
+                and rec["replayed"]):
+            raise SystemExit(f"mesh worker {rec['pid']}: {rec}")
+        log(f"two processes over gloo, sp=2 across them ({width}x{height}, default): process {rec['pid']} "
+            f"{rec['info']}, {rec['mesh']}; setup {rec['setup_s']:.2f} s; steps of 2 samples "
+            + ", ".join(f"{ms:.3f}" for ms in rec["step_ms"]) + " ms; the all_gather of its own block alone "
+            + ", ".join(f"{ms:.3f}" for ms in rec["gather_ms"]) + " ms; first step bit-equal to the mean of samples "
+            f"0 and 1, {MESH_STEPS} steps to the replayed samples; mean radiance {rec['mean']:.6f}")
+    log(f"two processes: {time.perf_counter() - t0:.1f} s in all")
+    run = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--mesh-nccl", f"127.0.0.1:{free_port()}",
+                          "--width", str(width), "--height", str(height)], cwd=root, capture_output=True, text=True,
+                         timeout=MESH_WORKER_TIMEOUT)
+    if run.returncode != 0 or not json.loads(run.stdout.strip().splitlines()[-1])["nccl_all_gather_equal"]:
+        raise SystemExit(f"NCCL at world size 1 (rc {run.returncode}): {run.stdout[-1000:]}\n{run.stderr[-3000:]}")
+    log(f"NCCL, one process: the all_gather of a {width}x{height} two-position frame buffer returned it unchanged "
+        f"in {json.loads(run.stdout.strip().splitlines()[-1])['ms']:.3f} ms")
+
+
+def mesh_step_statistics(grid, width: int, height: int, device="cuda") -> None:
+    """step_statistics at width x height in the default and no_dda modes:
+    the percentiles and the seconds, each leg one launch; then once more
+    with every kernel it launches held bit-equal at every call
+    (held_sample_kernels: the legs, budgets and events included, and the
+    default mode's LUT fetch) and the same statistics."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.utils.stepstats import step_statistics
+
+    cuda = torch.device(device).type == "cuda"
+    r = bench_renderer(grid, width, height, device)
+    step_statistics(r, "default")  # warm
+    for mode, legs in (("default", ("dda_leg_sample", "dda_leg_shadow")),
+                       ("no_dda", ("track_leg_sample", "track_leg_shadow"))):
+        before = dict(kernels.LAUNCHES)
+        stats, ms = fenced_ms(lambda: step_statistics(r, mode), device)
+        calls = {k: kernels.LAUNCHES[k] - before[k] for k in legs}
+        log(f"step_statistics ({mode}, {width}x{height}): {ms / 1000:.4f} s; sample {stats['sample']}; "
+            f"transmittance {stats['transmittance']}; leg launches {calls}")
+        if cuda and set(calls.values()) != {1}:
+            raise SystemExit(f"step_statistics ({mode}) launched its legs {calls} times")
+        if stats["sample"]["frac_at_cap"] or stats["transmittance"]["frac_at_cap"]:
+            log(f"step_statistics ({mode}): lanes reached a cap")
+        if cuda:
+            held, tallies = held_sample_kernels(lambda: step_statistics(r, mode), mode)
+            called = {name: tally["calls"] for name, tally in tallies if tally["calls"]}
+            if held != stats or [called.get(name) for name in legs] != [1, 1]:
+                raise SystemExit(f"step_statistics ({mode}) held: {held} against {stats}, calls {called}")
+            log(f"step_statistics ({mode}): every kernel it launched bit-equal to its plain version at every call "
+                f"({called}), budgets or events included")
+
+
+def mesh_server(grid, device="cuda") -> None:
+    """PreviewServer over a DistributedRenderer on the 2x2 mesh at
+    MESH_SERVER_SIZE, stepped directly: progressive frames, the server's
+    benchmark of MESH_BENCH_SAMPLES samples counted sp a step, a rotate
+    command's drag preview (K7), then frames again; samples counted as
+    frame_index * sp. Then, after the counts are read, on the server's
+    renderer at the server's shapes: one frame (its four positions'
+    calls) with every kernel held at every call and K4 at image()
+    (hold_frame_kernels), and one drag preview at the server's scale with
+    K7 and K4 held (hold_drag_preview)."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.api.server import PreviewServer
+    from volxel_tpu_torch.parallel import make_mesh
+
+    sp, px = MESH
+    r = mesh_renderer(grid, *MESH_SERVER_SIZE, make_mesh(sp=sp, px=px, devices=[device] * (sp * px)))
+    s = PreviewServer(r, port=0)
+    outcomes = [s.step() for _ in range(3)]
+    samples = r.frame_index * r.sp
+    s._commands.put({"type": "benchmark", "samples": MESH_BENCH_SAMPLES})
+    outcomes += [s.step() for _ in range(MESH_BENCH_SAMPLES // sp)]
+    bench = s._benchmark
+    before = kernels.LAUNCHES["shearwarp_intermediate"]
+    s._commands.put({"type": "rotate", "by": [0.05, 0.02]})
+    preview, preview_ms = fenced_ms(s.step, device)
+    k7 = kernels.LAUNCHES["shearwarp_intermediate"] - before
+    wait_until(lambda: time.time() > s._motion_until + 0.05, "end of the rotate's motion")
+    outcomes += [s.step() for _ in range(2)]
+    log(f"server over the {sp}x{px} mesh ({MESH_SERVER_SIZE[0]}x{MESH_SERVER_SIZE[1]}): steps {outcomes}, "
+        f"{samples} samples after 3 frames; benchmark {bench}; rotate: {preview} in {preview_ms:.3f} ms, "
+        f"K7 launches {k7}; then {r.samples_rendered()} samples")
+    if samples != 3 * sp:
+        raise SystemExit(f"server over the mesh: {samples} samples after 3 frames of {sp}")
+    if bench["running"] or bench["done"] != MESH_BENCH_SAMPLES or preview != "preview" or set(outcomes) != {"frame"}:
+        raise SystemExit(f"server over the mesh: benchmark {bench}, rotate {preview}, steps {outcomes}")
+    cuda = torch.device(device).type == "cuda"
+    if cuda and k7 != 1:
+        raise SystemExit(f"server over the mesh: the drag preview launched K7 {k7} times")
+    check_image(r.image(), *MESH_SERVER_SIZE, "the mesh server's image()")
+    if cuda:
+        hold_frame_kernels(r, "mesh server")
+        hold_drag_preview(r, s.preview_scale, "mesh server")
+
+
+def serve_mesh_cli() -> None:
+    """`python -m volxel_tpu_torch serve ... --mesh 1,1,1` (CLI_SERVE) in a
+    subprocess on an ephemeral port: /state counts samples and /frame.png
+    is a frame of the size asked for; the process is stopped."""
+    from volxel_tpu_torch.utils.png import decode_png
+
+    port = free_port()
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "volxel_tpu_torch", *CLI_SERVE, "--port", str(port)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    base = f"http://127.0.0.1:{port}"
+
+    def state():
+        if proc.poll() is not None:
+            raise SystemExit(f"serve --mesh exited {proc.returncode}: {proc.communicate()[1][-3000:]}")
+        try:
+            st = json.loads(http(base, "/state")[2])
+        except OSError:
+            return None
+        return st if st["samples"] >= 2 else None
+
+    try:
+        st = wait_until(state, "serve --mesh 1,1,1's second sample")
+        img = decode_png(http(base, "/frame.png")[2])
+    finally:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    size = tuple(int(v) for v in CLI_SERVE[CLI_SERVE.index("--size") + 1].split("x"))
+    if img.shape != (size[1], size[0], 3) or st["error"] is not None:
+        raise SystemExit(f"serve --mesh: frame {img.shape}, state {st}")
+    log(f"cli: {' '.join(CLI_SERVE)}: {st['samples']} samples served {time.perf_counter() - t0:.2f} s after the "
+        f"start; /frame.png {img.shape}")
+
+
+def mesh_two_cards(grid, width: int, height: int) -> None:
+    """sp = 2 over cuda:0 and cuda:1 where the machine has two cards:
+    MESH_STEPS steps bit-equal to the replayed single-card samples."""
+    import torch
+
+    from tests.torch_mesh import replayed_framebuffer
+    from volxel_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        log("mesh over two cards: skipped, the machine has one card")
+        return
+    r = mesh_renderer(grid, width, height, make_mesh(sp=2, px=1, devices=["cuda:0", "cuda:1"]))
+    step_ms = [fenced_ms(r.render_frame, "cuda")[1] for _ in range(MESH_STEPS)]
+    torch.cuda.synchronize(1)
+    if not bits_equal(r._framebuffer, replayed_framebuffer(r, MESH_STEPS)):
+        raise SystemExit("mesh over two cards: the framebuffer differs from the replayed samples")
+    log(f"mesh over cuda:0 and cuda:1 (sp=2, {width}x{height}): steps " + ", ".join(f"{ms:.3f}" for ms in step_ms)
+        + " ms; bit-equal to the replayed single-card samples")
+
+
+def mesh_path(grid, size: int, width: int, height: int) -> dict:
+    """Phase 2d; returns the mesh path's launch counts."""
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = mesh_steps(grid, width, height)
+    log(f"mesh: launches over the 2x2 mesh's steps in three modes {launches}")
+    torch.cuda.empty_cache()
+    mesh_views(grid, width, height)
+    torch.cuda.empty_cache()
+    mesh_processes(size, width, height)
+    mesh_step_statistics(grid, width, height)
+    mesh_server(grid)
+    torch.cuda.empty_cache()
+    serve_mesh_cli()
+    mesh_two_cards(grid, width, height)
+    torch.cuda.empty_cache()
+    log(f"phase 2d (the mesh): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=512, help="volume edge in voxels")
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--parity-size", type=int, default=64)
+    ap.add_argument("--mesh-worker", nargs=2, metavar=("ADDR", "PID"), help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-nccl", metavar="ADDR", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2433,6 +2902,13 @@ def main() -> int:
     from volxel_tpu_torch import kernels
     from volxel_tpu_torch.grid import construct_brick_grid
     from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+    if args.mesh_worker:  # one of phase 2d's two processes
+        mesh_worker(args.mesh_worker[0], int(args.mesh_worker[1]), args.size, args.width, args.height)
+        return 0
+    if args.mesh_nccl:  # phase 2d's NCCL process group of one
+        nccl_world_of_one(args.mesh_nccl, args.width, args.height)
+        return 0
 
     # phase 1: the card
     smi = subprocess.run(
@@ -2466,6 +2942,8 @@ def main() -> int:
         gradient_and_debug_hits(grid, args.width, args.height)
         cli_path(Path(tmpdir))
     torch.cuda.empty_cache()
+    # phase 2d: the mesh, with the counters at 0 before the 2x2 mesh's steps
+    mesh_path(grid, args.size, args.width, args.height)
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")

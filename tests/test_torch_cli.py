@@ -77,5 +77,8 @@ def test_info():
 
 
 def test_serve_mesh_is_not_ported():
+    """A mesh with a 'vz' axis > 1 (render-time volume slabs) is not
+    ported: serve --mesh raises, naming the ROADMAP item
+    (tests/test_torch_parallel.py serves from a vz = 1 mesh)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["serve", "--device", "cpu", "--synthetic", "16", "--mesh", "2,2,2"])

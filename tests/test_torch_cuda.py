@@ -15,7 +15,11 @@ every other f32 operation written as a never-contracted intrinsic), and
 the pyramid (its plain version sums each 2x2 block in the kernel's order).
 The app layer on the card: gradient shading's legs bit-equal at every
 call, debug hits within 1e-5 of the CPU, a frame and a drag preview served
-by PreviewServer.step(), the PNG of image() read back exactly.
+by PreviewServer.step(), the PNG of image() read back exactly. The mesh on
+the card: a DistributedRenderer whose 2x2 positions name one card (each
+mode) and render_views, bit-equal to single render_sample calls;
+step_statistics through the legs' kernels equal to it through their plain
+versions; positions on two cards (skips on one).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from tests.torch_lanes import (VOL_MAJ, dda_lanes_of, field_end_lanes, leg_call, leg_lanes, select_lanes,
                                shadow_leg_draws, track_call, track_lanes)
+from tests.torch_mesh import replayed_framebuffer
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
 from volxel_tpu_torch.render import ddaleg, gather, modes, pallas_ops, shearwarp, tilemarch, trackleg
@@ -1093,3 +1098,88 @@ def test_png_of_image_on_the_card(cuda_device, tmp_path):
     got = decode_png((tmp_path / "frame.png").read_bytes())
     np.testing.assert_array_equal(got, rgb)
     assert got.shape == (40, 40, 3) and got.max() > 0
+
+
+def _mesh_renderer(devices, mode="default", side=32):
+    from volxel_tpu_torch.parallel import make_mesh
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    r = DistributedRenderer(side, side, mesh=make_mesh(sp=2, px=len(devices) // 2, devices=devices))
+    r.restart_from_grid(grid)
+    r.render_mode = mode
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "raymarch", "no_dda"])
+def test_distributed_renderer_on_one_card_bit_equal(cuda_device, mode):
+    """A 2x2 mesh whose four positions name the card: each leg launches
+    once a position a bounce, the LUT fetch once a default step (one
+    card), and the framebuffer is bit-equal to the replayed samples."""
+    r = _mesh_renderer([cuda_device] * 4, mode)
+    assert r.device.type == "cuda"
+    kernels.reset_launch_counts()
+    r.render_frame()
+    r.render_frame()
+    legs = {"default": ("dda_leg_sample", "dda_leg_shadow"), "raymarch": ("tile_march_sample",
+            "tile_march_transmittance"), "no_dda": ("track_leg_sample", "track_leg_shadow")}[mode]
+    assert [kernels.LAUNCHES[name] for name in legs] == [2 * 4 * r.settings.bounces] * 2
+    assert kernels.LAUNCHES["lookup_transfer"] == (2 if mode == "default" else 0)
+    _assert_bits_equal([r._framebuffer], [replayed_framebuffer(r, 2)])
+    assert np.isfinite(r.image()).all()
+
+
+@pytest.mark.cuda
+def test_render_views_on_the_card_one_launch_a_leg(cuda_device):
+    """Four views in one wavefront: each leg one launch a bounce, each
+    view bit-equal to render_sample at frame * 4 + view."""
+    from volxel_tpu_torch.parallel.multiview import render_views
+    from volxel_tpu_torch.render.pathtrace import render_sample
+
+    r = _renderer(cuda_device, side=32)
+    config = r._config()
+    cams = []
+    for _ in range(4):
+        r.camera.rotate_around_view(0.3, 0.0)
+        cams.append(r._camera_operands(config))
+    ops = (r._device_grid, r.volume_params(), r._lut, r.environment.state)
+    kernels.reset_launch_counts()
+    views = render_views(config, *ops, torch.stack([c[0] for c in cams]), torch.stack([c[1] for c in cams]),
+                         cams[0][2], 3)
+    assert kernels.LAUNCHES["dda_leg_sample"] == kernels.LAUNCHES["dda_leg_shadow"] == r.settings.bounces
+    for v in range(4):
+        _assert_bits_equal([views[v]], [render_sample(config, *ops, *cams[v], 3 * 4 + v)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "no_dda"])
+def test_step_statistics_on_the_card_equal_the_plain_legs(cuda_device, monkeypatch, mode):
+    """step_statistics through the legs' kernels (one launch each) equals
+    step_statistics through their plain versions on the same card."""
+    from volxel_tpu_torch.utils.stepstats import step_statistics
+
+    r = _renderer(cuda_device, side=48)
+    kernels.reset_launch_counts()
+    stats = step_statistics(r, mode)
+    legs = ("dda_leg_sample", "dda_leg_shadow") if mode == "default" else ("track_leg_sample", "track_leg_shadow")
+    assert [kernels.LAUNCHES[name] for name in legs] == [1, 1]
+    for name in legs:
+        module = ddaleg if mode == "default" else trackleg
+        monkeypatch.setattr(modes, name, getattr(module, f"{name}_plain"))
+    assert step_statistics(r, mode) == stats
+    assert stats["sample"]["frac_at_cap"] == stats["transmittance"]["frac_at_cap"] == 0.0
+
+
+@pytest.mark.cuda
+def test_distributed_renderer_over_two_cards(cuda_device):
+    """sp = 2 over cuda:0 and cuda:1 (positions (0, 0) and (1, 0)): bit-equal
+    to the replayed samples on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    r = _mesh_renderer([torch.device("cuda", 0), torch.device("cuda", 1)])
+    r.render_frame()
+    r.render_frame()
+    assert r._framebuffer.device == torch.device("cuda", 0)
+    _assert_bits_equal([r._framebuffer], [replayed_framebuffer(r, 2)])

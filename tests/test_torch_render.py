@@ -264,8 +264,10 @@ def test_premul_majorant_built_for_default_mode_only(monkeypatch):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter renders 16x16 with the port on the CPU, in the
     default mode and then one frame each of raymarch and no_dda, imports the
-    preview server and the CLI, and never loads jax or volxel_tpu; every
-    kernel launch counter stays 0."""
+    preview server, the CLI, every module of parallel/ and
+    utils/stepstats.py, renders one step of a DistributedRenderer on a 2x2
+    mesh of CPU positions, and never loads jax or volxel_tpu; every kernel
+    launch counter stays 0."""
     code = """
 import sys, json
 import numpy as np
@@ -282,6 +284,15 @@ for mode in ("raymarch", "no_dda"):
     fb = r.render_frame()
     means.append(float(fb.mean()) if bool(fb.isfinite().all()) else -1.0)
 import volxel_tpu_torch.api.server, volxel_tpu_torch.__main__
+import volxel_tpu_torch.parallel.mesh, volxel_tpu_torch.parallel.multihost, volxel_tpu_torch.parallel.shard
+import volxel_tpu_torch.parallel.distributed, volxel_tpu_torch.parallel.multiview, volxel_tpu_torch.parallel.slab
+import volxel_tpu_torch.utils.stepstats
+from volxel_tpu_torch.parallel import make_mesh
+from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+d = DistributedRenderer(16, 16, mesh=make_mesh(sp=2, px=2, devices=["cpu"] * 4))
+d.restart_from_grid(construct_brick_grid(vol.astype(np.float32) / vol.max()))
+fb = d.render_frame()
+means.append(float(fb.mean()) if bool(fb.isfinite().all()) and d.samples_rendered() == 2 else -1.0)
 print(json.dumps({"jax": "jax" in sys.modules, "volxel_tpu": "volxel_tpu" in sys.modules,
                   "launches": kernels.LAUNCHES, "finite": bool(np.isfinite(img).all()), "means": means}))
 """

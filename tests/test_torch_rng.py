@@ -73,6 +73,20 @@ def test_seed_rays_bit_equal_to_jax():
         np.testing.assert_array_equal(t.numpy(), _np(j))
 
 
+def test_seed_rays_per_lane_frames_bit_equal_to_jax():
+    """A tensor of one frame per lane (parallel.multiview's frame * V +
+    view) gives every lane the words of seed_rays at that lane's frame,
+    in the port and against the JAX package's uint32 words."""
+    pix = np.arange(N, dtype=np.uint32) * 37
+    frames = np.random.default_rng(5).integers(0, 2**32, size=N, dtype=np.uint64).astype(np.uint32)
+    frames[:3] = [0, 0xFFFFFFFF, 2**31 + 3]
+    t = trng.seed_rays(torch.from_numpy(pix.astype(np.int64)), torch.from_numpy(frames.astype(np.int64)))
+    np.testing.assert_array_equal(t.numpy(), _np(jrng.seed_rays(pix, frames)))
+    for i in (0, 1, 2, N - 1):
+        one = trng.seed_rays(torch.from_numpy(pix[i:i + 1].astype(np.int64)), int(frames[i]))
+        np.testing.assert_array_equal(t[i:i + 1].numpy(), one.numpy())
+
+
 def test_words_match_the_glsl_transliteration():
     pairs = [(0, 0), (1, 7), (42, 99), (123456, 2**31), (0xFFFFFFFF, 0xFFFFFFFF)]
     got = trng.tea(torch.tensor([p[0] for p in pairs]), torch.tensor([p[1] for p in pairs]))

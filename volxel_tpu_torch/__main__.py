@@ -178,10 +178,15 @@ def cmd_serve(args) -> None:
 
     w, h = (int(v) for v in args.size.split("x"))
     if args.mesh:
-        raise NotImplementedError(
-            "serve --mesh needs parallel/ and DistributedRenderer, which are not ported yet (ROADMAP.md, queue 1)"
-        )
-    r = Renderer(width=w, height=h, device=args.device)
+        from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+        from volxel_tpu_torch.parallel.mesh import make_mesh
+
+        sp, px, vz = (int(v) for v in args.mesh.split(","))
+        # the default device spans every card; a named one holds every position
+        devices = None if args.device == "cuda" else [args.device] * (sp * px * vz)
+        r = DistributedRenderer(width=w, height=h, mesh=make_mesh(sp=sp, px=px, vz=vz, devices=devices))
+    else:
+        r = Renderer(width=w, height=h, device=args.device)
     _load_volume(args, r)
     if args.env:
         r.load_env(Path(args.env).read_bytes())
@@ -249,7 +254,8 @@ def main(argv=None) -> None:
     p.add_argument("--settings", help="settings JSON (v1-v3 exports)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--mesh", help="sp,px,vz distributed mesh (not ported: raises)")
+    p.add_argument("--mesh", help="sp,px,vz mesh of a DistributedRenderer: over every card by default, or "
+                   "every position on --device when it names one (vz > 1 is not ported: raises)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("info", help="device report")

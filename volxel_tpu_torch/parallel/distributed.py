@@ -1,0 +1,105 @@
+"""DistributedRenderer: the Renderer facade over a mesh, the PyTorch
+counterpart of volxel_tpu.parallel.distributed.
+
+Same public API as api.renderer.Renderer, but each progressive step runs
+sample-parallel x pixel-parallel over the mesh (parallel/shard.py) and
+advances `sp` samples at once. Convergence matches the single-card
+renderer (RNG keyed by global pixel + sample index); the accumulator
+update accounts for the sp-sample stride. Everything else (previews,
+image() and its tonemap, the error state, settings, checkpoints) is the
+Renderer's, on the renderer's device, which defaults to this process's
+first device of the mesh.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from volxel_tpu_torch.api.renderer import Renderer
+from volxel_tpu_torch.parallel.mesh import make_mesh
+from volxel_tpu_torch.parallel.shard import VZ_NOT_PORTED, CardOperands, render_sample_sharded
+
+
+class DistributedRenderer(Renderer):
+    """A mesh with a 'vz' axis > 1 (z-slab volume sharding, the JAX
+    package's parallel/volshard.py) is accepted here, but loading a volume
+    onto it raises NotImplementedError (ROADMAP.md, queue 1: "Render-time
+    volume slabs").
+    `vz_tap_dtype` is kept for that path."""
+
+    def __init__(self, *args, mesh=None, sp: int = 1, px: int | None = None, vz: int = 1,
+                 vz_tap_dtype: str = "float32", **kwargs):
+        if vz_tap_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"vz_tap_dtype must be 'float32' or 'bfloat16', got {vz_tap_dtype!r}")
+        self.mesh = mesh if mesh is not None else make_mesh(sp=sp, px=px, vz=vz)
+        local = self.mesh.local_devices()
+        if local:
+            kwargs.setdefault("device", local[0])
+        super().__init__(*args, **kwargs)
+        self.sp = self.mesh.shape["sp"]
+        self.vz = self.mesh.shape.get("vz", 1)
+        self.vz_tap_dtype = vz_tap_dtype
+        self._cached_operands = None
+        self._cards = CardOperands()  # the operands' copies on the mesh's cards
+
+    def restart_from_grid(self, grid) -> None:
+        if self.vz > 1:
+            raise NotImplementedError(VZ_NOT_PORTED)
+        super().restart_from_grid(grid)
+
+    def restart_rendering(self) -> None:
+        """Any visual-state change flows through here, so the cached
+        operands (and their copies on the mesh's cards) are dropped exactly
+        when they can change."""
+        super().restart_rendering()
+        self._cached_operands = None
+        self._cards = CardOperands()
+
+    def _prime_operands(self, config):
+        """(config, grid, params, lut, env, inv_view, inv_proj, light_dir),
+        built once per state change (or a new config), not per step."""
+        if self._cached_operands is None or self._cached_operands[0] != config:
+            inv_view, inv_proj, light_dir = self._camera_operands(config)
+            self._cached_operands = (config, self._device_grid, self.volume_params(), self._lut,
+                                     self.environment.state, inv_view, inv_proj, light_dir)
+        return self._cached_operands
+
+    def render_frame(self) -> torch.Tensor:
+        """One sharded step = `sp` progressive samples, mean-combined.
+
+        All samples accumulate uniformly from index 0, with no warm-up
+        weighting and no low-res preview (the reference's zero-weight
+        warm-up is a display nicety for its low-res preview frames; every
+        sample is an iid estimator, so including indices 0..4 changes
+        nothing statistically).
+        """
+        if self._device_grid is None:
+            raise RuntimeError("No volume loaded")
+        if self.errored:
+            raise RuntimeError("Renderer is in an error state (clear_error() to resume)") from self.last_error
+        if self.suspend:
+            return self._framebuffer
+        config = self._config()
+        n = config.width * config.height
+        if self._framebuffer.shape[0] != n:
+            self._framebuffer = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
+        config, *operands = self._prime_operands(config)
+        # the sharded call renders samples [f*sp, f*sp + sp) for step f
+        step = self.frame_index
+        mean_sp = render_sample_sharded(config, self.mesh, *operands, step, cards=self._cards).to(self.device)
+        count = step * self.sp
+        self._framebuffer = (count * self._framebuffer + self.sp * mean_sp) / (count + self.sp)
+        self.frame_index += 1
+        return self._framebuffer
+
+    def samples_rendered(self) -> int:
+        return self.frame_index * self.sp
+
+    def render(self, samples: int | None = None) -> np.ndarray:
+        """Progressive render on the mesh (in place of the single-card
+        path: each step already advances sp samples)."""
+        total = samples if samples is not None else self.settings.max_samples
+        for _ in range(-(-total // self.sp)):
+            self.render_frame()
+        return self.image()

@@ -18,14 +18,17 @@ PyTorch counterpart of volxel_tpu.render.modes:
     render.tilemarch.tile_march_sample (a CUDA kernel on the card) after a
     PyTorch prologue, the shadow leg's in tile_march_transmittance (another).
 
-The JAX package's compaction ladders, compacted decodes and step
-statistics are TPU workarounds or diagnostics and are not ported.
+The JAX package's compaction ladders and compacted decodes are TPU
+workarounds and are not ported. The camera and shadow legs of the default
+and no_dda modes take `with_stats` (utils.stepstats): it appends each
+lane's march steps or events, which the legs already return as the budget
+or events left of their cap.
 
 Function contracts:
   sample_volume(grid, params, lut, origin, direction, state, active)
-    -> (state, hit, t, rgb, Le_add)
+    -> (state, hit, t, rgb, Le_add)   [+ steps with with_stats]
   transmittance(grid, params, lut, origin, direction, state, active)
-    -> (state, Tr)
+    -> (state, Tr)                    [+ steps with with_stats]
 with origin/direction in world space and state the per-ray RNG state.
 Draw consumption is reference-exact per lane: inactive or box-missing lanes
 consume nothing, and every other draw happens only where the GLSL makes it.
@@ -37,7 +40,12 @@ import functools
 
 import torch
 
-from volxel_tpu_torch.render.ddaleg import dda_leg_sample, dda_leg_shadow
+from volxel_tpu_torch.render.ddaleg import (
+    DDA_SAMPLE_MAX_STEPS,
+    DDA_TRANSMITTANCE_MAX_STEPS,
+    dda_leg_sample,
+    dda_leg_shadow,
+)
 from volxel_tpu_torch.render.rays import Rays, ray_box_intersection
 from volxel_tpu_torch.render.rng import rng_where
 from volxel_tpu_torch.render.sampling import (
@@ -48,7 +56,7 @@ from volxel_tpu_torch.render.sampling import (
 )
 from volxel_tpu_torch.render.tilemarch import STEPS as RAYMARCH_STEPS
 from volxel_tpu_torch.render.tilemarch import tile_march_sample, tile_march_transmittance, volume_scalars
-from volxel_tpu_torch.render.trackleg import track_leg_sample, track_leg_shadow
+from volxel_tpu_torch.render.trackleg import TRACKING_MAX_EVENTS, track_leg_sample, track_leg_shadow
 
 # adaptive mip schedule (dda.glsl:6-8)
 MIP_START = 3.0
@@ -105,29 +113,35 @@ def _march_setup(grid, params, origin, direction, state, active):
     return state, ipos, idir, ri, far, t, tau, mip, running
 
 
-def sample_volume_dda(grid, params, lut, origin, direction, state, active):
+def sample_volume_dda(grid, params, lut, origin, direction, state, active, with_stats: bool = False):
     """DDA distance sampling (dda.glsl:65-98) over grid.maj_alpha, the
     premultiplied pyramid (build_premul_majorant): the setup, then the leg
-    (ddaleg.dda_leg_sample)."""
+    (ddaleg.dda_leg_sample). with_stats adds each lane's march steps."""
     state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
-    state, hit, t, rgb, _ = dda_leg_sample(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut,
-                                           ipos, idir, ri, far, t, tau, mip, state, running)
+    state, hit, t, rgb, budget = dda_leg_sample(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut,
+                                                ipos, idir, ri, far, t, tau, mip, state, running)
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
+    if with_stats:
+        return state, hit, t, rgb, le_add, DDA_SAMPLE_MAX_STEPS - budget
     return state, hit, t, rgb, le_add
 
 
-def transmittance_dda(grid, params, lut, origin, direction, state, active, physical: bool = False):
+def transmittance_dda(grid, params, lut, origin, direction, state, active, physical: bool = False,
+                      with_stats: bool = False):
     """Ratio-tracking shadow transmittance (dda.glsl:21-62 draw protocol:
     real collisions keep marching with a redrawn tau; RR under 0.1): the
     setup, then the leg (ddaleg.dda_leg_shadow).
 
     physical=False keeps the reference quirk Tr *= max(0, 1 - global/local)
     (dda.glsl:48), which makes real collisions opaque; physical=True is
-    proper ratio tracking, Tr *= 1 - density/local."""
+    proper ratio tracking, Tr *= 1 - density/local. with_stats adds each
+    lane's march steps."""
     state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    state, tr, _ = dda_leg_shadow(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut, ipos,
-                                  idir, ri, far, t, tau, mip, state, running, tr, physical)
+    state, tr, budget = dda_leg_shadow(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut, ipos,
+                                       idir, ri, far, t, tau, mip, state, running, tr, physical)
+    if with_stats:
+        return state, tr, DDA_TRANSMITTANCE_MAX_STEPS - budget
     return state, tr
 
 
@@ -147,28 +161,33 @@ def _tracking_setup(params, origin, direction, state, active):
     return state, ipos, idir, far, t, running
 
 
-def sample_volume_simple(grid, params, lut, origin, direction, state, active):
+def sample_volume_simple(grid, params, lut, origin, direction, state, active, with_stats: bool = False):
     """Delta tracking (normal.glsl:36-55) against the global majorant: the
     setup, then the leg (trackleg.track_leg_sample). Each event decodes the
     lane's point (trilinear density, LUT) and draws the real/null test, and
     at a null collision the next free flight; a real one ends the lane. At
-    most trackleg.TRACKING_MAX_EVENTS events a lane."""
+    most trackleg.TRACKING_MAX_EVENTS events a lane. with_stats adds each
+    lane's events."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
-    state, hit, t, rgb, _ = track_leg_sample(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir, far,
-                                             t, state, running)
+    state, hit, t, rgb, left = track_leg_sample(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir,
+                                                far, t, state, running)
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
+    if with_stats:
+        return state, hit, t, rgb, le_add, TRACKING_MAX_EVENTS - left
     return state, hit, t, rgb, le_add
 
 
-def transmittance_simple(grid, params, lut, origin, direction, state, active):
+def transmittance_simple(grid, params, lut, origin, direction, state, active, with_stats: bool = False):
     """Ratio tracking (normal.glsl:8-33): the setup, then the leg
     (trackleg.track_leg_shadow). Tr *= 1 - density / majorant at every
     event; russian roulette below 0.1, whose killed lanes end before the
-    free-flight draw."""
+    free-flight draw. with_stats adds each lane's events."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    state, tr, _ = track_leg_shadow(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir, far, t, state,
-                                    running, tr)
+    state, tr, left = track_leg_shadow(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir, far, t,
+                                       state, running, tr)
+    if with_stats:
+        return state, tr, TRACKING_MAX_EVENTS - left
     return state, tr
 
 

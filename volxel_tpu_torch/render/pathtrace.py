@@ -185,14 +185,22 @@ def render_pixels(
     pixel_index is any int64 subset of [0, width*height); RNG seeding
     depends only on the global pixel index + frame, so a subset renders
     the same per-pixel values as the whole frame.
+    """
+    state, rays = camera_wavefront(config, inv_view, inv_proj, pixel_index, frame_index)
+    return render_rays(config, grid, params, lut, env, light_dir, state, rays)
+
+
+def render_rays(config: RenderConfig, grid: DeviceGrid, params: VolumeParams, lut, env: EnvState, light_dir, state,
+                rays: Rays):
+    """The radiance of a wavefront of seeded camera rays -> (n, 3).
 
     debug_hits colours each pixel by where its ray enters the box and runs
     no leg; gradient_shading shades each ray's first hit
-    (shading.trace_shaded) with the mode's two legs.
+    (shading.trace_shaded) with the mode's two legs. The default mode
+    builds the premultiplied pyramid here unless `grid` carries one.
     """
     if config.mode == "default" and grid.maj_alpha is None and not config.debug_hits:
         grid = with_premul_majorant(config, grid, params, lut)
-    state, rays = camera_wavefront(config, inv_view, inv_proj, pixel_index, frame_index)
     if config.debug_hits:
         return _debug_hits(config, params, env, light_dir, rays.origin, rays.direction)
     if config.gradient_shading:
@@ -208,9 +216,10 @@ def with_premul_majorant(config: RenderConfig, grid: DeviceGrid, params: VolumeP
     return grid._replace(maj_alpha=maj_alpha.contiguous())
 
 
-def camera_wavefront(config: RenderConfig, inv_view, inv_proj, pixel_index, frame_index: int):
-    """Seeded RNG states and jittered camera rays for a pixel subset
-    (fragment.frag:57-65, :143-147) -> (state, Rays)."""
+def camera_ndc(config: RenderConfig, pixel_index, frame_index):
+    """Seeded RNG states and jittered screen positions for a pixel subset
+    (fragment.frag:57-65, :143-147) -> (state, ndc). frame_index is an int
+    or a tensor of one frame per pixel (rng.seed_rays)."""
     state = seed_rays(pixel_index, frame_index)
     state, j1 = rng2(state)
     state, j2 = rng2(state)
@@ -219,7 +228,13 @@ def camera_wavefront(config: RenderConfig, inv_view, inv_proj, pixel_index, fram
     tex = torch.stack([(px + 0.5) / config.width, (py + 0.5) / config.height], dim=-1)
     jitter = (j1 + j2) / 2.0
     size = torch.tensor([config.width, config.height], dtype=torch.float32, device=tex.device)
-    ndc = tex + (jitter * 2.0 - 1.0) / size
+    return state, tex + (jitter * 2.0 - 1.0) / size
+
+
+def camera_wavefront(config: RenderConfig, inv_view, inv_proj, pixel_index, frame_index: int):
+    """Seeded RNG states and jittered camera rays for a pixel subset
+    (fragment.frag:57-65, :143-147) -> (state, Rays)."""
+    state, ndc = camera_ndc(config, pixel_index, frame_index)
     return state, camera_rays(inv_view, inv_proj, ndc)
 
 

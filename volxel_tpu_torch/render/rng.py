@@ -122,7 +122,12 @@ def rng3_where(mask, state):
 
 
 def seed_rays(pixel_index, frame_index):
-    """Per-ray state from pixel index + frame (fragment.frag:143-144)."""
+    """Per-ray state from pixel index + frame (fragment.frag:143-144).
+    frame_index is one frame for every ray (an int) or a tensor of one
+    frame per ray, as a batch of views gives (parallel.multiview)."""
     pixel_index = _u32(pixel_index)
-    frame = torch.full_like(pixel_index, int(frame_index) & M32)
+    if isinstance(frame_index, torch.Tensor):
+        frame = _u32(frame_index, pixel_index.device).expand_as(pixel_index)
+    else:
+        frame = torch.full_like(pixel_index, int(frame_index) & M32)
     return seed_xoshiro(tea((42 * pixel_index) & M32, frame))
