@@ -78,6 +78,26 @@ Phases, each of which raises (exit code != 0) on failure:
    `python -m volxel_tpu_torch serve --synthetic 64 --mesh 1,1,1` in a
    subprocess (/state, /frame.png); sp = 2 over cuda:0 and cuda:1 where
    the machine has two cards, else one line saying it was skipped;
+2e. render-time volume slabs (parallel/volshard.py), on the bench scene at
+   the main paths' size: with every launch counter at 0 before it, a
+   DistributedRenderer whose (1, 1, 4) positions name the card, loaded by
+   restart_from_grid from the brick grid (the load's seconds, each slab's
+   bytes, and the load's peak above what it keeps, which must stay below
+   the whole field's bytes), beside a vz = 1 renderer on the card; 2 steps
+   in each mode, each timed beside the vz = 1 step (one sample), the
+   framebuffer bit-equal to vz = 1's, each leg launched only in its slab
+   form, 4 times a bounce; then, after the counts are read, 2 held steps
+   of each renderer in turns with every kernel held bit for bit at every
+   call (the legs' slab and dense forms' ms at one step's calls); two
+   gradient-shaded default steps timed in turns with vz = 1's and
+   bit-equal to them; one (sp=2, px=1,
+   vz=2) step bit-equal to an sp = 2 one; vz = 2 over cuda:0 and cuda:1
+   where the machine has two cards, else one line saying it was skipped;
+   `python -m volxel_tpu_torch serve --synthetic 64 --mesh 1,1,2 --device
+   cuda:0` in a subprocess (/state, /frame.png);
+   then phase 2's registers and SASS of the legs' dense forms, which must
+   be the parent commit's (DENSE_LEG_SASS). The slab forms' entries join
+   the JSON line (launches from this phase);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -208,7 +228,11 @@ KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "
                   "tonemap": "tonemap_kernel", "tile_march_sample": "tile_march_sample_kernel",
                   "tile_march_transmittance": "tile_march_transmittance_kernel",
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
-                  "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel"}
+                  "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel",
+                  **{f"{leg}_slabs": f"{leg}_slabs_kernel" for leg in ("dda_leg_sample", "dda_leg_shadow",
+                                                                       "track_leg_sample", "track_leg_shadow",
+                                                                       "tile_march_sample",
+                                                                       "tile_march_transmittance")}}
 
 # the least time a call could take: its bytes (each input read once, each
 # output written once) over HBM3's 3.35 TB/s, or its operations over the
@@ -316,8 +340,11 @@ def profile_call(fn):
     run of them (PERF.md §6; examples/profiler_record_loss.py). So a
     window counts only if it recorded every launch of this repo's kernels
     that the launch counters saw in it, and more pads than PROFILE_PAD (a
-    run that reaches the window's end takes trailing pads with it);
-    otherwise `fn` is profiled again, at most PROFILE_ATTEMPTS times."""
+    run that reaches the window's end takes trailing pads with it), that
+    is, at least one leading pad, so that the lost run ended before `fn`;
+    otherwise `fn` is profiled again, at most PROFILE_ATTEMPTS times, each
+    time behind twice the leading pads (a window has lost exactly its 32
+    leading pads five times in a row)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -329,8 +356,9 @@ def profile_call(fn):
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
         before = dict(kernels.LAUNCHES)
+        lead = PROFILE_PAD << (attempt - 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_PAD):
+            for _ in range(lead):
                 launch_floor(1, cuda)
             fn()
             for _ in range(PROFILE_PAD):
@@ -342,13 +370,14 @@ def profile_call(fn):
         lost = {sym: n for sym, n in lost.items() if n}
         pads = sum(e.count for e in device if PAD_KERNEL in e.key)
         if pads <= PROFILE_PAD:
-            lost[PAD_KERNEL] = 2 * PROFILE_PAD - pads
+            lost[PAD_KERNEL] = lead + PROFILE_PAD - pads
         if not lost:
-            if pads < 2 * PROFILE_PAD:
-                log(f"profiler window {attempt}: kept, {2 * PROFILE_PAD - pads} of its {2 * PROFILE_PAD} pads lost")
+            if pads < lead + PROFILE_PAD:
+                log(f"profiler window {attempt}: kept, {lead + PROFILE_PAD - pads} of its {lead + PROFILE_PAD} pads "
+                    "lost")
             return prof
         log(f"profiler window {attempt} of {PROFILE_ATTEMPTS} lost device records (launches not recorded: {lost}; "
-            f"pads recorded {pads} of {2 * PROFILE_PAD})")
+            f"pads recorded {pads} of {lead + PROFILE_PAD})")
     raise SystemExit(f"the profiler lost device records in all {PROFILE_ATTEMPTS} windows")
 
 
@@ -882,9 +911,10 @@ def check_neg_log1m() -> None:
 
 
 # the sources phase 2 reads the SASS of, and in each the kernels whose own
-# code must hold no FFMA (the leg kernels) with how many there are
-SASS_CHECKS = {"dda_leg.cu": (r"dda_leg_(sample|shadow)_kernel", 3),
-               "track_leg.cu": (r"track_leg_(sample|shadow)_kernel", 2), "tonemap.cu": (None, 0),
+# code must hold no FFMA (the leg kernels, dense and slab forms) with how
+# many there are
+SASS_CHECKS = {"dda_leg.cu": (r"dda_leg_(sample|shadow)(_slabs)?_kernel", 9),
+               "track_leg.cu": (r"track_leg_(sample|shadow)(_slabs)?_kernel", 6), "tonemap.cu": (None, 0),
                "tile_march.cu": (None, 0)}
 
 
@@ -1719,8 +1749,8 @@ def preview_kernel_times(r, shears) -> None:
                              f"version by {err}")
         keys = profile_keys(lambda: shearwarp_intermediate_cuda(*args))
         if i == 0:
-            log(f"profile of one launch of shearwarp_intermediate_cuda between {PROFILE_PAD} launches of the empty "
-                "kernel before and after it, every key (type, count, host ms, device ms): "
+            log(f"profile of one launch of shearwarp_intermediate_cuda between at least {PROFILE_PAD} launches of the "
+                "empty kernel before it and {PROFILE_PAD} after it, every key (type, count, host ms, device ms): "
                 + "; ".join(f"{k} [{kind}, {n}, {host:.4f}, {dev:.4f}]" for k, kind, n, host, dev in keys))
         prof_ms = sum(dev for k, kind, _, _, dev in keys if kind != "CPU" and "shearwarp_kernel" in k)
         if ms > 0 and prof_ms == 0:
@@ -2468,6 +2498,8 @@ MESH_SERVER_SIZE = (960, 540)
 MESH_BENCH_SAMPLES = 4
 MESH_WORKER_TIMEOUT = 420.0  # seconds, each of the two processes
 CLI_SERVE = ("serve", "--synthetic", "64", "--size", "320x180", "--mesh", "1,1,1")
+# phase 2e's: the volume in two slabs, both positions on the one card
+CLI_SERVE_SLABS = ("serve", "--synthetic", "64", "--size", "320x180", "--mesh", "1,1,2", "--device", "cuda:0")
 
 
 def free_port() -> int:
@@ -2796,16 +2828,17 @@ def mesh_server(grid, device="cuda") -> None:
         hold_drag_preview(r, s.preview_scale, "mesh server")
 
 
-def serve_mesh_cli() -> None:
-    """`python -m volxel_tpu_torch serve ... --mesh 1,1,1` (CLI_SERVE) in a
-    subprocess on an ephemeral port: /state counts samples and /frame.png
-    is a frame of the size asked for; the process is stopped."""
+def serve_mesh_cli(cli: tuple = CLI_SERVE) -> None:
+    """`python -m volxel_tpu_torch serve ... --mesh ...` (`cli`, by default
+    CLI_SERVE's 1,1,1) in a subprocess on an ephemeral port: /state counts
+    samples and /frame.png is a frame of the size asked for; the process
+    is stopped."""
     from volxel_tpu_torch.utils.png import decode_png
 
     port = free_port()
     root = Path(__file__).resolve().parent
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "volxel_tpu_torch", *CLI_SERVE, "--port", str(port)], cwd=root,
+    proc = subprocess.Popen([sys.executable, "-m", "volxel_tpu_torch", *cli, "--port", str(port)], cwd=root,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     base = f"http://127.0.0.1:{port}"
 
@@ -2819,7 +2852,7 @@ def serve_mesh_cli() -> None:
         return st if st["samples"] >= 2 else None
 
     try:
-        st = wait_until(state, "serve --mesh 1,1,1's second sample")
+        st = wait_until(state, f"{' '.join(cli)}: the second sample")
         img = decode_png(http(base, "/frame.png")[2])
     finally:
         proc.terminate()
@@ -2828,10 +2861,10 @@ def serve_mesh_cli() -> None:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
-    size = tuple(int(v) for v in CLI_SERVE[CLI_SERVE.index("--size") + 1].split("x"))
+    size = tuple(int(v) for v in cli[cli.index("--size") + 1].split("x"))
     if img.shape != (size[1], size[0], 3) or st["error"] is not None:
         raise SystemExit(f"serve --mesh: frame {img.shape}, state {st}")
-    log(f"cli: {' '.join(CLI_SERVE)}: {st['samples']} samples served {time.perf_counter() - t0:.2f} s after the "
+    log(f"cli: {' '.join(cli)}: {st['samples']} samples served {time.perf_counter() - t0:.2f} s after the "
         f"start; /frame.png {img.shape}")
 
 
@@ -2874,6 +2907,284 @@ def mesh_path(grid, size: int, width: int, height: int) -> dict:
     torch.cuda.empty_cache()
     log(f"phase 2d (the mesh): {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# phase 2e: render-time volume slabs (parallel/volshard.py). A
+# DistributedRenderer whose SLAB_VZ positions along 'vz' name one card,
+# loaded from the brick grid, beside a vz = 1 renderer on the same card.
+SLAB_VZ = 4
+SLAB_STEPS = 2  # steps a mode, each one sample (sp = 1)
+SLAB_ROUNDS = 2  # held steps a mode in turns: vz = 1, then the slabs
+# the legs of every mode: their registers and own SASS instructions as the
+# parent commit's csrc builds them (examples/leg_sass.py on an H100 with
+# CUDA 12.8); the slab forms are other kernels and leave these as they were
+DENSE_LEG_SASS = {"dda_leg_sample_kernel": (64, 480), "dda_leg_shadow_kernelILb0E": (56, 500),
+                  "dda_leg_shadow_kernelILb1E": (56, 499), "track_leg_sample_kernel": (85, 883),
+                  "track_leg_shadow_kernel": (48, 297), "tile_march_sample_kernelILb1E": (56, 549),
+                  "tile_march_sample_kernelILb0E": (56, 553), "tile_march_transmittance_kernelILb1E": (54, 1594),
+                  "tile_march_transmittance_kernelILb0E": (56, 1612)}
+# each leg's source and the TPU kernel its entry in the JSON line replaces
+SLAB_LEG_SOURCES = {
+    "dda_leg_sample": ("dda_leg.cu", "volxel_tpu/render/pyrmarch.py:313"),
+    "dda_leg_shadow": ("dda_leg.cu", "volxel_tpu/render/pyrmarch.py:313"),
+    "track_leg_sample": ("track_leg.cu", "volxel_tpu/render/mxu_gather.py:196"),
+    "track_leg_shadow": ("track_leg.cu", "volxel_tpu/render/mxu_gather.py:196"),
+    "tile_march_sample": ("tile_march.cu", "volxel_tpu/render/tilemarch.py:627"),
+    "tile_march_transmittance": ("tile_march.cu", "volxel_tpu/render/mxu_gather.py:196"),
+}
+
+
+def field_bytes(field) -> int:
+    """The bytes of a leg's field: the dense tensor, or a SlabGrid's slabs."""
+    from volxel_tpu_torch.render.sampling import SlabGrid
+
+    return sum(nbytes(s) for s in field.slabs) if isinstance(field, SlabGrid) else nbytes(field)
+
+
+def slab_work(name: str):
+    """compared_calls' work of leg `name` from its call's arguments and
+    outputs: every lane's mask and words read and its outputs written once,
+    each running lane's other per-lane operands read once, the LUT, the
+    scalars (and the default legs' pyramid) once; and the work the outputs
+    show: the default legs' march steps (cap - budget; their collisions'
+    taps, which only the plain rounds count, are left out, so this bound is
+    looser than phase 3's), the no_dda legs' events (eight 2-byte taps
+    each), the raymarch legs' steps (one 2-byte tap each), the taps' bytes
+    at most the field's."""
+    import torch
+
+    from volxel_tpu_torch.render import ddaleg, tilemarch, trackleg
+
+    def work(args, got):
+        if name.startswith("tile_march"):
+            field, ipos, idir, start, dt, far, valid = args[:7]
+            state, lut, scalars = args[-4:-1]
+            if name == "tile_march_sample":
+                _, hit, t, _ = got
+                taken = torch.clamp(torch.round((t - start) / dt) + 1, 1, tilemarch.STEPS)
+                steps = int(torch.where(hit, taken, float(tilemarch.STEPS))[valid].sum())
+            else:
+                steps = int(valid.sum()) * tilemarch.STEPS
+            lanes = [a for a in args[1:7] if a is not valid]
+            mask, taps, ops, shared = valid, 2 * steps, steps * OPS_TILE_STEP, (lut, scalars)
+        elif name.startswith("dda_leg"):
+            field, maj, _, scalars, lut = args[:5]
+            state, mask = args[12:14]
+            cap = ddaleg.DDA_SAMPLE_MAX_STEPS if name == "dda_leg_sample" else ddaleg.DDA_TRANSMITTANCE_MAX_STEPS
+            steps = int(torch.where(mask, cap - got[-1], 0).sum())
+            lanes = [*args[5:12], *([] if name == "dda_leg_sample" else [args[14]])]
+            taps, ops, shared = 0, steps * OPS_DDA_STEP, (maj, lut, scalars)
+        else:
+            field, _, scalars, lut = args[:4]
+            state, mask = args[8:10]
+            events = int(torch.where(mask, trackleg.TRACKING_MAX_EVENTS - got[-1], 0).sum())
+            lanes = [*args[4:8], *([] if name == "track_leg_sample" else [args[10]])]
+            taps, ops, shared = 16 * events, events * OPS_COLLIDE, (lut, scalars)
+        running = int(mask.sum())
+        moved = (nbytes(mask, state, *got) + running * nbytes(*lanes) // max(mask.numel(), 1)
+                 + min(field_bytes(field), taps) + nbytes(*shared))
+        return moved, ops
+    return work
+
+
+def held_slab_step(r, what: str) -> dict:
+    """One render_frame() of `r` with each kernel of its mode's sample held
+    bit for bit against its plain version at every call
+    (spec_sample_kernels; the legs' work by slab_work). Returns the
+    tallies by name."""
+    import volxel_tpu_torch.render.modes as modes
+
+    checks = spec_sample_kernels(r.render_mode)
+    with contextlib.ExitStack() as stack:
+        tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, mask_lanes,
+                                                      slab_work(name) if module is modes else no_work))
+                   for module, name, cuda_fn, plain_fn, outputs in checks]
+        r.render_frame()
+    for (_, name, *_), tally in zip(checks, tallies):
+        if tally["calls"] == 0:
+            raise SystemExit(f"{name} was not called in one {r.render_mode} step of {what}")
+    return {name: tally for (_, name, *_), tally in zip(checks, tallies)}
+
+
+def slab_renderer(grid, width: int, height: int, mesh, device):
+    """A DistributedRenderer on `mesh` loaded by restart_from_grid (on a vz
+    mesh the from-brick path), in bench.py's look; returns it, the load's
+    seconds and the peak of the card's allocated bytes during the load
+    above what the renderer holds after it."""
+    import torch
+
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    r = DistributedRenderer(width, height, mesh=mesh)
+    fence_device(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    r.restart_from_grid(grid)
+    fence_device(device)
+    seconds = time.perf_counter() - t0
+    scratch = torch.cuda.max_memory_allocated(device) - torch.cuda.memory_allocated(device)
+    r.settings.bounces = 1
+    bench_look(r)
+    return r, seconds, scratch
+
+
+def slab_load(grid, width: int, height: int, device) -> tuple:
+    """The SLAB_VZ renderer's load: its seconds, each slab's bytes and the
+    load's peak above the slabs, which must stay below the whole field's
+    bytes; then a vz = 1 renderer on the card. Returns both."""
+    from volxel_tpu_torch.parallel import make_mesh
+
+    bx, by, bz = grid.brick_count
+    whole = bx * by * bz * 512 * 2
+    r, seconds, scratch = slab_renderer(grid, width, height, make_mesh(sp=1, px=1, vz=SLAB_VZ,
+                                                                       devices=[device] * SLAB_VZ), device)
+    slabs = sorted((v, tuple(s.shape), nbytes(s)) for (_, v), s in r._slabbed.slabs.items())
+    if len(slabs) != SLAB_VZ or any(b >= whole for *_, b in slabs) or scratch >= whole:
+        raise SystemExit(f"slabs: {slabs}, the load's peak above them {scratch} B, the whole field {whole} B")
+    if r._device_grid.dense is not None:
+        raise SystemExit("slabs: the renderer holds a whole dense field")
+    rep, rep_seconds, rep_scratch = slab_renderer(grid, width, height, make_mesh(sp=1, px=1, devices=[device]),
+                                                  device)
+    log(f"slabs: vz={SLAB_VZ} on one card loaded from the brick grid in {seconds:.3f} s (vz = 1: "
+        f"{rep_seconds:.3f} s); slabs " + ", ".join(f"{v}: {shape} {b} B" for v, shape, b in slabs)
+        + f"; the load's peak above what it keeps {scratch} B ({scratch / whole:.4f} of the whole field's "
+        f"{whole} B; vz = 1: {rep_scratch} B)")
+    return r, rep
+
+
+def slab_steps(r, rep, device) -> tuple[dict, dict]:
+    """SLAB_STEPS steps of `r` (the slabs) and `rep` (vz = 1) in each mode,
+    each step timed: r's framebuffer bit-equal to rep's, each leg launched
+    in its slab form SLAB_VZ times a bounce and never in its dense form in
+    r's steps. Then, after the counts are read, SLAB_ROUNDS held steps of
+    each in turns (held_slab_step): the legs' kernel ms at one step's calls
+    in both forms. Returns the launches of r's steps and the slab forms'
+    tallies (the last round's) by leg."""
+    from volxel_tpu_torch import kernels
+
+    launched = dict.fromkeys(kernels.LAUNCHES, 0)
+    tallies = {}
+    for mode, legs in MODE_LEGS.items():
+        for x in (r, rep):
+            x.render_mode = mode
+        slab_ms, rep_ms = [], []
+        for _ in range(SLAB_STEPS):
+            before = dict(kernels.LAUNCHES)
+            slab_ms.append(fenced_ms(r.render_frame, device)[1])
+            for k in launched:
+                launched[k] += kernels.LAUNCHES[k] - before[k]
+            rep_ms.append(fenced_ms(rep.render_frame, device)[1])
+        if not bits_equal(r._framebuffer, rep._framebuffer):
+            raise SystemExit(f"slabs ({mode}): the framebuffer differs from vz = 1's "
+                             f"(max abs {max_abs([r._framebuffer], [rep._framebuffer])})")
+        bounces = r.settings.bounces * SLAB_STEPS
+        wrong = {leg: (launched[leg], launched[f"{leg}_slabs"]) for leg in legs
+                 if launched[leg] or launched[f"{leg}_slabs"] != SLAB_VZ * bounces}
+        if wrong:
+            raise SystemExit(f"slabs ({mode}): legs launched (dense, slab form) {wrong}")
+        check_image(r.image(), *r._render_dims(), f"slabs ({mode}) image()")
+        log(f"slabs vz={SLAB_VZ} ({mode}, {'x'.join(map(str, r._render_dims()))}): steps "
+            + ", ".join(f"{ms:.3f}" for ms in slab_ms) + " ms; vz = 1 steps (one sample each) "
+            + ", ".join(f"{ms:.3f}" for ms in rep_ms) + f" ms; framebuffer bit-equal to vz = 1's after "
+            f"{SLAB_STEPS} steps; slab-form launches {[launched[f'{leg}_slabs'] for leg in legs]}")
+        saved = dict(kernels.LAUNCHES)
+        for rnd in range(SLAB_ROUNDS):
+            dense = held_slab_step(rep, "vz = 1")
+            slabbed = held_slab_step(r, f"vz = {SLAB_VZ}")
+            for leg in legs:
+                d, t = dense[leg], slabbed[leg]
+                log(f"slabs round {rnd} ({mode}): {leg} bit-equal at all {t['calls']} calls of one step; slab "
+                    f"form {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}) summed over them, dense form "
+                    f"{d['ms']:.4f} ms over its {d['calls']} calls; bound {bound(t['bytes'], t['ops'])['bound_ms']:.4f} ms")
+                tallies[leg] = t
+        kernels.LAUNCHES.update(saved)  # the holds' launches are not the path's
+        if not bits_equal(r._framebuffer, rep._framebuffer):
+            raise SystemExit(f"slabs ({mode}): the held steps' framebuffers differ")
+    return launched, tallies
+
+
+def slab_variants(grid, r, rep, width: int, height: int, device) -> None:
+    """On the slabs: two gradient-shaded default steps, timed in turns
+    with vz = 1's and bit-equal to them; one (sp=2, px=1, vz=2) step bit-equal to an sp = 2 one; vz = 2
+    over cuda:0 and cuda:1 where the machine has two cards."""
+    import torch
+
+    from volxel_tpu_torch.parallel import make_mesh
+
+    for x in (r, rep):
+        x.render_mode = "default"
+        x.settings.gradient_shading = True
+    ms, rep_ms = [], []
+    for _ in range(2):  # in turns, so the two forms share the card's state
+        ms.append(fenced_ms(r.render_frame, device)[1])
+        rep_ms.append(fenced_ms(rep.render_frame, device)[1])
+    if not bits_equal(r._framebuffer, rep._framebuffer):
+        raise SystemExit("slabs: the gradient-shaded steps differ from vz = 1's")
+    log(f"slabs vz={SLAB_VZ}: gradient-shaded default steps {', '.join(f'{v:.3f}' for v in ms)} ms beside "
+        f"{', '.join(f'{v:.3f}' for v in rep_ms)} ms at vz = 1, bit-equal")
+    pairs = [("sp=2, vz=2", make_mesh(sp=2, px=1, vz=2, devices=[device] * 4),
+              make_mesh(sp=2, px=1, devices=[device] * 2))]
+    if torch.cuda.device_count() >= 2:
+        pairs.append(("vz=2 over cuda:0 and cuda:1", make_mesh(sp=1, px=1, vz=2, devices=["cuda:0", "cuda:1"]),
+                      make_mesh(sp=1, px=1, devices=["cuda:0"])))
+    else:
+        log("slabs over two cards: skipped, the machine has one card")
+    for what, mesh, flat in pairs:
+        a = slab_renderer(grid, width, height, mesh, device)[0]
+        b = slab_renderer(grid, width, height, flat, device)[0]
+        ms = fenced_ms(a.render_frame, device)[1]
+        b.render_frame()
+        torch.cuda.synchronize()
+        if not bits_equal(a._framebuffer, b._framebuffer):
+            raise SystemExit(f"slabs ({what}): the step differs from the whole field's")
+        log(f"slabs ({what}, default): one step {ms:.3f} ms, bit-equal to the whole field's")
+        del a, b
+
+
+def check_dense_leg_sass(found: dict, registers: dict) -> None:
+    """Phase 2's registers and own SASS instructions of the legs' dense
+    forms, as DENSE_LEG_SASS has them."""
+    got = {}
+    for key in DENSE_LEG_SASS:
+        src = "dda_leg.cu" if key.startswith("dda") else "track_leg.cu" if key.startswith("track") else "tile_march.cu"
+        fn = next(f for f in found[src] if key in f)
+        got[key] = (registers[src][fn], found[src][fn]["own"][2])
+    if got != DENSE_LEG_SASS:
+        raise SystemExit(f"the legs' dense forms changed: (registers, own SASS) {got}, expected {DENSE_LEG_SASS}")
+    log(f"the legs' dense forms as the parent commit builds them: (registers, own SASS) {got}")
+
+
+def slab_path(grid, width: int, height: int, found: dict, registers: dict, device="cuda") -> tuple[dict, dict]:
+    """Phase 2e, with every launch counter at 0 before it; returns the
+    slab run's launch counts and the slab forms' tallies by leg."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    r, rep = slab_load(grid, width, height, device)
+    launched, tallies = slab_steps(r, rep, device)
+    slab_variants(grid, r, rep, width, height, device)
+    del r, rep
+    torch.cuda.empty_cache()
+    serve_mesh_cli(CLI_SERVE_SLABS)
+    check_dense_leg_sass(found, registers)
+    log(f"phase 2e (render-time volume slabs): {time.perf_counter() - t_phase:.1f} s")
+    return launched, tallies
+
+
+def slab_entries(launched: dict, tallies: dict) -> list[dict]:
+    """The JSON line's entries of the legs' slab forms, from phase 2e."""
+    out = []
+    for leg, t in tallies.items():
+        src, replaces = SLAB_LEG_SOURCES[leg]
+        e = entry(f"{leg}_slabs", f"volxel_tpu_torch/csrc/{src}", replaces, t["err"], t["ms"], t["plain_ms"],
+                  t["bytes"], t["ops"])
+        e["launches"] = launched[f"{leg}_slabs"]
+        out.append(e)
+    return out
 
 
 def main() -> int:
@@ -2944,6 +3255,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 2d: the mesh, with the counters at 0 before the 2x2 mesh's steps
     mesh_path(grid, args.size, args.width, args.height)
+    # phase 2e: render-time volume slabs, with the counters at 0 before it
+    slab_launches, slab_tallies = slab_path(grid, args.width, args.height, sass, registers)
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
@@ -2968,6 +3281,7 @@ def main() -> int:
     launches["preview"] = preview_path(grid, args.width, args.height)
     for e in results:
         e["launches"] = launches[KERNEL_PATH[e["name"]]][e["name"]]
+    results += slab_entries(slab_launches, slab_tallies)
     torch.cuda.empty_cache()
 
     # phase 5: card against CPU at a small size, in every mode and the preview

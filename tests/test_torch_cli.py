@@ -76,9 +76,23 @@ def test_info():
     assert "native ingest: " in stdout and "torch " in stdout
 
 
-def test_serve_mesh_is_not_ported():
-    """A mesh with a 'vz' axis > 1 (render-time volume slabs) is not
-    ported: serve --mesh raises, naming the ROADMAP item
-    (tests/test_torch_parallel.py serves from a vz = 1 mesh)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["serve", "--device", "cpu", "--synthetic", "16", "--mesh", "2,2,2"])
+def test_serve_mesh_with_volume_slabs(monkeypatch):
+    """`serve --mesh 2,2,2 --device cpu` hands the server a
+    DistributedRenderer whose volume lies in z-slabs over 'vz': it serves
+    frames of sp samples each, and no drag preview (the previews need the
+    whole field)."""
+    from volxel_tpu_torch.api.server import PreviewServer
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+
+    served = []
+    monkeypatch.setattr(PreviewServer, "serve_forever", lambda self: served.append(self))
+    main(["serve", "--device", "cpu", "--synthetic", "16", "--size", "16x16", "--mesh", "2,2,2"])
+    (server,) = served
+    r = server.renderer
+    assert isinstance(r, DistributedRenderer) and r.mesh.shape == {"sp": 2, "px": 2, "vz": 2}
+    assert r._slabbed is not None and r._device_grid.dense is None
+    r.settings.max_samples = 4
+    assert server.step() == "frame" and server.step() == "frame" and server.step() == "idle"
+    assert r.samples_rendered() == 4 and np.isfinite(r.image()).all()
+    server._motion_until = float("inf")  # as while a drag goes on
+    assert server._maybe_dvr_preview() is False and server.last_error is None

@@ -907,7 +907,8 @@ def test_gather_kernel_refuses_int64_indices(cuda_device):
 @pytest.mark.cuda
 def test_render_on_card_goes_through_every_kernel(cuda_device):
     """Each mode's render and the preview go through their kernels;
-    tile_march_sums is on no render path."""
+    tile_march_sums is on no render path, and the legs' slab forms run
+    only over volume slabs (test_slab_leg_kernels_bit_equal_to_plain)."""
     kernels.reset_launch_counts()
     r = _renderer(cuda_device, side=32)
     img = r.render(8)
@@ -919,7 +920,8 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
     for image in (r.render_preview(), r.render_dvr(screen=True)):
         assert np.isfinite(image).all() and image.shape == (32, 32, 3)
     ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
-    assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"}, kernels.LAUNCHES
+    slab_forms = {name for name in kernels.LAUNCHES if name.endswith("_slabs")}
+    assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"} - slab_forms, kernels.LAUNCHES
 
 
 @pytest.mark.cuda
@@ -1183,3 +1185,184 @@ def test_distributed_renderer_over_two_cards(cuda_device):
     r.render_frame()
     assert r._framebuffer.device == torch.device("cuda", 0)
     _assert_bits_equal([r._framebuffer], [replayed_framebuffer(r, 2)])
+
+
+# -- render-time volume slabs ----------------------------------------------------
+
+
+def _slab_renderers(devices, mode, vz, tap_dtype="float32", side=32, setting=None):
+    """(a vz = 1 renderer on devices[0], a (1, 1, vz) one over `devices`),
+    the same 40x32x32 scene (z not divisible by 4 in slices of the padded
+    field's bricks) at bounces 2."""
+    from volxel_tpu_torch.parallel import make_mesh
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+
+    vol = synthetic_ct_volume((40, 32, 32), bits_stored=12)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    out = []
+    for mesh in (make_mesh(sp=1, px=1, devices=devices[:1]), make_mesh(sp=1, px=1, vz=vz, devices=devices)):
+        r = DistributedRenderer(side, side, mesh=mesh, vz_tap_dtype=tap_dtype)
+        r.restart_from_grid(grid)
+        r.camera.rotate_around_view(0.4, 0.2)
+        r.camera.zoom(2.0)
+        r.render_mode = mode
+        r.settings.bounces = 2
+        if setting:
+            setattr(r.settings, setting, True)
+        out.append(r)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tap_dtype,setting", [("default", "float32", None), ("default", "bfloat16", None),
+                                                    ("default", "float32", "physical_shadows"),
+                                                    ("raymarch", "float32", None), ("no_dda", "float32", None),
+                                                    ("no_dda", "bfloat16", None)])
+def test_slab_leg_kernels_bit_equal_to_plain(cuda_device, monkeypatch, mode, tap_dtype, setting):
+    """A vz = 4 renderer on one card: every leg call goes through the slab
+    form of its kernel (counted apart from the dense form), which equals
+    its plain slab version on every output."""
+    _, r = _slab_renderers([cuda_device] * 4, mode, 4, tap_dtype, setting=setting)
+    calls = []
+
+    def held(name, cuda_fn, plain_fn):
+        def call(*args):
+            got = cuda_fn(*args)
+            _assert_bits_equal(got, plain_fn(*args))
+            calls.append(name)
+            return got
+        return call
+
+    for name, cuda_fn, plain_fn in _MODE_LEGS[mode]:
+        monkeypatch.setattr(modes, name, held(name, cuda_fn, plain_fn))
+    kernels.reset_launch_counts()
+    r.render_frame()
+    assert len(calls) == 4 * 2 * 2  # four positions, two bounces, two legs
+    for name, *_ in _MODE_LEGS[mode]:
+        assert kernels.LAUNCHES[name] == 0 and kernels.LAUNCHES[f"{name}_slabs"] == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "raymarch", "no_dda"])
+def test_slabs_on_one_card_bit_equal_to_the_whole_field(cuda_device, mode):
+    """vz = 4 on one card, two steps: the framebuffer is bit-equal to the
+    vz = 1 renderer's; gradient shading too."""
+    rep, slab = _slab_renderers([cuda_device] * 4, mode, 4)
+    for _ in range(2):
+        a, b = rep.render_frame(), slab.render_frame()
+    _assert_bits_equal([b], [a])
+    for r in (rep, slab):
+        r.settings.gradient_shading = True
+    _assert_bits_equal([slab.render_frame()], [rep.render_frame()])
+
+
+@pytest.mark.cuda
+def test_slab_table_refuses_another_card_and_a_short_table(cuda_device):
+    """The wrappers check the slab table: one a slab, int64, on the lanes'
+    card."""
+    from volxel_tpu_torch.render.sampling import SlabGrid
+
+    _, r = _slab_renderers([cuda_device] * 4, "no_dda", 4)
+    r.render_frame()
+    args = list(track_call(track_lanes(cuda_device, n=64), "sample"))
+    grid = r._slabbed.local_grid()
+    args[0], args[1] = grid, grid.extent
+    trackleg.track_leg_sample_cuda(*args)  # the table is made on the lanes' card
+    short = SlabGrid(grid.slabs[:3], grid.slab, grid.maj_mips, grid.extent)
+    with pytest.raises(ValueError, match="outside the slabs"):
+        trackleg.track_leg_sample_cuda(short, *args[1:])
+    bad = SlabGrid(grid.slabs, grid.slab, grid.maj_mips, grid.extent, tables={torch.device("cuda", 0):
+                                                                               torch.zeros(2, dtype=torch.int64,
+                                                                                           device=cuda_device)})
+    with pytest.raises(ValueError, match="slab table"):
+        trackleg.track_leg_sample_cuda(bad, *args[1:])
+
+
+def _lane_slabs(lanes, device, vz=4):
+    """The SlabGrid of vz slabs of track_lanes' 12^3 field, all on `device`."""
+    from volxel_tpu_torch.parallel import make_mesh
+    from volxel_tpu_torch.parallel.volshard import build_slabbed_volume
+
+    field = DeviceGrid(dense=lanes["dense"], maj_mips=None, extent=tuple(lanes["extent"]))
+    return build_slabbed_volume(field, make_mesh(sp=1, px=1, vz=vz, devices=[device] * vz)).local_grid()
+
+
+@pytest.mark.cuda
+def test_slab_launch_waits_for_the_slabs_writes(cuda_device):
+    """Slabs written on a side stream behind a ~25 ms sleep: a slab leg
+    launched at once on the card's current stream, with no host sync,
+    waits for those writes (SlabGrid.ready, waited on in SlabGrid.table)
+    and equals its plain version on the finished slabs; on zero slabs the
+    leg's result differs, so a launch that did not wait would show."""
+    from volxel_tpu_torch.render.sampling import SlabGrid
+
+    lanes = track_lanes(cuda_device, n=256)
+    args = track_call(lanes, "sample")
+    grid = _lane_slabs(lanes, cuda_device)
+    want = trackleg.track_leg_sample_plain(grid, *args[1:])
+    zeros = SlabGrid([torch.zeros_like(s) for s in grid.slabs], grid.slab, grid.maj_mips, grid.extent)
+    assert not all(torch.equal(a, b) for a, b in zip(trackleg.track_leg_sample_plain(zeros, *args[1:]), want))
+    late = [torch.zeros_like(s) for s in grid.slabs]
+    torch.cuda.synchronize(cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for dst, src in zip(late, grid.slabs):
+            dst.copy_(src)
+        written = SlabGrid(late, grid.slab, grid.maj_mips, grid.extent)
+    got = trackleg.track_leg_sample_cuda(written, *args[1:])
+    torch.cuda.synchronize(cuda_device)
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_slab_timestep_swaps_over_two_cards_without_a_host_sync(cuda_device):
+    """A time series over vz = 2 on cuda:0 and cuda:1, a timestep swap at
+    every step and the previous timestep evicted, with no host sync
+    between steps: each swap rebuilds the slabs and frees the old ones to
+    their cards' allocators while the other card's legs may still be
+    reading them (SlabGrid.table ties them to the readers' streams). Each
+    step's framebuffer is bit-equal to the vz = 1 player's on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from volxel_tpu_torch.api.timeseries import TimeSeriesPlayer
+    from volxel_tpu_torch.parallel import make_mesh
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+
+    base = synthetic_ct_volume((40, 32, 32), bits_stored=12).astype(np.float32) / 4095.0
+    vols = np.stack([base * np.float32(1.0 - 0.2 * t) for t in range(4)])
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    frames = []
+    for devices in (cards[:1], cards):
+        r = DistributedRenderer(32, 32, mesh=make_mesh(sp=1, px=1, vz=len(devices), devices=devices))
+        r.restart_from_grid(construct_brick_grid(vols[0], transform=np.eye(4, dtype=np.float32)))
+        r.camera.rotate_around_view(0.4, 0.2)
+        r.camera.zoom(2.0)
+        r.settings.bounces = 2
+        player = TimeSeriesPlayer(r, vols)
+        out = []
+        for t in (0, 1, 2, 3, 0, 1, 2, 3):
+            player.set_timestep(t)
+            player.evict((t - 1) % len(vols))
+            out.append(r.render_frame().clone())
+        frames.append(out)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    for step, (a, b) in enumerate(zip(*frames)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"step {step}"
+    assert not torch.equal(frames[1][0], frames[1][1])
+
+
+@pytest.mark.cuda
+def test_slabs_over_two_cards(cuda_device):
+    """vz = 2 over cuda:0 and cuda:1: each card's lanes read the other's
+    slab with peer loads; bit-equal to vz = 1 on cuda:0 in each mode."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    for mode in ("default", "raymarch", "no_dda"):
+        rep, slab = _slab_renderers([torch.device("cuda", 0), torch.device("cuda", 1)], mode, 2)
+        kernels.reset_launch_counts()
+        a, b = rep.render_frame(), slab.render_frame()
+        assert b.device == torch.device("cuda", 0)
+        _assert_bits_equal([b], [a])
+        assert kernels.LAUNCHES[f"{_MODE_LEGS[mode][0][0]}_slabs"] == 2 * 2

@@ -114,6 +114,40 @@ print(f"proc {pid} sharded-render ok", flush=True)
 """
 
 
+_SLAB_WORKER = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, sharded_render_fn
+from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+from volxel_tpu_torch.render.pathtrace import RenderConfig
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+addr, pid = sys.argv[1], int(sys.argv[2])
+assert initialize_multihost(coordinator_address=addr, num_processes=2, process_id=pid, backend="gloo") is True
+vol = synthetic_ct_volume((16, 16, 16), bits_stored=12)
+g = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+mesh = make_mesh(sp=1, px=1, vz=2, devices=[(0, "cpu"), (1, "cpu")])
+for attempt in (lambda: sharded_render_fn(RenderConfig(width=16, height=16), mesh),
+                lambda: DistributedRenderer(16, 16, mesh=mesh, device="cpu").restart_from_grid(g)):
+    try:
+        attempt()
+    except NotImplementedError as e:
+        assert "ROADMAP.md, queue 1, 'Slabs across processes'" in str(e), e
+    else:
+        raise AssertionError("a vz axis across processes did not raise")
+# a vz axis inside each process, with sp across them, renders
+dist = DistributedRenderer(16, 16, mesh=make_mesh(sp=2, px=1, vz=2, devices=[(0, "cpu")] * 2 + [(1, "cpu")] * 2),
+                           device="cpu")
+dist.restart_from_grid(g)
+assert bool(torch.isfinite(dist.render_frame()).all())
+assert "jax" not in sys.modules and "volxel_tpu" not in sys.modules
+print(f"proc {pid} slabs ok", flush=True)
+"""
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -187,3 +221,13 @@ def test_two_process_sharded_render():
     outs = _run_two_process(_RENDER_WORKER, timeout=240)
     assert "proc 0 sharded-render ok" in outs[0][1]
     assert "proc 1 sharded-render ok" in outs[1][1]
+
+
+def test_two_process_slab_axis_raises_naming_the_roadmap():
+    """A vz axis whose positions span the two processes raises
+    NotImplementedError naming its ROADMAP.md item, in sharded_render_fn
+    and in DistributedRenderer.restart_from_grid; a vz axis within each
+    process, sp across them, renders (see the worker)."""
+    outs = _run_two_process(_SLAB_WORKER, timeout=240)
+    assert "proc 0 slabs ok" in outs[0][1]
+    assert "proc 1 slabs ok" in outs[1][1]

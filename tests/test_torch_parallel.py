@@ -158,17 +158,26 @@ def test_indivisible_pixel_count_rejected(scenes):
         render_sample_sharded(config, make_mesh(sp=1, px=8, devices=CPU8), *ops, 0)
 
 
-def test_vz_axis_raises_naming_the_roadmap(scenes):
+def test_vz_axis_runs_the_three_entry_points(scenes):
+    """On an sp=1, px=4, vz=2 mesh: sharded_render_fn with the replicated
+    grid is bit-equal to sample 0 (each position renders half of its
+    block), sharded_multiview_fn to render_views, and
+    DistributedRenderer.restart_from_grid loads z-slabs whose step is
+    bit-equal to the (1, 4) mesh's."""
     data, port, _ = scenes
-    config, _ = _operands(port["default"])
+    config, ops = _operands(port["default"])
     mesh = make_mesh(sp=1, px=4, vz=2, devices=CPU8)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, 'Render-time volume slabs'"):
-        sharded_render_fn(config, mesh)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, 'Render-time volume slabs'"):
-        sharded_multiview_fn(config, mesh, 4)
-    r = DistributedRenderer(16, 16, mesh=mesh)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1, 'Render-time volume slabs'"):
-        r.restart_from_grid(construct_brick_grid(data, transform=EYE))
+    _assert_bits_equal(sharded_render_fn(config, mesh)(*ops, 0), step_mean((config, *ops), 0, 1))
+    r = port["default"]
+    cams = [r._camera_operands(config) for _ in range(2)]
+    view_ops = (*ops[:4], torch.stack([c[0] for c in cams]), torch.stack([c[1] for c in cams]), ops[6])
+    _assert_bits_equal(sharded_multiview_fn(config, mesh, 2)(*view_ops, 1), render_views(config, *view_ops, 1))
+    slab = DistributedRenderer(16, 16, mesh=mesh)
+    slab.restart_from_grid(construct_brick_grid(data, transform=EYE))
+    flat = DistributedRenderer(16, 16, mesh=make_mesh(sp=1, px=4, devices=CPU8[:4]))
+    flat.restart_from_grid(construct_brick_grid(data, transform=EYE))
+    assert slab._slabbed is not None and slab._device_grid.dense is None
+    _assert_bits_equal(slab.render_frame(), flat.render_frame())
 
 
 def test_operands_copied_once_per_card_and_pyramid_built_once_per_step(monkeypatch, scenes):

@@ -255,7 +255,8 @@ def main(argv=None) -> None:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--mesh", help="sp,px,vz mesh of a DistributedRenderer: over every card by default, or "
-                   "every position on --device when it names one (vz > 1 is not ported: raises)")
+                   "every position on --device when it names one; vz > 1 holds the volume in z-slabs over the "
+                   "vz axis (no drag previews then)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("info", help="device report")

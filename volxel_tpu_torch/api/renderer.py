@@ -198,8 +198,13 @@ class Renderer:
         self.settings.volume_clip_max = [1.0, 1.0, 1.0]
         self.volume = Volume.from_grid(grid)
         self.density_scale *= self.volume.rescale_to_unit_cube()
-        self._device_grid = device_grid_from_brick(grid, self.device)
+        self._device_grid = self._upload_grid(grid)
         self.restart_rendering()
+
+    def _upload_grid(self, grid: BrickGrid):
+        """The device grid of a host brick grid: its dense field decoded on
+        the renderer's device."""
+        return device_grid_from_brick(grid, self.device)
 
     def restart_from_files(self, sources: list) -> None:
         """DICOM slices (paths or bytes), in the order given. A failure
@@ -493,8 +498,8 @@ class Renderer:
         image; with screen=True applies the warp half of shear-warp and
         returns a (height, width, 3) image aligned with the camera (row 0 =
         top). The canvas follows this view's shear (the static canvas)."""
-        if self._device_grid is None:
-            raise RuntimeError("DVR preview needs a loaded volume")
+        if self._device_grid is None or self._device_grid.dense is None:
+            raise RuntimeError("DVR preview needs a loaded dense volume (a volume in slabs has none)")
         dense = self._device_grid.dense
         d_index = self._index_view_dir()
         scale = float(self.density_scale * self.settings.density_multiplier)
@@ -528,8 +533,8 @@ class Renderer:
         The intermediate canvas is fixed at the worst-case shear, so every
         view of one principal axis and direction uses one cached permuted
         volume and one canvas size (at most 6 of each)."""
-        if self._device_grid is None:
-            raise RuntimeError("preview needs a loaded volume")
+        if self._device_grid is None or self._device_grid.dense is None:
+            raise RuntimeError("preview needs a loaded dense volume (a volume in slabs has none)")
         w, h = self._render_dims()
         if scale != 1.0:
             w, h = max(1, round(w * scale)), max(1, round(h * scale))

@@ -44,6 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from volxel_tpu_torch.render.sampling import decode_dense_rows_device
 from volxel_tpu_torch.utils.png import encode_png
 
 _PAGE = """<!DOCTYPE html>
@@ -475,8 +476,8 @@ class PreviewServer:
         r = self.renderer
         if not self.dvr_preview or time.time() >= self._motion_until:
             return False
-        if r._device_grid is None:
-            return False
+        if r._device_grid is None or r._device_grid.dense is None:
+            return False  # nothing loaded, or a volume in slabs: no preview
         try:
             self._encode_frame(r.render_preview(scale=self.preview_scale))
             return True
@@ -555,11 +556,19 @@ class PreviewServer:
         """256-bin histogram + smoothed first-difference gradient of the
         decoded density field (dicom.rs:39-66 semantics) for grids that
         were built without the ingest pipeline. The bf16 field is copied
-        to the host as f32 once; the result is kept."""
+        to the host as f32 once (a volume in slabs is decoded there); the
+        result is kept."""
         if self._hist_cache is not None:
             return self._hist_cache
-        dense = self.renderer._device_grid.dense.float().cpu().numpy().ravel()
-        hist, _ = np.histogram(dense, bins=256, range=(0.0, 1.0))
+        dense = self.renderer._device_grid.dense
+        if dense is not None:
+            hist, _ = np.histogram(dense.float().cpu().numpy().ravel(), bins=256, range=(0.0, 1.0))
+        else:  # a volume in slabs: the same bf16 field, decoded on the host eight brick rows at a time
+            grid = self.renderer.grid
+            bz = grid.brick_count[2]
+            hist = sum(np.histogram(decode_dense_rows_device(grid, b, min(b + 8, bz), "cpu").float().numpy().ravel(),
+                                    bins=256, range=(0.0, 1.0))[0]
+                       for b in range(0, bz, 8))
         hist = hist.astype(np.uint32)
         diff = np.diff(hist.astype(np.int64), prepend=0)
         grad = ((np.roll(diff, 1) + diff + np.roll(diff, -1)) // 3).astype(np.int64)

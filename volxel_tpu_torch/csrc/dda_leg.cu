@@ -63,6 +63,12 @@
 // torch.log over all 2^24 values xi takes. The constants 0.1, 1e-20 and
 // 2.0 are rounded to f32 once, as PyTorch rounds a Python scalar against
 // an f32 tensor.
+//
+// Render-time volume slabs: vx_dda_leg_*_slabs launch the same legs over a
+// SlabField (leg_common.cuh), each collision's taps read from the slab of
+// the owner of its base z through the slabs' pointer table, and with the
+// trilinear sum rounded to bf16 where the grid asks for it (round_taps).
+// They are kernels of their own, so the dense kernels keep their code.
 
 #include "leg_common.cuh"
 
@@ -100,7 +106,8 @@ struct Lane {
 
 // the step from (t, mip): pyrmarch.pyr_march_plain's majorant fetch (a
 // 32-bit index) and DDA step
-__device__ __forceinline__ void issue(const Pyramid& g, const Field& v, Lane& l) {
+template <class F>
+__device__ __forceinline__ void issue(const Pyramid& g, const F& v, Lane& l) {
   const int mi = clampi(static_cast<int>(floorf(__fadd_rn(l.mip, 0.5f))), 0, 3);
   float c[3];
   for (int a = 0; a < 3; ++a) c[a] = __fadd_rn(l.p[a], __fmul_rn(l.t, l.d[a]));
@@ -123,8 +130,8 @@ __device__ __forceinline__ void issue(const Pyramid& g, const Field& v, Lane& l)
 // step, issued by every lane of the warp together. The lane ends where it
 // escapes at a collision, leaves past `far` or spends its budget (also
 // when it starts with none left), as pyr_march_plain's rounds end it.
-template <class Collide>
-__device__ __forceinline__ void walk(const Pyramid& g, const Field& v, Lane& l, Collide collide) {
+template <class F, class Collide>
+__device__ __forceinline__ void walk(const Pyramid& g, const F& v, Lane& l, Collide collide) {
   const Scalars c = load_scalars(v);
   if (l.budget <= 0) return;
   issue(g, v, l);
@@ -187,10 +194,9 @@ __device__ __forceinline__ void store_common(const Lanes& a, long long i, const 
 // modes.sample_volume_dda's leg (dda.glsl:65-98): at each collision the
 // real/null draw; a real collision ends the lane with the LUT colour, a
 // null one redraws tau, steps the mip down, and the lane marches on
-__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_kernel(Pyramid g, Field v, Lanes a,
-                                                                             bool* __restrict__ hit_out,
-                                                                             float* __restrict__ t_out,
-                                                                             float* __restrict__ rgb_out) {
+template <class F>
+__device__ __forceinline__ void sample_leg(const Pyramid& g, const F& v, const Lanes& a, bool* __restrict__ hit_out,
+                                           float* __restrict__ t_out, float* __restrict__ rgb_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   uint32_t s[4];
@@ -221,15 +227,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_kernel(Py
   for (int k = 0; k < 3; ++k) rgb_out[3 * i + k] = rgb[k];
 }
 
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_kernel(Pyramid g, Field v, Lanes a,
+                                                                             bool* __restrict__ hit_out,
+                                                                             float* __restrict__ t_out,
+                                                                             float* __restrict__ rgb_out) {
+  sample_leg(g, v, a, hit_out, t_out, rgb_out);
+}
+
+// the same over z-slabs
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_slabs_kernel(Pyramid g, SlabField<kRound> v,
+                                                                                   Lanes a, bool* __restrict__ hit_out,
+                                                                                   float* __restrict__ t_out,
+                                                                                   float* __restrict__ rgb_out) {
+  sample_leg(g, v, a, hit_out, t_out, rgb_out);
+}
+
 // modes.transmittance_dda's leg (dda.glsl:21-62): at each collision the
 // real/null draw, the ratio at a real one (the reference's quirk 1 -
 // vol_maj / maj, or 1 - d / maj when `physical`), russian roulette under
 // 0.1 (a killed lane ends with tr = 0 before the tau draw), then the tau
 // redraw and the mip step-down, and the lane marches on
-template <bool kPhysical>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_kernel(Pyramid g, Field v, Lanes a,
-                                                                             const float* __restrict__ tr_in,
-                                                                             float* __restrict__ tr_out) {
+template <bool kPhysical, class F>
+__device__ __forceinline__ void shadow_leg(const Pyramid& g, const F& v, const Lanes& a,
+                                           const float* __restrict__ tr_in, float* __restrict__ tr_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   uint32_t s[4];
@@ -258,6 +279,22 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_kernel(Py
   }
   store_common(a, i, s, budget);
   tr_out[i] = tr;
+}
+
+template <bool kPhysical>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_kernel(Pyramid g, Field v, Lanes a,
+                                                                             const float* __restrict__ tr_in,
+                                                                             float* __restrict__ tr_out) {
+  shadow_leg<kPhysical>(g, v, a, tr_in, tr_out);
+}
+
+// the same over z-slabs
+template <bool kPhysical, bool kRound>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_slabs_kernel(Pyramid g, SlabField<kRound> v,
+                                                                                   Lanes a,
+                                                                                   const float* __restrict__ tr_in,
+                                                                                   float* __restrict__ tr_out) {
+  shadow_leg<kPhysical>(g, v, a, tr_in, tr_out);
 }
 
 __global__ void __launch_bounds__(kThreads) neg_log1m_kernel(const float* __restrict__ xi, float* __restrict__ out,
@@ -302,6 +339,58 @@ extern "C" int vx_dda_leg_shadow(const float* maj, int bz, int by, int bx, const
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int vx_dda_leg_sample_slabs(const float* maj, int bz, int by, int bx, const uint16_t* const* slabs,
+                                       int slab, int round_taps, int ny, int nx, int ex, int ey, int ez,
+                                       const float* lut, int lut_k, const float* scalars, const float* ipos,
+                                       const float* idir, const float* ri, const float* far, const float* t,
+                                       const float* tau, const float* mip, const int64_t* state, const bool* running,
+                                       int cap, int64_t* state_out, bool* hit_out, float* t_out, float* rgb_out,
+                                       int* budget_out, long long n, cudaStream_t stream) {
+  if (n > 0) {
+    const Pyramid g{maj, bz, by, bx};
+    const Lanes a{ipos, idir, ri, far, t, tau, mip, state, running, cap, state_out, budget_out, n};
+    if (round_taps) {
+      dda_leg_sample_slabs_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+          g, make_slab_field<true>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, hit_out, t_out, rgb_out);
+    } else {
+      dda_leg_sample_slabs_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
+          g, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, hit_out, t_out, rgb_out);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRound>
+void launch_shadow_slabs(const Pyramid& g, const SlabField<kRound>& v, const Lanes& a, const float* tr, int physical,
+                         float* tr_out, cudaStream_t stream) {
+  if (physical) {
+    dda_leg_shadow_slabs_kernel<true, kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(g, v, a, tr, tr_out);
+  } else {
+    dda_leg_shadow_slabs_kernel<false, kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(g, v, a, tr, tr_out);
+  }
+}
+
+extern "C" int vx_dda_leg_shadow_slabs(const float* maj, int bz, int by, int bx, const uint16_t* const* slabs,
+                                       int slab, int round_taps, int ny, int nx, int ex, int ey, int ez,
+                                       const float* lut, int lut_k, const float* scalars, const float* ipos,
+                                       const float* idir, const float* ri, const float* far, const float* t,
+                                       const float* tau, const float* mip, const int64_t* state, const bool* running,
+                                       const float* tr, int cap, int physical, int64_t* state_out, float* tr_out,
+                                       int* budget_out, long long n, cudaStream_t stream) {
+  if (n > 0) {
+    const Pyramid g{maj, bz, by, bx};
+    const Lanes a{ipos, idir, ri, far, t, tau, mip, state, running, cap, state_out, budget_out, n};
+    if (round_taps) {
+      launch_shadow_slabs(g, make_slab_field<true>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, tr,
+                          physical, tr_out, stream);
+    } else {
+      launch_shadow_slabs(g, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, tr,
+                          physical, tr_out, stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // the warps that leg `leg`'s kernel (0 camera, 1 shadow, 2 shadow with
 // physical shadows) keeps resident on one SM of the current card
 extern "C" int vx_dda_leg_resident_warps(int leg, int* warps) {
@@ -311,6 +400,24 @@ extern "C" int vx_dda_leg_resident_warps(int leg, int* warps) {
                                   : reinterpret_cast<const void*>(dda_leg_shadow_kernel<true>);
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
   *warps = blocks * kThreads / 32;
+  return static_cast<int>(err);
+}
+
+// enable peer access from the current card to card `peer` (nothing to do
+// for the card itself or where it is enabled already), so that a leg on this
+// card can load from a slab there; an error where the cards cannot
+extern "C" int vx_enable_peer_access(int peer) {
+  int device = 0, can = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || peer == device) return static_cast<int>(err);
+  err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    (void)cudaGetLastError();  // clear it: an enabled peer is what was asked for
+    return static_cast<int>(cudaSuccess);
+  }
   return static_cast<int>(err);
 }
 

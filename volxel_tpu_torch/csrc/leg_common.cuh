@@ -20,11 +20,22 @@
 // int casts are static_cast, as ATen's are (NaN lands on 0, +-inf
 // saturates); a tap outside the extent reads 0.
 //
+// A launch reads its field from one dense array (Field) or from z-slabs
+// (SlabField, render-time volume slabs: render/sampling.SlabGrid), through a
+// table of the slabs' device pointers on the launching card; a slab on
+// another card is read with peer loads. Slab v holds z slices [v * slab -
+// kSlabHalo, (v + 1) * slab + kSlabHalo), so the owner of a stencil's
+// clipped base z holds all of its taps, and the fetch indexes from that
+// slab's row as it would from the dense field's. The leg kernels are
+// templates over the field type; the Field instantiation is the kernel as
+// it is without slabs.
+//
 // kernels.build compiles csrc/*.cu only, so this header is never compiled
 // alone; kernels.library_path hashes it with the sources.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,6 +84,7 @@ struct Field {
   const float4* lut;
   float lut_k, lut_top;  // K and K - 1 as f32
   const float* scalars;
+  static constexpr bool kRoundTaps = false;
 };
 
 inline Field make_field(const uint16_t* dense, int ny, int nx, int ex, int ey, int ez, const float* lut, int lut_k,
@@ -81,12 +93,50 @@ inline Field make_field(const uint16_t* dense, int ny, int nx, int ex, int ey, i
                static_cast<float>(lut_k), static_cast<float>(lut_k - 1), scalars};
 }
 
+constexpr int kSlabHalo = 2;  // sampling.SLAB_HALO
+
+// the same, the field in z-slabs of `slab` owned slices each (slab +
+// 2 * kSlabHalo slices of ny * nx stored), `slabs` the table of their
+// pointers; kRound rounds each trilinear sum to bf16 (SlabGrid.tap_dtype)
+template <bool kRound>
+struct SlabField {
+  const uint16_t* const* slabs;
+  int slab;
+  int ny, nx, ex, ey, ez;
+  long long plane;
+  const float4* lut;
+  float lut_k, lut_top;
+  const float* scalars;
+  static constexpr bool kRoundTaps = kRound;
+};
+
+template <bool kRound>
+inline SlabField<kRound> make_slab_field(const uint16_t* const* slabs, int slab, int ny, int nx, int ex, int ey, int ez,
+                                         const float* lut, int lut_k, const float* scalars) {
+  return SlabField<kRound>{slabs, slab, ny, nx, ex, ey, ez, static_cast<long long>(nx) * ny,
+                           reinterpret_cast<const float4*>(lut), static_cast<float>(lut_k),
+                           static_cast<float>(lut_k - 1), scalars};
+}
+
+// the first corner of a cell (x, y, z), dense or in the slab of the owner of
+// its clipped z (a row whose taps are all outside is never loaded)
+__device__ __forceinline__ const uint16_t* corner(const Field& v, const int (&b)[3]) {
+  return v.dense + ((static_cast<long long>(b[2]) * v.ny + b[1]) * v.nx + b[0]);
+}
+template <bool kRound>
+__device__ __forceinline__ const uint16_t* corner(const SlabField<kRound>& v, const int (&b)[3]) {
+  const int owner = clampi(b[2], 0, v.ez - 1) / v.slab;
+  const long long lz = static_cast<long long>(b[2]) - static_cast<long long>(owner) * v.slab + kSlabHalo;
+  return v.slabs[owner] + ((lz * v.ny + b[1]) * v.nx + b[0]);
+}
+
 // the volume's scalars, read once by each thread
 struct Scalars {
   float vol_maj, inv_maj, den_scale, range_lo, range_hi;
 };
 
-__device__ __forceinline__ Scalars load_scalars(const Field& v) {
+template <class F>
+__device__ __forceinline__ Scalars load_scalars(const F& v) {
   return Scalars{__ldg(v.scalars + kVolMaj), __ldg(v.scalars + kInvMaj), __ldg(v.scalars + kDenScale),
                  __ldg(v.scalars + kRangeLo), __ldg(v.scalars + kRangeHi)};
 }
@@ -106,8 +156,10 @@ struct Taps {
 // where that cast saturates. One 64-bit index for the cell's first corner,
 // so a field may hold more than 2^31 elements, the four (y, z) rows from
 // it, the x + 1 tap two bytes on, each of the eight 2-byte loads
-// predicated on its tap being inside (0 outside).
-__device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const float (&d)[3], float t, Taps& e) {
+// predicated on its tap being inside (0 outside). On slabs the first corner
+// lies in the slab of the owner of the clipped base z (corner).
+template <class F>
+__device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const float (&d)[3], float t, Taps& e) {
   const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
                         __fadd_rn(p[2], __fmul_rn(t, d[2]))};
   const int ext[3] = {v.ex, v.ey, v.ez};
@@ -122,7 +174,7 @@ __device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const
     in[a][1] = static_cast<unsigned>(b[a]) + 1u < static_cast<unsigned>(ext[a]);
   }
   const uint16_t* row[4];
-  row[0] = v.dense + ((static_cast<long long>(b[2]) * v.ny + b[1]) * v.nx + b[0]);
+  row[0] = corner(v, b);
   row[1] = row[0] + v.nx;
   row[2] = row[0] + v.plane;
   row[3] = row[2] + v.nx;
@@ -139,8 +191,10 @@ __device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const
 // another, times den_scale and inv_maj; then the LUT's NEAREST row
 // (gather.lookup_transfer_plain), 0 where the sample range rejects the
 // density. The row clamp(floor(y), 0, K - 1) is floor(clamp(y, 0, K - 1))
-// (fmaxf takes a NaN y to 0, as the 64-bit cast does).
-__device__ __forceinline__ float4 decode(const Field& v, const Scalars& c, const Taps& e) {
+// (fmaxf takes a NaN y to 0, as the 64-bit cast does). A field with
+// kRoundTaps rounds the sum to bf16 and back first.
+template <class F>
+__device__ __forceinline__ float4 decode(const F& v, const Scalars& c, const Taps& e) {
   float w1[3][2];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -154,6 +208,7 @@ __device__ __forceinline__ float4 decode(const Field& v, const Scalars& c, const
     const float term = __fmul_rn(__uint_as_float(e.bits[k] << 16), w);  // bf16 -> f32 is exact
     acc = k == 0 ? term : __fadd_rn(acc, term);
   }
+  if constexpr (F::kRoundTaps) acc = __bfloat162float(__float2bfloat16_rn(acc));
   const float dn = __fmul_rn(__fmul_rn(c.den_scale, acc), c.inv_maj);
   float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (!(dn < c.range_lo || dn > c.range_hi)) {

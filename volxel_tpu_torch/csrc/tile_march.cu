@@ -70,6 +70,11 @@
 // constants 1/6 and 1e-3 are rounded to f32 once, as PyTorch rounds a
 // Python scalar, and torch.minimum's NaN propagation is kept (clamp_min's
 // where it can show: divisor).
+//
+// Render-time volume slabs: vx_tile_march_*_slabs launch both step loops
+// over z-slabs (Slabs: the slabs' pointer table), each step's tap read from
+// the slab of the owner of its base cell's clamped z, as kernels of their
+// own. The sums read the dense field only (they are on no render path).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -169,24 +174,50 @@ __device__ __forceinline__ float step_t(const Lane& l, int k) { return min_nan(l
 // saturating int cast in one (NaN lands on 0)
 __device__ __forceinline__ int cell_of(float p) { return __float2int_rd(p); }
 
-// a cell's tap bits (0 outside the extent: three unsigned compares)
+// Where a step's tap is read: the dense field (Dense), or the z-slab of the
+// owner of the clamped z of the reservoir's base cell (Slabs: the table of
+// the slabs' pointers, each slab holding z slices [owner * slab -
+// kSlabHalo, (owner + 1) * slab + kSlabHalo), which hold every tap the pick
+// can reach, offsets -1..+2). `field` returns the array and sets `z0`, the
+// global z of its first slice.
+constexpr int kSlabHalo = 2;  // sampling.SLAB_HALO
+
+struct Dense {
+  __device__ __forceinline__ const uint16_t* field(const March& a, int, int& z0) const {
+    z0 = 0;
+    return a.dense;
+  }
+};
+
+struct Slabs {
+  const uint16_t* const* slabs;
+  int slab;
+  __device__ __forceinline__ const uint16_t* field(const March& a, int base_z, int& z0) const {
+    const int owner = min(max(base_z, 0), a.ez - 1) / slab;
+    z0 = owner * slab - kSlabHalo;
+    return slabs[owner];
+  }
+};
+
+// a cell's tap bits (0 outside the extent: three unsigned compares), from
+// `field` whose first slice is z0; kNarrow indexes the field in 32 bits
 template <bool kNarrow>
-__device__ __forceinline__ uint32_t tap_bits(const March& a, int x, int y, int z) {
+__device__ __forceinline__ uint32_t tap_bits(const March& a, const uint16_t* field, int z0, int x, int y, int z) {
   uint32_t bits = 0;
   if (static_cast<unsigned>(x) < static_cast<unsigned>(a.ex) && static_cast<unsigned>(y) < static_cast<unsigned>(a.ey) &&
       static_cast<unsigned>(z) < static_cast<unsigned>(a.ez)) {
     if constexpr (kNarrow) {
-      bits = __ldg(a.dense + (static_cast<unsigned>(z) * a.ny + y) * a.nx + x);
+      bits = __ldg(field + (static_cast<unsigned>(z - z0) * a.ny + y) * a.nx + x);
     } else {
-      bits = __ldg(a.dense + (static_cast<int64_t>(z) * a.ny + y) * a.nx + x);
+      bits = __ldg(field + (static_cast<int64_t>(z - z0) * a.ny + y) * a.nx + x);
     }
   }
   return bits;
 }
 
 // step k's t, the reservoir's nine draws and its tap's load, issued
-template <bool kNarrow>
-__device__ __forceinline__ uint32_t issue_tap(const March& a, const Lane& l, int k, uint32_t (&s)[4]) {
+template <bool kNarrow, class Src>
+__device__ __forceinline__ uint32_t issue_tap(const March& a, const Src& src, const Lane& l, int k, uint32_t (&s)[4]) {
   const float t = step_t(l, k);
   const float p[3] = {(l.o[0] + t * l.d[0]) - 0.5f, (l.o[1] + t * l.d[1]) - 0.5f, (l.o[2] + t * l.d[2]) - 0.5f};
   int base[3];
@@ -209,7 +240,9 @@ __device__ __forceinline__ uint32_t issue_tap(const March& a, const Lane& l, int
       if (r < w[c][tap] / divisor(sum_w[c])) pick[c] = tap;
     }
   }
-  return tap_bits<kNarrow>(a, base[0] + pick[0] - 1, base[1] + pick[1] - 1, base[2] + pick[2] - 1);
+  int z0;
+  const uint16_t* field = src.field(a, base[2], z0);
+  return tap_bits<kNarrow>(a, field, z0, base[0] + pick[0] - 1, base[1] + pick[1] - 1, base[2] + pick[2] - 1);
 }
 
 // a step's tap consumed: bf16 -> f32 (exact; +0 outside), the LUT's NEAREST
@@ -229,8 +262,8 @@ __device__ __forceinline__ float consume_tap(const Lane& l, const float* __restr
 // tau_target, so a step's tap is issued and consumed in turn (taps of later
 // steps issued ahead of the hit test, with each slot's words kept, measured
 // slower: PERF.md, section 6).
-template <bool kNarrow>
-__device__ __forceinline__ void march_camera(const March& a, const float* __restrict__ s_lut) {
+template <bool kNarrow, class Src>
+__device__ __forceinline__ void march_camera(const March& a, const Src& src, const float* __restrict__ s_lut) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const int64_t i3 = 3 * static_cast<int64_t>(i), i4 = 4 * static_cast<int64_t>(i);
@@ -250,7 +283,7 @@ __device__ __forceinline__ void march_camera(const March& a, const float* __rest
     for (int k = 0; k < a.steps; ++k) {
       const float* row;
       bool out;
-      tau = consume_tap(l, s_lut, issue_tap<kNarrow>(a, l, k, s), tau, row, out);
+      tau = consume_tap(l, s_lut, issue_tap<kNarrow>(a, src, l, k, s), tau, row, out);
       if (tau >= tau_target) {
         k_hit = k;
         row_hit = row;
@@ -278,8 +311,8 @@ __device__ __forceinline__ void march_camera(const March& a, const float* __rest
 // + kShadowAhead are issued, then step k's tap is consumed.
 constexpr int kShadowAhead = 2;
 
-template <bool kNarrow>
-__device__ __forceinline__ void march_shadow(const March& a, const float* __restrict__ s_lut) {
+template <bool kNarrow, class Src>
+__device__ __forceinline__ void march_shadow(const March& a, const Src& src, const float* __restrict__ s_lut) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const int64_t i4 = 4 * static_cast<int64_t>(i);
@@ -293,12 +326,12 @@ __device__ __forceinline__ void march_shadow(const March& a, const float* __rest
     const float* row;
     bool out;
 #pragma unroll
-    for (int j = 0; j < kShadowAhead; ++j) ring[j] = j < a.steps ? issue_tap<kNarrow>(a, l, j, s) : 0u;
+    for (int j = 0; j < kShadowAhead; ++j) ring[j] = j < a.steps ? issue_tap<kNarrow>(a, src, l, j, s) : 0u;
     for (int k = 0; k < a.steps; k += kShadowAhead) {
 #pragma unroll
       for (int j = 0; j < kShadowAhead; ++j) {
         const uint32_t bits = ring[j];
-        if (k + j + kShadowAhead < a.steps) ring[j] = issue_tap<kNarrow>(a, l, k + j + kShadowAhead, s);
+        if (k + j + kShadowAhead < a.steps) ring[j] = issue_tap<kNarrow>(a, src, l, k + j + kShadowAhead, s);
         if (k + j < a.steps) tau = consume_tap(l, s_lut, bits, tau, row, out);
       }
     }
@@ -317,7 +350,14 @@ __device__ __forceinline__ const float* stage_lut(const March& a, float* s_lut) 
 template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads) tile_march_sample_kernel(March a) {
   extern __shared__ float s_lut[];  // lut_k x 4
-  march_camera<kNarrow>(a, stage_lut(a, s_lut));
+  march_camera<kNarrow>(a, Dense{}, stage_lut(a, s_lut));
+}
+
+// the same over z-slabs
+template <bool kNarrow>
+__global__ void __launch_bounds__(kThreads) tile_march_sample_slabs_kernel(March a, Slabs src) {
+  extern __shared__ float s_lut[];  // lut_k x 4
+  march_camera<kNarrow>(a, src, stage_lut(a, s_lut));
 }
 
 // one block an SM named, so that ptxas keeps the taps' loads ahead of
@@ -325,7 +365,14 @@ __global__ void __launch_bounds__(kThreads) tile_march_sample_kernel(March a) {
 template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1) tile_march_transmittance_kernel(March a) {
   extern __shared__ float s_lut[];  // lut_k x 4
-  march_shadow<kNarrow>(a, stage_lut(a, s_lut));
+  march_shadow<kNarrow>(a, Dense{}, stage_lut(a, s_lut));
+}
+
+// the same over z-slabs
+template <bool kNarrow>
+__global__ void __launch_bounds__(kThreads, 1) tile_march_transmittance_slabs_kernel(March a, Slabs src) {
+  extern __shared__ float s_lut[];  // lut_k x 4
+  march_shadow<kNarrow>(a, src, stage_lut(a, s_lut));
 }
 
 // tile_march_sums. A lane's steps lie a 64th of its box chord apart, so its
@@ -342,8 +389,8 @@ constexpr int kSumsBlocksPerSM = 2;
 template <bool kNarrow>
 __device__ __forceinline__ uint32_t sums_tap(const March& a, const Lane& l, int k) {
   const float t = step_t(l, k);
-  return tap_bits<kNarrow>(a, cell_of((l.o[0] + t * l.d[0]) - 0.5f), cell_of((l.o[1] + t * l.d[1]) - 0.5f),
-                           cell_of((l.o[2] + t * l.d[2]) - 0.5f));
+  return tap_bits<kNarrow>(a, a.dense, 0, cell_of((l.o[0] + t * l.d[0]) - 0.5f),
+                           cell_of((l.o[1] + t * l.d[1]) - 0.5f), cell_of((l.o[2] + t * l.d[2]) - 0.5f));
 }
 
 template <bool kNarrow>
@@ -389,6 +436,18 @@ int launch_march(MarchKernel kernel, const March& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+using SlabsKernel = void (*)(March, Slabs);
+
+// the slab forms: kNarrow where one slab (slab + 2 * kSlabHalo slices)
+// holds at most 2^31 elements
+int launch_slabs(SlabsKernel narrow_kernel, SlabsKernel wide_kernel, const March& a, const Slabs& src,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(a.lut_k);
+  const auto kernel = narrow(a.ny, a.nx, src.slab + 2 * kSlabHalo) ? narrow_kernel : wide_kernel;
+  kernel<<<(a.n + kThreads - 1) / kThreads, kThreads, smem, stream>>>(a, src);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int vx_tile_march_sample(const uint16_t* dense, int ny, int nx, int ex, int ey, int ez,
@@ -416,6 +475,32 @@ extern "C" int vx_tile_march_transmittance(const uint16_t* dense, int ny, int nx
   return launch_march(
       narrow(ny, nx, ez) ? tile_march_transmittance_kernel<true> : tile_march_transmittance_kernel<false>, a,
       stream);
+}
+
+extern "C" int vx_tile_march_sample_slabs(const uint16_t* const* slabs, int slab, int ny, int nx, int ex, int ey,
+                                          int ez, const float* ipos, const float* idir, const float* start,
+                                          const float* dt, const float* far, const bool* valid,
+                                          const float* tau_target, const int64_t* state, const float* lut,
+                                          int lut_k, const float* scalars, int64_t* state_out, bool* hit,
+                                          float* t_out, float* rgb_out, int n, int steps, cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const March a{nullptr, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, tau_target, state, lut, lut_k,
+                scalars, state_out, hit, t_out, rgb_out, nullptr, n, steps};
+  return launch_slabs(tile_march_sample_slabs_kernel<true>, tile_march_sample_slabs_kernel<false>, a,
+                      Slabs{slabs, slab}, stream);
+}
+
+extern "C" int vx_tile_march_transmittance_slabs(const uint16_t* const* slabs, int slab, int ny, int nx, int ex,
+                                                 int ey, int ez, const float* ipos, const float* idir,
+                                                 const float* start, const float* dt, const float* far,
+                                                 const bool* valid, const int64_t* state, const float* lut, int lut_k,
+                                                 const float* scalars, int64_t* state_out, float* tau_out, int n,
+                                                 int steps, cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const March a{nullptr, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, nullptr, state, lut, lut_k,
+                scalars, state_out, nullptr, nullptr, nullptr, tau_out, n, steps};
+  return launch_slabs(tile_march_transmittance_slabs_kernel<true>, tile_march_transmittance_slabs_kernel<false>, a,
+                      Slabs{slabs, slab}, stream);
 }
 
 // the warps that kernel `kernel` keeps resident on one SM of the current

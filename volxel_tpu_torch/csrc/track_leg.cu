@@ -73,6 +73,9 @@
 // 0, K - 1) as floor(clamp(y, 0, K - 1)) (fmaxf takes a NaN y to 0, as the
 // cast does). The constants 0.1 and 1e-20 are rounded to f32 once, as
 // PyTorch rounds a Python scalar against an f32 tensor.
+//
+// Render-time volume slabs: vx_track_leg_*_slabs launch the same legs over
+// a SlabField (leg_common.cuh), as kernels of their own.
 
 #include <utility>
 
@@ -112,7 +115,8 @@ __device__ __forceinline__ float fly(float t, float xi, float inv_maj) {
 }
 
 // the taps of an event at t, issued
-__device__ __forceinline__ void fetch(const Field& v, const float (&p)[3], const float (&d)[3], float t, Event& e) {
+template <class F>
+__device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const float (&d)[3], float t, Event& e) {
   e.t = t;
   fetch(v, p, d, t, e.taps);
 }
@@ -144,7 +148,8 @@ struct Lane {
     if constexpr (Leg == kShadow) tr = a.tr_in[i];
   }
   // the ray of a running lane, and its first kAhead events fetched
-  __device__ __forceinline__ void start(const Field& v, const Tracks& a) {
+  template <class F>
+  __device__ __forceinline__ void start(const F& v, const Tracks& a) {
     for (int k = 0; k < 3; ++k) {
       p[k] = a.ipos[3 * i + k];
       d[k] = a.idir[3 * i + k];
@@ -161,7 +166,8 @@ struct Lane {
   // the camera leg's event after `prev`, fetched before `prev` is decoded:
   // q's next draw is prev's real/null draw, the one after it the free
   // flight to `next`
-  __device__ __forceinline__ void fetch_next(const Field& v, Event& prev, Event& next) {
+  template <class F>
+  __device__ __forceinline__ void fetch_next(const F& v, Event& prev, Event& next) {
     if constexpr (Leg == kSample) prev.xr = next_float(q);
     fetch(v, p, d, fly(prev.t, next_float(q), c.inv_maj), next);
   }
@@ -179,8 +185,8 @@ struct Lane {
   }
 
   // one event at ring phase `Phase`; returns whether the lane ended
-  template <int Phase>
-  __device__ __forceinline__ bool step(const Field& v) {
+  template <int Phase, class F>
+  __device__ __forceinline__ bool step(const F& v) {
     Event& cur = ring[at(Phase, 0)];
     if constexpr (kAhead == 0) {
       fetch(v, p, d, t, cur);
@@ -221,14 +227,14 @@ struct Lane {
   }
 
   // the events until the lane ends, the ring's phases unrolled
-  template <int... Phase>
-  __device__ __forceinline__ bool cycle(const Field& v, std::integer_sequence<int, Phase...>) {
+  template <class F, int... Phase>
+  __device__ __forceinline__ bool cycle(const F& v, std::integer_sequence<int, Phase...>) {
     return (step<Phase>(v) || ...);
   }
 };
 
-template <int Leg>
-__device__ __forceinline__ void track(const Field& v, const Tracks& a) {
+template <int Leg, class F>
+__device__ __forceinline__ void track(const F& v, const Tracks& a) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   Lane<Leg> lane;
@@ -244,6 +250,37 @@ __device__ __forceinline__ void track(const Field& v, const Tracks& a) {
 
 __global__ void __launch_bounds__(kThreads, 1) track_leg_sample_kernel(Field v, Tracks a) { track<kSample>(v, a); }
 __global__ void __launch_bounds__(kThreads, 1) track_leg_shadow_kernel(Field v, Tracks a) { track<kShadow>(v, a); }
+
+// the same over z-slabs
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, 1) track_leg_sample_slabs_kernel(SlabField<kRound> v, Tracks a) {
+  track<kSample>(v, a);
+}
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, 1) track_leg_shadow_slabs_kernel(SlabField<kRound> v, Tracks a) {
+  track<kShadow>(v, a);
+}
+
+template <bool kRound>
+void launch_slabs(int leg, const SlabField<kRound>& v, const Tracks& a, cudaStream_t stream) {
+  if (leg == kSample) {
+    track_leg_sample_slabs_kernel<kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(v, a);
+  } else {
+    track_leg_shadow_slabs_kernel<kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(v, a);
+  }
+}
+
+int launch_slabs(int leg, const uint16_t* const* slabs, int slab, int round_taps, int ny, int nx, int ex, int ey,
+                 int ez, const float* lut, int lut_k, const float* scalars, const Tracks& a, cudaStream_t stream) {
+  if (a.n > 0) {
+    if (round_taps) {
+      launch_slabs(leg, make_slab_field<true>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, stream);
+    } else {
+      launch_slabs(leg, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 using Kernel = void (*)(Field, Tracks);
 
@@ -278,6 +315,28 @@ extern "C" int vx_track_leg_shadow(const uint16_t* dense, int ny, int nx, int ex
   const Tracks a{ipos, idir, far, t, state, running, tr, cap, state_out, events_out, nullptr, nullptr, nullptr,
                  tr_out, n};
   return launch(kShadow, dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, a, stream);
+}
+
+extern "C" int vx_track_leg_sample_slabs(const uint16_t* const* slabs, int slab, int round_taps, int ny, int nx,
+                                         int ex, int ey, int ez, const float* lut, int lut_k, const float* scalars,
+                                         const float* ipos, const float* idir, const float* far, const float* t,
+                                         const int64_t* state, const bool* running, int cap, int64_t* state_out,
+                                         bool* hit_out, float* t_out, float* rgb_out, int* events_out, long long n,
+                                         cudaStream_t stream) {
+  const Tracks a{ipos, idir, far, t, state, running, nullptr, cap, state_out, events_out, hit_out, t_out, rgb_out,
+                 nullptr, n};
+  return launch_slabs(kSample, slabs, slab, round_taps, ny, nx, ex, ey, ez, lut, lut_k, scalars, a, stream);
+}
+
+extern "C" int vx_track_leg_shadow_slabs(const uint16_t* const* slabs, int slab, int round_taps, int ny, int nx,
+                                         int ex, int ey, int ez, const float* lut, int lut_k, const float* scalars,
+                                         const float* ipos, const float* idir, const float* far, const float* t,
+                                         const int64_t* state, const bool* running, const float* tr, int cap,
+                                         int64_t* state_out, float* tr_out, int* events_out, long long n,
+                                         cudaStream_t stream) {
+  const Tracks a{ipos, idir, far, t, state, running, tr, cap, state_out, events_out, nullptr, nullptr, nullptr,
+                 tr_out, n};
+  return launch_slabs(kShadow, slabs, slab, round_taps, ny, nx, ex, ey, ez, lut, lut_k, scalars, a, stream);
 }
 
 // the warps that leg `leg`'s kernel (0 camera, 1 shadow) keeps resident on

@@ -23,6 +23,9 @@ in ATen's kernels; those sources write every f32 sum and product with the
 
 `LAUNCHES` counts kernel launches by name. Only the wrappers add to it,
 once per launch, so a run can show which kernels its path went through.
+A leg launched over z-slabs (render-time volume slabs: the field read
+through a table of the slabs' pointers) counts under its name with
+`_slabs` appended, apart from its launches over a dense field.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ LAUNCHES = {
     "dda_leg_sample": 0, "dda_leg_shadow": 0, "track_leg_sample": 0, "track_leg_shadow": 0, "importance_pyramid": 0,
     "tonemap": 0, "tile_march_sample": 0, "tile_march_transmittance": 0, "tile_march_sums": 0,
     "shearwarp_intermediate": 0, "gather_f32": 0, "lookup_transfer": 0,
+    "dda_leg_sample_slabs": 0, "dda_leg_shadow_slabs": 0, "track_leg_sample_slabs": 0, "track_leg_shadow_slabs": 0,
+    "tile_march_sample_slabs": 0, "tile_march_transmittance_slabs": 0,
 }
 
 _P = ctypes.c_void_p
@@ -72,6 +77,14 @@ _SIGNATURES = {
     # budget_out, n, stream
     "vx_dda_leg_shadow": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3
     + [ctypes.c_longlong, _P],
+    # the slab forms: as above with (slabs, slab, round_taps) in place of
+    # dense, the slabs a device array of the slabs' pointers
+    "vx_dda_leg_sample_slabs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 10 + [_I]
+    + [_P] * 5 + [ctypes.c_longlong, _P],
+    "vx_dda_leg_shadow_slabs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I]
+    + [_P] * 3 + [ctypes.c_longlong, _P],
+    # peer (no stream)
+    "vx_enable_peer_access": [_I],
     # leg, warps* (no stream)
     "vx_dda_leg_resident_warps": [_I, _P],
     # dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos, idir, far, t,
@@ -81,6 +94,11 @@ _SIGNATURES = {
     # the same up to running, then tr, cap, state_out, tr_out, events_out,
     # n, stream
     "vx_track_leg_shadow": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3 + [ctypes.c_longlong, _P],
+    # the slab forms: (slabs, slab, round_taps) in place of dense
+    "vx_track_leg_sample_slabs": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 7 + [_I] + [_P] * 5
+    + [ctypes.c_longlong, _P],
+    "vx_track_leg_shadow_slabs": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3
+    + [ctypes.c_longlong, _P],
     # leg, warps* (no stream)
     "vx_track_leg_resident_warps": [_I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
@@ -90,6 +108,9 @@ _SIGNATURES = {
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, state,
     # lut, lut_k, scalars, state_out, tau_out, n, steps, stream
     "vx_tile_march_transmittance": [_P, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
+    # the slab forms: (slabs, slab) in place of dense
+    "vx_tile_march_sample_slabs": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _P],
+    "vx_tile_march_transmittance_slabs": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
     # kernel, lut_k, warps* (no stream)
     "vx_tile_march_resident_warps": [_I, _I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,
@@ -196,6 +217,25 @@ def launch(symbol: str, on, *args, counter: str | None = None) -> None:
         raise RuntimeError(f"{symbol}: CUDA launch failed with cudaError {code}")
     if counter is not None:
         LAUNCHES[counter] += 1
+
+
+def enable_peer_access(device, peer) -> None:
+    """Let kernels on card `device` load from card `peer` (nothing to do
+    for one card, or where it is enabled already); raise where the cards
+    cannot reach each other. CPU devices need nothing."""
+    import torch
+
+    device, peer = torch.device(device), torch.device(peer)
+    if device.type == "cpu" and peer.type == "cpu":
+        return
+    if device.type != "cuda" or peer.type != "cuda":
+        raise ValueError(f"peer access from {device} to {peer}: both must be CUDA devices")
+    if device == peer:
+        return
+    with torch.cuda.device(device):
+        code = lib().vx_enable_peer_access(peer.index)
+    if code != 0:
+        raise RuntimeError(f"vx_enable_peer_access: {device} cannot load from {peer} (cudaError {code})")
 
 
 def resident_warps(symbol: str, kernel: int, device, *extra: int) -> int:

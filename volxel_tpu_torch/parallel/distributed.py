@@ -5,10 +5,13 @@ Same public API as api.renderer.Renderer, but each progressive step runs
 sample-parallel x pixel-parallel over the mesh (parallel/shard.py) and
 advances `sp` samples at once. Convergence matches the single-card
 renderer (RNG keyed by global pixel + sample index); the accumulator
-update accounts for the sp-sample stride. Everything else (previews,
-image() and its tonemap, the error state, settings, checkpoints) is the
-Renderer's, on the renderer's device, which defaults to this process's
-first device of the mesh.
+update accounts for the sp-sample stride. Everything else (image() and
+its tonemap, the error state, settings, checkpoints) is the Renderer's, on
+the renderer's device, which defaults to this process's first device of
+the mesh. With vz > 1 the volume's dense field lies in z-slabs over the
+mesh's 'vz' axis (parallel/volshard.py), for volumes beyond one card's
+memory; the frames stay bit-equal to the replicated field's, and the
+shear-warp previews, which need the whole field, raise.
 """
 
 from __future__ import annotations
@@ -18,15 +21,14 @@ import torch
 
 from volxel_tpu_torch.api.renderer import Renderer
 from volxel_tpu_torch.parallel.mesh import make_mesh
-from volxel_tpu_torch.parallel.shard import VZ_NOT_PORTED, CardOperands, render_sample_sharded
+from volxel_tpu_torch.parallel.shard import CardOperands, render_sample_sharded
+from volxel_tpu_torch.parallel.volshard import build_slabbed_volume, build_slabbed_volume_from_brick
 
 
 class DistributedRenderer(Renderer):
-    """A mesh with a 'vz' axis > 1 (z-slab volume sharding, the JAX
-    package's parallel/volshard.py) is accepted here, but loading a volume
-    onto it raises NotImplementedError (ROADMAP.md, queue 1: "Render-time
-    volume slabs").
-    `vz_tap_dtype` is kept for that path."""
+    """vz > 1 shards the volume's dense field into halo'd z-slabs over the
+    mesh's 'vz' axis (parallel/volshard.py); `vz_tap_dtype` "bfloat16"
+    rounds each trilinear sum to bf16 there (render.sampling.SlabGrid)."""
 
     def __init__(self, *args, mesh=None, sp: int = 1, px: int | None = None, vz: int = 1,
                  vz_tap_dtype: str = "float32", **kwargs):
@@ -40,13 +42,33 @@ class DistributedRenderer(Renderer):
         self.sp = self.mesh.shape["sp"]
         self.vz = self.mesh.shape.get("vz", 1)
         self.vz_tap_dtype = vz_tap_dtype
+        self._slabbed = None  # the SlabbedVolume of a vz > 1 mesh
+        self._slab_source = None  # the grid object it was built from
         self._cached_operands = None
         self._cards = CardOperands()  # the operands' copies on the mesh's cards
 
-    def restart_from_grid(self, grid) -> None:
-        if self.vz > 1:
-            raise NotImplementedError(VZ_NOT_PORTED)
-        super().restart_from_grid(grid)
+    def _upload_grid(self, grid):
+        """On a vz mesh (restart_from_grid) the dense field goes straight
+        from the host brick grid to the cards' z-slabs
+        (build_slabbed_volume_from_brick), never whole on one card or on
+        the host; the renderer's device grid is then the slabs' metadata,
+        without a dense field."""
+        if self.vz == 1:
+            return super()._upload_grid(grid)
+        self._slabbed = build_slabbed_volume_from_brick(grid, self.mesh, tap_dtype=self.vz_tap_dtype)
+        self._slab_source = self._slabbed.meta
+        return self._slabbed.meta
+
+    def _render_grid(self):
+        """The grid operand of a step: the device grid, or on a vz mesh its
+        slabs, built again from the device grid when it is another object
+        (a time series' timestep swap puts a whole field there)."""
+        if self.vz == 1:
+            return self._device_grid
+        if self._slabbed is None or self._slab_source is not self._device_grid:
+            self._slabbed = build_slabbed_volume(self._device_grid, self.mesh, tap_dtype=self.vz_tap_dtype)
+            self._slab_source = self._device_grid
+        return self._slabbed
 
     def restart_rendering(self) -> None:
         """Any visual-state change flows through here, so the cached
@@ -61,7 +83,7 @@ class DistributedRenderer(Renderer):
         built once per state change (or a new config), not per step."""
         if self._cached_operands is None or self._cached_operands[0] != config:
             inv_view, inv_proj, light_dir = self._camera_operands(config)
-            self._cached_operands = (config, self._device_grid, self.volume_params(), self._lut,
+            self._cached_operands = (config, self._render_grid(), self.volume_params(), self._lut,
                                      self.environment.state, inv_view, inv_proj, light_dir)
         return self._cached_operands
 

@@ -11,10 +11,10 @@ explicit, with the JAX package's names:
   'px' — pixel parallelism: the ray wavefront is split into contiguous
          blocks of pixels (whole rows when the width divides the block),
          one per position along this axis.
-  'vz' — volume z-slabs (the JAX package's parallel/volshard.py): a mesh
-         may carry the axis, but rendering over it is not ported yet
-         (ROADMAP.md, queue 1: "Render-time volume slabs") and raises
-         NotImplementedError.
+  'vz' — volume z-slabs (parallel/volshard.py): the dense field is cut
+         into z-slabs, one per position along the axis, and each pixel
+         block is split once more among those positions, whose lanes
+         read every tap from the slab that owns it.
 
 A mesh is a numpy array of positions of shape (sp, px) or (sp, px, vz),
 with the axis names and a `.shape` dict, as a jax.sharding.Mesh is. Each

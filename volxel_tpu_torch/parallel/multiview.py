@@ -5,9 +5,10 @@ Renders V camera views of the same scene in one dispatch. On one card the
 V views' rays are stacked into one wavefront of V * n lanes and traced by
 one trace_path, so each leg is one kernel launch for all views (what the
 JAX package's vmap computes); on a mesh the views are split over 'sp' and
-the pixels over 'px'. Each view consumes a distinct RNG stream (sample
-index = frame * V + view, seeded per lane), so batched results are
-bit-identical to rendering the views one at a time.
+the pixels over 'px' (and over a third axis, as in parallel.shard). Each
+view consumes a distinct RNG stream (sample index = frame * V + view,
+seeded per lane), so batched results are bit-identical to rendering the
+views one at a time.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from volxel_tpu_torch.parallel.mesh import Mesh
-from volxel_tpu_torch.parallel.shard import CardOperands, check_no_slabs, gather_positions, step_operands
+from volxel_tpu_torch.parallel.shard import CardOperands, gather_rows, mesh_rows, operand_device, render_rows
 from volxel_tpu_torch.render.pathtrace import RenderConfig, camera_ndc, render_rays
 from volxel_tpu_torch.render.rays import Rays, camera_rays
 
@@ -47,28 +48,28 @@ def render_views(config: RenderConfig, grid, params, lut, env, inv_views, inv_pr
 
 
 def sharded_multiview_fn(config: RenderConfig, mesh: Mesh, n_views: int):
-    """Views split over 'sp', pixels over 'px': a function of (grid,
-    params, lut, env, inv_views, inv_projs, light_dir, frame_index) ->
-    (V, n, 3), on this process's first device of the mesh. Each position
-    renders its views over its pixels as one wavefront."""
+    """Views split over 'sp', pixels over 'px' and, on a mesh with a third
+    axis, each position's pixels over that axis too (parallel.shard): a
+    function of (grid, params, lut, env, inv_views, inv_projs, light_dir,
+    frame_index) -> (V, n, 3), on this process's first device of the mesh.
+    Each position renders its views over its pixels as one wavefront. On a
+    'vz' mesh the grid is replicated, as the JAX package's in_specs P()
+    has it (a SlabbedVolume is read through each position's slab table)."""
     n = config.width * config.height
     sp, px = mesh.shape["sp"], mesh.shape["px"]
     if n_views % sp != 0 or n % px != 0:
         raise ValueError(f"views {n_views} must divide sp={sp}, pixels {n} must divide px={px}")
-    check_no_slabs(mesh)
+    mesh_rows(mesh)  # refuses a part axis that spans processes
     local_n, local_v = n // px, n_views // sp
     cards = CardOperands()
 
     def render(grid, params, lut, env, inv_views, inv_projs, light_dir, frame_index):
-        ops = step_operands(config, mesh, cards, (grid, params, lut, env, inv_views, inv_projs, light_dir))
-        blocks = {}
-        for s, p in mesh.local_positions():
-            device = mesh.devices[s, p]
-            pixel_index = torch.arange(p * local_n, (p + 1) * local_n, dtype=torch.int64, device=device)
-            blocks[(s, p)] = view_wavefront(config, *ops[device], pixel_index,
-                                            range(s * local_v, (s + 1) * local_v), n_views, int(frame_index))
-        first = (mesh.local_devices() or [grid.dense.device])[0]
-        blocks = gather_positions(mesh, blocks, (local_v, local_n, 3), first)
+        blocks = render_rows(config, mesh, cards, (grid, params, lut, env, inv_views, inv_projs, light_dir),
+                             local_n, lambda g, rest, pixels, s: view_wavefront(config, g, *rest, pixels,
+                                                                                range(s * local_v, (s + 1) * local_v),
+                                                                                n_views, int(frame_index)))
+        first = operand_device(mesh, grid)
+        blocks = gather_rows(mesh, blocks, (local_v, local_n, 3), first)
         out = torch.empty((n_views, n, 3), dtype=torch.float32, device=first)
         for (s, p), block in blocks.items():
             out[s * local_v:(s + 1) * local_v, p * local_n:(p + 1) * local_n] = block

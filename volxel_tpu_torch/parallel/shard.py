@@ -9,21 +9,29 @@ pmean = psum / n), block by block. Because RNG seeding is a pure function
 of (global pixel index, global sample index), the result is bit-equal to
 the same sum of single-card render_sample calls.
 
+A third axis ('vz', or any other name: render-time volume slabs) splits
+each block once more: position (s, p, v) renders the v-th of its n
+contiguous parts (torch.tensor_split's), so no card idles. With a
+SlabbedVolume as the grid operand (parallel.volshard) its lanes read the
+slabs of the positions (s, p, ·) through that card's slab table; with a
+replicated DeviceGrid they read the card's copy. Either way the frame is
+bit-equal to the replicated two-axis render. The JAX package instead
+replicates the ray state over 'vz' and psums each tap; a leg here is one
+launch, inside which no collective can run.
+
 Operands are copied to each card once, and again only when the caller
 passes other operand objects (a restart or a change): the copies are held
 by a CardOperands that the caller keeps (DistributedRenderer keeps one, so
 they live and die with it); each step builds the default mode's
-premultiplied pyramid once per card, not once per position. The JAX
-package caches its compiled functions; here a function is a closure that
-costs nothing to build, so there is no function cache. A process renders the positions it owns one after another;
-several processes exchange their positions' results with one
-torch.distributed all_gather on the frame (multihost.all_gather). The
-result lies on this process's first device of the mesh.
-
-Render-time volume slabs (a 'vz' axis > 1, the JAX package's
-parallel/volshard.py) are not ported yet: they need a slab table in the
-legs' field reads over peer access (ROADMAP.md, queue 1: "Render-time volume
-slabs").
+premultiplied pyramid once per card, not once per position. A
+SlabbedVolume's slabs stay where they are: only its replicated metadata
+is copied. The JAX package caches its compiled functions; here a function
+is a closure that costs nothing to build, so there is no function cache.
+A process renders the positions it owns one after another; several
+processes exchange their rows' results with one torch.distributed
+all_gather on the frame (multihost.all_gather). The result lies on this
+process's first device of the mesh. A slab axis whose positions span
+processes raises NotImplementedError (volshard.SLABS_ACROSS_PROCESSES).
 """
 
 from __future__ import annotations
@@ -32,15 +40,8 @@ import torch
 
 from volxel_tpu_torch.parallel import multihost
 from volxel_tpu_torch.parallel.mesh import Mesh
+from volxel_tpu_torch.parallel.volshard import SlabbedVolume, rows_along
 from volxel_tpu_torch.render.pathtrace import RenderConfig, render_pixels, with_premul_majorant
-
-VZ_NOT_PORTED = ("rendering over a 'vz' mesh axis > 1 (the JAX package's parallel/volshard.py) is not ported "
-                 "yet: ROADMAP.md, queue 1, 'Render-time volume slabs'")
-
-
-def check_no_slabs(mesh: Mesh) -> None:
-    if mesh.shape.get("vz", 1) > 1:
-        raise NotImplementedError(VZ_NOT_PORTED)
 
 
 def to_device(operand, device: torch.device):
@@ -84,40 +85,109 @@ def step_operands(config: RenderConfig, mesh: Mesh, cards: CardOperands, operand
     return out
 
 
-def gather_positions(mesh: Mesh, local: dict, shape: tuple, device: torch.device) -> dict:
-    """Every position's block (each of `shape`, f32) on `device`, from
-    this process's `local` blocks (position -> tensor) and, across
-    processes, one all_gather (multihost.gather_owned)."""
-    positions = mesh.positions()
-    index = {pos: i for i, pos in enumerate(positions)}
-    owners = [int(mesh.processes[pos]) for pos in positions]
-    blocks = multihost.gather_owned(owners, {index[pos]: t for pos, t in local.items()}, shape, device)
-    return dict(zip(positions, blocks))
+def part_axis(mesh: Mesh) -> str | None:
+    """The axis besides 'sp' and 'px' that splits each pixel block (None
+    for a two-axis mesh)."""
+    extra = [a for a in mesh.axis_names if a not in ("sp", "px")]
+    if len(extra) > 1:
+        raise ValueError(f"a mesh has at most one axis besides 'sp' and 'px', got {mesh.axis_names}")
+    return extra[0] if extra else None
+
+
+def mesh_rows(mesh: Mesh) -> list[tuple[tuple[int, int], list[tuple]]]:
+    """Every (s, p) of the mesh with its positions along the part axis (one
+    position on a two-axis mesh), in row-major order."""
+    axis = part_axis(mesh)
+    sp_k, px_k = mesh.axis_names.index("sp"), mesh.axis_names.index("px")
+    if axis is None:
+        return [((pos[sp_k], pos[px_k]), [pos]) for pos in mesh.positions()]
+    return [((along[0][sp_k], along[0][px_k]), along) for _, along in rows_along(mesh, axis)]
+
+
+def part_pixels(block: range, parts: int, v: int, device: torch.device) -> torch.Tensor:
+    """The global pixel indices of part v of `parts` contiguous parts of
+    `block`, as torch.tensor_split cuts it (the first len % parts parts one
+    longer), on `device`."""
+    q, r = divmod(len(block), parts)
+    start = block.start + v * q + min(v, r)
+    return torch.arange(start, start + q + (v < r), dtype=torch.int64, device=device)
+
+
+def position_grid(grid, card_grid, position: tuple):
+    """The grid that `position` renders with: its SlabGrid when `grid` is a
+    SlabbedVolume (`card_grid` its metadata's copy on the card), else the
+    card's copy of the grid."""
+    return grid.local_grid(position, card_grid) if isinstance(grid, SlabbedVolume) else card_grid
+
+
+def render_rows(config: RenderConfig, mesh: Mesh, cards: CardOperands, operands: tuple, local_n: int,
+                render) -> dict:
+    """Each of this process's rows (s, p) rendered part by part: for each
+    position along the part axis, render(position's grid, the card's other
+    operands, its part of pixel block p, s), the parts joined on the row's
+    first card. `operands` is (grid, ...) as the caller got them; their
+    copies on each card are step_operands' (of a SlabbedVolume only its
+    metadata). Returns {(s, p): block}."""
+    grid = operands[0]
+    ops = step_operands(config, mesh, cards,
+                        (grid.meta if isinstance(grid, SlabbedVolume) else grid, *operands[1:]))
+    mine = set(mesh.local_positions())
+    blocks = {}
+    for (s, p), along in mesh_rows(mesh):
+        if along[0] not in mine:
+            continue
+        parts = []
+        for v, pos in enumerate(along):
+            device = mesh.devices[pos]
+            card_grid, *rest = ops[device]
+            pixel_index = part_pixels(range(p * local_n, (p + 1) * local_n), len(along), v, device)
+            parts.append(render(position_grid(grid, card_grid, pos), rest, pixel_index, s))
+        first = parts[0].device
+        blocks[(s, p)] = parts[0] if len(parts) == 1 else torch.cat([t.to(first) for t in parts], dim=-2)
+    return blocks
+
+
+def operand_device(mesh: Mesh, grid) -> torch.device:
+    """Where a step's result lies: this process's first device of the mesh,
+    else the grid's."""
+    local = mesh.local_devices()
+    if local:
+        return local[0]
+    return (grid.meta.maj_mips if isinstance(grid, SlabbedVolume) else grid.dense).device
+
+
+def gather_rows(mesh: Mesh, local: dict, shape: tuple, device: torch.device) -> dict:
+    """Every row's block (each of `shape`, f32) on `device`, from this
+    process's `local` blocks ((s, p) -> tensor) and, across processes, one
+    all_gather (multihost.gather_owned)."""
+    rows = mesh_rows(mesh)
+    index = {row: i for i, (row, _) in enumerate(rows)}
+    owners = [int(mesh.processes[along[0]]) for _, along in rows]
+    blocks = multihost.gather_owned(owners, {index[row]: t for row, t in local.items()}, shape, device)
+    return {row: block for (row, _), block in zip(rows, blocks)}
 
 
 def sharded_render_fn(config: RenderConfig, mesh: Mesh, cards: CardOperands | None = None):
     """A sharded render: (grid, params, lut, env, inv_view, inv_proj,
     light_dir, frame_index) -> (n, 3), the mean of samples
     [frame_index * sp, frame_index * sp + sp) of every pixel. One call
-    advances sp progressive samples. `cards` holds the operands' copies on
-    the mesh's cards (a new one, owned by the function, by default)."""
+    advances sp progressive samples. `grid` is a DeviceGrid or a
+    SlabbedVolume built on this mesh. `cards` holds the operands' copies
+    on the mesh's cards (a new one, owned by the function, by default)."""
     n = config.width * config.height
     sp, px = mesh.shape["sp"], mesh.shape["px"]
     if n % px != 0:
         raise ValueError(f"pixel count {n} not divisible by px axis {px}")
-    check_no_slabs(mesh)
+    mesh_rows(mesh)  # refuses a part axis that spans processes
     local_n = n // px
     cards = cards if cards is not None else CardOperands()
 
     def render(grid, params, lut, env, inv_view, inv_proj, light_dir, frame_index):
-        ops = step_operands(config, mesh, cards, (grid, params, lut, env, inv_view, inv_proj, light_dir))
-        blocks = {}
-        for s, p in mesh.local_positions():
-            device = mesh.devices[s, p]
-            pixel_index = torch.arange(p * local_n, (p + 1) * local_n, dtype=torch.int64, device=device)
-            blocks[(s, p)] = render_pixels(config, *ops[device], pixel_index, int(frame_index) * sp + s)
-        first = (mesh.local_devices() or [grid.dense.device])[0]
-        blocks = gather_positions(mesh, blocks, (local_n, 3), first)
+        blocks = render_rows(config, mesh, cards, (grid, params, lut, env, inv_view, inv_proj, light_dir), local_n,
+                             lambda g, rest, pixels, s: render_pixels(config, g, *rest, pixels,
+                                                                      int(frame_index) * sp + s))
+        first = operand_device(mesh, grid)
+        blocks = gather_rows(mesh, blocks, (local_n, 3), first)
         frame = torch.empty((n, 3), dtype=torch.float32, device=first)
         for p in range(px):
             acc = blocks[(0, p)]
@@ -132,5 +202,5 @@ def sharded_render_fn(config: RenderConfig, mesh: Mesh, cards: CardOperands | No
 def render_sample_sharded(config: RenderConfig, mesh: Mesh, grid, params, lut, env, inv_view, inv_proj, light_dir,
                           frame_index, cards: CardOperands | None = None):
     """One sharded progressive step (advances mesh.shape['sp'] samples);
-    `cards` as in sharded_render_fn."""
+    `grid` and `cards` as in sharded_render_fn."""
     return sharded_render_fn(config, mesh, cards)(grid, params, lut, env, inv_view, inv_proj, light_dir, frame_index)

@@ -24,7 +24,8 @@ them. Rounds of pyr_march_plain and these are the plain version of the
 default legs (render.ddaleg), whose kernel (csrc/dda_leg.cu) runs the
 march and the collision in one thread per lane until the lane ends.
 
-Arguments: dense (Z, Y, X) bf16 decoded density; extent the volume's
+Arguments: dense (Z, Y, X) bf16 decoded density, or a SlabGrid whose
+slabs hold it (sampling.field_grid); extent the volume's
 (ex, ey, ez) index extent; scalars (5,) f32, tilemarch.volume_scalars;
 lut (K, 4) f32; ipos, idir (n, 3) f32 index-space rays; t, maj, kind
 (n,) pyr_march_plain's t, majorant at the collision step and KIND_*;
@@ -39,7 +40,7 @@ import torch
 from volxel_tpu_torch.render.gather import lookup_transfer_plain
 from volxel_tpu_torch.render.pyrmarch import KIND_COLL, KIND_DONE
 from volxel_tpu_torch.render.rng import rng, rng_where
-from volxel_tpu_torch.render.sampling import DeviceGrid, trilinear_sum
+from volxel_tpu_torch.render.sampling import field_grid, trilinear_sum
 from volxel_tpu_torch.render.tilemarch import S_DEN_SCALE, S_INV_MAJ, S_RANGE_HI, S_RANGE_LO, S_VOL_MAJ
 
 MIP_SPEED_DOWN = 2.0  # dda.glsl:8
@@ -50,7 +51,7 @@ def _parked(dense, extent, scalars, lut, ipos, idir, t, kind, running):
     is done stop running."""
     running &= kind != KIND_DONE
     lanes = torch.nonzero(running & (kind == KIND_COLL)).squeeze(1)
-    grid = DeviceGrid(dense=dense, maj_mips=None, extent=tuple(extent))
+    grid = field_grid(dense, extent)
     pos = ipos[lanes] + t[lanes, None] * idir[lanes]
     density = scalars[S_DEN_SCALE] * trilinear_sum(grid, pos)
     rgba = lookup_transfer_plain(lut, scalars[S_RANGE_LO:S_RANGE_HI + 1], density * scalars[S_INV_MAJ])

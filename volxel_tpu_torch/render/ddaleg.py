@@ -23,7 +23,10 @@ one launch per leg and no host sync. Each lane's budget, words and march
 state are its own and a march round never cuts a lane short, so the two
 agree bit for bit on the card. Both return each lane's budget left beside
 the leg's outputs: cap - budget is the march steps the lane took. The
-kernels index the pyramid in 32 bits and the field in 64.
+kernels index the pyramid in 32 bits and the field in 64. Over a SlabGrid
+(render-time volume slabs) the same kernels read each collision's taps
+from the slab of the owner of its base z, through the slabs' pointer
+table, and count their launches as dda_leg_*_slabs.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render.collide import dda_collide_sample_plain, dda_collide_shadow_plain
 from volxel_tpu_torch.render.pyrmarch import pyr_march_plain
-from volxel_tpu_torch.render.tilemarch import S_RANGE_HI, _check_dense, _check_lanes
+from volxel_tpu_torch.render.sampling import SlabGrid
+from volxel_tpu_torch.render.tilemarch import S_RANGE_HI, _check_dense, _check_lanes, check_slabs, slab_form
 
 # per-lane step budgets
 DDA_SAMPLE_MAX_STEPS = 1024
@@ -72,20 +76,28 @@ def dda_leg_shadow_plain(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri,
     return state, tr, budget
 
 
-def check_field(name, dense, extent, scalars, lut):
-    """Check the field, the LUT and the scalars that a leg kernel reads
-    (device, type, shape, contiguity, alignment) and return their C
-    arguments: dense, ny, nx, ex, ey, ez, lut, lut_k, scalars."""
-    ex, ey, ez = _check_dense(name, dense, extent)
-    kernels.require_cuda(name, scalars, lut, dtype=torch.float32, device=dense.device)
+def check_field(name, dense, extent, scalars, lut, device):
+    """Check the field, the LUT and the scalars that a leg kernel on
+    `device` reads (device, type, shape, contiguity, alignment) and return
+    their C arguments and the extent: (dense, ny, nx, ex, ey, ez, lut,
+    lut_k, scalars) for a dense field, (slabs, slab, round_taps, ny, nx,
+    ex, ey, ez, lut, lut_k, scalars) for a SlabGrid (tilemarch.check_slabs)."""
+    if isinstance(dense, SlabGrid):
+        table, slab, ny, nx, (ex, ey, ez) = check_slabs(name, dense, extent, device)
+        head = (table, slab, int(dense.tap_dtype == "bfloat16"), ny, nx, ex, ey, ez)
+    else:
+        ex, ey, ez = _check_dense(name, dense, extent)
+        kernels.require_cuda(name, dense, device=device)
+        _, ny, nx = dense.shape
+        head = (dense.data_ptr(), ny, nx, ex, ey, ez)
+    kernels.require_cuda(name, scalars, lut, dtype=torch.float32, device=device)
     if lut.dim() != 2 or lut.shape[1] != 4 or lut.shape[0] < 1:
         raise ValueError(f"{name}: lut must be (K, 4), got {tuple(lut.shape)}")
     if lut.data_ptr() % 16:
         raise ValueError(f"{name}: the kernel reads 16-byte LUT rows; lut is misaligned")
     if tuple(scalars.shape) != (S_RANGE_HI + 1,):
         raise ValueError(f"{name}: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
-    _, ny, nx = dense.shape
-    return dense.data_ptr(), ny, nx, ex, ey, ez, lut.data_ptr(), lut.shape[0], scalars.data_ptr()
+    return (*head, lut.data_ptr(), lut.shape[0], scalars.data_ptr()), (ex, ey, ez)
 
 
 def check_lanes(name, device, vectors, per_lane, state, running):
@@ -105,16 +117,15 @@ def _volume_and_lanes(name, dense, maj_alpha, extent, scalars, lut, ipos, idir, 
                       running, per_lane=()):
     """Check a leg's operands (device, type, shape, contiguity, alignment)
     and return the C entry point's arguments up to `running`."""
-    field = check_field(name, dense, extent, scalars, lut)
-    check_lanes(name, dense.device, [("ipos", ipos), ("idir", idir), ("ri", ri)],
+    field, (ex, ey, ez) = check_field(name, dense, extent, scalars, lut, t.device)
+    check_lanes(name, t.device, [("ipos", ipos), ("idir", idir), ("ri", ri)],
                 [("far", far), ("t", t), ("tau", tau), ("mip", mip), *per_lane], state, running)
-    kernels.require_cuda(name, maj_alpha, dtype=torch.float32, device=dense.device)
+    kernels.require_cuda(name, maj_alpha, dtype=torch.float32, device=t.device)
     if maj_alpha.dim() != 4 or maj_alpha.shape[0] != 4:
         raise ValueError(f"{name}: expected a (4, bz, by, bx) pyramid, got {tuple(maj_alpha.shape)}")
     _, bz, by, bx = maj_alpha.shape
     if maj_alpha.numel() >= 2**31:
         raise ValueError(f"{name}: the kernel indexes the pyramid in 32 bits; {tuple(maj_alpha.shape)} is too large")
-    ex, ey, ez = field[3:6]
     if 8 * bx < ex or 8 * by < ey or 8 * bz < ez:
         raise ValueError(f"{name}: pyramid {tuple(maj_alpha.shape)} does not cover the extent {(ex, ey, ez)}")
     return (maj_alpha.data_ptr(), bz, by, bx, *field,
@@ -129,8 +140,9 @@ def dda_leg_sample_cuda(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, 
     n = t.shape[0]
     state_o, hit, t_o = torch.empty_like(state), torch.empty_like(running), torch.empty_like(t)
     rgb, budget = torch.empty((n, 3), dtype=torch.float32, device=t.device), torch.empty_like(t, dtype=torch.int32)
-    kernels.launch("vx_dda_leg_sample", t, *args, DDA_SAMPLE_MAX_STEPS,
-                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, budget)), n, counter="dda_leg_sample")
+    name = slab_form("dda_leg_sample", dense)
+    kernels.launch(f"vx_{name}", t, *args, DDA_SAMPLE_MAX_STEPS,
+                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, budget)), n, counter=name)
     return state_o, hit, t_o, rgb, budget
 
 
@@ -141,13 +153,14 @@ def dda_leg_shadow_cuda(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, 
     args = _volume_and_lanes("dda_leg_shadow", dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau,
                              mip, state, running, (("tr", tr),))
     state_o, tr_o, budget = torch.empty_like(state), torch.empty_like(tr), torch.empty_like(t, dtype=torch.int32)
-    kernels.launch("vx_dda_leg_shadow", t, *args, tr.data_ptr(), DDA_TRANSMITTANCE_MAX_STEPS, int(bool(physical)),
-                   *(a.data_ptr() for a in (state_o, tr_o, budget)), t.shape[0], counter="dda_leg_shadow")
+    name = slab_form("dda_leg_shadow", dense)
+    kernels.launch(f"vx_{name}", t, *args, tr.data_ptr(), DDA_TRANSMITTANCE_MAX_STEPS, int(bool(physical)),
+                   *(a.data_ptr() for a in (state_o, tr_o, budget)), t.shape[0], counter=name)
     return state_o, tr_o, budget
 
 
 def dda_leg_sample(
-    dense,  # (Z, Y, X) bf16 decoded density
+    dense,  # (Z, Y, X) bf16 decoded density, or a SlabGrid (its slabs, through their table)
     maj_alpha,  # (4, bz, by, bx) f32 premultiplied pyramid (modes.build_premul_majorant)
     extent,  # (ex, ey, ez) ints: the volume's index extent
     scalars,  # (5,) f32 on the device: tilemarch.volume_scalars(params)

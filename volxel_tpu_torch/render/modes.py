@@ -18,8 +18,10 @@ PyTorch counterpart of volxel_tpu.render.modes:
     render.tilemarch.tile_march_sample (a CUDA kernel on the card) after a
     PyTorch prologue, the shadow leg's in tile_march_transmittance (another).
 
-The JAX package's compaction ladders and compacted decodes are TPU
-workarounds and are not ported. The camera and shadow legs of the default
+The legs read `grid.field`: the dense field of a DeviceGrid or the slabs
+of a SlabGrid (render-time volume slabs, parallel.volshard), whose kernels
+read each tap from the slab that owns it. The JAX package's compaction
+ladders and compacted decodes are TPU workarounds and are not ported. The camera and shadow legs of the default
 and no_dda modes take `with_stats` (utils.stepstats): it appends each
 lane's march steps or events, which the legs already return as the budget
 or events left of their cap.
@@ -118,7 +120,7 @@ def sample_volume_dda(grid, params, lut, origin, direction, state, active, with_
     premultiplied pyramid (build_premul_majorant): the setup, then the leg
     (ddaleg.dda_leg_sample). with_stats adds each lane's march steps."""
     state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
-    state, hit, t, rgb, budget = dda_leg_sample(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut,
+    state, hit, t, rgb, budget = dda_leg_sample(grid.field, grid.maj_alpha, grid.extent, volume_scalars(params), lut,
                                                 ipos, idir, ri, far, t, tau, mip, state, running)
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     if with_stats:
@@ -138,7 +140,7 @@ def transmittance_dda(grid, params, lut, origin, direction, state, active, physi
     lane's march steps."""
     state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    state, tr, budget = dda_leg_shadow(grid.dense, grid.maj_alpha, grid.extent, volume_scalars(params), lut, ipos,
+    state, tr, budget = dda_leg_shadow(grid.field, grid.maj_alpha, grid.extent, volume_scalars(params), lut, ipos,
                                        idir, ri, far, t, tau, mip, state, running, tr, physical)
     if with_stats:
         return state, tr, DDA_TRANSMITTANCE_MAX_STEPS - budget
@@ -169,7 +171,7 @@ def sample_volume_simple(grid, params, lut, origin, direction, state, active, wi
     most trackleg.TRACKING_MAX_EVENTS events a lane. with_stats adds each
     lane's events."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
-    state, hit, t, rgb, left = track_leg_sample(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir,
+    state, hit, t, rgb, left = track_leg_sample(grid.field, grid.extent, volume_scalars(params), lut, ipos, idir,
                                                 far, t, state, running)
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     if with_stats:
@@ -184,7 +186,7 @@ def transmittance_simple(grid, params, lut, origin, direction, state, active, wi
     free-flight draw. with_stats adds each lane's events."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    state, tr, left = track_leg_shadow(grid.dense, grid.extent, volume_scalars(params), lut, ipos, idir, far, t,
+    state, tr, left = track_leg_shadow(grid.field, grid.extent, volume_scalars(params), lut, ipos, idir, far, t,
                                        state, running, tr)
     if with_stats:
         return state, tr, TRACKING_MAX_EVENTS - left
@@ -211,7 +213,7 @@ def raymarch_prologue(grid, params, lut, origin, direction, state, active):
     tau_target = -torch.log(1.0 - xi_tau)
     state, xi_j = rng_where(valid, state)
     start = near + xi_j * dt
-    return (grid.dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, volume_scalars(params),
+    return (grid.field, ipos, idir, start, dt, far, valid, tau_target, state, lut, volume_scalars(params),
             grid.extent)
 
 
@@ -233,7 +235,7 @@ def transmittance_raymarch(grid, params, lut, origin, direction, state, active):
     ipos, idir, near, far, dt, valid = _raymarch_setup(params, origin, direction, active)
     state, xi_j = rng_where(valid, state)  # raymarch.glsl:17
     start = near + xi_j * dt
-    state, tau = tile_march_transmittance(grid.dense, ipos, idir, start, dt, far, valid, state, lut,
+    state, tau = tile_march_transmittance(grid.field, ipos, idir, start, dt, far, valid, state, lut,
                                           volume_scalars(params), grid.extent)
     return state, torch.exp(-tau)
 

@@ -40,8 +40,11 @@ import torch
 
 from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render.sampling import (
+    SLAB_HALO,
     DeviceGrid,
+    SlabGrid,
     VolumeParams,
+    field_grid,
     lookup_density_brick_int,
     stochastic_tricubic_offsets,
 )
@@ -67,10 +70,6 @@ def volume_scalars(params: VolumeParams):
     )
 
 
-def _dense_grid(dense, extent) -> DeviceGrid:
-    return DeviceGrid(dense=dense, maj_mips=None, extent=tuple(extent))
-
-
 def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
     """Plain PyTorch step loop of both legs: every lane in lockstep under a
     mask, at most STEPS steps. With a `tau_target` each lane stops at its
@@ -78,7 +77,7 @@ def tile_march_plain(dense, ipos, idir, start, dt, far, valid, tau_target, state
     all STEPS steps (`tile_march_transmittance`). Returns (state, hit, t,
     rgb, tau, taken): `taken` is the steps each lane took (0 outside the
     box)."""
-    grid = _dense_grid(dense, extent)
+    grid = field_grid(dense, extent)
     inv_maj, vol_maj, density_scale = scalars[S_INV_MAJ], scalars[S_VOL_MAJ], scalars[S_DEN_SCALE]
     sample_range = scalars[S_RANGE_LO:S_RANGE_HI + 1]
     n = ipos.shape[0]
@@ -139,11 +138,57 @@ def _check_dense(name, dense, extent):
     return ex, ey, ez
 
 
+def slab_form(name: str, field) -> str:
+    """The entry point (without its vx_ prefix) and the launch counter of
+    kernel `name` for what it reads: `name` for a dense field, `name`_slabs
+    for a SlabGrid."""
+    return name + "_slabs" if isinstance(field, SlabGrid) else name
+
+
+def check_slabs(name, grid: SlabGrid, extent, device):
+    """Check a SlabGrid that a launch on `device` reads through its
+    table (kernels.enable_peer_access for each slab's card when the table
+    is made): each slab a contiguous (slab + 2 * SLAB_HALO, Y, X) bf16
+    CUDA tensor, the table one int64 pointer a slab on `device`, the
+    extent inside the slabs' field. Returns the C arguments slabs, slab,
+    ny, nx and the extent."""
+    if not grid.slabs:
+        raise ValueError(f"{name}: a SlabGrid without slabs")
+    first = grid.slabs[0]
+    for s in grid.slabs:
+        kernels.require_cuda(name, s, dtype=torch.bfloat16, device=s.device)
+        if s.dim() != 3 or tuple(s.shape) != (grid.slab + 2 * SLAB_HALO, *first.shape[1:]):
+            raise ValueError(f"{name}: slab of shape {tuple(s.shape)}, expected "
+                             f"{(grid.slab + 2 * SLAB_HALO, *first.shape[1:])}")
+    table = grid.table(device)
+    if table.device != torch.device(device) or table.dtype != torch.int64 or tuple(table.shape) != (len(grid.slabs),):
+        raise ValueError(f"{name}: slab table {table.dtype} {tuple(table.shape)} on {table.device}, expected int64 "
+                         f"({len(grid.slabs)},) on {device}")
+    ex, ey, ez = (int(v) for v in extent)
+    _, ny, nx = first.shape
+    if not (0 < ex <= nx and 0 < ey <= ny and 0 < ez <= grid.slab * len(grid.slabs)):
+        raise ValueError(f"{name}: extent {(ex, ey, ez)} outside the slabs' field "
+                         f"{(grid.slab * len(grid.slabs), ny, nx)}")
+    return table.data_ptr(), grid.slab, ny, nx, (ex, ey, ez)
+
+
+def _check_field(name, dense, extent, device):
+    """The C arguments of what a step loop on `device` reads, up to the
+    extent (dense, ny, nx, or slabs, slab, ny, nx), and the extent."""
+    if isinstance(dense, SlabGrid):
+        *head, ext = check_slabs(name, dense, extent, device)
+        return tuple(head), ext
+    ext = _check_dense(name, dense, extent)
+    kernels.require_cuda(name, dense, device=device)
+    return (dense.data_ptr(), *dense.shape[1:]), ext
+
+
 def _check_march(name, dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent, per_lane=()):
     """Device, type, shape and contiguity of a step loop's operands;
-    returns the extent and the lane count."""
-    ext = _check_dense(name, dense, extent)
-    dev = dense.device
+    returns the C arguments of its field up to the extent, the extent and
+    the lane count."""
+    field, ext = _check_field(name, dense, extent, ipos.device)
+    dev = ipos.device
     kernels.require_cuda(name, ipos, idir, start, dt, far, lut, scalars, *(a for _, a in per_lane),
                          dtype=torch.float32, device=dev)
     kernels.require_cuda(name, valid, dtype=torch.bool, device=dev)
@@ -157,32 +202,32 @@ def _check_march(name, dense, ipos, idir, start, dt, far, valid, state, lut, sca
         raise ValueError(f"{name}: lut must be (K, 4) with K <= {MAX_LUT_ROWS}, got {tuple(lut.shape)}")
     if tuple(scalars.shape) != (S_RANGE_HI + 1,):
         raise ValueError(f"{name}: scalars must be ({S_RANGE_HI + 1},), got {tuple(scalars.shape)}")
-    return ext, n
+    return field, ext, n
 
 
 def tile_march_sample_cuda(dense, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent):
     """The step loop as one launch of csrc/tile_march.cu (a 32-bit tap
-    index where the extent holds at most 2^31 elements); see
+    index where the extent, or one slab, holds at most 2^31 elements); see
     `tile_march_sample`."""
-    (ex, ey, ez), n = _check_march("tile_march_sample", dense, ipos, idir, start, dt, far, valid, state, lut,
-                                   scalars, extent, (("tau_target", tau_target),))
-    _, ny, nx = dense.shape
+    field, (ex, ey, ez), n = _check_march("tile_march_sample", dense, ipos, idir, start, dt, far, valid, state, lut,
+                                          scalars, extent, (("tau_target", tau_target),))
     state_o = torch.empty_like(state)
     hit = torch.empty_like(valid)
     t_o = torch.empty_like(start)
     rgb = torch.empty_like(ipos)
+    name = slab_form("tile_march_sample", dense)
     kernels.launch(
-        "vx_tile_march_sample", ipos, dense.data_ptr(), ny, nx, ex, ey, ez,
+        f"vx_{name}", ipos, *field, ex, ey, ez,
         ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
         valid.data_ptr(), tau_target.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0],
         scalars.data_ptr(), state_o.data_ptr(), hit.data_ptr(), t_o.data_ptr(), rgb.data_ptr(), n, STEPS,
-        counter="tile_march_sample",
+        counter=name,
     )
     return state_o, hit, t_o, rgb
 
 
 def tile_march_sample(
-    dense,  # (Z, Y, X) bf16 decoded density
+    dense,  # (Z, Y, X) bf16 decoded density, or a SlabGrid (its slabs, through their table)
     ipos, idir,  # (n, 3) f32 index-space rays
     start, dt, far,  # (n,) f32: jittered first t, step, box exit
     valid,  # (n,) bool: active and inside the box
@@ -215,17 +260,18 @@ def resident_warps(leg: str, lut_k: int, device) -> int:
 def tile_march_transmittance_cuda(dense, ipos, idir, start, dt, far, valid, state, lut, scalars, extent):
     """The step loop as one launch of csrc/tile_march.cu, the taps of each
     lane's next two steps in flight (a 32-bit tap index where the extent
-    holds at most 2^31 elements); see `tile_march_transmittance`."""
-    (ex, ey, ez), n = _check_march("tile_march_transmittance", dense, ipos, idir, start, dt, far, valid, state,
-                                   lut, scalars, extent)
-    _, ny, nx = dense.shape
+    holds at most 2^31 elements, or one slab does); see
+    `tile_march_transmittance`."""
+    field, (ex, ey, ez), n = _check_march("tile_march_transmittance", dense, ipos, idir, start, dt, far, valid,
+                                          state, lut, scalars, extent)
     state_o = torch.empty_like(state)
     tau = torch.empty_like(start)
+    name = slab_form("tile_march_transmittance", dense)
     kernels.launch(
-        "vx_tile_march_transmittance", ipos, dense.data_ptr(), ny, nx, ex, ey, ez,
+        f"vx_{name}", ipos, *field, ex, ey, ez,
         ipos.data_ptr(), idir.data_ptr(), start.data_ptr(), dt.data_ptr(), far.data_ptr(),
         valid.data_ptr(), state.data_ptr(), lut.data_ptr(), lut.shape[0], scalars.data_ptr(),
-        state_o.data_ptr(), tau.data_ptr(), n, STEPS, counter="tile_march_transmittance",
+        state_o.data_ptr(), tau.data_ptr(), n, STEPS, counter=name,
     )
     return state_o, tau
 
@@ -246,7 +292,7 @@ def tile_march_transmittance(dense, ipos, idir, start, dt, far, valid, state, lu
 def tile_march_sums_plain(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):
     """Plain PyTorch sums (the JAX package's serial_march_sums); see
     `tile_march_sums`."""
-    grid = _dense_grid(dense, extent)
+    grid = DeviceGrid(dense=dense, maj_mips=None, extent=tuple(extent))
     acc = torch.zeros_like(start)
     for s in range(steps):
         t = torch.minimum(start + s * dt, far)

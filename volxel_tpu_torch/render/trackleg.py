@@ -58,8 +58,8 @@ from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render.ddaleg import check_field, check_lanes
 from volxel_tpu_torch.render.gather import lookup_transfer_plain
 from volxel_tpu_torch.render.rng import rng, rng_where
-from volxel_tpu_torch.render.sampling import DeviceGrid, trilinear_sum
-from volxel_tpu_torch.render.tilemarch import S_DEN_SCALE, S_INV_MAJ, S_RANGE_HI, S_RANGE_LO, S_VOL_MAJ
+from volxel_tpu_torch.render.sampling import field_grid, trilinear_sum
+from volxel_tpu_torch.render.tilemarch import S_DEN_SCALE, S_INV_MAJ, S_RANGE_HI, S_RANGE_LO, S_VOL_MAJ, slab_form
 
 TRACKING_MAX_EVENTS = 512  # no_dda events per leg, the JAX package's cap
 
@@ -67,7 +67,7 @@ TRACKING_MAX_EVENTS = 512  # no_dda events per leg, the JAX package's cap
 def _decode(dense, extent, scalars, lut, ipos, idir, t):
     """The density at ipos + t * idir, normalised by the majorant, then the
     LUT's NEAREST row with range rejection (normal.glsl:10, :41)."""
-    density = scalars[S_DEN_SCALE] * trilinear_sum(DeviceGrid(dense, None, tuple(extent)), ipos + t[:, None] * idir)
+    density = scalars[S_DEN_SCALE] * trilinear_sum(field_grid(dense, extent), ipos + t[:, None] * idir)
     return lookup_transfer_plain(lut, scalars[S_RANGE_LO:S_RANGE_HI + 1], density * scalars[S_INV_MAJ])
 
 
@@ -135,10 +135,10 @@ LUT_ROWS_LIMIT = 2**24
 def _field_and_lanes(name, dense, extent, scalars, lut, ipos, idir, far, t, state, running, per_lane=()):
     """Check a leg's operands and return the C entry point's arguments up
     to `running`."""
-    field = check_field(name, dense, extent, scalars, lut)
+    field, _ = check_field(name, dense, extent, scalars, lut, t.device)
     if lut.shape[0] > LUT_ROWS_LIMIT:
         raise ValueError(f"{name}: the kernel takes at most {LUT_ROWS_LIMIT} LUT rows, got {lut.shape[0]}")
-    check_lanes(name, dense.device, [("ipos", ipos), ("idir", idir)], [("far", far), ("t", t), *per_lane], state,
+    check_lanes(name, t.device, [("ipos", ipos), ("idir", idir)], [("far", far), ("t", t), *per_lane], state,
                 running)
     return (*field, *(a.data_ptr() for a in (ipos, idir, far, t, state, running)))
 
@@ -150,8 +150,9 @@ def track_leg_sample_cuda(dense, extent, scalars, lut, ipos, idir, far, t, state
     n = t.shape[0]
     state_o, hit, t_o = torch.empty_like(state), torch.empty_like(running), torch.empty_like(t)
     rgb, events = torch.empty((n, 3), dtype=torch.float32, device=t.device), torch.empty_like(t, dtype=torch.int32)
-    kernels.launch("vx_track_leg_sample", t, *args, TRACKING_MAX_EVENTS,
-                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, events)), n, counter="track_leg_sample")
+    name = slab_form("track_leg_sample", dense)
+    kernels.launch(f"vx_{name}", t, *args, TRACKING_MAX_EVENTS,
+                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, events)), n, counter=name)
     return state_o, hit, t_o, rgb, events
 
 
@@ -161,8 +162,9 @@ def track_leg_shadow_cuda(dense, extent, scalars, lut, ipos, idir, far, t, state
     args = _field_and_lanes("track_leg_shadow", dense, extent, scalars, lut, ipos, idir, far, t, state, running,
                             (("tr", tr),))
     state_o, tr_o, events = torch.empty_like(state), torch.empty_like(tr), torch.empty_like(t, dtype=torch.int32)
-    kernels.launch("vx_track_leg_shadow", t, *args, tr.data_ptr(), TRACKING_MAX_EVENTS,
-                   *(a.data_ptr() for a in (state_o, tr_o, events)), t.shape[0], counter="track_leg_shadow")
+    name = slab_form("track_leg_shadow", dense)
+    kernels.launch(f"vx_{name}", t, *args, tr.data_ptr(), TRACKING_MAX_EVENTS,
+                   *(a.data_ptr() for a in (state_o, tr_o, events)), t.shape[0], counter=name)
     return state_o, tr_o, events
 
 
@@ -173,7 +175,7 @@ def resident_warps(leg: str, device) -> int:
 
 
 def track_leg_sample(
-    dense,  # (Z, Y, X) bf16 decoded density
+    dense,  # (Z, Y, X) bf16 decoded density, or a SlabGrid (its slabs, through their table)
     extent,  # (ex, ey, ez) ints: the volume's index extent
     scalars,  # (5,) f32 on the device: tilemarch.volume_scalars(params)
     lut,  # (K, 4) f32 transfer LUT
