@@ -98,6 +98,24 @@ Phases, each of which raises (exit code != 0) on failure:
    then phase 2's registers and SASS of the legs' dense forms, which must
    be the parent commit's (DENSE_LEG_SASS). The slab forms' entries join
    the JSON line (launches from this phase);
+2f. a vz row across the processes of a node (parallel/nodeshare.py), on
+   the bench scene at the main paths' size: two processes on the card
+   joined over gloo (`chip_smoke.py --node-worker ADDR PID DEVICES`), a
+   (1, 1, 2) mesh with one position each, loaded by restart_from_grid:
+   each process decodes its own slab and maps the other's through CUDA
+   IPC (its device bytes after the load and the load's peak, which must
+   stay below the whole field's); in each mode, with the counters at 0
+   before them, 2 steps, each leg launched only in its slab form, rank
+   0's framebuffer bit-equal to a one-process vz = 1 renderer's; 2 rounds
+   of a step across the processes timed in turns with one-process vz = 2
+   and vz = 1 steps, still bit-equal; one step with each leg held bit for
+   bit against its plain version on every 16th lane of each call through
+   the table that holds the mapped slab, and each leg's first call timed
+   beside the one-process vz = 2 mesh's at the same lanes, in turns; then
+   2 timestep swaps (each process cuts its slab from a whole field) with
+   no host sync of the caller's, bit-equal to vz = 1, each swap freeing
+   the slab it replaced, and close(); again with the processes on cuda:0
+   and cuda:1, joined over NCCL, where the machine has two cards;
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -2705,22 +2723,21 @@ def nccl_world_of_one(addr: str, width: int, height: int) -> None:
     torch.distributed.destroy_process_group()
 
 
-def mesh_processes(size: int, width: int, height: int) -> None:
-    """Two processes on the card (mesh_worker), over gloo: each reports 2
-    processes, a first step equal to the mean of samples 0 and 1 and the
-    replayed framebuffer after MESH_STEPS steps, and the ms of each step."""
+def worker_pair(flags, size: int, width: int, height: int, timeout: float, what: str) -> list[dict]:
+    """Run `chip_smoke.py` with flags(addr, pid) for pids 0 and 1 at once,
+    joined at a free localhost port, each under `timeout`; fails unless
+    both exit 0. Returns the JSON record each printed last."""
     addr = f"127.0.0.1:{free_port()}"
     root = Path(__file__).resolve().parent
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), "--mesh-worker", addr, str(pid),
-                               "--size", str(size), "--width", str(width), "--height", str(height)],
+    procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), *flags(addr, pid), "--size", str(size),
+                               "--width", str(width), "--height", str(height)],
                               cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for pid in (0, 1)]
     outs = []
     try:
         for p in procs:
-            outs.append((p, *p.communicate(timeout=MESH_WORKER_TIMEOUT)))
+            outs.append((p, *p.communicate(timeout=timeout)))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2728,8 +2745,18 @@ def mesh_processes(size: int, width: int, height: int) -> None:
                 p.communicate()
     for p, out, err in outs:
         if p.returncode != 0:
-            raise SystemExit(f"mesh worker exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
-        rec = json.loads(out.strip().splitlines()[-1])
+            raise SystemExit(f"{what} exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for _, out, _ in outs]
+
+
+def mesh_processes(size: int, width: int, height: int) -> None:
+    """Two processes on the card (mesh_worker), over gloo: each reports 2
+    processes, a first step equal to the mean of samples 0 and 1 and the
+    replayed framebuffer after MESH_STEPS steps, and the ms of each step."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    for rec in worker_pair(lambda addr, pid: ["--mesh-worker", addr, str(pid)], size, width, height,
+                           MESH_WORKER_TIMEOUT, "mesh worker"):
         if not (rec["info"]["process_count"] == 2 and rec["info"]["distributed"] and rec["first_step_is_mean_of_0_1"]
                 and rec["replayed"]):
             raise SystemExit(f"mesh worker {rec['pid']}: {rec}")
@@ -3187,6 +3214,284 @@ def slab_entries(launched: dict, tallies: dict) -> list[dict]:
     return out
 
 
+# phase 2f: a vz = 2 row across two processes of the node (one process a
+# card, here both on the one card), joined over gloo: each process decodes
+# its own slab and maps the other's through CUDA IPC (parallel/nodeshare.py)
+NODE_STEPS = 2  # counted steps a mode across the processes, each one sample
+NODE_ROUNDS = 2  # timed rounds a mode: a step across the processes, then vz = 2 and vz = 1 in one process
+NODE_SWAPS = 2  # timestep swaps, two steps each, with no host sync of the caller's between them
+NODE_LANE_STRIDE = 16  # the held legs' lanes: every 16th lane of each call
+NODE_WORKER_TIMEOUT = 300.0  # seconds, each of the two processes
+
+
+@contextlib.contextmanager
+def strided_holds(mode: str, stride: int):
+    """While the block runs, each leg of a `mode` sample (modes.<leg>, as
+    the sample calls it) also runs its CUDA wrapper and its plain version
+    on every `stride`-th lane of each call: fails unless the two agree bit
+    for bit on every output and the wrapper's equals the call's own on
+    those lanes. The call itself returns what it returned. Yields {leg:
+    tally}: the calls, the lanes held and the first call's arguments."""
+    import torch
+
+    import volxel_tpu_torch.render.modes as modes
+
+    checks = [c for c in spec_sample_kernels(mode) if c[0] is modes]
+    originals = {name: getattr(modes, name) for _, name, *_ in checks}
+    tallies = {name: {"calls": 0, "lanes": 0, "first_args": None} for name in originals}
+
+    def held(name, cuda_fn, plain_fn, outputs):
+        def call(*args):
+            got = originals[name](*args)
+            n = mask_lanes(args)
+            sub = tuple(a[::stride].contiguous() if isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == n
+                        else a for a in args)
+            kernel, plain = cuda_fn(*sub), plain_fn(*sub)
+            bad = [nm for nm, k, w, full in zip(outputs, kernel, plain, got)
+                   if not (bits_equal(k, w) and bits_equal(k, full[::stride]))]
+            if bad:
+                raise SystemExit(f"{name} through a mapped slab, call {tallies[name]['calls']}: {bad} differ on every "
+                                 f"{stride}th lane (max abs {max_abs(kernel, plain)})")
+            tally = tallies[name]
+            tally["calls"] += 1
+            tally["lanes"] += mask_lanes(sub)
+            if tally["first_args"] is None:
+                tally["first_args"] = args
+            return got
+        return call
+
+    for _, name, cuda_fn, plain_fn, outputs in checks:
+        setattr(modes, name, held(name, cuda_fn, plain_fn, outputs))
+    try:
+        yield tallies
+    finally:
+        for name, fn in originals.items():
+            setattr(modes, name, fn)
+
+
+def first_call_ms(mode: str, held: dict, own: dict | None) -> dict:
+    """Each leg's CUDA wrapper at the first call that strided_holds saw
+    (`held`), timed by device_ms; with `own`, the same leg's first call
+    there too, in turns: held, own, own, held."""
+    out = {}
+    for leg, tally in held.items():
+        cuda_fn = next(c[2] for c in spec_sample_kernels(mode) if c[1] == leg)
+        calls = [tally["first_args"]] + ([own[leg]["first_args"]] * 2 + [tally["first_args"]] if own else [])
+        ms = [device_ms(lambda args=args: cuda_fn(*args), KERNEL_REPS)[1] for args in calls]
+        out[leg] = {"mapped": [ms[0], *ms[3:]], "own": ms[1:3]}
+    return out
+
+
+def node_worker(addr: str, pid: int, size: int, width: int, height: int, cards: tuple) -> None:
+    """One of phase 2f's two processes: process p on device cards[p],
+    joined over gloo where the two share a card (NCCL refuses that) and
+    over NCCL where each has its own, renders its part of a (1, 1, 2)
+    mesh's row with its own slab and the other's mapped. Rank 0 holds a
+    vz = 1 and a vz = 2 renderer of its own beside it. Prints one JSON line: the device bytes of the load,
+    each mode's launches, frames bit-equal to vz = 1, step ms in turns,
+    the legs held on strided lanes through the mapped slab and their kernel
+    ms beside the one-process slab form's, and the timestep swaps."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.grid import construct_brick_grid
+    from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, multihost
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+    from volxel_tpu_torch.render.sampling import device_grid_from_brick
+    from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    t0 = time.perf_counter()
+    device = torch.device(cards[pid])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    if not initialize_multihost(addr, 2, pid, backend="gloo" if cards[0] == cards[1] else "nccl"):
+        raise SystemExit("node worker: initialize_multihost did not join the group")
+    vol = synthetic_ct_volume((size,) * 3, bits_stored=12, seed=0)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    del vol
+    bx, by, bz = grid.brick_count
+    mesh = make_mesh(sp=1, px=1, vz=2, devices=list(enumerate(cards)))
+    r = DistributedRenderer(width, height, mesh=mesh, device=device)
+
+    def allocated():
+        return torch.cuda.memory_allocated(device) if cuda else 0
+
+    fence_device(device)
+    base = allocated()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    t_load = time.perf_counter()
+    r.restart_from_grid(grid)
+    fence_device(device)
+    rec = {"pid": pid, "device": str(device), "backend": torch.distributed.get_backend(),
+           "load_s": time.perf_counter() - t_load,
+           "whole_bytes": bx * by * bz * 512 * 2, "slab_bytes": (-(-bz * 8 // 2) + 4) * by * bx * 128,
+           "held_bytes": allocated() - base,
+           "peak_bytes": torch.cuda.max_memory_allocated(device) - base if cuda else 0,
+           "own": sorted([str(c), v, nbytes(t)] for (c, v), t in r._slabbed.slabs.items()
+                         if (c, v) not in r._slabbed.mapped),
+           "mapped": sorted((str(c), v) for c, v in r._slabbed.mapped)}
+    r.settings.bounces = 1
+    bench_look(r)
+    reps = {}
+    if pid == 0:
+        for vz in (1, 2):
+            reps[vz] = DistributedRenderer(width, height, mesh=make_mesh(sp=1, px=1, vz=vz, devices=[(0, device)] * vz),
+                                           device=device)
+            reps[vz].restart_from_grid(grid)
+            reps[vz].settings.bounces = 1
+            bench_look(reps[vz])
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["modes"] = {}
+    for mode, legs in MODE_LEGS.items():
+        out = rec["modes"][mode] = {}
+        for x in (r, *reps.values()):
+            x.render_mode = mode
+        kernels.reset_launch_counts()
+        for _ in range(NODE_STEPS):
+            r.render_frame()
+        fence_device(device)
+        out["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for _ in range(NODE_STEPS):
+            for x in reps.values():
+                x.render_frame()
+        out["equal"] = pid != 0 or bits_equal(r._framebuffer, reps[1]._framebuffer)
+        out["step_ms"], out["vz2_ms"], out["vz1_ms"] = [], [], []
+        for _ in range(NODE_ROUNDS):  # in turns: the other process waits at the barrier while rank 0 runs its own
+            multihost.host_barrier()
+            out["step_ms"].append(fenced_ms(r.render_frame, device)[1])
+            if pid == 0:
+                out["vz2_ms"].append(fenced_ms(reps[2].render_frame, device)[1])
+                out["vz1_ms"].append(fenced_ms(reps[1].render_frame, device)[1])
+        multihost.host_barrier()
+        out["equal_after_rounds"] = pid != 0 or (bits_equal(r._framebuffer, reps[1]._framebuffer)
+                                                 and bits_equal(reps[2]._framebuffer, reps[1]._framebuffer))
+        # each leg through the table holding the mapped slab, on strided lanes
+        with strided_holds(mode, NODE_LANE_STRIDE) as held:
+            r.render_frame()
+        own = None
+        if pid == 0:  # the one-process vz = 2 mesh's position 0 renders the same lanes with its own slabs
+            with strided_holds(mode, NODE_LANE_STRIDE) as own:
+                reps[2].render_frame()
+        out["held"] = {leg: {k: t[k] for k in ("calls", "lanes")} for leg, t in held.items()}
+        out["kernel_ms"] = {}
+        for turn in (0, 1):  # each process times its first calls while the other waits
+            multihost.host_barrier()
+            if turn == pid:
+                out["kernel_ms"] = first_call_ms(mode, held, own)
+        multihost.host_barrier()
+        del held, own  # their first calls' arguments hold the slabs
+        for x in reps.values():  # keep the step counts level with r's
+            x.render_frame()
+    # timestep swaps: each process cuts its slab from a whole field on its
+    # card (time series), the old shared slabs released in between
+    for x in (r, *reps.values()):
+        x.render_mode = "default"
+    fence_device(device)
+    before_swaps = allocated()
+    whole = device_grid_from_brick(grid, device)
+    steps = [whole._replace(dense=(whole.dense.float() * (1.0 - 0.3 * t)).to(torch.bfloat16)) for t in (1, 2)]
+    del whole
+    frames = []
+    t_swaps = time.perf_counter()
+    for step in steps:
+        for x in (r, *([reps[1]] if pid == 0 else [])):
+            x._device_grid = step
+            x.restart_rendering()
+        for _ in range(2):
+            r.render_frame()
+            if pid == 0:
+                reps[1].render_frame()
+        frames.append((r._framebuffer.clone(), reps[1]._framebuffer.clone() if pid == 0 else None))
+    fence_device(device)
+    rec["swaps_s"] = time.perf_counter() - t_swaps
+    rec["swaps_equal"] = pid != 0 or all(bits_equal(a, b) for a, b in frames)
+    rec["swaps_mapped"] = sorted((str(c), v) for c, v in r._slabbed.mapped)
+    # what the swaps left beyond the new fields and the frames kept here:
+    # about 0 where each swap freed the slab it replaced
+    kept = sum(nbytes(step.dense) for step in steps) + sum(nbytes(*(f for f in pair if f is not None))
+                                                            for pair in frames)
+    rec["swaps_delta_bytes"] = allocated() - before_swaps - kept
+    held_before_close = allocated()
+    r.close()
+    fence_device(device)
+    rec["close_freed_bytes"] = held_before_close - allocated()
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def node_processes(size: int, width: int, height: int, cards: tuple) -> list[dict]:
+    """Phase 2f's two processes (node_worker) on cards[0] and cards[1];
+    fails unless both exit 0. Returns their records."""
+    return worker_pair(lambda addr, pid: ["--node-worker", addr, str(pid), ",".join(cards)], size, width, height,
+                       NODE_WORKER_TIMEOUT, f"node worker on {cards}")
+
+
+def node_slab_path(size: int, width: int, height: int) -> None:
+    """Phase 2f: a vz = 2 row across two processes on the card (and over
+    cuda:0 and cuda:1 where the machine has two cards). Fails unless each
+    process holds one slab of its own and maps the other's, rank 0's
+    frames are bit-equal to vz = 1's in every mode, each process launched
+    every leg of each mode in its slab form and none in its dense form,
+    every held leg is bit-equal on its strided lanes, and the timestep
+    swaps stay bit-equal."""
+    import torch
+
+    t_phase = time.perf_counter()
+    cuda = torch.cuda.is_available()
+    runs = [("cuda:0", "cuda:0")] + ([("cuda:0", "cuda:1")] if torch.cuda.device_count() >= 2 else [])
+    for cards in runs:
+        for rec in node_processes(size, width, height, cards):
+            pid, whole = rec["pid"], rec["whole_bytes"]
+            where = f"vz = 2 across two processes on {cards[0]} and {cards[1]} ({rec['backend']}), process {pid}"
+            if rec["own"] != [[cards[pid], pid, rec["slab_bytes"]]] or len(rec["mapped"]) != 1:
+                raise SystemExit(f"{where}: own slabs {rec['own']} (expected one of {rec['slab_bytes']} B), mapped "
+                                 f"{rec['mapped']}")
+            if rec["held_bytes"] >= whole:
+                raise SystemExit(f"{where}: holds {rec['held_bytes']} B after the load, the whole field is {whole} B")
+            log(f"{where}: loaded in {rec['load_s']:.3f} s (setup {rec['setup_s']:.2f} s); holds its slab "
+                f"{rec['own'][0][2]} B and maps {rec['mapped']}; device bytes after the load {rec['held_bytes']} "
+                f"(torch.cuda.memory_allocated above the renderer's), the load's peak {rec['peak_bytes']}; "
+                f"the whole field {whole} B")
+            for mode, legs in MODE_LEGS.items():
+                m = rec["modes"][mode]
+                wrong = {leg: (m["launches"].get(leg, 0), m["launches"].get(f"{leg}_slabs", 0)) for leg in legs
+                         if m["launches"].get(leg, 0) or m["launches"].get(f"{leg}_slabs", 0) != NODE_STEPS}
+                if wrong or not (m["equal"] and m["equal_after_rounds"]):
+                    raise SystemExit(f"{where} ({mode}): legs launched (dense, slab form) {wrong}, frames bit-equal "
+                                     f"to vz = 1: {m['equal']}, after the rounds {m['equal_after_rounds']}")
+                if any(t["calls"] == 0 for t in m["held"].values()):
+                    raise SystemExit(f"{where} ({mode}): a leg was not held: {m['held']}")
+                log(f"{where} ({mode}, {width}x{height}): launches of its two steps {m['launches']}; "
+                    + ("frames bit-equal to a one-process vz = 1 renderer's; " if pid == 0 else "")
+                    + "steps across the processes " + ", ".join(f"{v:.3f}" for v in m["step_ms"]) + " ms"
+                    + ("; in turns with one-process vz = 2 " + ", ".join(f"{v:.3f}" for v in m["vz2_ms"])
+                       + " ms and vz = 1 " + ", ".join(f"{v:.3f}" for v in m["vz1_ms"]) + " ms" if pid == 0 else ""))
+                for leg, t in m["held"].items():
+                    ms = m["kernel_ms"][leg]
+                    log(f"{where} ({mode}): {leg} through the table holding the mapped slab bit-equal to its plain "
+                        f"version on every {NODE_LANE_STRIDE}th lane of all {t['calls']} calls ({t['lanes']} lanes); "
+                        f"kernel " + ", ".join(f"{v:.4f}" for v in ms["mapped"]) + " ms at its first call"
+                        + (", the one-process slab form at the same lanes " + ", ".join(f"{v:.4f}" for v in ms["own"])
+                           + " ms (in turns)" if ms["own"] else ""))
+            if (not rec["swaps_equal"] or len(rec["swaps_mapped"]) != 1
+                    or (cuda and not rec["swaps_delta_bytes"] < rec["slab_bytes"] <= rec["close_freed_bytes"])):
+                raise SystemExit(f"{where}: the timestep swaps: bit-equal {rec['swaps_equal']}, mapped "
+                                 f"{rec['swaps_mapped']}, device bytes they left {rec['swaps_delta_bytes']}, "
+                                 f"close() freed {rec['close_freed_bytes']} (a slab is {rec['slab_bytes']})")
+            log(f"{where}: {NODE_SWAPS} timestep swaps of two steps each in {rec['swaps_s']:.3f} s, no host sync "
+                + ("of the caller's, frames bit-equal to vz = 1's" if pid == 0 else "of the caller's")
+                + f"; device bytes they left beyond the new fields and the kept frames {rec['swaps_delta_bytes']}"
+                f" (each swap freed the slab it replaced); close() freed {rec['close_freed_bytes']}; "
+                f"{rec['seconds']:.1f} s in all")
+    if len(runs) == 1:
+        log("vz = 2 across two processes on two cards: skipped, the machine has one card")
+    log(f"phase 2f (slabs across the processes of a node): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--size", type=int, default=512, help="volume edge in voxels")
@@ -3195,6 +3500,7 @@ def main() -> int:
     ap.add_argument("--parity-size", type=int, default=64)
     ap.add_argument("--mesh-worker", nargs=2, metavar=("ADDR", "PID"), help=argparse.SUPPRESS)
     ap.add_argument("--mesh-nccl", metavar="ADDR", help=argparse.SUPPRESS)
+    ap.add_argument("--node-worker", nargs=3, metavar=("ADDR", "PID", "DEVICES"), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3219,6 +3525,10 @@ def main() -> int:
         return 0
     if args.mesh_nccl:  # phase 2d's NCCL process group of one
         nccl_world_of_one(args.mesh_nccl, args.width, args.height)
+        return 0
+    if args.node_worker:  # one of phase 2f's two processes
+        addr, pid, cards = args.node_worker
+        node_worker(addr, int(pid), args.size, args.width, args.height, tuple(cards.split(",")))
         return 0
 
     # phase 1: the card
@@ -3257,6 +3567,9 @@ def main() -> int:
     mesh_path(grid, args.size, args.width, args.height)
     # phase 2e: render-time volume slabs, with the counters at 0 before it
     slab_launches, slab_tallies = slab_path(grid, args.width, args.height, sass, registers)
+    torch.cuda.empty_cache()
+    # phase 2f: a vz row across two processes, each with the counters at 0 before its steps
+    node_slab_path(args.size, args.width, args.height)
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")

@@ -19,11 +19,15 @@ by PreviewServer.step(), the PNG of image() read back exactly. The mesh on
 the card: a DistributedRenderer whose 2x2 positions name one card (each
 mode) and render_views, bit-equal to single render_sample calls;
 step_statistics through the legs' kernels equal to it through their plain
-versions; positions on two cards (skips on one).
+versions; positions on two cards (skips on one). A vz = 2 row across two
+processes of the node, each mapping the other's slab through CUDA IPC,
+with a timestep swap at every step (two cards over NCCL skip on one).
 """
 
 from __future__ import annotations
 
+import os
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -1351,6 +1355,79 @@ def test_slab_timestep_swaps_over_two_cards_without_a_host_sync(cuda_device):
     for step, (a, b) in enumerate(zip(*frames)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"step {step}"
     assert not torch.equal(frames[1][0], frames[1][1])
+
+
+_NODE_SLAB_WORKER = """
+import sys
+import numpy as np
+import torch
+from volxel_tpu_torch.api.timeseries import TimeSeriesPlayer
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.parallel import initialize_multihost, make_mesh
+from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+
+addr, pid, cards = sys.argv[1], int(sys.argv[2]), sys.argv[3].split(",")
+device = torch.device(cards[pid])
+torch.cuda.set_device(device)
+assert initialize_multihost(addr, 2, pid, backend="gloo" if cards[0] == cards[1] else "nccl")
+base = synthetic_ct_volume((40, 32, 32), bits_stored=12).astype(np.float32) / 4095.0
+vols = np.stack([base * np.float32(1.0 - 0.2 * t) for t in range(4)])
+frames = []
+for mesh in (make_mesh(sp=1, px=1, devices=[(pid, device)]), make_mesh(sp=1, px=1, vz=2, devices=list(enumerate(cards)))):
+    r = DistributedRenderer(32, 32, mesh=mesh, device=device)
+    r.restart_from_grid(construct_brick_grid(vols[0], transform=np.eye(4, dtype=np.float32)))
+    r.camera.rotate_around_view(0.4, 0.2)
+    r.camera.zoom(2.0)
+    r.settings.bounces = 2
+    if mesh.shape.get("vz", 1) == 2:
+        (key,) = r._slabbed.mapped
+        assert key[1] == 1 - pid and r._slabbed.slabs[key].is_cuda, r._slabbed.slabs.keys()
+    player = TimeSeriesPlayer(r, vols)
+    out = []
+    for t in (0, 1, 2, 3, 0, 1, 2, 3):  # a swap at every step, no host sync between them
+        player.set_timestep(t)
+        player.evict((t - 1) % len(vols))
+        out.append(r.render_frame().clone())
+    frames.append(out)
+    r.close()
+torch.cuda.synchronize(device)
+for step, (a, b) in enumerate(zip(*frames)):
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"step {step}"
+assert not torch.equal(frames[1][0], frames[1][1])
+assert "jax" not in sys.modules and "volxel_tpu" not in sys.modules
+print(f"proc {pid} ok", flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["cuda:0,cuda:0", "cuda:0,cuda:1"])
+def test_slab_row_across_two_processes(cuda_device, cards):
+    """A vz = 2 row across two processes of the node, each holding its own
+    slab and mapping the other's through CUDA IPC (parallel/nodeshare.py):
+    on one card over gloo, and on cuda:0 and cuda:1 over NCCL (skips on
+    one card). A time series swaps the timestep at every step, with no
+    host sync between steps, so each swap releases slabs the other process
+    may have just read; every step's framebuffer is bit-equal to the
+    process's own vz = 1 player's."""
+    if cards.endswith("cuda:1") and torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sock.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=str(REPO), GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen([sys.executable, "-c", _NODE_SLAB_WORKER, addr, str(pid), cards], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
+    try:
+        outs = [proc.communicate(timeout=240) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for pid, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0 and f"proc {pid} ok" in out, f"{out}\n{err[-3000:]}"
 
 
 @pytest.mark.cuda

@@ -4,9 +4,12 @@ processes joined by torch.distributed over gloo on the CPU.
 The two-process tests spawn fresh interpreters on localhost (a free port,
 PYTHONPATH, one torch thread, a timeout on each), as
 tests/test_multihost_real.py does for the JAX package; the workers import
-neither JAX nor volxel_tpu. Tolerance: none. The sample-sharded frame
-across the processes is bit-equal to the mean of samples 0 and 1 rendered
-in one process, and the pixel-sharded frame to sample 0.
+neither JAX nor volxel_tpu, and each tears its group down before it
+exits (gloo's threads otherwise can abort the interpreter's exit under
+load). Tolerance: none. The sample-sharded frame across the processes is
+bit-equal to the mean of samples 0 and 1 rendered in one process, the
+pixel-sharded frame to sample 0, and a vz row across the processes (each
+holding its own slab and mapping the other's) to the vz = 1 render.
 """
 
 from __future__ import annotations
@@ -18,10 +21,13 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu.parallel import process_info as jax_process_info
-from volxel_tpu_torch.parallel import initialize_multihost, multihost, process_info
+from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, multihost, nodeshare, process_info
+from volxel_tpu_torch.parallel.nodeshare import NodeShares
+from volxel_tpu_torch.parallel.volshard import rows_along
 
 REPO = Path(__file__).resolve().parent.parent
 TORCHRUN_VARS = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
@@ -31,7 +37,9 @@ import sys
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
-from volxel_tpu_torch.parallel import initialize_multihost, multihost, process_info
+from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, multihost, nodeshare, process_info
+from volxel_tpu_torch.parallel.nodeshare import NodeShares
+from volxel_tpu_torch.parallel.volshard import rows_along
 
 addr, pid = sys.argv[1], int(sys.argv[2])
 assert initialize_multihost(coordinator_address=addr, num_processes=2, process_id=pid, backend="gloo") is True
@@ -50,6 +58,7 @@ for owners in ([1, 0, 0, 1], [0, 1, 1]):
     assert [b.tolist() for b in blocks] == [[[float(i)] * 3] * 2 for i in range(len(owners))], (owners, blocks)
 assert "jax" not in sys.modules and "volxel_tpu" not in sys.modules
 print(f"proc {pid} ok: count={info['process_count']} sum={float(x[0])}", flush=True)
+dist.destroy_process_group()
 """
 
 _RENDER_WORKER = """
@@ -111,40 +120,97 @@ exp_lo, exp_hi = _dilated_brick_minmax(np.pad(full, 2))
 assert np.array_equal(lo, exp_lo) and np.array_equal(hi, exp_hi)
 assert "jax" not in sys.modules and "volxel_tpu" not in sys.modules
 print(f"proc {pid} sharded-render ok", flush=True)
+torch.distributed.destroy_process_group()
 """
 
 
 _SLAB_WORKER = """
+import glob
+import os
 import sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from volxel_tpu_torch.api.timeseries import TimeSeriesPlayer
 from volxel_tpu_torch.grid import construct_brick_grid
 from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, sharded_render_fn
 from volxel_tpu_torch.parallel.distributed import DistributedRenderer
-from volxel_tpu_torch.render.pathtrace import RenderConfig
+from volxel_tpu_torch.parallel.nodeshare import BLOCK_PREFIX
+from volxel_tpu_torch.parallel.volshard import build_slabbed_volume_from_brick
+from volxel_tpu_torch.render.pathtrace import render_sample
 from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
 
 addr, pid = sys.argv[1], int(sys.argv[2])
 assert initialize_multihost(coordinator_address=addr, num_processes=2, process_id=pid, backend="gloo") is True
-vol = synthetic_ct_volume((16, 16, 16), bits_stored=12)
-g = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
-mesh = make_mesh(sp=1, px=1, vz=2, devices=[(0, "cpu"), (1, "cpu")])
-for attempt in (lambda: sharded_render_fn(RenderConfig(width=16, height=16), mesh),
-                lambda: DistributedRenderer(16, 16, mesh=mesh, device="cpu").restart_from_grid(g)):
-    try:
-        attempt()
-    except NotImplementedError as e:
-        assert "ROADMAP.md, queue 1, 'Slabs across processes'" in str(e), e
-    else:
-        raise AssertionError("a vz axis across processes did not raise")
-# a vz axis inside each process, with sp across them, renders
-dist = DistributedRenderer(16, 16, mesh=make_mesh(sp=2, px=1, vz=2, devices=[(0, "cpu")] * 2 + [(1, "cpu")] * 2),
-                           device="cpu")
-dist.restart_from_grid(g)
-assert bool(torch.isfinite(dist.render_frame()).all())
+CPU = torch.device("cpu")
+base = synthetic_ct_volume((16, 16, 16), bits_stored=12).astype(np.float32) / 4095.0
+vols = np.stack([base * (1.0 - 0.3 * t) for t in range(3)])
+g = construct_brick_grid(vols[0], transform=np.eye(4, dtype=np.float32))
+bits = lambda t: t.contiguous().view(torch.int32)
+blocks = lambda: sorted(glob.glob(f"/dev/shm/{BLOCK_PREFIX}{os.getpid()}_*"))
+across = make_mesh(sp=1, px=1, vz=2, devices=[(0, "cpu"), (1, "cpu")])
+mixed = make_mesh(sp=2, px=1, vz=2, devices=[(0, "cpu"), (1, "cpu"), (1, "cpu"), (0, "cpu")])
+within = make_mesh(sp=2, px=1, vz=2, devices=[(0, "cpu")] * 2 + [(1, "cpu")] * 2)  # each row one process's
+
+def setup(r, mode="default"):
+    r.restart_from_grid(g)
+    r.camera.rotate_around_view(0.4, 0.2)
+    r.camera.zoom(2.0)
+    r.settings.bounces = 1
+    r.render_mode = mode
+    return r
+
+def local(sp=1):  # the one-process vz = 1 render: no position of the other process
+    return DistributedRenderer(16, 16, mesh=make_mesh(sp=sp, px=1, devices=[(pid, "cpu")] * sp), device="cpu")
+
+# the slabs: this process decodes its own and maps the other's shared block
+sv = build_slabbed_volume_from_brick(g, across)
+assert sorted(sv.slabs) == [(CPU, 0), (CPU, 1)] and sv.mapped == {(CPU, 1 - pid)}, (sv.slabs.keys(), sv.mapped)
+(block,) = sv._shares._mapped_blocks
+assert sv.slabs[(CPU, 1 - pid)].data_ptr() == torch.frombuffer(block.buf, dtype=torch.uint8).data_ptr()
+assert block.name.startswith(f"{BLOCK_PREFIX}") and len(blocks()) == 1
+r = setup(local())
+for mode, shading in (("default", False), ("raymarch", False), ("no_dda", False), ("default", True)):
+    r.render_mode = mode
+    r.settings.gradient_shading = shading
+    config = r._config()
+    rest = (r.volume_params(), r._lut, r.environment.state, *r._camera_operands(config))
+    got = sharded_render_fn(config, across)(sv, *rest, 0)
+    assert torch.equal(bits(got), bits(render_sample(config, r._device_grid, *rest, 0))), (mode, shading)
+sv.release()
+assert blocks() == [] and sv.slabs == {}
+
+# DistributedRenderers loaded from the brick grid, two steps a mode: the
+# row across the processes, the mixed mesh, whose rows each have one part
+# on each process, and sp across the processes with each row within one
+for mesh, sp in ((across, 1), (mixed, 2), (within, 2)):
+    for mode in ("default", "raymarch", "no_dda"):
+        a, b = setup(DistributedRenderer(16, 16, mesh=mesh, device="cpu"), mode), setup(local(sp), mode)
+        assert (a._slabbed._shares is None) == (mesh is within) and (mesh is within or len(blocks()) > 0)
+        for _ in range(2):
+            a.render_frame()
+            b.render_frame()
+        assert torch.equal(bits(a._framebuffer), bits(b._framebuffer)), (sp, mode)
+        a.close()
+    assert blocks() == []
+a, b = setup(DistributedRenderer(16, 16, mesh=across, device="cpu")), setup(local())
+a.settings.gradient_shading = b.settings.gradient_shading = True
+assert torch.equal(bits(a.render_frame()), bits(b.render_frame()))
+a.close()
+
+# three timestep swaps (each cuts this process's slab from the whole field
+# and releases the old shared blocks), bit-equal to the vz = 1 player's
+a, b = setup(DistributedRenderer(16, 16, mesh=across, device="cpu")), setup(local())
+frames = [list(TimeSeriesPlayer(x, vols).play(samples_per_step=2)) for x in (a, b)]
+for (t0, fa), (t1, fb) in zip(*frames):
+    assert t0 == t1 and np.array_equal(fa, fb), t0
+assert not np.allclose(frames[0][0][1], frames[0][2][1])
+assert len(blocks()) == 1 and a._slabbed.mapped == {(CPU, 1 - pid)}
+a.close()
+assert blocks() == []
 assert "jax" not in sys.modules and "volxel_tpu" not in sys.modules
 print(f"proc {pid} slabs ok", flush=True)
+torch.distributed.destroy_process_group()
 """
 
 
@@ -223,11 +289,66 @@ def test_two_process_sharded_render():
     assert "proc 1 sharded-render ok" in outs[1][1]
 
 
-def test_two_process_slab_axis_raises_naming_the_roadmap():
-    """A vz axis whose positions span the two processes raises
-    NotImplementedError naming its ROADMAP.md item, in sharded_render_fn
-    and in DistributedRenderer.restart_from_grid; a vz axis within each
-    process, sp across them, renders (see the worker)."""
+def test_two_process_slab_axis_renders():
+    """A vz = 2 row across the two processes: each decodes its own slab
+    and maps the other's shared block (its storage, not a copy). Frames
+    bit-equal to the one-process vz = 1 render in every mode through
+    sharded_render_fn (and with gradient shading), through
+    DistributedRenderers loaded from the brick grid (two steps), on an
+    sp = 2 x vz = 2 mesh whose rows each have a part on both processes, and
+    over three timestep swaps; no shared block of the port's left after
+    each release. A vz axis within each process, sp across them, renders
+    as before, sharing nothing (see the worker)."""
     outs = _run_two_process(_SLAB_WORKER, timeout=240)
     assert "proc 0 slabs ok" in outs[0][1]
     assert "proc 1 slabs ok" in outs[1][1]
+
+
+def test_rows_along_raises_only_across_nodes(monkeypatch):
+    """rows_along refuses a row whose processes lie on different nodes,
+    naming ROADMAP.md's "Slabs across nodes", and takes one whose
+    processes share a node (the node identities are fed in: no second
+    node is needed)."""
+    mesh = make_mesh(sp=1, px=1, vz=2, devices=[(0, "cpu"), (1, "cpu")])
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-1"])
+    assert [along for _, along in rows_along(mesh, "vz")] == [[(0, 0, 0), (0, 0, 1)]]
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-b/boot-2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, 'Slabs across nodes'"):
+        rows_along(mesh, "vz")
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-2"])  # rebooted: another node
+    with pytest.raises(NotImplementedError):
+        rows_along(mesh, "vz")
+
+
+def test_default_mesh_refuses_processes_sharing_a_node_of_cards(monkeypatch):
+    """Several processes of one node that each see several cards (one
+    process a card under torchrun) would each be listed with every card:
+    the default mesh raises and names the explicit (rank, card) form; one
+    card a process, or one process a node, is taken as it is."""
+    monkeypatch.setattr(multihost, "_initialized", True)
+    monkeypatch.setattr(multihost, "_device_counts", [2, 2])
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-1"])
+    with pytest.raises(ValueError, match=r"devices=\[\(rank, f'cuda:\{local\}'\)"):
+        multihost.global_devices()
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-b/boot-2"])
+    assert [(r, str(d)) for r, d in multihost.global_devices()] == [(0, "cuda:0"), (0, "cuda:1"), (1, "cuda:0"),
+                                                                   (1, "cuda:1")]
+    monkeypatch.setattr(multihost, "_device_counts", [1, 1])
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-1"])
+    assert [(r, str(d)) for r, d in multihost.global_devices()] == [(0, "cuda:0"), (1, "cuda:0")]
+
+
+def test_node_shares_refuse_without_falling_back(monkeypatch):
+    """A slab on a card this process does not see raises (a handle is never
+    opened on another card), and so does an export under
+    expandable_segments, which torch's allocator cannot share; the node
+    identity names the host and its boot."""
+    record = {"uuid": "GPU-00000000-0000-0000-0000-000000000000", "args": {}}
+    with pytest.raises(RuntimeError, match="does not see"):
+        NodeShares().open(record, torch.device("cuda", 0))
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    with pytest.raises(RuntimeError, match="expandable_segments"):
+        nodeshare._check_ipc_allocator()
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", "max_split_size_mb:128")
+    nodeshare._check_ipc_allocator()
+    assert multihost.node_identity().startswith(socket.gethostname() + "/")

@@ -94,3 +94,22 @@ def test_percentiles_match_jax(dense_renderer, mode):
     ours = step_statistics(dense_renderer, mode)
     assert ours == jax_step_statistics(jr, mode)
     assert ours["mode"] == mode and ours["sample"]["cap"] == {"default": 1024, "no_dda": 512, "raymarch": 64}[mode]
+
+
+def test_physical_majorant_leaves_the_counts_as_jax():
+    """With physical_majorant on, the default mode's pyramid is still built
+    with no majorant envelope, as the JAX package's pass reads the device
+    grid as it is: on the heavy scene under a transfer whose alpha falls
+    past a peak (where the envelope, its prefix maximum, raises bricks'
+    majorants and so the counts), the percentiles, maxima and fractions at
+    the cap equal JAX's exactly, and the counts with the setting off."""
+    rows = [[1.0, 1.0, 1.0, i / 127 if i < 32 else 0.02] for i in range(128)]
+    r = _dense(Renderer(48, 48, device="cpu"), construct_brick_grid)
+    jr = _dense(JRenderer(width=48, height=48), jax_construct)
+    for x in (r, jr):
+        x.set_transfer_full(rows)
+    off = step_statistics(r, "default")
+    r.settings.physical_majorant = jr.settings.physical_majorant = True
+    ours = step_statistics(r, "default")
+    assert ours == jax_step_statistics(jr, "default")
+    assert ours == off

@@ -12,6 +12,16 @@ the mesh. With vz > 1 the volume's dense field lies in z-slabs over the
 mesh's 'vz' axis (parallel/volshard.py), for volumes beyond one card's
 memory; the frames stay bit-equal to the replicated field's, and the
 shear-warp previews, which need the whole field, raise.
+
+The mesh's positions may be one process's cards (one process a host) or
+lie on several processes, e.g. one process a card on a node under
+`torchrun --nproc-per-node=N` with an explicit mesh of (rank, card)
+positions (`make_mesh(vz=N, devices=[(rank, f"cuda:{rank}") for rank in
+range(N)])`); a 'vz' row may span the processes of one node, whose
+slabs are then shared between them (parallel/nodeshare.py). Every
+process calls the same methods in the same order (each step, load and
+timestep swap is collective), and close() before it drops a renderer
+whose slabs are shared.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ class DistributedRenderer(Renderer):
         without a dense field."""
         if self.vz == 1:
             return super()._upload_grid(grid)
+        self._drop_slabs()
         self._slabbed = build_slabbed_volume_from_brick(grid, self.mesh, tap_dtype=self.vz_tap_dtype)
         self._slab_source = self._slabbed.meta
         return self._slabbed.meta
@@ -66,9 +77,24 @@ class DistributedRenderer(Renderer):
         if self.vz == 1:
             return self._device_grid
         if self._slabbed is None or self._slab_source is not self._device_grid:
+            self._drop_slabs()
             self._slabbed = build_slabbed_volume(self._device_grid, self.mesh, tap_dtype=self.vz_tap_dtype)
             self._slab_source = self._device_grid
         return self._slabbed
+
+    def _drop_slabs(self) -> None:
+        """Release the slabs (collective where they are shared between
+        processes: SlabbedVolume.release) and what holds them."""
+        if self._slabbed is not None:
+            self._cached_operands = None
+            self._slabbed.release()
+            self._slabbed = None
+
+    def close(self) -> None:
+        """Release the volume's slabs; every process of the mesh calls it
+        before it drops a renderer whose slabs are shared (a no-op
+        otherwise, and safe to call twice)."""
+        self._drop_slabs()
 
     def restart_rendering(self) -> None:
         """Any visual-state change flows through here, so the cached

@@ -21,7 +21,12 @@ with the axis names and a `.shape` dict, as a jax.sharding.Mesh is. Each
 position is a torch.device and the process (torch.distributed rank) that
 owns it. One process drives every position it owns, one after another
 (the JAX package's single controller); positions that name the same card
-share it, which is how one card or the CPU drives a 2x2 mesh. Processes
+share it, which is how one card or the CPU drives a 2x2 mesh. The
+processes may be one a host, each owning its host's cards, or one a
+card on a node (`torchrun --nproc-per-node=N`), whose mesh names each
+position's process and card explicitly:
+`make_mesh(vz=N, devices=[(rank, f"cuda:{rank}") for rank in range(N)])`
+(multihost.global_devices raises there, rather than guess). Processes
 combine their positions' results with one torch.distributed collective
 (parallel/shard.py).
 """
@@ -92,9 +97,11 @@ def make_mesh(sp: int = 1, px: int | None = None, vz: int = 1, devices=None) -> 
 
     `devices` defaults to every card of this process or, once
     multihost.initialize_multihost has joined processes, every card of
-    every process in rank order; it raises when there is none, and never
-    falls back to the CPU: a caller that wants the CPU names its
-    positions (`[torch.device("cpu")] * 4`). An entry is a device of this
+    every process in rank order (which raises where several processes of
+    a node each see several cards: one process a card names its
+    positions, `[(rank, f"cuda:{local}"), ...]`); it raises when there is
+    none, and never falls back to the CPU: a caller that wants the CPU
+    names its positions (`[torch.device("cpu")] * 4`). An entry is a device of this
     process, or a (rank, device) pair for a position another process
     owns; a device named more than once gives several positions that run
     on it one after another. px defaults to len(devices) // (sp * vz);

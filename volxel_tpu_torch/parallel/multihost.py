@@ -1,37 +1,63 @@
 """Multi-process (multi-host) initialization on torch.distributed: the
 PyTorch counterpart of volxel_tpu.parallel.multihost.
 
-Each host runs one process that owns every card of the host, as in the
-JAX package's single-controller model; initialize_multihost joins the
-processes into one torch.distributed group, and the mesh axes
-(sp/px, parallel/mesh.py) then span every process's cards. A step
-combines the processes' positions with one collective on the frame
-(parallel/shard.py). Single-process behavior is unchanged: without a
-coordinator, or with one process, initialize_multihost() is a no-op.
+Two layouts. One process a host that owns every card of the host, as in
+the JAX package's single-controller model (`torchrun --nnodes=N
+--nproc-per-node=1`), whose mesh defaults to every card of every process;
+or one process a card (`torchrun --nproc-per-node=8` on a node of eight),
+which a 'vz' axis across processes needs (its slabs are shared within a
+node, parallel/nodeshare.py). In the second layout each process reports
+every card it sees, so the default mesh would name each card once a
+process: global_devices raises there, and the caller names each
+position's (rank, card) instead, e.g.
+`make_mesh(vz=n, devices=[(rank, f"cuda:{rank % 8}") for rank in range(n)])`.
+initialize_multihost joins the processes into one torch.distributed
+group and records each one's card count and node (host name and boot
+id); the mesh axes (sp/px/vz, parallel/mesh.py) then span the processes'
+positions. A step combines the processes' positions with one collective
+on the frame (parallel/shard.py). Single-process behavior is unchanged:
+without a coordinator, or with one process, initialize_multihost() is a
+no-op.
 
-Typical use, one process per host under torchrun
-(`torchrun --nnodes=N --nproc-per-node=1 ...`, which sets MASTER_ADDR,
-MASTER_PORT, RANK and WORLD_SIZE) or with explicit arguments:
+Typical use under torchrun (which sets MASTER_ADDR, MASTER_PORT, RANK
+and WORLD_SIZE) or with explicit arguments:
 
     from volxel_tpu_torch.parallel import initialize_multihost, make_mesh
     initialize_multihost()          # no-op in a single process
-    mesh = make_mesh(sp=2, px=2)    # spans every process's cards
+    mesh = make_mesh(sp=2, px=2)    # one process a host: every process's cards
 
 The backend is "nccl" unless the caller asks for another ("gloo", e.g.
 for processes on the CPU or two processes sharing one card, which NCCL
-refuses); it is never changed behind the caller's back.
+refuses); it is never changed behind the caller's back. The small host
+messages of this module (all_gather_object, host_barrier) go through a
+gloo group whatever the backend: the default group under gloo, else one
+made when the group forms.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 
 import torch
 import torch.distributed as dist
 
 _initialized = False
-# every process's device count, in rank order, read once when the group forms
+# every process's device count and node, in rank order, read once when the group forms
 _device_counts: list[int] = []
+_node_ids: list[str] = []
+_host_group = None  # the gloo group of the host messages (None: the default group, which is gloo)
+
+
+def node_identity() -> str:
+    """This machine's identity: its host name and the kernel's boot id, so
+    that two processes agree exactly when they share a node."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            boot = f.read().strip()
+    except OSError:  # not Linux: the host name alone
+        boot = ""
+    return f"{socket.gethostname()}/{boot}"
 
 
 def initialize_multihost(
@@ -47,7 +73,7 @@ def initialize_multihost(
     MASTER_PORT, WORLD_SIZE and RANK. Returns True when distributed mode
     was (or already is) active, False for the single-process no-op path.
     Safe to call more than once."""
-    global _initialized
+    global _initialized, _host_group
     if _initialized:
         return True
     if coordinator_address is None and os.environ.get("MASTER_ADDR") and os.environ.get("MASTER_PORT"):
@@ -62,10 +88,11 @@ def initialize_multihost(
         raise ValueError("initialize_multihost: a process id (or RANK) is needed with a coordinator")
     init_method = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
     dist.init_process_group(backend or "nccl", init_method=init_method, world_size=num_processes, rank=process_id)
-    counts: list = [None] * num_processes
-    dist.all_gather_object(counts, torch.cuda.device_count())
-    _device_counts[:] = [int(c) for c in counts]
+    _host_group = None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
     _initialized = True
+    found = all_gather_object((torch.cuda.device_count(), node_identity()))
+    _device_counts[:] = [int(count) for count, _ in found]
+    _node_ids[:] = [node for _, node in found]
     return True
 
 
@@ -73,10 +100,42 @@ def process_index() -> int:
     return dist.get_rank() if _initialized else 0
 
 
+def same_node(ranks) -> bool:
+    """Whether the processes `ranks` all run on one node (always, before
+    initialize_multihost: there is one process)."""
+    return len({_node_ids[r] if _node_ids else "" for r in ranks}) <= 1
+
+
+def all_gather_object(obj) -> list:
+    """Every process's `obj` (picklable), in rank order, through the gloo
+    group of the host messages: a collective every process calls."""
+    out: list = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj, group=_host_group)
+    return out
+
+
+def host_barrier() -> None:
+    """Wait on the host until every process has reached this call (a gloo
+    barrier, which neither waits for nor enqueues device work)."""
+    dist.barrier(group=_host_group)
+
+
 def global_devices() -> list[tuple[int, torch.device]]:
     """(rank, card) of every card of every process, in rank order; this
-    process's cards alone before initialize_multihost."""
+    process's cards alone before initialize_multihost. Raises where
+    several processes of one node see more than one card each (one process
+    a card, e.g. `torchrun --nproc-per-node=8`): each would be listed with
+    every card of the node, and which card belongs to which process is the
+    caller's to say."""
     counts = _device_counts if _initialized else [torch.cuda.device_count()]
+    if _initialized:
+        for node in set(_node_ids):
+            ranks = [r for r, n in enumerate(_node_ids) if n == node]
+            if len(ranks) > 1 and any(counts[r] > 1 for r in ranks):
+                raise ValueError(
+                    f"processes {ranks} share a node and each sees {[counts[r] for r in ranks]} cards, so a mesh "
+                    "of every card of every process would name each card once a process; name each position's "
+                    "process and card: make_mesh(..., devices=[(rank, f'cuda:{local}'), ...])")
     return [(rank, torch.device("cuda", i)) for rank, count in enumerate(counts) for i in range(count)]
 
 

@@ -59,17 +59,17 @@ def sharded_multiview_fn(config: RenderConfig, mesh: Mesh, n_views: int):
     sp, px = mesh.shape["sp"], mesh.shape["px"]
     if n_views % sp != 0 or n % px != 0:
         raise ValueError(f"views {n_views} must divide sp={sp}, pixels {n} must divide px={px}")
-    mesh_rows(mesh)  # refuses a part axis that spans processes
+    mesh_rows(mesh)  # refuses a part axis whose processes span nodes
     local_n, local_v = n // px, n_views // sp
     cards = CardOperands()
 
     def render(grid, params, lut, env, inv_views, inv_projs, light_dir, frame_index):
-        blocks = render_rows(config, mesh, cards, (grid, params, lut, env, inv_views, inv_projs, light_dir),
-                             local_n, lambda g, rest, pixels, s: view_wavefront(config, g, *rest, pixels,
-                                                                                range(s * local_v, (s + 1) * local_v),
-                                                                                n_views, int(frame_index)))
+        parts = render_rows(config, mesh, cards, (grid, params, lut, env, inv_views, inv_projs, light_dir),
+                            local_n, lambda g, rest, pixels, s: view_wavefront(config, g, *rest, pixels,
+                                                                               range(s * local_v, (s + 1) * local_v),
+                                                                               n_views, int(frame_index)))
         first = operand_device(mesh, grid)
-        blocks = gather_rows(mesh, blocks, (local_v, local_n, 3), first)
+        blocks = gather_rows(mesh, parts, (local_v, local_n, 3), first)
         out = torch.empty((n_views, n, 3), dtype=torch.float32, device=first)
         for (s, p), block in blocks.items():
             out[s * local_v:(s + 1) * local_v, p * local_n:(p + 1) * local_n] = block

@@ -28,10 +28,13 @@ SlabbedVolume's slabs stay where they are: only its replicated metadata
 is copied. The JAX package caches its compiled functions; here a function
 is a closure that costs nothing to build, so there is no function cache.
 A process renders the positions it owns one after another; several
-processes exchange their rows' results with one torch.distributed
-all_gather on the frame (multihost.all_gather). The result lies on this
-process's first device of the mesh. A slab axis whose positions span
-processes raises NotImplementedError (volshard.SLABS_ACROSS_PROCESSES).
+processes exchange their results with one torch.distributed all_gather
+on the frame (multihost.all_gather): whole rows where each row's
+positions are one process's, else each position's part, padded to the
+longest part and cut back (a row whose parts lie on several processes of
+a node, one process a card: volshard's shared slabs). The result lies on
+this process's first device of the mesh. A slab axis whose positions span
+nodes raises NotImplementedError (volshard.SLABS_ACROSS_NODES).
 """
 
 from __future__ import annotations
@@ -122,29 +125,25 @@ def position_grid(grid, card_grid, position: tuple):
 
 def render_rows(config: RenderConfig, mesh: Mesh, cards: CardOperands, operands: tuple, local_n: int,
                 render) -> dict:
-    """Each of this process's rows (s, p) rendered part by part: for each
-    position along the part axis, render(position's grid, the card's other
-    operands, its part of pixel block p, s), the parts joined on the row's
-    first card. `operands` is (grid, ...) as the caller got them; their
-    copies on each card are step_operands' (of a SlabbedVolume only its
-    metadata). Returns {(s, p): block}."""
+    """Each of this process's positions (s, p, ·): render(position's grid,
+    the card's other operands, its part of pixel block p, s). `operands`
+    is (grid, ...) as the caller got them; their copies on each card are
+    step_operands' (of a SlabbedVolume only its metadata). Returns
+    {position: part}, which gather_rows joins into rows."""
     grid = operands[0]
     ops = step_operands(config, mesh, cards,
                         (grid.meta if isinstance(grid, SlabbedVolume) else grid, *operands[1:]))
     mine = set(mesh.local_positions())
-    blocks = {}
+    parts = {}
     for (s, p), along in mesh_rows(mesh):
-        if along[0] not in mine:
-            continue
-        parts = []
         for v, pos in enumerate(along):
+            if pos not in mine:
+                continue
             device = mesh.devices[pos]
             card_grid, *rest = ops[device]
             pixel_index = part_pixels(range(p * local_n, (p + 1) * local_n), len(along), v, device)
-            parts.append(render(position_grid(grid, card_grid, pos), rest, pixel_index, s))
-        first = parts[0].device
-        blocks[(s, p)] = parts[0] if len(parts) == 1 else torch.cat([t.to(first) for t in parts], dim=-2)
-    return blocks
+            parts[pos] = render(position_grid(grid, card_grid, pos), rest, pixel_index, s)
+    return parts
 
 
 def operand_device(mesh: Mesh, grid) -> torch.device:
@@ -156,15 +155,42 @@ def operand_device(mesh: Mesh, grid) -> torch.device:
     return (grid.meta.maj_mips if isinstance(grid, SlabbedVolume) else grid.dense).device
 
 
-def gather_rows(mesh: Mesh, local: dict, shape: tuple, device: torch.device) -> dict:
-    """Every row's block (each of `shape`, f32) on `device`, from this
-    process's `local` blocks ((s, p) -> tensor) and, across processes, one
-    all_gather (multihost.gather_owned)."""
+def gather_rows(mesh: Mesh, parts: dict, shape: tuple, device: torch.device) -> dict:
+    """Every row's block (each of `shape`, f32, pixels on dim -2) on
+    `device`, from this process's `parts` (render_rows'). Where each row's
+    positions are one process's, its parts are joined on the row's first
+    card and the rows gathered across processes; else every part is
+    gathered, padded to the longest part (torch.tensor_split's parts differ
+    by one pixel at most), cut back and joined in axis order. One
+    all_gather either way (multihost.gather_owned), none in one process."""
     rows = mesh_rows(mesh)
-    index = {row: i for i, (row, _) in enumerate(rows)}
-    owners = [int(mesh.processes[along[0]]) for _, along in rows]
-    blocks = multihost.gather_owned(owners, {index[row]: t for row, t in local.items()}, shape, device)
-    return {row: block for (row, _), block in zip(rows, blocks)}
+
+    def owner(q):
+        return int(mesh.processes[q])
+
+    if all(len({owner(q) for q in along}) == 1 for _, along in rows):
+        local = {}
+        for i, (_, along) in enumerate(rows):
+            if along[0] in parts:
+                first = parts[along[0]].device
+                local[i] = parts[along[0]] if len(along) == 1 else torch.cat([parts[q].to(first) for q in along],
+                                                                             dim=-2)
+        blocks = multihost.gather_owned([owner(along[0]) for _, along in rows], local, shape, device)
+        return {row: block for (row, _), block in zip(rows, blocks)}
+    k = len(rows[0][1])
+    base, extra = divmod(shape[-2], k)
+    longest = base + (extra > 0)
+    positions = [pos for _, along in rows for pos in along]
+    local = {}
+    for i, pos in enumerate(positions):
+        if pos in parts:
+            part = parts[pos]
+            local[i] = part.new_zeros((*shape[:-2], longest, shape[-1]))
+            local[i][..., :part.shape[-2], :] = part
+    blocks = multihost.gather_owned([owner(pos) for pos in positions], local, (*shape[:-2], longest, shape[-1]),
+                                    device)
+    return {row: torch.cat([blocks[j * k + v][..., :base + (v < extra), :] for v in range(k)], dim=-2)
+            for j, (row, _) in enumerate(rows)}
 
 
 def sharded_render_fn(config: RenderConfig, mesh: Mesh, cards: CardOperands | None = None):
@@ -178,16 +204,16 @@ def sharded_render_fn(config: RenderConfig, mesh: Mesh, cards: CardOperands | No
     sp, px = mesh.shape["sp"], mesh.shape["px"]
     if n % px != 0:
         raise ValueError(f"pixel count {n} not divisible by px axis {px}")
-    mesh_rows(mesh)  # refuses a part axis that spans processes
+    mesh_rows(mesh)  # refuses a part axis whose processes span nodes
     local_n = n // px
     cards = cards if cards is not None else CardOperands()
 
     def render(grid, params, lut, env, inv_view, inv_proj, light_dir, frame_index):
-        blocks = render_rows(config, mesh, cards, (grid, params, lut, env, inv_view, inv_proj, light_dir), local_n,
-                             lambda g, rest, pixels, s: render_pixels(config, g, *rest, pixels,
-                                                                      int(frame_index) * sp + s))
+        parts = render_rows(config, mesh, cards, (grid, params, lut, env, inv_view, inv_proj, light_dir), local_n,
+                            lambda g, rest, pixels, s: render_pixels(config, g, *rest, pixels,
+                                                                     int(frame_index) * sp + s))
         first = operand_device(mesh, grid)
-        blocks = gather_rows(mesh, blocks, (local_n, 3), first)
+        blocks = gather_rows(mesh, parts, (local_n, 3), first)
         frame = torch.empty((n, 3), dtype=torch.float32, device=first)
         for p in range(px):
             acc = blocks[(0, p)]

@@ -23,9 +23,17 @@ replicated field (tests/test_torch_volshard.py).
 
 A card named by several positions of the axis holds each slab once; the
 positions (s, p, ·) on other cards hold copies of their own, as the JAX
-package replicates a slab over 'sp' and 'px'. A slab axis whose positions
-span processes is not ported (ROADMAP.md, queue 1, "Slabs across
-processes").
+package replicates a slab over 'sp' and 'px'. A row whose positions lie
+on several processes of one node (one process a card, multihost) has
+each process build only the slabs of its own positions and map the
+others' into its address space (parallel/nodeshare.py: CUDA IPC on the
+cards, shared memory on the CPU), never a copy; the processes then render
+their own parts of the row, which parallel.shard gathers part by part.
+Such a volume is released by all its processes together
+(SlabbedVolume.release). A row whose processes span nodes raises
+NotImplementedError (ROADMAP.md, queue 1, "Slabs across nodes"): a leg
+marches each lane to its end in one launch, and across nodes no process
+can load from the owner's memory.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 from volxel_tpu_torch.grid.brick import BrickGrid
 from volxel_tpu_torch.parallel import multihost
 from volxel_tpu_torch.parallel.mesh import Mesh
-from volxel_tpu_torch.parallel.slab import _halo_exchange_z
+from volxel_tpu_torch.parallel.nodeshare import NodeShares
 from volxel_tpu_torch.render.sampling import (
     SLAB_HALO,
     DeviceGrid,
@@ -46,9 +54,9 @@ from volxel_tpu_torch.render.sampling import (
 )
 from volxel_tpu_torch.utils.mathutil import div_round_up
 
-SLABS_ACROSS_PROCESSES = ("a slab axis whose positions span processes (slabs read across processes, through CUDA "
-                          "IPC handles within a node) is not ported yet: ROADMAP.md, queue 1, 'Slabs across "
-                          "processes'")
+SLABS_ACROSS_NODES = ("a slab axis whose positions span nodes (slabs read across nodes, by lanes migrated at slab "
+                      "boundaries or by owner-answered tap rounds) is not ported yet: ROADMAP.md, queue 1, 'Slabs "
+                      "across nodes'")
 # brick z-rows decoded at once when a slab is built from the brick grid: the
 # decode's f32 scratch stays a few times these rows' bytes
 DECODE_ROWS = 2
@@ -57,7 +65,7 @@ DECODE_ROWS = 2
 def rows_along(mesh: Mesh, axis: str) -> list[tuple[tuple, list[tuple]]]:
     """Every row of `mesh` along `axis`: (the position's index without the
     axis, the row's positions in axis order), in row-major order. Raises
-    NotImplementedError where a row's positions span processes."""
+    NotImplementedError where a row's processes span nodes."""
     k = mesh.axis_names.index(axis)
     rows = []
     for pos in mesh.positions():
@@ -65,10 +73,16 @@ def rows_along(mesh: Mesh, axis: str) -> list[tuple[tuple, list[tuple]]]:
             continue
         row = pos[:k] + pos[k + 1:]
         along = [pos[:k] + (v,) + pos[k + 1:] for v in range(mesh.shape[axis])]
-        if len({int(mesh.processes[q]) for q in along}) > 1:
-            raise NotImplementedError(SLABS_ACROSS_PROCESSES)
+        if not multihost.same_node({int(mesh.processes[q]) for q in along}):
+            raise NotImplementedError(SLABS_ACROSS_NODES)
         rows.append((row, along))
     return rows
+
+
+def spans_processes(mesh: Mesh, axis: str) -> bool:
+    """Whether a row of `mesh` along `axis` has positions on several
+    processes."""
+    return any(len({int(mesh.processes[q]) for q in along}) > 1 for _, along in rows_along(mesh, axis))
 
 
 class SlabbedVolume:
@@ -76,21 +90,26 @@ class SlabbedVolume:
     replicated rest.
 
     `slabs` maps (card, v) to slab v, (slab + 2 * SLAB_HALO, Y, X) bf16 on
-    that card, for each card of this process that a position with index v
-    on `axis` names. `meta` is the DeviceGrid without its field (dense is
-    None): the majorant pyramid and the extent. A mesh step moves `meta` to
-    each card like any operand (parallel.shard) and hands each position
-    its `local_grid`."""
+    that card, for each slab that a row of this process reads: one that
+    this process built for a position it owns, or one that another process
+    of the node owns, mapped (parallel.nodeshare) on the card of this
+    process that reads it (the mapping lives in that card's context; the
+    bytes stay on the owner's card). `meta` is the DeviceGrid without its
+    field (dense is None): the majorant pyramid and the extent. A mesh step
+    moves `meta` to each card like any operand (parallel.shard) and hands
+    each position its `local_grid`."""
 
-    def __init__(self, slabs: dict, meta: DeviceGrid, mesh: Mesh, axis: str, slab: int,
-                 tap_dtype: str = "float32"):
+    def __init__(self, slabs: dict, meta: DeviceGrid, mesh: Mesh, axis: str, slab: int, tap_dtype: str = "float32",
+                 mapped: frozenset = frozenset(), shares: NodeShares | None = None):
         self.slabs = slabs
         self.meta = meta
         self.mesh = mesh
         self.axis = axis
         self.slab = slab
         self.tap_dtype = tap_dtype
-        self._tables: dict[tuple, dict] = {}  # a row's cards -> its SlabGrids' pointer tables, per card
+        self.mapped = mapped  # the keys of `slabs` that other processes own
+        self._shares = shares
+        self._tables: dict[tuple, dict] = {}  # a row's slab keys -> its SlabGrids' pointer tables, per card
         self._ready = dict(zip(slabs, slabs_written(slabs.values())))  # (card, v) -> slab v written there
 
     def local_grid(self, position: tuple | None = None, meta: DeviceGrid | None = None) -> SlabGrid:
@@ -99,53 +118,99 @@ class SlabbedVolume:
         the axis, and `meta`'s pyramids and extent (the card's copy of
         `self.meta`, with its premultiplied pyramid, by default self.meta)."""
         pos = tuple(position) if position is not None else self.mesh.local_positions()[0]
-        k = self.mesh.axis_names.index(self.axis)
-        cards = tuple(self.mesh.devices[pos[:k] + (v,) + pos[k + 1:]] for v in range(self.mesh.shape[self.axis]))
+        keys = tuple(_slab_key(self.mesh, self.axis, pos, v) for v in range(self.mesh.shape[self.axis]))
         meta = self.meta if meta is None else meta
-        keys = [(card, v) for v, card in enumerate(cards)]
         return SlabGrid([self.slabs[k] for k in keys], self.slab, meta.maj_mips, meta.extent, self.tap_dtype,
-                        maj_alpha=meta.maj_alpha, tables=self._tables.setdefault(cards, {}),
+                        maj_alpha=meta.maj_alpha, tables=self._tables.setdefault(keys, {}),
                         ready=[self._ready[k] for k in keys])
 
+    def release(self) -> None:
+        """Drop the slabs. Where they are shared between processes this is
+        collective, and every process of the mesh calls it: each
+        synchronizes the cards that read the slabs, closes its mappings and
+        waits for the others before the owners free their blocks
+        (parallel.nodeshare's rules). Callers drop any SlabGrid they keep
+        first."""
+        shares, self._shares = self._shares, None
+        if shares is not None:
+            for card in self.mesh.local_devices():
+                if card.type == "cuda":
+                    torch.cuda.synchronize(card)
+        self.slabs, self._ready, self._tables = {}, {}, {}
+        if shares is not None:
+            shares.close()
 
-def _local_rows(mesh: Mesh, axis: str) -> list[list[torch.device]]:
-    """The cards along `axis` of each of this process's rows, each list of
-    cards once."""
-    mine = mesh.local_positions()
-    seen = []
-    for _, along in rows_along(mesh, axis):
-        cards = [mesh.devices[q] for q in along]
-        if along[0] in mine and cards not in seen:
-            seen.append(cards)
-    return seen
+
+def _slab_key(mesh: Mesh, axis: str, reader: tuple, v: int) -> tuple:
+    """The key in SlabbedVolume.slabs of slab v as position `reader` reads
+    it: on the card of the row's position v where this process owns that
+    position, else mapped on the reader's own card."""
+    k = mesh.axis_names.index(axis)
+    q = reader[:k] + (v,) + reader[k + 1:]
+    mine = int(mesh.processes[q]) == multihost.process_index()
+    return (mesh.devices[q] if mine else mesh.devices[reader], v)
+
+
+def _node_slabs(mesh: Mesh, axis: str, make) -> dict:
+    """SlabbedVolume's slabs, mapped keys and shares for this process:
+    make(v, card) builds slab v on `card` for each card of a position this
+    process owns (once a card); where a row spans processes, the slabs are
+    exported, the records exchanged and each other process's slab that a
+    row of this process reads is mapped on the reading card (where this
+    process holds slab v on that card itself, it reads its own)."""
+    rank = multihost.process_index()
+
+    def owner(q):
+        return int(mesh.processes[q])
+
+    rows = [along for _, along in rows_along(mesh, axis) if any(owner(q) == rank for q in along)]
+    slabs = {}
+    for along in rows:
+        for v, q in enumerate(along):
+            if owner(q) == rank and (mesh.devices[q], v) not in slabs:
+                slabs[(mesh.devices[q], v)] = make(v, mesh.devices[q])
+    if not spans_processes(mesh, axis):
+        return {"slabs": slabs}
+    shares, records = NodeShares(), {}
+    for along in rows:
+        for v, q in enumerate(along):
+            key = (str(mesh.devices[q]), v)
+            if owner(q) == rank and len({owner(x) for x in along}) > 1 and key not in records:
+                records[key], slabs[(mesh.devices[q], v)] = shares.export(slabs[(mesh.devices[q], v)])
+    everyone = multihost.all_gather_object(records)
+    mapped = set()
+    for along in rows:
+        for reader in (q for q in along if owner(q) == rank):
+            for v, q in enumerate(along):
+                key = _slab_key(mesh, axis, reader, v)
+                if owner(q) != rank and key not in slabs:
+                    slabs[key] = shares.open(everyone[owner(q)][(str(mesh.devices[q]), v)], key[0])
+                    mapped.add(key)
+    return {"slabs": slabs, "mapped": frozenset(mapped), "shares": shares}
 
 
 def build_slabbed_volume(grid: DeviceGrid, mesh: Mesh, axis: str = "vz", tap_dtype: str = "float32") -> SlabbedVolume:
     """Cut a DeviceGrid's dense field into halo'd z-slabs over `axis`:
-    each slab copied to its cards, the halos taken from the neighbouring
-    slabs by parallel.slab._halo_exchange_z (zeros at the field's ends).
-    `tap_dtype="bfloat16"` rounds each trilinear sum to bf16 (SlabGrid)."""
+    each slab of this process's positions cut from the field with its
+    halos (zeros beyond the field's ends) onto its card; every process
+    holds the whole field here (a time series' timestep), so no halo
+    crosses processes. `tap_dtype="bfloat16"` rounds each trilinear sum
+    to bf16 (SlabGrid)."""
     if grid.dense is None:
         raise ValueError("volume slabs from a DeviceGrid need its dense field; for volumes too large to decode on "
                          "one card use build_slabbed_volume_from_brick(host_brick_grid, mesh)")
-    n = mesh.shape[axis]
     z, y, x = grid.dense.shape
-    slab = div_round_up(z, n)
-    slabs = {}
-    for cards in _local_rows(mesh, axis):
-        if all((card, v) in slabs for v, card in enumerate(cards)):
-            continue
-        local = {}
-        for v, card in enumerate(cards):
-            part = torch.zeros((slab, y, x), dtype=torch.bfloat16, device=card)
-            rows = grid.dense[v * slab:(v + 1) * slab]
-            part[:rows.shape[0]] = rows
-            local[v] = part
-        # every slab of the row is this process's (rows_along), so the
-        # exchange only copies
-        for v, halod in _halo_exchange_z(local, [multihost.process_index()] * n).items():
-            slabs.setdefault((cards[v], v), halod)
-    return SlabbedVolume(slabs, grid._replace(dense=None), mesh, axis, slab, tap_dtype)
+    slab = div_round_up(z, mesh.shape[axis])
+
+    def cut(v, card):
+        z0 = v * slab - SLAB_HALO
+        block = torch.zeros((slab + 2 * SLAB_HALO, y, x), dtype=torch.bfloat16, device=card)
+        lo, hi = max(z0, 0), min(z0 + block.shape[0], z)
+        block[lo - z0:hi - z0] = grid.dense[lo:hi]
+        return block
+
+    return SlabbedVolume(meta=grid._replace(dense=None), mesh=mesh, axis=axis, slab=slab, tap_dtype=tap_dtype,
+                         **_node_slabs(mesh, axis, cut))
 
 
 def build_slabbed_volume_from_brick(grid: BrickGrid, mesh: Mesh, axis: str = "vz", tap_dtype: str = "float32",
@@ -154,33 +219,32 @@ def build_slabbed_volume_from_brick(grid: BrickGrid, mesh: Mesh, axis: str = "vz
     the whole dense field: each halo'd slab is decoded on its card from its
     own brick rows and its halos' (sampling.decode_dense_rows_device,
     DECODE_ROWS brick rows at a time), so a card's peak is one slab and the
-    scratch of a few rows. Zeros beyond the field, as the halo exchange
-    gives, so the slabs are bit-equal to build_slabbed_volume's of the
-    decoded field. `meta` holds the majorant pyramid and the extent, and
+    scratch of a few rows; each process decodes the slabs of its own
+    positions only, and maps the others' (parallel.nodeshare). Zeros
+    beyond the field, as build_slabbed_volume's cut gives, so the slabs
+    are bit-equal to build_slabbed_volume's of the decoded field. `meta` holds the majorant pyramid and the extent, and
     nothing volume-sized. `maj_dtype` is there for the JAX package's
     signature: the port's pyramid is float32, and any other value raises."""
     if maj_dtype != "float32":
         raise ValueError(f"the port's majorant pyramid is float32; maj_dtype {maj_dtype!r} is not ported")
     bx, by, bz = grid.brick_count
     z, y, x = bz * 8, by * 8, bx * 8
-    n = mesh.shape[axis]
-    slab = div_round_up(z, n)
-    slabs = {}
-    for cards in _local_rows(mesh, axis):
-        for v, card in enumerate(cards):
-            if (card, v) in slabs:
-                continue
-            z0 = v * slab - SLAB_HALO
-            block = torch.zeros((slab + 2 * SLAB_HALO, y, x), dtype=torch.bfloat16, device=card)
-            lo, hi = max(z0, 0), min(z0 + block.shape[0], z)
-            for b in range(lo >> 3, (hi + 7) >> 3, DECODE_ROWS):
-                b1 = min(b + DECODE_ROWS, (hi + 7) >> 3)
-                rows = decode_dense_rows_device(grid, b, b1, card)
-                s0, s1 = max(lo, b * 8), min(hi, b1 * 8)
-                block[s0 - z0:s1 - z0] = rows[s0 - b * 8:s1 - b * 8]
-                del rows
-            slabs[(card, v)] = block
+    slab = div_round_up(z, mesh.shape[axis])
+
+    def decode(v, card):
+        z0 = v * slab - SLAB_HALO
+        block = torch.zeros((slab + 2 * SLAB_HALO, y, x), dtype=torch.bfloat16, device=card)
+        lo, hi = max(z0, 0), min(z0 + block.shape[0], z)
+        for b in range(lo >> 3, (hi + 7) >> 3, DECODE_ROWS):
+            b1 = min(b + DECODE_ROWS, (hi + 7) >> 3)
+            rows = decode_dense_rows_device(grid, b, b1, card)
+            s0, s1 = max(lo, b * 8), min(hi, b1 * 8)
+            block[s0 - z0:s1 - z0] = rows[s0 - b * 8:s1 - b * 8]
+            del rows
+        return block
+
+    parts = _node_slabs(mesh, axis, decode)
     first = (mesh.local_devices() or [torch.device("cpu")])[0]
     meta = DeviceGrid(dense=None, maj_mips=torch.from_numpy(build_majorant_pyramid(grid)).to(first),
                       extent=tuple(int(v) for v in grid.index_extent))
-    return SlabbedVolume(slabs, meta, mesh, axis, slab, tap_dtype)
+    return SlabbedVolume(meta=meta, mesh=mesh, axis=axis, slab=slab, tap_dtype=tap_dtype, **parts)

@@ -19,7 +19,6 @@ import torch
 
 from volxel_tpu_torch.render import modes
 from volxel_tpu_torch.render.ddaleg import DDA_SAMPLE_MAX_STEPS, DDA_TRANSMITTANCE_MAX_STEPS
-from volxel_tpu_torch.render.pathtrace import with_premul_majorant
 from volxel_tpu_torch.render.rays import camera_rays, norm3
 from volxel_tpu_torch.render.rng import rng2, seed_rays
 from volxel_tpu_torch.render.trackleg import TRACKING_MAX_EVENTS
@@ -34,9 +33,9 @@ def step_statistics(renderer, mode: str | None = None, sample_index: int = 0) ->
 
     At most MAX_RAYS pixels are measured, strided uniformly across the
     image; their camera rays take one rng2 jitter draw. The default
-    mode's premultiplied pyramid is the renderer's own
-    (pathtrace.with_premul_majorant, with its physical_majorant setting;
-    the JAX package's pass always builds it without). Returns
+    mode's premultiplied pyramid is built with no majorant envelope,
+    whatever physical_majorant says, as the JAX package's pass reads the
+    renderer's device grid as it is. Returns
     {"sample": stats, "transmittance": stats, "mode": ...} where stats =
     {p50, p90, p99, max, cap, frac_at_cap}.
     """
@@ -52,7 +51,7 @@ def step_statistics(renderer, mode: str | None = None, sample_index: int = 0) ->
     grid, params, lut = r._device_grid, r.volume_params(), r._lut
     inv_view, inv_proj, light = r._camera_operands(config)
     if mode == "default":
-        grid = with_premul_majorant(config, grid, params, lut)
+        grid = grid._replace(maj_alpha=modes.build_premul_majorant(grid.maj_mips, params, lut).contiguous())
     total = w * h
     stride = max(1, -(-total // MAX_RAYS))
     pixel_index = torch.arange(0, total, stride, dtype=torch.int64, device=r.device)
