@@ -116,6 +116,29 @@ Phases, each of which raises (exit code != 0) on failure:
    no host sync of the caller's, bit-equal to vz = 1, each swap freeing
    the slab it replaced, and close(); again with the processes on cuda:0
    and cuda:1, joined over NCCL, where the machine has two cards;
+2g. a vz row across nodes (parallel/migrate.py), rehearsed on the one
+   machine: two processes on the card over gloo (`chip_smoke.py
+   --cross-worker ADDR PID DEVICES NODES`), fed the node identities A and
+   B (printed beside the machine's own), a (1, 1, 2) row across them at
+   the main paths' size: each holds its own slab, the other's is absent,
+   and a lane that reaches it parks, moves to its owner and is resumed by
+   the leg's park form. In each mode, with the counters at 0 before them,
+   2 steps: each leg launched only in its park form, no slab mapped,
+   rank 0's framebuffer bit-equal to a one-process vz = 1 renderer's, each
+   leg call's lanes (running, parked, moved, returned), rounds and bytes
+   printed; 2 steps timed in turns with vz = 1 (beside phase 2f's step);
+   one step with each park form held bit for bit against its plain park
+   form on every 16th lane of each call in both processes, and each park
+   form's first call timed beside its plain version and, in rank 0, the
+   slab form at the same lanes on every slab (in turns; the slab form's
+   bytes give its bound); each process's device bytes after the load.
+   Again over NCCL on cuda:0 and cuda:1 where the machine has two cards;
+   then four processes fed [A, A, B, B] at 256^3 and 960x540 (slabs
+   mapped within a node, lanes moved across), bit-equal to vz = 1, and
+   again over NCCL on cuda:0-3 where the machine has four cards. The park
+   forms' entries join the JSON line. `chip_smoke.py --cross-nodes-only`
+   builds the kernels and runs this phase alone (its NCCL runs on a
+   machine of four cards);
 3. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time both with CUDA events:
    - both default-mode legs (the camera leg's and the shadow leg's kernel:
@@ -247,10 +270,10 @@ KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "
                   "tile_march_transmittance": "tile_march_transmittance_kernel",
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
                   "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel",
-                  **{f"{leg}_slabs": f"{leg}_slabs_kernel" for leg in ("dda_leg_sample", "dda_leg_shadow",
-                                                                       "track_leg_sample", "track_leg_shadow",
-                                                                       "tile_march_sample",
-                                                                       "tile_march_transmittance")}}
+                  **{f"{leg}{form}": f"{leg}{kernel}_kernel"
+                     for leg in ("dda_leg_sample", "dda_leg_shadow", "track_leg_sample", "track_leg_shadow",
+                                 "tile_march_sample", "tile_march_transmittance")
+                     for form, kernel in (("_slabs", "_slabs"), ("_slabs_park", "_park"))}}
 
 # the least time a call could take: its bytes (each input read once, each
 # output written once) over HBM3's 3.35 TB/s, or its operations over the
@@ -929,10 +952,10 @@ def check_neg_log1m() -> None:
 
 
 # the sources phase 2 reads the SASS of, and in each the kernels whose own
-# code must hold no FFMA (the leg kernels, dense and slab forms) with how
-# many there are
-SASS_CHECKS = {"dda_leg.cu": (r"dda_leg_(sample|shadow)(_slabs)?_kernel", 9),
-               "track_leg.cu": (r"track_leg_(sample|shadow)(_slabs)?_kernel", 6), "tonemap.cu": (None, 0),
+# code must hold no FFMA (the leg kernels, dense, slab and park forms) with
+# how many there are
+SASS_CHECKS = {"dda_leg.cu": (r"dda_leg_(sample|shadow)(_slabs|_park)?_kernel", 15),
+               "track_leg.cu": (r"track_leg_(sample|shadow)(_slabs|_park)?_kernel", 10), "tonemap.cu": (None, 0),
                "tile_march.cu": (None, 0)}
 
 
@@ -2723,17 +2746,18 @@ def nccl_world_of_one(addr: str, width: int, height: int) -> None:
     torch.distributed.destroy_process_group()
 
 
-def worker_pair(flags, size: int, width: int, height: int, timeout: float, what: str) -> list[dict]:
-    """Run `chip_smoke.py` with flags(addr, pid) for pids 0 and 1 at once,
-    joined at a free localhost port, each under `timeout`; fails unless
-    both exit 0. Returns the JSON record each printed last."""
+def worker_pair(flags, size: int, width: int, height: int, timeout: float, what: str, count: int = 2) -> list[dict]:
+    """Run `chip_smoke.py` with flags(addr, pid) for pids 0 .. count - 1
+    (two by default) at once, joined at a free localhost port, each under
+    `timeout`; fails unless all exit 0. Returns the JSON record each
+    printed last."""
     addr = f"127.0.0.1:{free_port()}"
     root = Path(__file__).resolve().parent
     env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
     procs = [subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), *flags(addr, pid), "--size", str(size),
                                "--width", str(width), "--height", str(height)],
                               cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for pid in (0, 1)]
+             for pid in range(count)]
     outs = []
     try:
         for p in procs:
@@ -3430,17 +3454,19 @@ def node_processes(size: int, width: int, height: int, cards: tuple) -> list[dic
                        NODE_WORKER_TIMEOUT, f"node worker on {cards}")
 
 
-def node_slab_path(size: int, width: int, height: int) -> None:
+def node_slab_path(size: int, width: int, height: int) -> dict:
     """Phase 2f: a vz = 2 row across two processes on the card (and over
     cuda:0 and cuda:1 where the machine has two cards). Fails unless each
     process holds one slab of its own and maps the other's, rank 0's
     frames are bit-equal to vz = 1's in every mode, each process launched
     every leg of each mode in its slab form and none in its dense form,
     every held leg is bit-equal on its strided lanes, and the timestep
-    swaps stay bit-equal."""
+    swaps stay bit-equal. Returns rank 0's step ms by mode on the one card
+    (phase 2g prints them beside its own)."""
     import torch
 
     t_phase = time.perf_counter()
+    within = {}
     cuda = torch.cuda.is_available()
     runs = [("cuda:0", "cuda:0")] + ([("cuda:0", "cuda:1")] if torch.cuda.device_count() >= 2 else [])
     for cards in runs:
@@ -3458,6 +3484,8 @@ def node_slab_path(size: int, width: int, height: int) -> None:
                 f"the whole field {whole} B")
             for mode, legs in MODE_LEGS.items():
                 m = rec["modes"][mode]
+                if pid == 0 and cards == runs[0]:
+                    within[mode] = m["step_ms"]
                 wrong = {leg: (m["launches"].get(leg, 0), m["launches"].get(f"{leg}_slabs", 0)) for leg in legs
                          if m["launches"].get(leg, 0) or m["launches"].get(f"{leg}_slabs", 0) != NODE_STEPS}
                 if wrong or not (m["equal"] and m["equal_after_rounds"]):
@@ -3490,6 +3518,324 @@ def node_slab_path(size: int, width: int, height: int) -> None:
     if len(runs) == 1:
         log("vz = 2 across two processes on two cards: skipped, the machine has one card")
     log(f"phase 2f (slabs across the processes of a node): {time.perf_counter() - t_phase:.1f} s")
+    return within
+
+
+# phase 2g: a vz row across nodes (parallel/migrate.py), rehearsed on one
+# machine: the processes are fed two node identities, so no process can load
+# a slab of the other "node"; a lane that reaches one parks, moves to the
+# slab's owner and is resumed there by the leg's park form
+CROSS_NODES = ("host-A/fed", "host-B/fed")
+CROSS_STEPS = 2  # counted steps a mode across the nodes, each one sample
+CROSS_ROUNDS = 2  # timed rounds a mode: a step across the nodes, then vz = 1 in one process
+CROSS_LANE_STRIDE = 16  # the held park forms' lanes: every 16th lane of each call
+CROSS_WORKER_TIMEOUT = 300.0  # seconds, each process
+MIXED_SIZE, MIXED_DIMS = 256, (960, 540)  # the [A, A, B, B] layout's volume and frame
+
+
+@contextlib.contextmanager
+def held_park_forms(stride: int):
+    """While the block runs, each park form that parallel.migrate calls
+    also runs its CUDA wrapper and its plain version on every `stride`-th
+    lane of the call: fails unless the two agree bit for bit on every
+    output and the wrapper's equals the call's own there. Yields {leg:
+    tally}: calls, lanes held, lanes parked, and each leg's first call (its
+    field and arguments, as migrate.Row.leg_call got them)."""
+    import torch
+
+    from volxel_tpu_torch.parallel import migrate
+    from volxel_tpu_torch.render import ddaleg, tilemarch, trackleg
+
+    modules = {"dda": ddaleg, "track": trackleg, "tile": tilemarch}
+    tallies = {name: {"calls": 0, "lanes": 0, "parked": 0, "first": None} for name in migrate.LEGS}
+    originals = {leg.park: getattr(migrate, leg.park) for leg in migrate.LEGS.values()}
+    leg_call = migrate.Row.leg_call
+
+    def recorded(row, name, field, *args):
+        if tallies[name]["first"] is None:
+            tallies[name]["first"] = (field, args)
+        return leg_call(row, name, field, *args)
+
+    def held(name, leg):
+        module = modules[name.split("_")[0]]
+        cuda_fn, plain_fn = getattr(module, f"{leg.park}_cuda"), getattr(module, f"{leg.park}_plain")
+        at = leg.park_args.index("ipos") + 1
+
+        def call(*args):
+            got = originals[leg.park](*args)
+            n = args[at].shape[0]
+            sub = tuple(a[::stride].contiguous() if i and isinstance(a, torch.Tensor) and a.dim() and a.shape[0] == n
+                        else a for i, a in enumerate(args))
+            kernel, plain = cuda_fn(*sub), plain_fn(*sub)
+            bad = [nm for nm, k, w, full in zip(leg.outs, kernel, plain, got)
+                   if not (bits_equal(k, w) and bits_equal(k, full[::stride]))]
+            tally = tallies[name]
+            if bad:
+                raise SystemExit(f"{leg.park} across nodes, call {tally['calls']}: {bad} differ on every {stride}th "
+                                 f"lane (max abs {max_abs(kernel, plain)})")
+            tally["calls"] += 1
+            tally["lanes"] += sub[at].shape[0]
+            tally["parked"] += int((got[-1] >= 0).sum())
+            return got
+        return call
+
+    migrate.Row.leg_call = recorded
+    for name, leg in migrate.LEGS.items():
+        setattr(migrate, leg.park, held(name, leg))
+    try:
+        yield tallies
+    finally:
+        migrate.Row.leg_call = leg_call
+        for park, fn in originals.items():
+            setattr(migrate, park, fn)
+
+
+def park_times(held: dict, whole) -> dict:
+    """Each leg's park form at its first call (held_park_forms), timed by
+    device_ms beside its plain park form; with `whole` (a SlabGrid of every
+    slab, on this card), its slab form at the same lanes, in turns (park,
+    slab, slab, park), and the slab form's bytes and operations
+    (slab_work). {leg: {"park": [ms, ms], "plain": ms, "slab": [ms, ms] or
+    None, "bytes", "ops"}}."""
+    from volxel_tpu_torch.parallel import migrate
+    from volxel_tpu_torch.render import ddaleg, tilemarch, trackleg
+
+    modules = {"dda": ddaleg, "track": trackleg, "tile": tilemarch}
+    out = {}
+    for name, tally in held.items():
+        if tally["first"] is None:
+            continue
+        field, args = tally["first"]
+        leg = migrate.LEGS[name]
+        module = modules[name.split("_")[0]]
+        consts, lanes = migrate.home_lanes(leg, args)
+        park_args = migrate.park_args(leg, consts, lanes)
+        park_fn = getattr(module, f"{leg.park}_cuda")
+        rec = {"slab": None, "bytes": 0, "ops": 0}
+        rec["plain"] = device_ms(lambda: getattr(module, f"{leg.park}_plain")(field, *park_args))[1]
+        park = [device_ms(lambda: park_fn(field, *park_args), KERNEL_REPS)[1]]
+        if whole is not None:
+            slab_fn = getattr(module, f"{name}_cuda")
+            got, ms = device_ms(lambda: slab_fn(whole, *args), KERNEL_REPS)
+            rec["slab"] = [ms, device_ms(lambda: slab_fn(whole, *args), KERNEL_REPS)[1]]
+            rec["bytes"], rec["ops"] = slab_work(name)((whole, *args), got)
+        park.append(device_ms(lambda: park_fn(field, *park_args), KERNEL_REPS)[1])
+        rec["park"] = park
+        out[name] = rec
+    return out
+
+
+def cross_worker(addr: str, pid: int, size: int, width: int, height: int, cards: tuple, nodes: tuple) -> None:
+    """One of phase 2g's processes: process p on device cards[p], fed node
+    identity nodes[p], joined over gloo where processes share a card (NCCL
+    refuses that) and over NCCL where each has its own; it renders its part
+    of a (1, 1, len(cards)) row whose slabs on the other node are absent.
+    Rank 0 holds a vz = 1 renderer (and, on the two-process layout, a
+    one-process renderer of the row's slabs) beside it. On two processes
+    it also holds the park forms on strided lanes and times them. Prints
+    one JSON line: the load, each mode's launches and leg calls (lanes
+    parked, moved and returned, rounds, bytes sent), frames bit-equal to
+    vz = 1, step ms in turns, the held park forms and their ms."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.grid import construct_brick_grid
+    from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, migrate, multihost
+    from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+    from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+    from volxel_tpu_torch.utils.profiling import fence_device
+
+    t0 = time.perf_counter()
+    count = len(cards)
+    device = torch.device(cards[pid])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+    backend = "gloo" if len(set(cards)) < count else "nccl"
+    if not initialize_multihost(addr, count, pid, backend=backend):
+        raise SystemExit("cross worker: initialize_multihost did not join the group")
+    found = list(multihost._node_ids)
+    multihost._node_ids[:] = list(nodes)  # fed: every process runs on this one machine
+    vol = synthetic_ct_volume((size,) * 3, bits_stored=12, seed=0)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    del vol
+    mesh = make_mesh(sp=1, px=1, vz=count, devices=list(enumerate(cards)))
+    r = DistributedRenderer(width, height, mesh=mesh, device=device)
+
+    def allocated():
+        return torch.cuda.memory_allocated(device) if cuda else 0
+
+    fence_device(device)
+    base = allocated()
+    r.restart_from_grid(grid)
+    fence_device(device)
+    slab_grid = r._slabbed.local_grid()
+    rec = {"pid": pid, "device": str(device), "backend": torch.distributed.get_backend(), "found_nodes": found,
+           "fed_nodes": list(nodes), "held_bytes": allocated() - base,
+           "absent": [v for v, s in enumerate(slab_grid.slabs) if s is None],
+           "mapped": sorted((str(c), v) for c, v in r._slabbed.mapped), "row": slab_grid.row is not None}
+    del slab_grid
+    r.settings.bounces = 1
+    bench_look(r)
+    full = count == 2
+    reps = {}
+    if pid == 0:
+        for vz in (1, count) if full else (1,):
+            reps[vz] = DistributedRenderer(width, height, mesh=make_mesh(sp=1, px=1, vz=vz, devices=[(0, device)] * vz),
+                                           device=device)
+            reps[vz].restart_from_grid(grid)
+            reps[vz].settings.bounces = 1
+            bench_look(reps[vz])
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["modes"] = {}
+    for mode in MODE_LEGS:
+        out = rec["modes"][mode] = {}
+        for x in (r, *reps.values()):
+            x.render_mode = mode
+        kernels.reset_launch_counts()
+        migrate.CALLS.clear()
+        for _ in range(CROSS_STEPS):
+            r.render_frame()
+        fence_device(device)
+        out["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        out["calls"] = [[c[k] for k in ("leg", "lanes", "running", "parked", "moved", "returned", "rounds", "bytes")]
+                        for c in migrate.CALLS]
+        if pid == 0:
+            for _ in range(CROSS_STEPS):
+                reps[1].render_frame()
+        out["equal"] = pid != 0 or bits_equal(r._framebuffer, reps[1]._framebuffer)
+        out["step_ms"], out["vz1_ms"] = [], []
+        for _ in range(CROSS_ROUNDS):  # in turns: the others wait at the barrier while rank 0 runs vz = 1
+            multihost.host_barrier()
+            out["step_ms"].append(fenced_ms(r.render_frame, device)[1])
+            if pid == 0:
+                out["vz1_ms"].append(fenced_ms(reps[1].render_frame, device)[1])
+        multihost.host_barrier()
+        out["equal_after_rounds"] = pid != 0 or bits_equal(r._framebuffer, reps[1]._framebuffer)
+        if not full:
+            continue
+        saved = dict(kernels.LAUNCHES)
+        with held_park_forms(CROSS_LANE_STRIDE) as held:
+            r.render_frame()
+        out["held"] = {leg: {k: t[k] for k in ("calls", "lanes", "parked")} for leg, t in held.items()
+                       if t["calls"]}
+        out["kernel_ms"] = {}
+        for turn in range(count):  # each process times its park forms while the others wait
+            multihost.host_barrier()
+            if turn == pid:
+                whole = reps[count]._render_grid().local_grid() if pid == 0 else None
+                out["kernel_ms"] = park_times(held, whole)
+                del whole
+        multihost.host_barrier()
+        del held  # its first calls' arguments hold the slabs
+        kernels.LAUNCHES.update(saved)  # the holds' launches are not the path's
+        if pid == 0:
+            reps[1].render_frame()  # keep the step counts level with r's
+    r.close()
+    rec["seconds"] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def cross_processes(size: int, width: int, height: int, cards: tuple, nodes: tuple) -> list[dict]:
+    """Phase 2g's processes (cross_worker), one a card of `cards` with the
+    fed node identities `nodes`; fails unless all exit 0."""
+    return worker_pair(lambda addr, pid: ["--cross-worker", addr, str(pid), ",".join(cards), ",".join(nodes)], size,
+                       width, height, CROSS_WORKER_TIMEOUT, f"cross worker on {cards}", count=len(cards))
+
+
+def cross_node_path(size: int, width: int, height: int, within: dict) -> list[dict]:
+    """Phase 2g: a vz = 2 row across two fed nodes on the card (and over
+    cuda:0 and cuda:1 on NCCL where the machine has two cards), then four
+    processes [A, A, B, B] at MIXED_SIZE and MIXED_DIMS on the card (and
+    over cuda:0-3 on NCCL where the machine has four cards). Fails unless each
+    process finds the other node's slabs absent and maps no slab across
+    nodes (its node mate's only), launches every park form of each mode and
+    no other form of its legs, rank 0's frames are bit-equal to vz = 1's in
+    every mode, lanes moved, and every held park form is bit-equal to its
+    plain version. Prints each leg call's lanes parked, moved and returned,
+    rounds and bytes, the step ms beside phase 2f's (`within`) and vz = 1,
+    the park forms' kernel ms beside the slab forms' at the same lanes.
+    Returns the park forms' entries of the JSON line (the one-card pair's
+    rank 0)."""
+    import torch
+
+    from volxel_tpu_torch.parallel import migrate
+
+    t_phase = time.perf_counter()
+    runs = [(("cuda:0", "cuda:0"), CROSS_NODES, size, width, height)]
+    if torch.cuda.device_count() >= 2:
+        runs.append((("cuda:0", "cuda:1"), CROSS_NODES, size, width, height))
+    mixed = (CROSS_NODES[0],) * 2 + (CROSS_NODES[1],) * 2
+    runs.append((("cuda:0",) * 4, mixed, MIXED_SIZE, *MIXED_DIMS))
+    if torch.cuda.device_count() >= 4:
+        runs.append((tuple(f"cuda:{i}" for i in range(4)), mixed, MIXED_SIZE, *MIXED_DIMS))
+    entries = []
+    for cards, nodes, sz, w, h in runs:
+        count = len(cards)
+        recs = cross_processes(sz, w, h, cards, nodes)
+        moved = sum(c[4] for rec in recs for m in rec["modes"].values() for c in m["calls"])
+        for rec in recs:
+            pid = rec["pid"]
+            where = f"vz = {count} across fed nodes {nodes} on {','.join(cards)} ({rec['backend']}), process {pid}"
+            other = [v for v in range(count) if nodes[v] != nodes[pid]]
+            mates = [v for v in range(count) if nodes[v] == nodes[pid] and v != pid]
+            if (rec["absent"] != other or [v for _, v in rec["mapped"]] != mates or not rec["row"]
+                    or len(set(rec["found_nodes"])) != 1):
+                raise SystemExit(f"{where}: absent slabs {rec['absent']} (expected {other}), mapped {rec['mapped']} "
+                                 f"(expected {mates}), row {rec['row']}, nodes found {rec['found_nodes']}")
+            log(f"{where}: one machine ({rec['found_nodes'][0]}), node identities fed {rec['fed_nodes']}; slabs "
+                f"absent {rec['absent']}, mapped within the node {rec['mapped']}; device bytes after the load "
+                f"{rec['held_bytes']}; setup {rec['setup_s']:.2f} s")
+            for mode, legs in MODE_LEGS.items():
+                m = rec["modes"][mode]
+                launched = m["launches"]
+                wrong = {leg: [launched.get(f"{leg}{form}", 0) for form in ("", "_slabs", "_slabs_park")]
+                         for leg in legs if launched.get(leg, 0) or launched.get(f"{leg}_slabs", 0)
+                         or launched.get(f"{leg}_slabs_park", 0) < CROSS_STEPS}
+                if wrong or not (m["equal"] and m["equal_after_rounds"]):
+                    raise SystemExit(f"{where} ({mode}): legs launched (dense, slab, park form) {wrong}; frames "
+                                     f"bit-equal to vz = 1: {m['equal']}, after the rounds {m['equal_after_rounds']}")
+                if count == 2 and (set(m["held"]) != set(legs) or any(t["calls"] == 0 for t in m["held"].values())):
+                    raise SystemExit(f"{where} ({mode}): a park form was not held: {m['held']}")
+                log(f"{where} ({mode}, {w}x{h}): launches of its {CROSS_STEPS} steps {launched}"
+                    + ("; frames bit-equal to a one-process vz = 1 renderer's" if pid == 0 else ""))
+                for leg, lanes, running, parked, sent, returned, rounds, nbytes_sent in m["calls"]:
+                    log(f"{where} ({mode}) {leg} call: {lanes} lanes, {running} running, {parked} parked here "
+                        f"({parked / max(running, 1):.4f} of the running), {sent} moved and {returned} returned by "
+                        f"this process, {rounds} rounds, {nbytes_sent} bytes sent")
+                log(f"{where} ({mode}): steps across the nodes " + ", ".join(f"{v:.3f}" for v in m["step_ms"])
+                    + " ms" + ("; in turns with one-process vz = 1 " + ", ".join(f"{v:.3f}" for v in m["vz1_ms"])
+                               + " ms" if pid == 0 else "")
+                    + ("; phase 2f's within-node step " + ", ".join(f"{v:.3f}" for v in within.get(mode, []))
+                       + " ms" if pid == 0 and cards == runs[0][0] else ""))
+                for leg, t in m.get("held", {}).items():
+                    k = m["kernel_ms"][leg]
+                    log(f"{where} ({mode}): {leg}'s park form bit-equal to its plain version on every "
+                        f"{CROSS_LANE_STRIDE}th lane of all {t['calls']} calls ({t['lanes']} lanes held, "
+                        f"{t['parked']} lanes parked in those calls); at its first call kernel "
+                        + ", ".join(f"{v:.4f}" for v in k["park"]) + f" ms, plain {k['plain']:.4f} ms"
+                        + (", the slab form at the same lanes on every slab " + ", ".join(f"{v:.4f}" for v in k["slab"])
+                           + f" ms (in turns); bound {bound(k['bytes'], k['ops'])['bound_ms']:.4f} ms"
+                           if k["slab"] else ""))
+                    if pid == 0 and cards == runs[0][0]:
+                        src, replaces = SLAB_LEG_SOURCES[leg]
+                        e = entry(f"{leg}_slabs_park", f"volxel_tpu_torch/csrc/{src}", replaces, 0.0,
+                                  min(k["park"]), k["plain"], k["bytes"], k["ops"])
+                        e["launches"] = launched[f"{leg}_slabs_park"]
+                        entries.append(e)
+            log(f"{where}: {rec['seconds']:.1f} s in all")
+        if moved == 0:
+            raise SystemExit(f"vz = {count} across fed nodes on {cards}: no lane moved")
+    if torch.cuda.device_count() < 2:
+        log("vz = 2 across fed nodes on two cards: skipped, the machine has one card")
+    if torch.cuda.device_count() < 4:
+        log("[A, A, B, B] across fed nodes on four cards over NCCL: skipped, the machine has "
+            f"{torch.cuda.device_count()} card(s)")
+    if len(entries) != len(migrate.LEGS):
+        raise SystemExit(f"phase 2g: park-form entries for {[e['name'] for e in entries]} only")
+    log(f"phase 2g (slabs across nodes, fed identities on one machine): {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -3501,6 +3847,9 @@ def main() -> int:
     ap.add_argument("--mesh-worker", nargs=2, metavar=("ADDR", "PID"), help=argparse.SUPPRESS)
     ap.add_argument("--mesh-nccl", metavar="ADDR", help=argparse.SUPPRESS)
     ap.add_argument("--node-worker", nargs=3, metavar=("ADDR", "PID", "DEVICES"), help=argparse.SUPPRESS)
+    ap.add_argument("--cross-worker", nargs=4, metavar=("ADDR", "PID", "DEVICES", "NODES"), help=argparse.SUPPRESS)
+    ap.add_argument("--cross-nodes-only", action="store_true",
+                    help="build the kernels and run phase 2g alone (its NCCL runs need two and four cards)")
     args = ap.parse_args()
 
     import torch
@@ -3530,6 +3879,11 @@ def main() -> int:
         addr, pid, cards = args.node_worker
         node_worker(addr, int(pid), args.size, args.width, args.height, tuple(cards.split(",")))
         return 0
+    if args.cross_worker:  # one of phase 2g's processes
+        addr, pid, cards, nodes = args.cross_worker
+        cross_worker(addr, int(pid), args.size, args.width, args.height, tuple(cards.split(",")),
+                     tuple(nodes.split(",")))
+        return 0
 
     # phase 1: the card
     smi = subprocess.run(
@@ -3544,6 +3898,11 @@ def main() -> int:
     path = kernels.build()
     kernels.lib()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {path.name}")
+    if args.cross_nodes_only:
+        cross_node_path(args.size, args.width, args.height, {})
+        print(json.dumps({"ok": True, "phases": ["2g"], "device": {"platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
     sass, sass_bodies, registers = check_sass()
 
     t0 = time.perf_counter()
@@ -3569,7 +3928,9 @@ def main() -> int:
     slab_launches, slab_tallies = slab_path(grid, args.width, args.height, sass, registers)
     torch.cuda.empty_cache()
     # phase 2f: a vz row across two processes, each with the counters at 0 before its steps
-    node_slab_path(args.size, args.width, args.height)
+    within = node_slab_path(args.size, args.width, args.height)
+    # phase 2g: a vz row across two fed nodes, each process with the counters at 0 before its steps
+    park_entries = cross_node_path(args.size, args.width, args.height, within)
 
     # phase 3: each kernel against its plain version at the main paths' shapes
     r = bench_renderer(grid, args.width, args.height, "cuda")
@@ -3594,7 +3955,7 @@ def main() -> int:
     launches["preview"] = preview_path(grid, args.width, args.height)
     for e in results:
         e["launches"] = launches[KERNEL_PATH[e["name"]]][e["name"]]
-    results += slab_entries(slab_launches, slab_tallies)
+    results += slab_entries(slab_launches, slab_tallies) + park_entries
     torch.cuda.empty_cache()
 
     # phase 5: card against CPU at a small size, in every mode and the preview

@@ -21,7 +21,9 @@ mode) and render_views, bit-equal to single render_sample calls;
 step_statistics through the legs' kernels equal to it through their plain
 versions; positions on two cards (skips on one). A vz = 2 row across two
 processes of the node, each mapping the other's slab through CUDA IPC,
-with a timestep swap at every step (two cards over NCCL skip on one).
+with a timestep swap at every step (two cards over NCCL skip on one). The
+legs' park forms (a vz row across nodes) bit-equal to their plain park
+forms, and parked then resumed bit-equal to the slab form's one launch.
 """
 
 from __future__ import annotations
@@ -911,8 +913,10 @@ def test_gather_kernel_refuses_int64_indices(cuda_device):
 @pytest.mark.cuda
 def test_render_on_card_goes_through_every_kernel(cuda_device):
     """Each mode's render and the preview go through their kernels;
-    tile_march_sums is on no render path, and the legs' slab forms run
-    only over volume slabs (test_slab_leg_kernels_bit_equal_to_plain)."""
+    tile_march_sums is on no render path, the legs' slab forms run only
+    over volume slabs (test_slab_leg_kernels_bit_equal_to_plain) and their
+    park forms only on a row across nodes
+    (test_park_forms_bit_equal_to_plain_and_to_one_launch)."""
     kernels.reset_launch_counts()
     r = _renderer(cuda_device, side=32)
     img = r.render(8)
@@ -924,7 +928,7 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
     for image in (r.render_preview(), r.render_dvr(screen=True)):
         assert np.isfinite(image).all() and image.shape == (32, 32, 3)
     ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
-    slab_forms = {name for name in kernels.LAUNCHES if name.endswith("_slabs")}
+    slab_forms = {name for name in kernels.LAUNCHES if name.endswith(("_slabs", "_slabs_park"))}
     assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"} - slab_forms, kernels.LAUNCHES
 
 
@@ -1280,6 +1284,68 @@ def test_slab_table_refuses_another_card_and_a_short_table(cuda_device):
                                                                                            device=cuda_device)})
     with pytest.raises(ValueError, match="slab table"):
         trackleg.track_leg_sample_cuda(bad, *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tap_dtype,setting", [("default", "float32", None), ("default", "bfloat16", None),
+                                                    ("default", "float32", "physical_shadows"),
+                                                    ("raymarch", "float32", None), ("no_dda", "float32", None),
+                                                    ("no_dda", "bfloat16", None)])
+def test_park_forms_bit_equal_to_plain_and_to_one_launch(cuda_device, monkeypatch, mode, tap_dtype, setting):
+    """Each leg call of a vz = 4 frame on one card, with slab 0 on "node B"
+    and slabs 1-3 on "node A" (absent slabs: null table entries): the park
+    form's kernel equals its plain park form on every output (the parked
+    set, the parked state, the rest), on A's grid, on B's for the parked
+    lanes and on A's again for those that parked once more; the lanes
+    parked and resumed give the slab form's one launch on the whole grid
+    bit for bit. Each park form launch counts as its `_slabs_park`."""
+    from volxel_tpu_torch.parallel import migrate
+
+    _, r = _slab_renderers([cuda_device] * 4, mode, 4, tap_dtype, setting=setting)
+    calls = {name: [] for name, *_ in _MODE_LEGS[mode]}
+
+    def recorded(name, fn):
+        def call(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return call
+
+    for name, *_ in _MODE_LEGS[mode]:
+        monkeypatch.setattr(modes, name, recorded(name, getattr(modes, name)))
+    r.render_frame()
+    parked = 0
+    for name, cuda_fn, _ in _MODE_LEGS[mode]:
+        leg = migrate.LEGS[name]
+        plain_fn = getattr({"dda": ddaleg, "track": trackleg, "tile": tilemarch}[name.split("_")[0]],
+                           f"{leg.park}_plain")
+        for whole, *args in calls[name]:
+            node_a = whole._replace(slabs=[None, *whole.slabs[1:]])
+            node_b = whole._replace(slabs=[whole.slabs[0], None, None, None])
+            want = cuda_fn(whole, *args)
+            consts, lanes = migrate.home_lanes(leg, args)
+
+            def both(grid, lanes):
+                kernels.reset_launch_counts()
+                got = migrate.park_call(leg, grid, consts, lanes)
+                assert kernels.LAUNCHES[f"{name}_slabs_park"] == 1
+                _assert_bits_equal([got[k] for k in leg.outs],
+                                   plain_fn(grid, *migrate.park_args(leg, consts, lanes)))
+                return got
+
+            outs = both(node_a, lanes)
+            first = torch.nonzero(outs["park"] >= 0).squeeze(1)
+            parked += first.numel()
+            carry = migrate.parked_carry(leg, lanes, outs, first)
+            outs_b = both(node_b, carry)
+            again = outs_b["park"] >= 0
+            outs_a = both(node_a, migrate.parked_carry(leg, carry, outs_b, torch.nonzero(again).squeeze(1)))
+            assert bool((outs_a["park"] < 0).all())
+            got = {k: outs[k].clone() for k in leg.result}
+            for k in leg.result:
+                got[k][first[~again]] = outs_b[k][~again]
+                got[k][first[again]] = outs_a[k]
+            _assert_bits_equal([got[k] for k in leg.result], want)
+    assert parked > 0
 
 
 def _lane_slabs(lanes, device, vz=4):

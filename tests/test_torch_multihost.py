@@ -9,7 +9,11 @@ exits (gloo's threads otherwise can abort the interpreter's exit under
 load). Tolerance: none. The sample-sharded frame across the processes is
 bit-equal to the mean of samples 0 and 1 rendered in one process, the
 pixel-sharded frame to sample 0, and a vz row across the processes (each
-holding its own slab and mapping the other's) to the vz = 1 render.
+holding its own slab and mapping the other's) to the vz = 1 render. Rows
+across nodes run on one machine with fed node identities
+(multihost._node_ids, set in each worker after initialize_multihost): two
+and four workers, bit-equal to the vz = 1 render, and one frame held to
+the JAX package's at atol 2e-2.
 """
 
 from __future__ import annotations
@@ -20,11 +24,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
+from volxel_tpu.grid import construct_brick_grid as jax_construct
 from volxel_tpu.parallel import process_info as jax_process_info
+from volxel_tpu.parallel.distributed import DistributedRenderer as JDistributedRenderer
+from volxel_tpu.utils.fixtures import synthetic_ct_volume as jax_synthetic_ct_volume
 from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, multihost, nodeshare, process_info
 from volxel_tpu_torch.parallel.nodeshare import NodeShares
 from volxel_tpu_torch.parallel.volshard import rows_along
@@ -214,6 +222,92 @@ torch.distributed.destroy_process_group()
 """
 
 
+_NODES_WORKER = """
+import glob
+import os
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from volxel_tpu_torch.api.timeseries import TimeSeriesPlayer
+from volxel_tpu_torch.grid import construct_brick_grid
+from volxel_tpu_torch.parallel import initialize_multihost, make_mesh, migrate, multihost, sharded_render_fn
+from volxel_tpu_torch.parallel.distributed import DistributedRenderer
+from volxel_tpu_torch.parallel.nodeshare import BLOCK_PREFIX
+from volxel_tpu_torch.parallel.volshard import build_slabbed_volume_from_brick
+from volxel_tpu_torch.render.pathtrace import render_sample
+from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
+from volxel_tpu_torch.utils.stepstats import step_statistics
+
+addr, pid, layout, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+nodes, owners = {"a": (["A", "B"], [0, 1]), "b": (["A", "B"], [0, 0, 1, 1]),
+                 "c": (["A", "A", "B", "B"], [0, 1, 2, 3])}[layout]
+assert initialize_multihost(coordinator_address=addr, num_processes=len(nodes), process_id=pid, backend="gloo")
+multihost._node_ids[:] = [f"host-{n}/boot" for n in nodes]  # fed identities: one machine, two nodes
+base = synthetic_ct_volume((16, 16, 16), bits_stored=12).astype(np.float32) / 4095.0
+vols = np.stack([base * (1.0 - 0.3 * t) for t in range(2)])
+g = construct_brick_grid(vols[0], transform=np.eye(4, dtype=np.float32))
+bits = lambda t: t.contiguous().view(torch.int32)
+blocks = lambda: sorted(glob.glob(f"/dev/shm/{BLOCK_PREFIX}{os.getpid()}_*"))
+row = make_mesh(sp=1, px=1, vz=len(owners), devices=[(r, "cpu") for r in owners])
+
+def setup(r, mode="default"):
+    r.restart_from_grid(g)
+    r.camera.rotate_around_view(0.4, 0.2)
+    r.camera.zoom(2.0)
+    r.settings.bounces = 2
+    r.render_mode = mode
+    return r
+
+def local():  # the one-process vz = 1 render
+    return DistributedRenderer(16, 16, mesh=make_mesh(sp=1, px=1, devices=[(pid, "cpu")]), device="cpu")
+
+migrate.CALLS.clear()
+sv = build_slabbed_volume_from_brick(g, row)
+grid = sv.local_grid()
+absent = [v for v, s in enumerate(grid.slabs) if s is None]
+assert absent == [v for v, r in enumerate(owners) if nodes[r] != nodes[pid]] and grid.row is not None, absent
+assert (sv._shares is None) == (layout != "c") and (layout == "c" or blocks() == []), (sv._shares, blocks())
+r = setup(local())
+for mode, shading in (("default", False), ("raymarch", False), ("no_dda", False), ("default", True),
+                      ("raymarch", True), ("no_dda", True)):
+    r.render_mode = mode
+    r.settings.gradient_shading = shading
+    config = r._config()
+    rest = (r.volume_params(), r._lut, r.environment.state, *r._camera_operands(config))
+    got = sharded_render_fn(config, row)(sv, *rest, 0)
+    assert torch.equal(bits(got), bits(render_sample(config, r._device_grid, *rest, 0))), (mode, shading)
+sv.release()
+del grid
+moved = sum(c["moved"] for c in migrate.CALLS)  # lanes this process sent; the row's sum must be positive
+assert sum(multihost.all_gather_object(moved)) > 0 and max(c["rounds"] for c in migrate.CALLS) >= 1
+
+# DistributedRenderers loaded from the brick grid, two steps a mode; step_statistics
+for mode in ("default", "raymarch", "no_dda"):
+    a, b = setup(DistributedRenderer(16, 16, mesh=row, device="cpu"), mode), setup(local(), mode)
+    for _ in range(2):
+        a.render_frame()
+        b.render_frame()
+    assert torch.equal(bits(a._framebuffer), bits(b._framebuffer)), mode
+    if mode == "default" and pid == 0 and layout == "a":
+        np.save(out, a.image())
+    if mode != "raymarch":
+        assert step_statistics(a) == step_statistics(b), mode
+    a.close()
+# one timestep swap, two steps each, bit-equal to the vz = 1 player's
+a, b = setup(DistributedRenderer(16, 16, mesh=row, device="cpu")), setup(local())
+frames = [list(TimeSeriesPlayer(x, vols).play(samples_per_step=2)) for x in (a, b)]
+for (t0, fa), (t1, fb) in zip(*frames):
+    assert t0 == t1 and np.array_equal(fa, fb), t0
+assert not np.allclose(frames[0][0][1], frames[0][1][1])
+a.close()
+assert blocks() == []
+assert "jax" not in sys.modules and "volxel_tpu" not in sys.modules
+print(f"proc {pid} nodes ok: {moved} lanes moved", flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -222,12 +316,13 @@ def _free_port() -> int:
     return port
 
 
-def _run_two_process(worker_src: str, timeout: float):
+def _run_processes(worker_src: str, timeout: float, *args: str, processes: int = 2):
     addr = f"127.0.0.1:{_free_port()}"
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"), "HOME": os.environ.get("HOME", "/tmp"),
            "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo"}
-    procs = [subprocess.Popen([sys.executable, "-c", worker_src, addr, str(pid)], cwd=REPO, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, "-c", worker_src, addr, str(pid), *args], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for pid in range(processes)]
     outs = []
     try:
         for p in procs:
@@ -275,7 +370,7 @@ def test_multihost_coordinator_needs_a_process_id(no_torchrun_env):
 
 
 def test_two_process_initialize_and_all_reduce():
-    outs = _run_two_process(_WORKER, timeout=120)
+    outs = _run_processes(_WORKER, timeout=120)
     assert "proc 0 ok: count=2 sum=1.0" in outs[0][1]
     assert "proc 1 ok: count=2 sum=1.0" in outs[1][1]
 
@@ -284,7 +379,7 @@ def test_two_process_sharded_render():
     """sp = 2 and px = 2 across two processes, a DistributedRenderer over
     them and brick ranges with a slab on each: every process's result
     equals the one-process render (see the worker)."""
-    outs = _run_two_process(_RENDER_WORKER, timeout=240)
+    outs = _run_processes(_RENDER_WORKER, timeout=240)
     assert "proc 0 sharded-render ok" in outs[0][1]
     assert "proc 1 sharded-render ok" in outs[1][1]
 
@@ -299,25 +394,73 @@ def test_two_process_slab_axis_renders():
     over three timestep swaps; no shared block of the port's left after
     each release. A vz axis within each process, sp across them, renders
     as before, sharing nothing (see the worker)."""
-    outs = _run_two_process(_SLAB_WORKER, timeout=240)
+    outs = _run_processes(_SLAB_WORKER, timeout=240)
     assert "proc 0 slabs ok" in outs[0][1]
     assert "proc 1 slabs ok" in outs[1][1]
 
 
 def test_rows_along_raises_only_across_nodes(monkeypatch):
-    """rows_along refuses a row whose processes lie on different nodes,
-    naming ROADMAP.md's "Slabs across nodes", and takes one whose
-    processes share a node (the node identities are fed in: no second
-    node is needed)."""
+    """rows_along returns each row with its node groups: one group where
+    the row's processes share a node, one a node where they span nodes (a
+    rebooted host is another node); a row across nodes whose processes own
+    unequal numbers of its positions raises, naming the equal-positions
+    rule, and within a node such a row is taken (the node identities are
+    fed in: no second node is needed)."""
     mesh = make_mesh(sp=1, px=1, vz=2, devices=[(0, "cpu"), (1, "cpu")])
     monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-1"])
-    assert [along for _, along in rows_along(mesh, "vz")] == [[(0, 0, 0), (0, 0, 1)]]
+    assert rows_along(mesh, "vz") == [((0, 0), [(0, 0, 0), (0, 0, 1)], [[0, 1]])]
     monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-b/boot-2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, 'Slabs across nodes'"):
-        rows_along(mesh, "vz")
+    assert rows_along(mesh, "vz") == [((0, 0), [(0, 0, 0), (0, 0, 1)], [[0], [1]])]
     monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-2"])  # rebooted: another node
-    with pytest.raises(NotImplementedError):
-        rows_along(mesh, "vz")
+    assert [nodes for *_, nodes in rows_along(mesh, "vz")] == [[[0], [1]]]
+    unequal = make_mesh(sp=1, px=1, vz=3, devices=[(0, "cpu"), (0, "cpu"), (1, "cpu")])
+    with pytest.raises(ValueError, match="equal-positions rule"):
+        rows_along(unequal, "vz")
+    monkeypatch.setattr(multihost, "_node_ids", ["host-a/boot-1", "host-a/boot-1"])
+    assert [nodes for *_, nodes in rows_along(unequal, "vz")] == [[[0, 1, 2]]]
+
+
+def _nodes_run(layout: str, tmp_path) -> list:
+    processes = 4 if layout == "c" else 2
+    outs = _run_processes(_NODES_WORKER, 240, layout, str(tmp_path / "frame.npy"), processes=processes)
+    for pid, (_, out, _) in enumerate(outs):
+        assert f"proc {pid} nodes ok" in out
+    return outs
+
+
+def test_slab_row_across_two_nodes(tmp_path):
+    """A vz = 2 row across two processes on two fed nodes: each holds its
+    own slab, the other's is absent (no shared block is made), and lanes
+    move across. Frames bit-equal to the one-process vz = 1 render in every
+    mode, with gradient shading, through DistributedRenderers loaded from
+    the brick grid (two steps) and over a timestep swap; step_statistics
+    equal (see the worker). Process 0's default frame meets the JAX
+    package's vz = 2 DistributedRenderer at test_torch_volshard's atol
+    2e-2."""
+    _nodes_run("a", tmp_path)
+    vol = jax_synthetic_ct_volume((16, 16, 16), bits_stored=12).astype(np.float32) / 4095.0
+    theirs = JDistributedRenderer(width=16, height=16, sp=1, px=4, vz=2)
+    theirs.restart_from_grid(jax_construct(vol, transform=np.eye(4, dtype=np.float32)))
+    theirs.camera.rotate_around_view(0.4, 0.2)
+    theirs.camera.zoom(2.0)
+    theirs.settings.bounces = 2
+    for _ in range(2):
+        theirs.render_frame()
+    np.testing.assert_allclose(np.load(tmp_path / "frame.npy"), np.asarray(theirs.image()), rtol=0, atol=2e-2)
+
+
+def test_slab_row_across_nodes_one_process_a_host(tmp_path):
+    """vz = 4 over two processes on two fed nodes, each owning two
+    positions of the row (one process a host): bit-equal to vz = 1 as
+    above."""
+    _nodes_run("b", tmp_path)
+
+
+def test_slab_row_within_and_across_nodes(tmp_path):
+    """Four processes on fed nodes [A, A, B, B] and vz = 4: within a node
+    the slabs are shared (shared memory on the CPU, CUDA IPC on cards),
+    across nodes lanes move; bit-equal to vz = 1 as above."""
+    _nodes_run("c", tmp_path)
 
 
 def test_default_mesh_refuses_processes_sharing_a_node_of_cards(monkeypatch):

@@ -69,6 +69,17 @@
 // the owner of its base z through the slabs' pointer table, and with the
 // trilinear sum rounded to bf16 where the grid asks for it (round_taps).
 // They are kernels of their own, so the dense kernels keep their code.
+//
+// Park forms (a vz row across nodes, parallel/migrate.py):
+// vx_dda_leg_*_slabs_park launch the slab legs over a table whose slabs on
+// other nodes are null. A lane parks at a collision whose taps lie in such a
+// slab, before the taps' fetch (leg_common.cuh's parked_owner), and writes
+// its t, mip, majorant m, budget and words (and tr) with the slab's index;
+// a lane given `resume` starts at that collision's fetch. Each lane's budget
+// is an input, so a resumed lane keeps what it has left. The park forms are
+// the legs' kPark instantiations (walk's test and entry under if constexpr),
+// kernels of their own, so the dense and slab forms keep their code; where
+// no slab is absent a park form is its slab form.
 
 #include "leg_common.cuh"
 
@@ -130,10 +141,27 @@ __device__ __forceinline__ void issue(const Pyramid& g, const F& v, Lane& l) {
 // step, issued by every lane of the warp together. The lane ends where it
 // escapes at a collision, leaves past `far` or spends its budget (also
 // when it starts with none left), as pyr_march_plain's rounds end it.
-template <class F, class Collide>
-__device__ __forceinline__ void walk(const Pyramid& g, const F& v, Lane& l, Collide collide) {
+// kPark (the park forms) adds, under if constexpr only, so that the other
+// instantiations keep their code: a lane with `resume` starts with the
+// collision at its t (majorant l.m, mip and budget as the collision left
+// them), and at each collision the taps' slab is tested before the fetch:
+// a lane whose slab is absent stops there. Returns that slab's index, else
+// -1.
+template <bool kPark, class F, class Collide>
+__device__ __forceinline__ int walk(const Pyramid& g, const F& v, Lane& l, bool resume, Collide collide) {
   const Scalars c = load_scalars(v);
-  if (l.budget <= 0) return;
+  int parked = -1;
+  if constexpr (kPark) {
+    if (resume) {  // the collision at t, as in the loop
+      parked = parked_owner(v, l.p, l.d, l.t);
+      if (parked >= 0) return parked;
+      Taps taps;
+      fetch(v, l.p, l.d, l.t, taps);
+      if (collide(c, decode(v, c, taps), l)) return parked;
+      l.mip = clamp_min(__fsub_rn(l.mip, kSpeedDown), 0.0f);
+    }
+  }
+  if (l.budget <= 0) return parked;
   issue(g, v, l);
   for (;;) {
     const float tau_new = __fsub_rn(l.tau, __fmul_rn(l.m, l.dt));
@@ -141,6 +169,10 @@ __device__ __forceinline__ void walk(const Pyramid& g, const F& v, Lane& l, Coll
     if (tau_new <= 0.0f) {  // collided: t moves to the collision point
       l.t = __fadd_rn(l.t_new, div_rn(tau_new, max_nan(l.m, 1e-20f)));
       if (l.t >= l.far) break;  // a collision past far is an escape
+      if constexpr (kPark) {
+        parked = parked_owner(v, l.p, l.d, l.t);
+        if (parked >= 0) break;
+      }
       Taps taps;
       fetch(v, l.p, l.d, l.t, taps);
       if (collide(c, decode(v, c, taps), l)) break;
@@ -154,6 +186,7 @@ __device__ __forceinline__ void walk(const Pyramid& g, const F& v, Lane& l, Coll
     if (l.budget <= 0) break;
     issue(g, v, l);
   }
+  return parked;
 }
 
 // the per-lane operands both legs read and the outputs both write
@@ -191,23 +224,57 @@ __device__ __forceinline__ void store_common(const Lanes& a, long long i, const 
   a.budget_out[i] = budget;
 }
 
+// the park forms' per-lane inputs and outputs beside Lanes (whose cap they
+// do not read)
+struct Parks {
+  const float* m;       // a resumed lane's majorant at its collision
+  const int* budget;    // each lane's steps left
+  const bool* resume;   // start at the collision at t, with the taps' fetch
+  float* mip_out;       // a parked lane's mip (the input mip elsewhere)
+  float* m_out;         // a parked lane's majorant (0 elsewhere)
+  int* park_out;        // the absent slab a lane parked at (-1 elsewhere)
+};
+
+// a running lane's march state; kPark: its budget and majorant from `k`
+template <bool kPark>
+__device__ __forceinline__ Lane start_lane(const Lanes& a, const Parks& k, long long i) {
+  Lane l = load_lane(a, i);
+  if constexpr (kPark) {
+    l.budget = k.budget[i];
+    l.m = k.m[i];
+  }
+  return l;
+}
+
+// kPark: where the lane parked, its mip and majorant
+__device__ __forceinline__ void store_park(const Parks& k, long long i, int parked, float mip, float m) {
+  k.mip_out[i] = mip;
+  k.m_out[i] = m;
+  k.park_out[i] = parked;
+}
+
 // modes.sample_volume_dda's leg (dda.glsl:65-98): at each collision the
 // real/null draw; a real collision ends the lane with the LUT colour, a
-// null one redraws tau, steps the mip down, and the lane marches on
-template <class F>
-__device__ __forceinline__ void sample_leg(const Pyramid& g, const F& v, const Lanes& a, bool* __restrict__ hit_out,
-                                           float* __restrict__ t_out, float* __restrict__ rgb_out) {
+// null one redraws tau, steps the mip down, and the lane marches on.
+// kPark: the park form (walk), with `k`'s inputs and outputs.
+template <bool kPark, class F>
+__device__ __forceinline__ void sample_leg(const Pyramid& g, const F& v, const Lanes& a, const Parks& k,
+                                           bool* __restrict__ hit_out, float* __restrict__ t_out,
+                                           float* __restrict__ rgb_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   uint32_t s[4];
   load_state(a, i, s);
   float t = a.t[i];
-  int budget = a.cap;
+  int budget = kPark ? k.budget[i] : a.cap;
+  int parked = -1;
+  float mip = 0.0f, m = 0.0f;
+  if constexpr (kPark) mip = a.mip[i];
   bool hit = false;
   float rgb[3] = {1.0f, 1.0f, 1.0f};
   if (a.running[i]) {
-    Lane w = load_lane(a, i);
-    walk(g, v, w, [&](const Scalars& c, const float4& rgba, Lane& l) {
+    Lane w = start_lane<kPark>(a, k, i);
+    parked = walk<kPark>(g, v, w, kPark && k.resume[i], [&](const Scalars& c, const float4& rgba, Lane& l) {
       if (__fmul_rn(next_float(s), l.m) < __fmul_rn(c.vol_maj, rgba.w)) {
         hit = true;
         rgb[0] = rgba.x;
@@ -220,18 +287,23 @@ __device__ __forceinline__ void sample_leg(const Pyramid& g, const F& v, const L
     });
     t = w.t;
     budget = w.budget;
+    if (kPark && parked >= 0) {
+      mip = w.mip;
+      m = w.m;
+    }
   }
   store_common(a, i, s, budget);
+  if constexpr (kPark) store_park(k, i, parked, mip, m);
   hit_out[i] = hit;
   t_out[i] = t;
-  for (int k = 0; k < 3; ++k) rgb_out[3 * i + k] = rgb[k];
+  for (int c = 0; c < 3; ++c) rgb_out[3 * i + c] = rgb[c];
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_kernel(Pyramid g, Field v, Lanes a,
                                                                              bool* __restrict__ hit_out,
                                                                              float* __restrict__ t_out,
                                                                              float* __restrict__ rgb_out) {
-  sample_leg(g, v, a, hit_out, t_out, rgb_out);
+  sample_leg<false>(g, v, a, Parks{}, hit_out, t_out, rgb_out);
 }
 
 // the same over z-slabs
@@ -240,26 +312,42 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_slabs_ker
                                                                                    Lanes a, bool* __restrict__ hit_out,
                                                                                    float* __restrict__ t_out,
                                                                                    float* __restrict__ rgb_out) {
-  sample_leg(g, v, a, hit_out, t_out, rgb_out);
+  sample_leg<false>(g, v, a, Parks{}, hit_out, t_out, rgb_out);
+}
+
+// and its park form
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_sample_park_kernel(
+    Pyramid g, SlabField<kRound> v, Lanes a, Parks k, bool* __restrict__ hit_out, float* __restrict__ t_out,
+    float* __restrict__ rgb_out) {
+  sample_leg<true>(g, v, a, k, hit_out, t_out, rgb_out);
 }
 
 // modes.transmittance_dda's leg (dda.glsl:21-62): at each collision the
 // real/null draw, the ratio at a real one (the reference's quirk 1 -
 // vol_maj / maj, or 1 - d / maj when `physical`), russian roulette under
 // 0.1 (a killed lane ends with tr = 0 before the tau draw), then the tau
-// redraw and the mip step-down, and the lane marches on
-template <bool kPhysical, class F>
-__device__ __forceinline__ void shadow_leg(const Pyramid& g, const F& v, const Lanes& a,
-                                           const float* __restrict__ tr_in, float* __restrict__ tr_out) {
+// redraw and the mip step-down, and the lane marches on. kPark: the park
+// form, which writes each lane's t too.
+template <bool kPhysical, bool kPark, class F>
+__device__ __forceinline__ void shadow_leg(const Pyramid& g, const F& v, const Lanes& a, const Parks& k,
+                                           const float* __restrict__ tr_in, float* __restrict__ tr_out,
+                                           float* __restrict__ t_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   uint32_t s[4];
   load_state(a, i, s);
   float tr = tr_in[i];
-  int budget = a.cap;
+  int budget = kPark ? k.budget[i] : a.cap;
+  int parked = -1;
+  float t = 0.0f, mip = 0.0f, m = 0.0f;
+  if constexpr (kPark) {
+    t = a.t[i];
+    mip = a.mip[i];
+  }
   if (a.running[i]) {
-    Lane w = load_lane(a, i);
-    walk(g, v, w, [&](const Scalars& c, const float4& rgba, Lane& l) {
+    Lane w = start_lane<kPark>(a, k, i);
+    parked = walk<kPark>(g, v, w, kPark && k.resume[i], [&](const Scalars& c, const float4& rgba, Lane& l) {
       const float d = __fmul_rn(c.vol_maj, rgba.w);
       if (__fmul_rn(next_float(s), l.m) < d) {  // real
         tr = __fmul_rn(tr, clamp_min(__fsub_rn(1.0f, div_rn(kPhysical ? d : c.vol_maj,
@@ -276,16 +364,27 @@ __device__ __forceinline__ void shadow_leg(const Pyramid& g, const F& v, const L
       return false;
     });
     budget = w.budget;
+    if constexpr (kPark) {
+      t = w.t;
+      if (parked >= 0) {
+        mip = w.mip;
+        m = w.m;
+      }
+    }
   }
   store_common(a, i, s, budget);
   tr_out[i] = tr;
+  if constexpr (kPark) {
+    store_park(k, i, parked, mip, m);
+    t_out[i] = t;
+  }
 }
 
 template <bool kPhysical>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_kernel(Pyramid g, Field v, Lanes a,
                                                                              const float* __restrict__ tr_in,
                                                                              float* __restrict__ tr_out) {
-  shadow_leg<kPhysical>(g, v, a, tr_in, tr_out);
+  shadow_leg<kPhysical, false>(g, v, a, Parks{}, tr_in, tr_out, nullptr);
 }
 
 // the same over z-slabs
@@ -294,7 +393,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_slabs_ker
                                                                                    Lanes a,
                                                                                    const float* __restrict__ tr_in,
                                                                                    float* __restrict__ tr_out) {
-  shadow_leg<kPhysical>(g, v, a, tr_in, tr_out);
+  shadow_leg<kPhysical, false>(g, v, a, Parks{}, tr_in, tr_out, nullptr);
+}
+
+// and its park form
+template <bool kPhysical, bool kRound>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) dda_leg_shadow_park_kernel(
+    Pyramid g, SlabField<kRound> v, Lanes a, Parks k, const float* __restrict__ tr_in, float* __restrict__ tr_out,
+    float* __restrict__ t_out) {
+  shadow_leg<kPhysical, true>(g, v, a, k, tr_in, tr_out, t_out);
 }
 
 __global__ void __launch_bounds__(kThreads) neg_log1m_kernel(const float* __restrict__ xi, float* __restrict__ out,
@@ -386,6 +493,66 @@ extern "C" int vx_dda_leg_shadow_slabs(const float* maj, int bz, int by, int bx,
     } else {
       launch_shadow_slabs(g, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, tr,
                           physical, tr_out, stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vx_dda_leg_sample_slabs_park(const float* maj, int bz, int by, int bx, const uint16_t* const* slabs,
+                                            int slab, int round_taps, int ny, int nx, int ex, int ey, int ez,
+                                            const float* lut, int lut_k, const float* scalars, const float* ipos,
+                                            const float* idir, const float* ri, const float* far, const float* t,
+                                            const float* tau, const float* mip, const int64_t* state,
+                                            const bool* running, const float* m, const int* budget,
+                                            const bool* resume, int64_t* state_out, bool* hit_out, float* t_out,
+                                            float* rgb_out, int* budget_out, float* mip_out, float* m_out,
+                                            int* park_out, long long n, cudaStream_t stream) {
+  if (n > 0) {
+    const Pyramid g{maj, bz, by, bx};
+    const Lanes a{ipos, idir, ri, far, t, tau, mip, state, running, 0, state_out, budget_out, n};
+    const Parks k{m, budget, resume, mip_out, m_out, park_out};
+    if (round_taps) {
+      dda_leg_sample_park_kernel<true><<<blocks_for(n), kThreads, 0, stream>>>(
+          g, make_slab_field<true>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, k, hit_out, t_out,
+          rgb_out);
+    } else {
+      dda_leg_sample_park_kernel<false><<<blocks_for(n), kThreads, 0, stream>>>(
+          g, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, k, hit_out, t_out,
+          rgb_out);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRound>
+void launch_shadow_park(const Pyramid& g, const SlabField<kRound>& v, const Lanes& a, const Parks& k, const float* tr,
+                        int physical, float* tr_out, float* t_out, cudaStream_t stream) {
+  if (physical) {
+    dda_leg_shadow_park_kernel<true, kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(g, v, a, k, tr, tr_out, t_out);
+  } else {
+    dda_leg_shadow_park_kernel<false, kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(g, v, a, k, tr, tr_out, t_out);
+  }
+}
+
+extern "C" int vx_dda_leg_shadow_slabs_park(const float* maj, int bz, int by, int bx, const uint16_t* const* slabs,
+                                            int slab, int round_taps, int ny, int nx, int ex, int ey, int ez,
+                                            const float* lut, int lut_k, const float* scalars, const float* ipos,
+                                            const float* idir, const float* ri, const float* far, const float* t,
+                                            const float* tau, const float* mip, const int64_t* state,
+                                            const bool* running, const float* m, const int* budget,
+                                            const bool* resume, const float* tr, int physical, int64_t* state_out,
+                                            float* tr_out, int* budget_out, float* t_out, float* mip_out,
+                                            float* m_out, int* park_out, long long n, cudaStream_t stream) {
+  if (n > 0) {
+    const Pyramid g{maj, bz, by, bx};
+    const Lanes a{ipos, idir, ri, far, t, tau, mip, state, running, 0, state_out, budget_out, n};
+    const Parks k{m, budget, resume, mip_out, m_out, park_out};
+    if (round_taps) {
+      launch_shadow_park(g, make_slab_field<true>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, k, tr,
+                         physical, tr_out, t_out, stream);
+    } else {
+      launch_shadow_park(g, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, k, tr,
+                         physical, tr_out, t_out, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -28,7 +28,8 @@
 // clipped base z holds all of its taps, and the fetch indexes from that
 // slab's row as it would from the dense field's. The leg kernels are
 // templates over the field type; the Field instantiation is the kernel as
-// it is without slabs.
+// it is without slabs. The park forms (parked_owner) are kernels of their
+// own over a SlabField, so the dense and slab forms keep their code.
 //
 // kernels.build compiles csrc/*.cu only, so this header is never compiled
 // alone; kernels.library_path hashes it with the sources.
@@ -128,6 +129,20 @@ __device__ __forceinline__ const uint16_t* corner(const SlabField<kRound>& v, co
   const int owner = clampi(b[2], 0, v.ez - 1) / v.slab;
   const long long lz = static_cast<long long>(b[2]) - static_cast<long long>(owner) * v.slab + kSlabHalo;
   return v.slabs[owner] + ((lz * v.ny + b[1]) * v.nx + b[0]);
+}
+
+// The park forms' test (a vz row across nodes: slabs on another node have a
+// null pointer in the table, render/sampling.SlabGrid): the slab of the owner
+// of the clipped base z of the stencil at p + t * d, located as fetch locates
+// it, where that slab is absent; -1 where it can be read. A lane parks there
+// before the taps' loads are issued (parallel/migrate.py moves it to the
+// slab's owner, which resumes it).
+template <bool kRound>
+__device__ __forceinline__ int parked_owner(const SlabField<kRound>& v, const float (&p)[3], const float (&d)[3],
+                                            float t) {
+  const float z = __fadd_rn(p[2], __fmul_rn(t, d[2]));
+  const int owner = clampi(__float2int_rd(__fsub_rn(z, 0.5f)), 0, v.ez - 1) / v.slab;
+  return v.slabs[owner] == nullptr ? owner : -1;
 }
 
 // the volume's scalars, read once by each thread

@@ -75,6 +75,17 @@
 // over z-slabs (Slabs: the slabs' pointer table), each step's tap read from
 // the slab of the owner of its base cell's clamped z, as kernels of their
 // own. The sums read the dense field only (they are on no render path).
+//
+// Park forms (a vz row across nodes, parallel/migrate.py):
+// vx_tile_march_*_slabs_park launch both step loops over a table whose
+// slabs on other nodes are null, from each lane's step index and tau. A lane
+// parks before a step whose base cell's owner is absent, before that step's
+// draws (Slabs::absent_owner), with its step index, tau and words as they
+// are, and the same kernel resumes it from that step. The shadow loop issues
+// the taps of later steps ahead, so its test goes where a step's tap is
+// issued, and the steps before it are still consumed. They are the step
+// loops' kPark instantiations, kernels of their own, so the dense and slab
+// forms keep their code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,6 +208,23 @@ struct Slabs {
     z0 = owner * slab - kSlabHalo;
     return slabs[owner];
   }
+  // the park forms' test: the owner of step k's base cell (located as
+  // issue_tap locates it) where its slab is absent (a null pointer: another
+  // node's), else -1
+  __device__ __forceinline__ int absent_owner(const March& a, const Lane& l, int k) const {
+    const float t = step_t(l, k);
+    const int owner = min(max(cell_of((l.o[2] + t * l.d[2]) - 0.5f), 0), a.ez - 1) / slab;
+    return slabs[owner] == nullptr ? owner : -1;
+  }
+};
+
+// the park forms' per-lane inputs and outputs beside March
+struct TileParks {
+  const int* step_in;   // each lane's next step
+  const float* tau_in;  // and its tau so far
+  float* tau_out;       // the camera leg's tau (the shadow leg writes March's)
+  int* step_out;        // a parked lane's step (the input step elsewhere)
+  int* park_out;        // the absent slab a lane parked at (-1 elsewhere)
 };
 
 // a cell's tap bits (0 outside the extent: three unsigned compares), from
@@ -261,9 +289,12 @@ __device__ __forceinline__ float consume_tap(const Lane& l, const float* __restr
 // The camera leg's step loop: each lane stops at its first step with tau >=
 // tau_target, so a step's tap is issued and consumed in turn (taps of later
 // steps issued ahead of the hit test, with each slot's words kept, measured
-// slower: PERF.md, section 6).
-template <bool kNarrow, class Src>
-__device__ __forceinline__ void march_camera(const March& a, const Src& src, const float* __restrict__ s_lut) {
+// slower: PERF.md, section 6). kPark (the park forms, over Slabs): each
+// lane starts from p's step and tau, and stops before a step of an absent
+// slab, before that step's draws.
+template <bool kNarrow, bool kPark, class Src>
+__device__ __forceinline__ void march_camera(const March& a, const Src& src, const float* __restrict__ s_lut,
+                                             const TileParks& p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const int64_t i3 = 3 * static_cast<int64_t>(i), i4 = 4 * static_cast<int64_t>(i);
@@ -273,14 +304,26 @@ __device__ __forceinline__ void march_camera(const March& a, const Src& src, con
   bool hit = false;
   float t_hit = 0.0f;
   float rgb[3] = {1.0f, 1.0f, 1.0f};
+  float tau = 0.0f;
+  int step = 0, parked = -1;
+  if constexpr (kPark) {
+    tau = p.tau_in[i];
+    step = p.step_in[i];
+  }
   if (a.valid[i]) {
     const Lane l = load_lane(a, i);
     const float tau_target = a.tau_target[i];
-    float tau = 0.0f;
     int k_hit = -1;  // the step that hit, its LUT row and whether it was rejected
     const float* row_hit = s_lut;
     bool out_hit = false;
-    for (int k = 0; k < a.steps; ++k) {
+    for (int k = step; k < a.steps; ++k) {
+      if constexpr (kPark) {
+        parked = src.absent_owner(a, l, k);
+        if (parked >= 0) {
+          step = k;
+          break;
+        }
+      }
       const float* row;
       bool out;
       tau = consume_tap(l, s_lut, issue_tap<kNarrow>(a, src, l, k, s), tau, row, out);
@@ -304,15 +347,40 @@ __device__ __forceinline__ void march_camera(const March& a, const Src& src, con
   a.t_out[i] = t_hit;
 #pragma unroll
   for (int c = 0; c < 3; ++c) a.rgb_out[i3 + c] = rgb[c];
+  if constexpr (kPark) {
+    p.tau_out[i] = tau;
+    p.step_out[i] = step;
+    p.park_out[i] = parked;
+  }
 }
 
 // The shadow leg's step loop: every lane inside the box takes all `steps`
 // steps, with nothing speculated. At step k the draws and the tap of step k
-// + kShadowAhead are issued, then step k's tap is consumed.
+// + kShadowAhead are issued, then step k's tap is consumed. kPark: each lane
+// starts from p's step and tau; a step's tap is issued unless the lane
+// stops before it, and a step of an absent slab stops it there (the steps
+// issued before it are still consumed).
 constexpr int kShadowAhead = 2;
 
-template <bool kNarrow, class Src>
-__device__ __forceinline__ void march_shadow(const March& a, const Src& src, const float* __restrict__ s_lut) {
+// the shadow loop's issue of step k's tap; kPark: unless step k's base
+// cell's slab is absent, where the lane stops (stop, parked) with no draws
+template <bool kNarrow, bool kPark, class Src>
+__device__ __forceinline__ uint32_t issue_step(const March& a, const Src& src, const Lane& l, int k, uint32_t (&s)[4],
+                                               int& stop, int& parked) {
+  if constexpr (kPark) {
+    const int owner = src.absent_owner(a, l, k);
+    if (owner >= 0) {
+      stop = k;
+      parked = owner;
+      return 0u;
+    }
+  }
+  return issue_tap<kNarrow>(a, src, l, k, s);
+}
+
+template <bool kNarrow, bool kPark, class Src>
+__device__ __forceinline__ void march_shadow(const March& a, const Src& src, const float* __restrict__ s_lut,
+                                             const TileParks& p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const int64_t i4 = 4 * static_cast<int64_t>(i);
@@ -320,25 +388,41 @@ __device__ __forceinline__ void march_shadow(const March& a, const Src& src, con
 #pragma unroll
   for (int j = 0; j < 4; ++j) s[j] = static_cast<uint32_t>(a.state[i4 + j]);
   float tau = 0.0f;
+  int step = 0, parked = -1;
+  if constexpr (kPark) {
+    tau = p.tau_in[i];
+    step = p.step_in[i];
+  }
   if (a.valid[i]) {
     const Lane l = load_lane(a, i);
+    int stop = a.steps;  // kPark: the step the lane parks at
+    const int& end = kPark ? stop : a.steps;  // a.steps itself elsewhere, so those forms keep their code
     uint32_t ring[kShadowAhead];
     const float* row;
     bool out;
 #pragma unroll
-    for (int j = 0; j < kShadowAhead; ++j) ring[j] = j < a.steps ? issue_tap<kNarrow>(a, src, l, j, s) : 0u;
-    for (int k = 0; k < a.steps; k += kShadowAhead) {
+    for (int j = 0; j < kShadowAhead; ++j) {
+      ring[j] = step + j < end ? issue_step<kNarrow, kPark>(a, src, l, step + j, s, stop, parked) : 0u;
+    }
+    for (int k = step; k < end; k += kShadowAhead) {
 #pragma unroll
       for (int j = 0; j < kShadowAhead; ++j) {
         const uint32_t bits = ring[j];
-        if (k + j + kShadowAhead < a.steps) ring[j] = issue_tap<kNarrow>(a, src, l, k + j + kShadowAhead, s);
-        if (k + j < a.steps) tau = consume_tap(l, s_lut, bits, tau, row, out);
+        if (k + j + kShadowAhead < end) {
+          ring[j] = issue_step<kNarrow, kPark>(a, src, l, k + j + kShadowAhead, s, stop, parked);
+        }
+        if (k + j < end) tau = consume_tap(l, s_lut, bits, tau, row, out);
       }
     }
+    if (parked >= 0) step = stop;
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) a.state_out[i4 + j] = static_cast<int64_t>(s[j]);
   a.tau_out[i] = tau;
+  if constexpr (kPark) {
+    p.step_out[i] = step;
+    p.park_out[i] = parked;
+  }
 }
 
 __device__ __forceinline__ const float* stage_lut(const March& a, float* s_lut) {
@@ -350,14 +434,14 @@ __device__ __forceinline__ const float* stage_lut(const March& a, float* s_lut) 
 template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads) tile_march_sample_kernel(March a) {
   extern __shared__ float s_lut[];  // lut_k x 4
-  march_camera<kNarrow>(a, Dense{}, stage_lut(a, s_lut));
+  march_camera<kNarrow, false>(a, Dense{}, stage_lut(a, s_lut), TileParks{});
 }
 
 // the same over z-slabs
 template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads) tile_march_sample_slabs_kernel(March a, Slabs src) {
   extern __shared__ float s_lut[];  // lut_k x 4
-  march_camera<kNarrow>(a, src, stage_lut(a, s_lut));
+  march_camera<kNarrow, false>(a, src, stage_lut(a, s_lut), TileParks{});
 }
 
 // one block an SM named, so that ptxas keeps the taps' loads ahead of
@@ -365,14 +449,28 @@ __global__ void __launch_bounds__(kThreads) tile_march_sample_slabs_kernel(March
 template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1) tile_march_transmittance_kernel(March a) {
   extern __shared__ float s_lut[];  // lut_k x 4
-  march_shadow<kNarrow>(a, Dense{}, stage_lut(a, s_lut));
+  march_shadow<kNarrow, false>(a, Dense{}, stage_lut(a, s_lut), TileParks{});
 }
 
 // the same over z-slabs
 template <bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1) tile_march_transmittance_slabs_kernel(March a, Slabs src) {
   extern __shared__ float s_lut[];  // lut_k x 4
-  march_shadow<kNarrow>(a, src, stage_lut(a, s_lut));
+  march_shadow<kNarrow, false>(a, src, stage_lut(a, s_lut), TileParks{});
+}
+
+// the park forms
+template <bool kNarrow>
+__global__ void __launch_bounds__(kThreads) tile_march_sample_park_kernel(March a, Slabs src, TileParks p) {
+  extern __shared__ float s_lut[];  // lut_k x 4
+  march_camera<kNarrow, true>(a, src, stage_lut(a, s_lut), p);
+}
+
+template <bool kNarrow>
+__global__ void __launch_bounds__(kThreads, 1) tile_march_transmittance_park_kernel(March a, Slabs src,
+                                                                                   TileParks p) {
+  extern __shared__ float s_lut[];  // lut_k x 4
+  march_shadow<kNarrow, true>(a, src, stage_lut(a, s_lut), p);
 }
 
 // tile_march_sums. A lane's steps lie a 64th of its box chord apart, so its
@@ -448,6 +546,16 @@ int launch_slabs(SlabsKernel narrow_kernel, SlabsKernel wide_kernel, const March
   return static_cast<int>(cudaGetLastError());
 }
 
+using ParkKernel = void (*)(March, Slabs, TileParks);
+
+int launch_park(ParkKernel narrow_kernel, ParkKernel wide_kernel, const March& a, const Slabs& src,
+                const TileParks& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(a.lut_k);
+  const auto kernel = narrow(a.ny, a.nx, src.slab + 2 * kSlabHalo) ? narrow_kernel : wide_kernel;
+  kernel<<<(a.n + kThreads - 1) / kThreads, kThreads, smem, stream>>>(a, src, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int vx_tile_march_sample(const uint16_t* dense, int ny, int nx, int ex, int ey, int ez,
@@ -501,6 +609,36 @@ extern "C" int vx_tile_march_transmittance_slabs(const uint16_t* const* slabs, i
                 scalars, state_out, nullptr, nullptr, nullptr, tau_out, n, steps};
   return launch_slabs(tile_march_transmittance_slabs_kernel<true>, tile_march_transmittance_slabs_kernel<false>, a,
                       Slabs{slabs, slab}, stream);
+}
+
+extern "C" int vx_tile_march_sample_slabs_park(const uint16_t* const* slabs, int slab, int ny, int nx, int ex,
+                                               int ey, int ez, const float* ipos, const float* idir,
+                                               const float* start, const float* dt, const float* far,
+                                               const bool* valid, const float* tau_target, const int64_t* state,
+                                               const float* lut, int lut_k, const float* scalars, const int* step_in,
+                                               const float* tau_in, int64_t* state_out, bool* hit, float* t_out,
+                                               float* rgb_out, float* tau_out, int* step_out, int* park_out, int n,
+                                               int steps, cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const March a{nullptr, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, tau_target, state, lut, lut_k,
+                scalars, state_out, hit, t_out, rgb_out, nullptr, n, steps};
+  return launch_park(tile_march_sample_park_kernel<true>, tile_march_sample_park_kernel<false>, a,
+                     Slabs{slabs, slab}, TileParks{step_in, tau_in, tau_out, step_out, park_out}, stream);
+}
+
+extern "C" int vx_tile_march_transmittance_slabs_park(const uint16_t* const* slabs, int slab, int ny, int nx, int ex,
+                                                      int ey, int ez, const float* ipos, const float* idir,
+                                                      const float* start, const float* dt, const float* far,
+                                                      const bool* valid, const int64_t* state, const float* lut,
+                                                      int lut_k, const float* scalars, const int* step_in,
+                                                      const float* tau_in, int64_t* state_out, float* tau_out,
+                                                      int* step_out, int* park_out, int n, int steps,
+                                                      cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const March a{nullptr, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, nullptr, state, lut, lut_k,
+                scalars, state_out, nullptr, nullptr, nullptr, tau_out, n, steps};
+  return launch_park(tile_march_transmittance_park_kernel<true>, tile_march_transmittance_park_kernel<false>, a,
+                     Slabs{slabs, slab}, TileParks{step_in, tau_in, nullptr, step_out, park_out}, stream);
 }
 
 // the warps that kernel `kernel` keeps resident on one SM of the current

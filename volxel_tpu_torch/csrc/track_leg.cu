@@ -76,7 +76,18 @@
 //
 // Render-time volume slabs: vx_track_leg_*_slabs launch the same legs over
 // a SlabField (leg_common.cuh), as kernels of their own.
+//
+// Park forms (a vz row across nodes, parallel/migrate.py):
+// vx_track_leg_*_slabs_park launch them over a table whose slabs on other
+// nodes are null, from each lane's events left. An event's taps are issued
+// ahead of it, so the park test (leg_common.cuh's parked_owner) goes where
+// an event is issued: an event whose taps lie in an absent slab is issued
+// without loads, and a lane that reaches it parks there, before its decode
+// and draws, with its t, words and events (and tr) as they are, which is
+// all the state of a lane: the same kernel resumes it. They are other
+// instantiations (Lane's kPark), so the dense and slab forms keep their code.
 
+#include <type_traits>
 #include <utility>
 
 #include "leg_common.cuh"
@@ -109,6 +120,18 @@ struct Event {
   Taps taps;
 };
 
+// the park forms' event: also the absent slab its taps lie in (-1: loaded)
+struct ParkEvent : Event {
+  int owner;
+};
+
+// the park forms' per-lane input and output beside Tracks (whose cap they
+// do not read)
+struct TrackParks {
+  const int* events_in;  // each lane's events left
+  int* park_out;         // the absent slab a lane parked at (-1 elsewhere)
+};
+
 // the next free flight: t - log(1 - xi) * inv_maj
 __device__ __forceinline__ float fly(float t, float xi, float inv_maj) {
   return __fsub_rn(t, __fmul_rn(-neg_log1m(xi), inv_maj));
@@ -121,19 +144,29 @@ __device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const flo
   fetch(v, p, d, t, e.taps);
 }
 
+// the same where an absent slab parks the lane: no loads for such an event
+template <class F>
+__device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const float (&d)[3], float t, ParkEvent& e) {
+  e.t = t;
+  e.owner = parked_owner(v, p, d, t);
+  if (e.owner < 0) fetch(v, p, d, t, e.taps);
+}
+
 // one lane of a leg: its operands, its words (s the true ones, q the
-// events ahead's), its ring of kAhead + 1 events, its outputs
-template <int Leg>
+// events ahead's), its ring of kAhead + 1 events, its outputs; kPark: a
+// park form's lane, which stops at an event of an absent slab (`parked`)
+template <int Leg, bool kPark = false>
 struct Lane {
   static constexpr int kAhead = Leg == kSample ? kSampleAhead : 0, kRing = kAhead + 1;
+  using Slot = std::conditional_t<kPark, ParkEvent, Event>;
   long long i;
   Scalars c;
   uint32_t s[4], q[4];
   float p[3], d[3], far, t, tr;
-  int events;
+  int events, parked;
   bool hit;
   float rgb[3];
-  Event ring[kRing];
+  Slot ring[kRing];
 
   __host__ __device__ static constexpr int at(int phase, int k) { return (phase + k) % kRing; }
 
@@ -167,7 +200,7 @@ struct Lane {
   // q's next draw is prev's real/null draw, the one after it the free
   // flight to `next`
   template <class F>
-  __device__ __forceinline__ void fetch_next(const F& v, Event& prev, Event& next) {
+  __device__ __forceinline__ void fetch_next(const F& v, Slot& prev, Slot& next) {
     if constexpr (Leg == kSample) prev.xr = next_float(q);
     fetch(v, p, d, fly(prev.t, next_float(q), c.inv_maj), next);
   }
@@ -187,11 +220,17 @@ struct Lane {
   // one event at ring phase `Phase`; returns whether the lane ended
   template <int Phase, class F>
   __device__ __forceinline__ bool step(const F& v) {
-    Event& cur = ring[at(Phase, 0)];
+    Slot& cur = ring[at(Phase, 0)];
     if constexpr (kAhead == 0) {
       fetch(v, p, d, t, cur);
     } else {
       fetch_next(v, ring[at(Phase, kAhead - 1)], ring[at(Phase, kAhead)]);
+    }
+    if constexpr (kPark) {
+      if (cur.owner >= 0) {  // its taps lie in an absent slab: park before its decode and draws
+        parked = cur.owner;
+        return true;
+      }
     }
     const float4 rgba = decode(v, c, cur.taps);
     events -= 1;
@@ -248,6 +287,28 @@ __device__ __forceinline__ void track(const F& v, const Tracks& a) {
   lane.finish(a);
 }
 
+// track's park form: each lane's events from the inputs; it writes where
+// each lane parked, and the shadow leg a parked lane's t (the input t
+// elsewhere)
+template <int Leg, class F>
+__device__ __forceinline__ void track_park(const F& v, const Tracks& a, const TrackParks& k) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  Lane<Leg, true> lane;
+  lane.c = load_scalars(v);
+  lane.begin(a, i);
+  lane.events = k.events_in[i];
+  lane.parked = -1;
+  if (a.running[i]) {
+    lane.start(v, a);
+    while (!lane.cycle(v, std::make_integer_sequence<int, Lane<Leg, true>::kRing>{})) {
+    }
+  }
+  lane.finish(a);
+  k.park_out[i] = lane.parked;
+  if constexpr (Leg == kShadow) a.t_out[i] = lane.parked >= 0 ? lane.t : a.t[i];
+}
+
 __global__ void __launch_bounds__(kThreads, 1) track_leg_sample_kernel(Field v, Tracks a) { track<kSample>(v, a); }
 __global__ void __launch_bounds__(kThreads, 1) track_leg_shadow_kernel(Field v, Tracks a) { track<kShadow>(v, a); }
 
@@ -259,6 +320,40 @@ __global__ void __launch_bounds__(kThreads, 1) track_leg_sample_slabs_kernel(Sla
 template <bool kRound>
 __global__ void __launch_bounds__(kThreads, 1) track_leg_shadow_slabs_kernel(SlabField<kRound> v, Tracks a) {
   track<kShadow>(v, a);
+}
+
+// the park forms
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, 1) track_leg_sample_park_kernel(SlabField<kRound> v, Tracks a,
+                                                                           TrackParks k) {
+  track_park<kSample>(v, a, k);
+}
+template <bool kRound>
+__global__ void __launch_bounds__(kThreads, 1) track_leg_shadow_park_kernel(SlabField<kRound> v, Tracks a,
+                                                                           TrackParks k) {
+  track_park<kShadow>(v, a, k);
+}
+
+template <bool kRound>
+void launch_park(int leg, const SlabField<kRound>& v, const Tracks& a, const TrackParks& k, cudaStream_t stream) {
+  if (leg == kSample) {
+    track_leg_sample_park_kernel<kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(v, a, k);
+  } else {
+    track_leg_shadow_park_kernel<kRound><<<blocks_for(a.n), kThreads, 0, stream>>>(v, a, k);
+  }
+}
+
+int launch_park(int leg, const uint16_t* const* slabs, int slab, int round_taps, int ny, int nx, int ex, int ey,
+                int ez, const float* lut, int lut_k, const float* scalars, const Tracks& a, const TrackParks& k,
+                cudaStream_t stream) {
+  if (a.n > 0) {
+    if (round_taps) {
+      launch_park(leg, make_slab_field<true>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, k, stream);
+    } else {
+      launch_park(leg, make_slab_field<false>(slabs, slab, ny, nx, ex, ey, ez, lut, lut_k, scalars), a, k, stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kRound>
@@ -337,6 +432,32 @@ extern "C" int vx_track_leg_shadow_slabs(const uint16_t* const* slabs, int slab,
   const Tracks a{ipos, idir, far, t, state, running, tr, cap, state_out, events_out, nullptr, nullptr, nullptr,
                  tr_out, n};
   return launch_slabs(kShadow, slabs, slab, round_taps, ny, nx, ex, ey, ez, lut, lut_k, scalars, a, stream);
+}
+
+extern "C" int vx_track_leg_sample_slabs_park(const uint16_t* const* slabs, int slab, int round_taps, int ny,
+                                              int nx, int ex, int ey, int ez, const float* lut, int lut_k,
+                                              const float* scalars, const float* ipos, const float* idir,
+                                              const float* far, const float* t, const int64_t* state,
+                                              const bool* running, const int* events_in, int64_t* state_out,
+                                              bool* hit_out, float* t_out, float* rgb_out, int* events_out,
+                                              int* park_out, long long n, cudaStream_t stream) {
+  const Tracks a{ipos, idir, far, t, state, running, nullptr, 0, state_out, events_out, hit_out, t_out, rgb_out,
+                 nullptr, n};
+  return launch_park(kSample, slabs, slab, round_taps, ny, nx, ex, ey, ez, lut, lut_k, scalars, a,
+                     TrackParks{events_in, park_out}, stream);
+}
+
+extern "C" int vx_track_leg_shadow_slabs_park(const uint16_t* const* slabs, int slab, int round_taps, int ny,
+                                              int nx, int ex, int ey, int ez, const float* lut, int lut_k,
+                                              const float* scalars, const float* ipos, const float* idir,
+                                              const float* far, const float* t, const int64_t* state,
+                                              const bool* running, const int* events_in, const float* tr,
+                                              int64_t* state_out, float* tr_out, int* events_out, float* t_out,
+                                              int* park_out, long long n, cudaStream_t stream) {
+  const Tracks a{ipos, idir, far, t, state, running, tr, 0, state_out, events_out, nullptr, t_out, nullptr, tr_out,
+                 n};
+  return launch_park(kShadow, slabs, slab, round_taps, ny, nx, ex, ey, ez, lut, lut_k, scalars, a,
+                     TrackParks{events_in, park_out}, stream);
 }
 
 // the warps that leg `leg`'s kernel (0 camera, 1 shadow) keeps resident on

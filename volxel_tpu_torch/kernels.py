@@ -25,7 +25,9 @@ in ATen's kernels; those sources write every f32 sum and product with the
 once per launch, so a run can show which kernels its path went through.
 A leg launched over z-slabs (render-time volume slabs: the field read
 through a table of the slabs' pointers) counts under its name with
-`_slabs` appended, apart from its launches over a dense field.
+`_slabs` appended, apart from its launches over a dense field, and its
+park form (a 'vz' row across nodes, parallel/migrate.py) with
+`_slabs_park`.
 """
 
 from __future__ import annotations
@@ -54,6 +56,8 @@ LAUNCHES = {
     "shearwarp_intermediate": 0, "gather_f32": 0, "lookup_transfer": 0,
     "dda_leg_sample_slabs": 0, "dda_leg_shadow_slabs": 0, "track_leg_sample_slabs": 0, "track_leg_shadow_slabs": 0,
     "tile_march_sample_slabs": 0, "tile_march_transmittance_slabs": 0,
+    "dda_leg_sample_slabs_park": 0, "dda_leg_shadow_slabs_park": 0, "track_leg_sample_slabs_park": 0,
+    "track_leg_shadow_slabs_park": 0, "tile_march_sample_slabs_park": 0, "tile_march_transmittance_slabs_park": 0,
 }
 
 _P = ctypes.c_void_p
@@ -83,6 +87,12 @@ _SIGNATURES = {
     + [_P] * 5 + [ctypes.c_longlong, _P],
     "vx_dda_leg_shadow_slabs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I]
     + [_P] * 3 + [ctypes.c_longlong, _P],
+    # the park forms: the slab forms' arguments up to running, then m,
+    # budget, resume (tr, physical), then their outputs and park_out
+    "vx_dda_leg_sample_slabs_park": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 13
+    + [_P] * 8 + [ctypes.c_longlong, _P],
+    "vx_dda_leg_shadow_slabs_park": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 14 + [_I]
+    + [_P] * 7 + [ctypes.c_longlong, _P],
     # peer (no stream)
     "vx_enable_peer_access": [_I],
     # leg, warps* (no stream)
@@ -99,6 +109,12 @@ _SIGNATURES = {
     + [ctypes.c_longlong, _P],
     "vx_track_leg_shadow_slabs": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3
     + [ctypes.c_longlong, _P],
+    # the park forms: the slab forms' arguments up to running, then
+    # events_in (tr), then their outputs and park_out
+    "vx_track_leg_sample_slabs_park": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_P] * 6
+    + [ctypes.c_longlong, _P],
+    "vx_track_leg_shadow_slabs_park": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 9 + [_P] * 5
+    + [ctypes.c_longlong, _P],
     # leg, warps* (no stream)
     "vx_track_leg_resident_warps": [_I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
@@ -111,6 +127,12 @@ _SIGNATURES = {
     # the slab forms: (slabs, slab) in place of dense
     "vx_tile_march_sample_slabs": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _P],
     "vx_tile_march_transmittance_slabs": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
+    # the park forms: the slab forms' arguments up to scalars, then step_in,
+    # tau_in, their outputs and park_out
+    "vx_tile_march_sample_slabs_park": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 3 + [_P] * 7
+    + [_I, _I, _P],
+    "vx_tile_march_transmittance_slabs_park": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3
+    + [_P] * 4 + [_I, _I, _P],
     # kernel, lut_k, warps* (no stream)
     "vx_tile_march_resident_warps": [_I, _I, _P],
     # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,

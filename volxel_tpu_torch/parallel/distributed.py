@@ -18,10 +18,13 @@ lie on several processes, e.g. one process a card on a node under
 `torchrun --nproc-per-node=N` with an explicit mesh of (rank, card)
 positions (`make_mesh(vz=N, devices=[(rank, f"cuda:{rank}") for rank in
 range(N)])`); a 'vz' row may span the processes of one node, whose
-slabs are then shared between them (parallel/nodeshare.py). Every
-process calls the same methods in the same order (each step, load and
-timestep swap is collective), and close() before it drops a renderer
-whose slabs are shared.
+slabs are then shared between them (parallel/nodeshare.py), or span
+nodes, whose slabs stay on their own node while the legs' lanes move to
+them (parallel/migrate.py; the row's process groups are made with the
+slabs, once for each set of processes, and kept for later loads and
+timestep swaps). Every process calls the same methods in the same order
+(each step, load and timestep swap is collective), and close() before it
+drops a renderer whose slabs are shared.
 """
 
 from __future__ import annotations

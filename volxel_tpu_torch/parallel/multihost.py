@@ -47,6 +47,7 @@ _initialized = False
 _device_counts: list[int] = []
 _node_ids: list[str] = []
 _host_group = None  # the gloo group of the host messages (None: the default group, which is gloo)
+_row_groups: dict[tuple, tuple] = {}  # a cross-node row's ranks -> its (lanes, counts) groups, card
 
 
 def node_identity() -> str:
@@ -100,10 +101,15 @@ def process_index() -> int:
     return dist.get_rank() if _initialized else 0
 
 
+def node_of(rank: int) -> str:
+    """The node process `rank` runs on ("" before initialize_multihost)."""
+    return _node_ids[rank] if _node_ids else ""
+
+
 def same_node(ranks) -> bool:
     """Whether the processes `ranks` all run on one node (always, before
     initialize_multihost: there is one process)."""
-    return len({_node_ids[r] if _node_ids else "" for r in ranks}) <= 1
+    return len({node_of(r) for r in ranks}) <= 1
 
 
 def all_gather_object(obj) -> list:
@@ -139,6 +145,35 @@ def global_devices() -> list[tuple[int, torch.device]]:
     return [(rank, torch.device("cuda", i)) for rank, count in enumerate(counts) for i in range(count)]
 
 
+def row_groups(ranks: tuple[int, ...]) -> tuple:
+    """The process groups of a 'vz' row whose processes `ranks` span nodes
+    (parallel.migrate): one on the default group's backend for the lanes,
+    a gloo twin for the counts that precede them (the same group under
+    gloo), and the card the lanes go through (None under gloo). Made once
+    for each set of ranks; new_group is collective over every process, so
+    every process asks for every such row, in one order (parallel.volshard
+    builds them with the volume), and later volumes of the same rows reuse
+    them.
+
+    Under NCCL the processes of the row join the lanes group at once, with
+    an all_reduce on this process's current card: a group's first batched
+    point-to-point call must involve every rank of the group, and a round
+    of migrate's leg calls involves only the processes that send or receive
+    lanes. Each process's lanes then go through that one card, so no later
+    call opens the group on another card."""
+    if ranks not in _row_groups:
+        lanes = dist.new_group(list(ranks), backend=dist.get_backend())
+        card = None
+        counts = lanes
+        if dist.get_backend() != "gloo":
+            counts = dist.new_group(list(ranks), backend="gloo")
+            if dist.get_rank() in ranks:
+                card = torch.device("cuda", torch.cuda.current_device())
+                dist.all_reduce(torch.zeros(1, device=card), group=lanes)
+        _row_groups[ranks] = (lanes, counts, card)
+    return _row_groups[ranks]
+
+
 def all_gather(tensor: torch.Tensor) -> list[torch.Tensor]:
     """Every process's `tensor` (one shape on all), in rank order, on
     `tensor`'s device. gloo gathers CPU tensors only, so under gloo a
@@ -150,11 +185,12 @@ def all_gather(tensor: torch.Tensor) -> list[torch.Tensor]:
     return [o.to(tensor.device) for o in out] if staged else out
 
 
-def exchange(sends: list, recvs: list) -> None:
+def exchange(sends: list, recvs: list, group=None) -> None:
     """Point-to-point messages between processes, posted together:
     `sends` and `recvs` hold (tensor, peer rank, tag); each received
     tensor is filled in place. Under gloo, which sends CPU tensors only,
-    CUDA tensors go through host memory."""
+    CUDA tensors go through host memory. `group` is the group the messages
+    go through (the default group by default); peers are global ranks."""
     staged = dist.get_backend() == "gloo"
 
     def host(t):
@@ -162,8 +198,8 @@ def exchange(sends: list, recvs: list) -> None:
 
     sends = [(host(t).contiguous(), peer, tag) for t, peer, tag in sends]
     bufs = [(t, host(torch.empty_like(t)) if staged and t.is_cuda else t, peer, tag) for t, peer, tag in recvs]
-    ops = [dist.P2POp(dist.isend, t, peer, tag=tag) for t, peer, tag in sends]
-    ops += [dist.P2POp(dist.irecv, buf, peer, tag=tag) for _, buf, peer, tag in bufs]
+    ops = [dist.P2POp(dist.isend, t, peer, group=group, tag=tag) for t, peer, tag in sends]
+    ops += [dist.P2POp(dist.irecv, buf, peer, group=group, tag=tag) for _, buf, peer, tag in bufs]
     for work in dist.batch_isend_irecv(ops) if ops else []:
         work.wait()
     for t, buf, _, _ in bufs:

@@ -59,7 +59,7 @@ def sharded_multiview_fn(config: RenderConfig, mesh: Mesh, n_views: int):
     sp, px = mesh.shape["sp"], mesh.shape["px"]
     if n_views % sp != 0 or n % px != 0:
         raise ValueError(f"views {n_views} must divide sp={sp}, pixels {n} must divide px={px}")
-    mesh_rows(mesh)  # refuses a part axis whose processes span nodes
+    mesh_rows(mesh)  # refuses a row across nodes whose processes own unequal parts of it
     local_n, local_v = n // px, n_views // sp
     cards = CardOperands()
 

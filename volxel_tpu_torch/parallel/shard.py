@@ -34,7 +34,10 @@ positions are one process's, else each position's part, padded to the
 longest part and cut back (a row whose parts lie on several processes of
 a node, one process a card: volshard's shared slabs). The result lies on
 this process's first device of the mesh. A slab axis whose positions span
-nodes raises NotImplementedError (volshard.SLABS_ACROSS_NODES).
+nodes renders the same way: a lane about to read a slab on another node
+parks and moves to the process that owns it (parallel.migrate), so every
+process of such a row renders its positions in axis order, and each owns
+as many of them.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ def mesh_rows(mesh: Mesh) -> list[tuple[tuple[int, int], list[tuple]]]:
     sp_k, px_k = mesh.axis_names.index("sp"), mesh.axis_names.index("px")
     if axis is None:
         return [((pos[sp_k], pos[px_k]), [pos]) for pos in mesh.positions()]
-    return [((along[0][sp_k], along[0][px_k]), along) for _, along in rows_along(mesh, axis)]
+    return [((along[0][sp_k], along[0][px_k]), along) for _, along, _ in rows_along(mesh, axis)]
 
 
 def part_pixels(block: range, parts: int, v: int, device: torch.device) -> torch.Tensor:
@@ -204,7 +207,7 @@ def sharded_render_fn(config: RenderConfig, mesh: Mesh, cards: CardOperands | No
     sp, px = mesh.shape["sp"], mesh.shape["px"]
     if n % px != 0:
         raise ValueError(f"pixel count {n} not divisible by px axis {px}")
-    mesh_rows(mesh)  # refuses a part axis whose processes span nodes
+    mesh_rows(mesh)  # refuses a row across nodes whose processes own unequal parts of it
     local_n = n // px
     cards = cards if cards is not None else CardOperands()
 

@@ -30,10 +30,17 @@ others' into its address space (parallel/nodeshare.py: CUDA IPC on the
 cards, shared memory on the CPU), never a copy; the processes then render
 their own parts of the row, which parallel.shard gathers part by part.
 Such a volume is released by all its processes together
-(SlabbedVolume.release). A row whose processes span nodes raises
-NotImplementedError (ROADMAP.md, queue 1, "Slabs across nodes"): a leg
-marches each lane to its end in one launch, and across nodes no process
-can load from the owner's memory.
+(SlabbedVolume.release).
+
+A row whose processes span nodes (`torchrun --nnodes=N
+--nproc-per-node=8`, or one process a host on several hosts) shares slabs
+within each node as above and none across nodes: a slab on another node is
+absent from the SlabGrid (None, a null pointer in its table). A lane about
+to read it parks and moves to the process that owns it, which resumes it
+(parallel.migrate); SlabbedVolume records each row's owners and process
+groups for that (`rows`). Every process of such a row owns as many of its
+positions, so that their leg calls line up (rows_along raises otherwise);
+make_mesh's defaults give that on nodes of equal card counts.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import torch
 from volxel_tpu_torch.grid.brick import BrickGrid
 from volxel_tpu_torch.parallel import multihost
 from volxel_tpu_torch.parallel.mesh import Mesh
+from volxel_tpu_torch.parallel.migrate import Row
 from volxel_tpu_torch.parallel.nodeshare import NodeShares
 from volxel_tpu_torch.render.sampling import (
     SLAB_HALO,
@@ -54,18 +62,18 @@ from volxel_tpu_torch.render.sampling import (
 )
 from volxel_tpu_torch.utils.mathutil import div_round_up
 
-SLABS_ACROSS_NODES = ("a slab axis whose positions span nodes (slabs read across nodes, by lanes migrated at slab "
-                      "boundaries or by owner-answered tap rounds) is not ported yet: ROADMAP.md, queue 1, 'Slabs "
-                      "across nodes'")
 # brick z-rows decoded at once when a slab is built from the brick grid: the
 # decode's f32 scratch stays a few times these rows' bytes
 DECODE_ROWS = 2
 
 
-def rows_along(mesh: Mesh, axis: str) -> list[tuple[tuple, list[tuple]]]:
+def rows_along(mesh: Mesh, axis: str) -> list[tuple[tuple, list[tuple], list[list[int]]]]:
     """Every row of `mesh` along `axis`: (the position's index without the
-    axis, the row's positions in axis order), in row-major order. Raises
-    NotImplementedError where a row's processes span nodes."""
+    axis, the row's positions in axis order, its node groups: the indices
+    along the axis of the positions on each node, nodes in order of first
+    position), in row-major order. Raises ValueError where a row's
+    processes span nodes and do not each own as many of its positions (the
+    equal-positions rule: their leg calls must line up, parallel.migrate)."""
     k = mesh.axis_names.index(axis)
     rows = []
     for pos in mesh.positions():
@@ -73,16 +81,22 @@ def rows_along(mesh: Mesh, axis: str) -> list[tuple[tuple, list[tuple]]]:
             continue
         row = pos[:k] + pos[k + 1:]
         along = [pos[:k] + (v,) + pos[k + 1:] for v in range(mesh.shape[axis])]
-        if not multihost.same_node({int(mesh.processes[q]) for q in along}):
-            raise NotImplementedError(SLABS_ACROSS_NODES)
-        rows.append((row, along))
+        owners = [int(mesh.processes[q]) for q in along]
+        nodes: dict[str, list[int]] = {}
+        for v, owner in enumerate(owners):
+            nodes.setdefault(multihost.node_of(owner), []).append(v)
+        if len(nodes) > 1 and len({owners.count(r) for r in owners}) > 1:
+            raise ValueError(f"the {axis} row {row} spans nodes with processes {owners} along it: a row across "
+                             "nodes needs every process to own the same number of its positions (the "
+                             "equal-positions rule), so that their leg calls line up")
+        rows.append((row, along, list(nodes.values())))
     return rows
 
 
 def spans_processes(mesh: Mesh, axis: str) -> bool:
     """Whether a row of `mesh` along `axis` has positions on several
     processes."""
-    return any(len({int(mesh.processes[q]) for q in along}) > 1 for _, along in rows_along(mesh, axis))
+    return any(len({int(mesh.processes[q]) for q in along}) > 1 for _, along, _ in rows_along(mesh, axis))
 
 
 class SlabbedVolume:
@@ -100,7 +114,7 @@ class SlabbedVolume:
     each position its `local_grid`."""
 
     def __init__(self, slabs: dict, meta: DeviceGrid, mesh: Mesh, axis: str, slab: int, tap_dtype: str = "float32",
-                 mapped: frozenset = frozenset(), shares: NodeShares | None = None):
+                 mapped: frozenset = frozenset(), shares: NodeShares | None = None, rows: dict | None = None):
         self.slabs = slabs
         self.meta = meta
         self.mesh = mesh
@@ -109,20 +123,25 @@ class SlabbedVolume:
         self.tap_dtype = tap_dtype
         self.mapped = mapped  # the keys of `slabs` that other processes own
         self._shares = shares
+        self.rows = rows or {}  # each row across nodes that this process is in (index without the axis) -> its Row
         self._tables: dict[tuple, dict] = {}  # a row's slab keys -> its SlabGrids' pointer tables, per card
         self._ready = dict(zip(slabs, slabs_written(slabs.values())))  # (card, v) -> slab v written there
 
     def local_grid(self, position: tuple | None = None, meta: DeviceGrid | None = None) -> SlabGrid:
         """The SlabGrid that position `position`'s lanes read (this
         process's first position by default): the slabs of its row along
-        the axis, and `meta`'s pyramids and extent (the card's copy of
-        `self.meta`, with its premultiplied pyramid, by default self.meta)."""
+        the axis (None for one on another node, with the row's migrate.Row),
+        and `meta`'s pyramids and extent (the card's copy of `self.meta`,
+        with its premultiplied pyramid, by default self.meta)."""
         pos = tuple(position) if position is not None else self.mesh.local_positions()[0]
         keys = tuple(_slab_key(self.mesh, self.axis, pos, v) for v in range(self.mesh.shape[self.axis]))
         meta = self.meta if meta is None else meta
-        return SlabGrid([self.slabs[k] for k in keys], self.slab, meta.maj_mips, meta.extent, self.tap_dtype,
-                        maj_alpha=meta.maj_alpha, tables=self._tables.setdefault(keys, {}),
-                        ready=[self._ready[k] for k in keys])
+        k = self.mesh.axis_names.index(self.axis)
+        return SlabGrid([None if key is None else self.slabs[key] for key in keys], self.slab, meta.maj_mips,
+                        meta.extent, self.tap_dtype, maj_alpha=meta.maj_alpha,
+                        tables=self._tables.setdefault(keys, {}),
+                        ready=[None if key is None else self._ready[key] for key in keys],
+                        row=self.rows.get(pos[:k] + pos[k + 1:]))
 
     def release(self) -> None:
         """Drop the slabs. Where they are shared between processes this is
@@ -141,41 +160,59 @@ class SlabbedVolume:
             shares.close()
 
 
-def _slab_key(mesh: Mesh, axis: str, reader: tuple, v: int) -> tuple:
+def _slab_key(mesh: Mesh, axis: str, reader: tuple, v: int) -> tuple | None:
     """The key in SlabbedVolume.slabs of slab v as position `reader` reads
     it: on the card of the row's position v where this process owns that
-    position, else mapped on the reader's own card."""
+    position, else mapped on the reader's own card; None where that
+    position lies on another node."""
     k = mesh.axis_names.index(axis)
     q = reader[:k] + (v,) + reader[k + 1:]
-    mine = int(mesh.processes[q]) == multihost.process_index()
-    return (mesh.devices[q] if mine else mesh.devices[reader], v)
+    owner, rank = int(mesh.processes[q]), multihost.process_index()
+    if owner == rank:
+        return (mesh.devices[q], v)
+    return (mesh.devices[reader], v) if multihost.same_node({owner, rank}) else None
 
 
 def _node_slabs(mesh: Mesh, axis: str, make) -> dict:
-    """SlabbedVolume's slabs, mapped keys and shares for this process:
-    make(v, card) builds slab v on `card` for each card of a position this
-    process owns (once a card); where a row spans processes, the slabs are
-    exported, the records exchanged and each other process's slab that a
-    row of this process reads is mapped on the reading card (where this
-    process holds slab v on that card itself, it reads its own)."""
+    """SlabbedVolume's slabs, mapped keys, shares and rows for this
+    process: make(v, card) builds slab v on `card` for each card of a
+    position this process owns (once a card). Where a row has several
+    processes on one node, the slabs are exported, the records exchanged
+    and each slab of another process of this node that a row of this
+    process reads is mapped on the reading card (where this process holds
+    slab v on that card itself, it reads its own). A row across nodes gets
+    its process groups (every process asks for every such row's, in row
+    order) and, where this process is in it, a migrate.Row."""
     rank = multihost.process_index()
 
     def owner(q):
         return int(mesh.processes[q])
 
-    rows = [along for _, along in rows_along(mesh, axis) if any(owner(q) == rank for q in along)]
+    every = rows_along(mesh, axis)
+    rows = [along for _, along, _ in every if any(owner(q) == rank for q in along)]
     slabs = {}
     for along in rows:
         for v, q in enumerate(along):
             if owner(q) == rank and (mesh.devices[q], v) not in slabs:
                 slabs[(mesh.devices[q], v)] = make(v, mesh.devices[q])
-    if not spans_processes(mesh, axis):
-        return {"slabs": slabs}
+    crossing = {}
+    for row, along, nodes in every:
+        if len(nodes) > 1:
+            ranks = tuple(sorted({owner(q) for q in along}))
+            groups = multihost.row_groups(ranks)
+            if rank in ranks:
+                crossing[row] = Row(ranks, tuple(owner(q) for q in along), *groups)
+
+    def mates(along, r):  # the other processes of the row on process r's node
+        return {owner(x) for x in along if owner(x) != r and multihost.same_node({r, owner(x)})}
+
+    if not any(mates(along, owner(q)) for _, along, _ in every for q in along):
+        return {"slabs": slabs, "rows": crossing}
     shares, records = NodeShares(), {}
     for along in rows:
         for v, q in enumerate(along):
             key = (str(mesh.devices[q]), v)
-            if owner(q) == rank and len({owner(x) for x in along}) > 1 and key not in records:
+            if owner(q) == rank and mates(along, rank) and key not in records:
                 records[key], slabs[(mesh.devices[q], v)] = shares.export(slabs[(mesh.devices[q], v)])
     everyone = multihost.all_gather_object(records)
     mapped = set()
@@ -183,10 +220,10 @@ def _node_slabs(mesh: Mesh, axis: str, make) -> dict:
         for reader in (q for q in along if owner(q) == rank):
             for v, q in enumerate(along):
                 key = _slab_key(mesh, axis, reader, v)
-                if owner(q) != rank and key not in slabs:
+                if key is not None and owner(q) != rank and key not in slabs:
                     slabs[key] = shares.open(everyone[owner(q)][(str(mesh.devices[q]), v)], key[0])
                     mapped.add(key)
-    return {"slabs": slabs, "mapped": frozenset(mapped), "shares": shares}
+    return {"slabs": slabs, "mapped": frozenset(mapped), "shares": shares, "rows": crossing}
 
 
 def build_slabbed_volume(grid: DeviceGrid, mesh: Mesh, axis: str = "vz", tap_dtype: str = "float32") -> SlabbedVolume:

@@ -27,6 +27,16 @@ kernels index the pyramid in 32 bits and the field in 64. Over a SlabGrid
 (render-time volume slabs) the same kernels read each collision's taps
 from the slab of the owner of its base z, through the slabs' pointer
 table, and count their launches as dda_leg_*_slabs.
+
+Park forms (a vz row across nodes, parallel.migrate): over a SlabGrid
+whose slabs on other nodes are absent, dda_leg_*_park take each lane's
+budget, and a `resume` flag that starts a lane at the collision its t,
+mip and majorant m describe. A lane whose collision's base z is owned by
+an absent slab parks there, before the taps' fetch: it stops with its t,
+mip, m, budget, words (and tr) as they are, and `park` names the slab
+(-1 for a lane that ended). Resumed where the slab is readable, it goes
+on bit for bit as the one-run slab form would have. Their kernels count
+as dda_leg_*_slabs_park.
 """
 
 from __future__ import annotations
@@ -35,8 +45,8 @@ import torch
 
 from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render.collide import dda_collide_sample_plain, dda_collide_shadow_plain
-from volxel_tpu_torch.render.pyrmarch import pyr_march_plain
-from volxel_tpu_torch.render.sampling import SlabGrid
+from volxel_tpu_torch.render.pyrmarch import KIND_COLL, KIND_IDLE, pyr_march_plain
+from volxel_tpu_torch.render.sampling import SlabGrid, parked_owner
 from volxel_tpu_torch.render.tilemarch import S_RANGE_HI, _check_dense, _check_lanes, check_slabs, slab_form
 
 # per-lane step budgets
@@ -74,6 +84,60 @@ def dda_leg_shadow_plain(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri,
     state, _, budget = _rounds(dda_collide_shadow_plain, DDA_TRANSMITTANCE_MAX_STEPS, dense, maj_alpha, extent,
                                scalars, lut, ipos, idir, ri, far, t, tau, mip, state, running, (tr,), physical)
     return state, tr, budget
+
+
+def _rounds_park(collide, cap, grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget,
+                 state, running, resume, outputs, *flags):
+    """_rounds from each lane's own budget, a `resume` lane starting at its
+    collision (t, mip and majorant m) with the decode; before each decode a
+    lane whose taps lie in an absent slab parks. Returns (state, t, budget,
+    mip, m, park): mip and m the parked lanes' (the input mip and 0
+    elsewhere), park the slab each parked lane waits for (-1 elsewhere)."""
+    state, t, tau, mip_in, running, budget = state.clone(), t.clone(), tau.clone(), mip, running.clone(), budget.clone()
+    mip = mip.clone()
+    at = running & resume
+    kind = torch.where(at, KIND_COLL, KIND_IDLE).to(torch.int32)
+    maj = torch.where(at, m, 0.0)
+    march = running & ~resume
+    park = torch.full(t.shape, -1, dtype=torch.int64, device=t.device)
+    while bool(running.any()):
+        if bool(march.any()):
+            t, tau, mip, maj_m, kind_m, budget = pyr_march_plain(maj_alpha, extent, ipos, idir, ri, t, tau, mip, far,
+                                                                 budget, march, cap)
+            kind, maj = torch.where(march, kind_m, kind), torch.where(march, maj_m, maj)
+        owner = parked_owner(grid, ipos[:, 2] + t * idir[:, 2])
+        parked = running & (kind == KIND_COLL) & (owner >= 0)
+        park = torch.where(parked, owner, park)
+        running &= ~parked
+        collide(grid, extent, scalars, lut, ipos, idir, t, maj, kind, state, tau, mip, running, *outputs, *flags)
+        march = running.clone()
+        kind = torch.full_like(kind, KIND_IDLE)
+    held = park >= 0
+    return (state, t, budget, torch.where(held, mip, mip_in), torch.where(held, maj, 0.0),
+            park.to(torch.int32))
+
+
+def dda_leg_sample_park_plain(grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget,
+                              state, running, resume):
+    """Plain PyTorch camera leg's park form in rounds; see
+    `dda_leg_sample_park`."""
+    hit = torch.zeros_like(running)
+    rgb = torch.ones((t.shape[0], 3), dtype=torch.float32, device=t.device)
+    state, t, budget, mip, m, park = _rounds_park(dda_collide_sample_plain, DDA_SAMPLE_MAX_STEPS, grid, maj_alpha,
+                                                  extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget,
+                                                  state, running, resume, (hit, rgb))
+    return state, hit, t, rgb, budget, mip, m, park
+
+
+def dda_leg_shadow_park_plain(grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget,
+                              state, running, resume, tr, physical: bool = False):
+    """Plain PyTorch shadow leg's park form in rounds; see
+    `dda_leg_shadow_park`."""
+    tr = tr.clone()
+    state, t, budget, mip, m, park = _rounds_park(dda_collide_shadow_plain, DDA_TRANSMITTANCE_MAX_STEPS, grid,
+                                                  maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip,
+                                                  m, budget, state, running, resume, (tr,), physical)
+    return state, tr, budget, t, mip, m, park
 
 
 def check_field(name, dense, extent, scalars, lut, device):
@@ -157,6 +221,88 @@ def dda_leg_shadow_cuda(dense, maj_alpha, extent, scalars, lut, ipos, idir, ri, 
     kernels.launch(f"vx_{name}", t, *args, tr.data_ptr(), DDA_TRANSMITTANCE_MAX_STEPS, int(bool(physical)),
                    *(a.data_ptr() for a in (state_o, tr_o, budget)), t.shape[0], counter=name)
     return state_o, tr_o, budget
+
+
+def _park_lanes(name, t, m, budget, resume):
+    """Check a park form's per-lane inputs; their C arguments."""
+    kernels.require_cuda(name, m, dtype=torch.float32, device=t.device)
+    kernels.require_cuda(name, budget, dtype=torch.int32, device=t.device)
+    kernels.require_cuda(name, resume, dtype=torch.bool, device=t.device)
+    _check_lanes(name, t.shape[0], (), [("m", m), ("budget", budget), ("resume", resume)])
+    return m.data_ptr(), budget.data_ptr(), resume.data_ptr()
+
+
+def _park_outputs(t, mip):
+    """A park form's outputs t, mip, m (f32) and park (int32)."""
+    return torch.empty_like(t), torch.empty_like(mip), torch.empty_like(t), torch.empty_like(t, dtype=torch.int32)
+
+
+def dda_leg_sample_park_cuda(grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget,
+                             state, running, resume):
+    """The camera leg's park form as one launch of csrc/dda_leg.cu; see
+    `dda_leg_sample_park`."""
+    if not isinstance(grid, SlabGrid):
+        raise ValueError("dda_leg_sample_park: the park forms read a SlabGrid")
+    args = _volume_and_lanes("dda_leg_sample_park", grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t,
+                             tau, mip, state, running)
+    parks = _park_lanes("dda_leg_sample_park", t, m, budget, resume)
+    n = t.shape[0]
+    state_o, hit, rgb = torch.empty_like(state), torch.empty_like(running), torch.empty_like(ipos)
+    budget_o = torch.empty_like(budget)
+    t_o, mip_o, m_o, park = _park_outputs(t, mip)
+    kernels.launch("vx_dda_leg_sample_slabs_park", t, *args, *parks,
+                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, budget_o, mip_o, m_o, park)), n,
+                   counter="dda_leg_sample_slabs_park")
+    return state_o, hit, t_o, rgb, budget_o, mip_o, m_o, park
+
+
+def dda_leg_shadow_park_cuda(grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget,
+                             state, running, resume, tr, physical: bool = False):
+    """The shadow leg's park form as one launch of csrc/dda_leg.cu; see
+    `dda_leg_shadow_park`."""
+    if not isinstance(grid, SlabGrid):
+        raise ValueError("dda_leg_shadow_park: the park forms read a SlabGrid")
+    args = _volume_and_lanes("dda_leg_shadow_park", grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t,
+                             tau, mip, state, running, (("tr", tr),))
+    parks = _park_lanes("dda_leg_shadow_park", t, m, budget, resume)
+    state_o, tr_o, budget_o = torch.empty_like(state), torch.empty_like(tr), torch.empty_like(budget)
+    t_o, mip_o, m_o, park = _park_outputs(t, mip)
+    kernels.launch("vx_dda_leg_shadow_slabs_park", t, *args, *parks, tr.data_ptr(), int(bool(physical)),
+                   *(a.data_ptr() for a in (state_o, tr_o, budget_o, t_o, mip_o, m_o, park)), t.shape[0],
+                   counter="dda_leg_shadow_slabs_park")
+    return state_o, tr_o, budget_o, t_o, mip_o, m_o, park
+
+
+def dda_leg_sample_park(grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget, state,
+                        running, resume):
+    """The camera leg over a SlabGrid whose absent slabs park lanes: the
+    arguments of `dda_leg_sample`, and each lane's `m` (n,) f32 majorant
+    and `resume` (n,) bool (resume at the collision at t, whose majorant is
+    m, with the decode; tau is not read there) and its steps left `budget`
+    (n,) int32. Returns (state, hit, t, rgb, budget, mip, m, park): a
+    parked lane's t, mip, m, budget and words are its collision's, and
+    park (n,) int32 names the absent slab its taps lie in (-1 for every
+    other lane, whose outputs are the slab form's). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    args = (grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget, state, running,
+            resume)
+    if t.device.type == "cpu":
+        return dda_leg_sample_park_plain(*args)
+    return dda_leg_sample_park_cuda(*args)
+
+
+def dda_leg_shadow_park(grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget, state,
+                        running, resume, tr, physical: bool = False):
+    """The shadow leg's park form: the arguments of
+    `dda_leg_sample_park`, then tr and physical. Returns (state, tr,
+    budget, t, mip, m, park); a parked lane's tr is its tr before the
+    collision. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    args = (grid, maj_alpha, extent, scalars, lut, ipos, idir, ri, far, t, tau, mip, m, budget, state, running,
+            resume, tr, physical)
+    if t.device.type == "cpu":
+        return dda_leg_shadow_park_plain(*args)
+    return dda_leg_shadow_park_cuda(*args)
 
 
 def dda_leg_sample(

@@ -20,7 +20,10 @@ PyTorch counterpart of volxel_tpu.render.modes:
 
 The legs read `grid.field`: the dense field of a DeviceGrid or the slabs
 of a SlabGrid (render-time volume slabs, parallel.volshard), whose kernels
-read each tap from the slab that owns it. The JAX package's compaction
+read each tap from the slab that owns it. On a 'vz' row across nodes, where
+the SlabGrid's slabs on other nodes are absent, each leg goes through the
+grid's `row` (parallel.migrate.Row): its park form, with the lanes that
+park moved to the processes that own their slabs. The JAX package's compaction
 ladders and compacted decodes are TPU workarounds and are not ported. The camera and shadow legs of the default
 and no_dda modes take `with_stats` (utils.stepstats): it appends each
 lane's march steps or events, which the legs already return as the budget
@@ -63,6 +66,16 @@ from volxel_tpu_torch.render.trackleg import TRACKING_MAX_EVENTS, track_leg_samp
 # adaptive mip schedule (dda.glsl:6-8)
 MIP_START = 3.0
 MIP_SPEED_UP = 0.25
+
+
+def _leg(name: str, leg, field, *args):
+    """`leg` (the function this module calls leg `name` by) on `field` and
+    its other arguments; on a SlabGrid of a 'vz' row across nodes, whose
+    slabs on other nodes are absent, through the row the grid carries
+    (parallel.migrate.Row.leg_call), which runs the leg's park form and
+    moves the lanes that park to the slabs' owners."""
+    row = getattr(field, "row", None)
+    return leg(field, *args) if row is None else row.leg_call(name, field, *args)
 
 
 def _to_index_space(params: VolumeParams, origin, direction):
@@ -120,8 +133,8 @@ def sample_volume_dda(grid, params, lut, origin, direction, state, active, with_
     premultiplied pyramid (build_premul_majorant): the setup, then the leg
     (ddaleg.dda_leg_sample). with_stats adds each lane's march steps."""
     state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
-    state, hit, t, rgb, budget = dda_leg_sample(grid.field, grid.maj_alpha, grid.extent, volume_scalars(params), lut,
-                                                ipos, idir, ri, far, t, tau, mip, state, running)
+    state, hit, t, rgb, budget = _leg("dda_leg_sample", dda_leg_sample, grid.field, grid.maj_alpha, grid.extent,
+                                      volume_scalars(params), lut, ipos, idir, ri, far, t, tau, mip, state, running)
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     if with_stats:
         return state, hit, t, rgb, le_add, DDA_SAMPLE_MAX_STEPS - budget
@@ -140,8 +153,8 @@ def transmittance_dda(grid, params, lut, origin, direction, state, active, physi
     lane's march steps."""
     state, ipos, idir, ri, far, t, tau, mip, running = _march_setup(grid, params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    state, tr, budget = dda_leg_shadow(grid.field, grid.maj_alpha, grid.extent, volume_scalars(params), lut, ipos,
-                                       idir, ri, far, t, tau, mip, state, running, tr, physical)
+    state, tr, budget = _leg("dda_leg_shadow", dda_leg_shadow, grid.field, grid.maj_alpha, grid.extent,
+                             volume_scalars(params), lut, ipos, idir, ri, far, t, tau, mip, state, running, tr, physical)
     if with_stats:
         return state, tr, DDA_TRANSMITTANCE_MAX_STEPS - budget
     return state, tr
@@ -171,8 +184,8 @@ def sample_volume_simple(grid, params, lut, origin, direction, state, active, wi
     most trackleg.TRACKING_MAX_EVENTS events a lane. with_stats adds each
     lane's events."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
-    state, hit, t, rgb, left = track_leg_sample(grid.field, grid.extent, volume_scalars(params), lut, ipos, idir,
-                                                far, t, state, running)
+    state, hit, t, rgb, left = _leg("track_leg_sample", track_leg_sample, grid.field, grid.extent,
+                                    volume_scalars(params), lut, ipos, idir, far, t, state, running)
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     if with_stats:
         return state, hit, t, rgb, le_add, TRACKING_MAX_EVENTS - left
@@ -186,8 +199,8 @@ def transmittance_simple(grid, params, lut, origin, direction, state, active, wi
     free-flight draw. with_stats adds each lane's events."""
     state, ipos, idir, far, t, running = _tracking_setup(params, origin, direction, state, active)
     tr = torch.ones((origin.shape[0],), dtype=torch.float32, device=origin.device)
-    state, tr, left = track_leg_shadow(grid.field, grid.extent, volume_scalars(params), lut, ipos, idir, far, t,
-                                       state, running, tr)
+    state, tr, left = _leg("track_leg_shadow", track_leg_shadow, grid.field, grid.extent, volume_scalars(params), lut,
+                           ipos, idir, far, t, state, running, tr)
     if with_stats:
         return state, tr, TRACKING_MAX_EVENTS - left
     return state, tr
@@ -221,7 +234,8 @@ def sample_volume_raymarch(grid, params, lut, origin, direction, state, active):
     """Stochastic-filter fixed-step raymarch (raymarch.glsl:30-56): the
     prologue in PyTorch, then the step loop in tilemarch.tile_march_sample,
     a kernel on the card at every bounce."""
-    state, hit, t, rgb = tile_march_sample(*raymarch_prologue(grid, params, lut, origin, direction, state, active))
+    state, hit, t, rgb = _leg("tile_march_sample", tile_march_sample,
+                              *raymarch_prologue(grid, params, lut, origin, direction, state, active))
     le_add = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)  # emission stub
     return state, hit, t, rgb, le_add
 
@@ -235,8 +249,8 @@ def transmittance_raymarch(grid, params, lut, origin, direction, state, active):
     ipos, idir, near, far, dt, valid = _raymarch_setup(params, origin, direction, active)
     state, xi_j = rng_where(valid, state)  # raymarch.glsl:17
     start = near + xi_j * dt
-    state, tau = tile_march_transmittance(grid.field, ipos, idir, start, dt, far, valid, state, lut,
-                                          volume_scalars(params), grid.extent)
+    state, tau = _leg("tile_march_transmittance", tile_march_transmittance, grid.field, ipos, idir, start, dt, far,
+                      valid, state, lut, volume_scalars(params), grid.extent)
     return state, torch.exp(-tau)
 
 

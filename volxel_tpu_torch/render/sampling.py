@@ -79,6 +79,13 @@ class SlabGrid:
     each CUDA slab's card after the slab was written (slabs_written), and
     `table` orders the reading card's stream after it.
 
+    A slab held on another node (a row across nodes) is None here and its
+    pointer in `table` is 0: nothing on this process can load it. The legs
+    park a lane before they ask for such a slab and parallel.migrate moves
+    the lane to the process that owns it; `row` is that row's exchange
+    (parallel.migrate.Row), None where every slab is readable. A lookup
+    here that reaches an absent slab raises.
+
     tap_dtype "bfloat16" rounds each owner's value (the unscaled trilinear
     sum; an integer tap is a bf16 value already) to bf16, which is what the
     JAX package's bf16 all-reduce of one owner's value and zeros gives.
@@ -88,10 +95,10 @@ class SlabGrid:
     """
 
     def __init__(self, slabs, slab: int, maj_mips, extent, tap_dtype: str = "float32", maj_alpha=None,
-                 tables: dict | None = None, ready=None):
+                 tables: dict | None = None, ready=None, row=None):
         if tap_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"tap_dtype must be 'float32' or 'bfloat16', got {tap_dtype!r}")
-        self.slabs = tuple(slabs)  # vz (slab + 2 * SLAB_HALO, Y, X) bf16, each on its card
+        self.slabs = tuple(slabs)  # vz (slab + 2 * SLAB_HALO, Y, X) bf16, each on its card (None: another node's)
         self.ready = slabs_written(self.slabs) if ready is None else tuple(ready)
         self.slab = int(slab)  # z slices each slab owns
         self.maj_mips = maj_mips
@@ -99,6 +106,7 @@ class SlabGrid:
         self.extent = tuple(int(v) for v in extent)
         self.tap_dtype = tap_dtype
         self._tables = {} if tables is None else tables  # device -> the slabs' pointer table there
+        self.row = row
 
     @property
     def field(self) -> "SlabGrid":
@@ -107,7 +115,7 @@ class SlabGrid:
 
     def _replace(self, **changes) -> "SlabGrid":
         kw = {"slabs": self.slabs, "slab": self.slab, "maj_mips": self.maj_mips, "extent": self.extent,
-              "tap_dtype": self.tap_dtype, "maj_alpha": self.maj_alpha, **changes}
+              "tap_dtype": self.tap_dtype, "maj_alpha": self.maj_alpha, "row": self.row, **changes}
         if "slabs" in changes:  # the tables and events are the old slabs'
             return SlabGrid(**kw)
         return SlabGrid(**kw, tables=self._tables, ready=self.ready)
@@ -125,24 +133,29 @@ class SlabGrid:
         reads."""
         device = torch.device(device)
         reader = torch.cuda.current_stream(device)
-        for s, written in zip(self.slabs, self.ready):
+        held = [(s, written) for s, written in zip(self.slabs, self.ready) if s is not None]
+        for s, written in held:
             reader.wait_event(written)
             s.record_stream(reader)
         if device not in self._tables:
-            for s in self.slabs:
+            for s, _ in held:
                 kernels.enable_peer_access(device, s.device)
-            ptrs = torch.tensor([s.data_ptr() for s in self.slabs], dtype=torch.int64)
+            ptrs = torch.tensor([0 if s is None else s.data_ptr() for s in self.slabs], dtype=torch.int64)
             self._tables[device] = ptrs.to(device)
         return self._tables[device]
+
+    def absent(self, device) -> torch.Tensor:
+        """(vz,) bool on `device`: which slabs lie on another node."""
+        return torch.tensor([s is None for s in self.slabs], dtype=torch.bool, device=device)
 
 
 def slabs_written(slabs) -> tuple:
     """An event recorded on each CUDA slab's card's current stream, after
-    whatever wrote the slab there (None for a CPU slab)."""
+    whatever wrote the slab there (None for a CPU slab or an absent one)."""
     events = []
     for s in slabs:
         event = None
-        if s.is_cuda:
+        if s is not None and s.is_cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(s.device))
         events.append(event)
@@ -278,21 +291,38 @@ def _clip_to_extent(grid: DeviceGrid, ip):
     return torch.stack([ip[..., k].clamp(0, e - 1) for k, e in enumerate(grid.extent)], dim=-1)
 
 
-def lookup_density_brick_int(grid, iipos):
+def lookup_density_brick_int(grid, iipos, owner=None):
     """Decoded density at integer voxel coords (common.glsl:36-43), read
     from the dense field or, on a SlabGrid, from the slab that owns the
-    tap's z (the JAX package's _slab_density_int). iipos: (..., 3)
-    integer (x, y, z). OOB taps return 0.0."""
+    tap's z (the JAX package's _slab_density_int) or, with `owner` (...,),
+    from that slab, whose halo holds the tap (the slab of a tricubic pick's
+    base cell, as the legs' kernels read it). iipos: (..., 3) integer
+    (x, y, z). OOB taps return 0.0."""
     ip = _clip_to_extent(grid, iipos)
     inside = (ip == iipos).all(dim=-1)
     ip = ip.to(torch.int64)
     if isinstance(grid, SlabGrid):
-        value = _slab_taps(grid, ip, ip[..., 2] // grid.slab)
+        value = _slab_taps(grid, ip, ip[..., 2] // grid.slab if owner is None else owner)
     else:
         _, ny, nx = grid.dense.shape
         flat = (ip[..., 2] * ny + ip[..., 1]) * nx + ip[..., 0]
         value = grid.dense.reshape(-1)[flat].to(torch.float32)
     return torch.where(inside, value, 0.0)
+
+
+def parked_owner(grid: SlabGrid, z):
+    """The slab a leg's lookup at index-space z reads, where it lies on
+    another node, else -1 (int64, z's shape): the owner of the clipped
+    base z floor(z - 0.5) of the trilinear stencil or the tricubic pick.
+    A lane parks there before it reads (parallel.migrate)."""
+    owner = slab_owner(grid, z)
+    return torch.where(grid.absent(z.device)[owner], owner, -1)
+
+
+def slab_owner(grid: SlabGrid, z):
+    """The slab that owns the clipped base z floor(z - 0.5) of a lookup at
+    index-space z (int64, z's shape)."""
+    return torch.floor(z - 0.5).to(torch.int64).clamp(0, grid.extent[2] - 1) // grid.slab
 
 
 def _slab_taps(grid: SlabGrid, ip, owner):
@@ -306,6 +336,11 @@ def _slab_taps(grid: SlabGrid, ip, owner):
     value = torch.empty(owner.shape, dtype=torch.float32, device=ip.device)
     for v, slab in enumerate(grid.slabs):
         mine = torch.nonzero(owner == v).squeeze(1)
+        if slab is None:
+            if mine.numel():
+                raise ValueError(f"{mine.numel()} taps of slab {v}, which lies on another node: a leg parks such "
+                                 "lanes (parallel.migrate), a lookup asks the slab's owner")
+            continue
         _, ny, nx = slab.shape
         flat = (lz[mine] * ny + iy[mine]) * nx + ix[mine]
         value[mine] = slab.reshape(-1)[flat.to(slab.device)].to(ip.device).to(torch.float32)

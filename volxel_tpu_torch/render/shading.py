@@ -26,13 +26,19 @@ SHININESS = 32.0
 
 
 def density_gradient(grid, params, ipos):
-    """Central-difference gradient in index space: 6 trilinear taps."""
+    """Central-difference gradient in index space: 6 trilinear taps. On a
+    SlabGrid of a 'vz' row across nodes the taps whose slab lies on another
+    node are answered by its owner through the row the grid carries
+    (parallel.migrate.Row), one exchange a lookup, which every process of
+    the row makes together."""
+    row = getattr(grid, "row", None)
+    lookup = lookup_density_trilinear if row is None else row.lookup_density_trilinear
     grads = []
     for axis in range(3):
         offset = torch.zeros(3, dtype=torch.float32, device=ipos.device)
         offset[axis] = 1.0
-        hi = lookup_density_trilinear(grid, params, ipos + offset)
-        lo = lookup_density_trilinear(grid, params, ipos - offset)
+        hi = lookup(grid, params, ipos + offset)
+        lo = lookup(grid, params, ipos - offset)
         grads.append((hi - lo) * 0.5)
     return torch.stack(grads, dim=-1)
 

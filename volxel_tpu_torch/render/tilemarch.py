@@ -32,6 +32,16 @@ adds them, so that the rays in flight are a strip of neighbouring pixels
 whose taps share L2 lines. The kernels are built with --fmad=false and
 follow the plain versions' op order, so on the card they agree bit for
 bit on every output of every lane.
+
+Park forms (a vz row across nodes, parallel.migrate): over a SlabGrid
+whose slabs on other nodes are absent, tile_march_*_park take each lane's
+step index and tau. A lane parks before a step whose base cell lies in an
+absent slab, before that step's draws: it stops with its step index, tau
+and words as they are, and `park` names the slab (-1 for a lane that
+ended). The same park form resumes it from that step where the slab is
+readable. The shadow kernel issues the taps of later steps ahead, so its
+park test goes where a step's tap is issued; the steps before it are
+still consumed. They count as tile_march_*_slabs_park.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from volxel_tpu_torch.render.sampling import (
     VolumeParams,
     field_grid,
     lookup_density_brick_int,
+    slab_owner,
     stochastic_tricubic_offsets,
 )
 from volxel_tpu_torch.render.gather import lookup_transfer_plain
@@ -118,6 +129,67 @@ def tile_march_transmittance_plain(dense, ipos, idir, start, dt, far, valid, sta
     return state, tau
 
 
+def tile_march_park_plain(grid, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent, step,
+                          tau):
+    """tile_march_plain over a SlabGrid from each lane's step index `step`
+    (n,) int32 and its `tau`, each tap read from the slab of its pick's base
+    cell (whose halo holds it, as the kernels read it); a lane whose next
+    step's base cell lies in an absent slab parks before that step's draws.
+    Returns (state, hit, t, rgb, tau, step, park): step the parked lanes'
+    (the input step elsewhere), park their absent slab (-1 elsewhere)."""
+    inv_maj, vol_maj, density_scale = scalars[S_INV_MAJ], scalars[S_VOL_MAJ], scalars[S_DEN_SCALE]
+    sample_range = scalars[S_RANGE_LO:S_RANGE_HI + 1]
+    n = ipos.shape[0]
+    step_in, step, tau, state = step, step.clone(), tau.clone(), state.clone()
+    marching = valid & (step < STEPS)
+    hit = torch.zeros_like(valid)
+    t_out = torch.zeros((n,), dtype=torch.float32, device=ipos.device)
+    rgb_out = torch.ones((n, 3), dtype=torch.float32, device=ipos.device)
+    park = torch.full((n,), -1, dtype=torch.int64, device=ipos.device)
+    absent = grid.absent(ipos.device)
+    while bool(marching.any()):
+        t = torch.minimum(start + step.to(torch.float32) * dt, far)
+        pos = ipos + t[:, None] * idir
+        owner = slab_owner(grid, pos[:, 2])
+        parked = marching & absent[owner]
+        park = torch.where(parked, owner, park)
+        marching = marching & ~parked
+        state, tap = stochastic_tricubic_offsets(pos, state, marching)
+        lanes = torch.nonzero(marching).squeeze(1)
+        raw = torch.zeros((n,), dtype=torch.float32, device=ipos.device)
+        raw[lanes] = lookup_density_brick_int(grid, tap[lanes], owner[lanes])
+        rgba = lookup_transfer_plain(lut, sample_range, density_scale * raw * inv_maj)
+        tau_new = tau + rgba[:, 3] * vol_maj * dt
+        tau = torch.where(marching, tau_new, tau)
+        step = torch.where(marching, step + 1, step)
+        if tau_target is not None:
+            new_hit = marching & (tau_new >= tau_target)
+            hit = hit | new_hit
+            t_out = torch.where(new_hit, t, t_out)
+            rgb_out = torch.where(new_hit[:, None], rgba[:, :3], rgb_out)
+            marching = marching & ~new_hit
+        marching = marching & (step < STEPS)
+    held = park >= 0
+    return state, hit, t_out, rgb_out, tau, torch.where(held, step, step_in), park.to(torch.int32)
+
+
+def tile_march_sample_park_plain(grid, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent,
+                                 step, tau):
+    """Plain PyTorch camera leg's park form; see `tile_march_sample_park`."""
+    state, hit, t, rgb, tau, step, park = tile_march_park_plain(grid, ipos, idir, start, dt, far, valid, tau_target,
+                                                                state, lut, scalars, extent, step, tau)
+    return state, hit, t, rgb, step, tau, park
+
+
+def tile_march_transmittance_park_plain(grid, ipos, idir, start, dt, far, valid, state, lut, scalars, extent, step,
+                                        tau):
+    """Plain PyTorch shadow leg's park form; see
+    `tile_march_transmittance_park`."""
+    state, _, _, _, tau, step, park = tile_march_park_plain(grid, ipos, idir, start, dt, far, valid, None, state, lut,
+                                                            scalars, extent, step, tau)
+    return state, tau, step, park
+
+
 def _check_lanes(name, n, vectors, scalars_per_lane):
     for label, a in vectors:
         if tuple(a.shape) != (n, 3):
@@ -149,13 +221,18 @@ def check_slabs(name, grid: SlabGrid, extent, device):
     """Check a SlabGrid that a launch on `device` reads through its
     table (kernels.enable_peer_access for each slab's card when the table
     is made): each slab a contiguous (slab + 2 * SLAB_HALO, Y, X) bf16
-    CUDA tensor, the table one int64 pointer a slab on `device`, the
-    extent inside the slabs' field. Returns the C arguments slabs, slab,
+    CUDA tensor, or absent (another node's) where `name` is a park form,
+    the table one int64 pointer a slab on `device`, the extent inside the
+    slabs' field. Returns the C arguments slabs, slab,
     ny, nx and the extent."""
-    if not grid.slabs:
+    held = [s for s in grid.slabs if s is not None]
+    if not held:
         raise ValueError(f"{name}: a SlabGrid without slabs")
-    first = grid.slabs[0]
-    for s in grid.slabs:
+    if len(held) < len(grid.slabs) and not name.endswith("_park"):
+        raise ValueError(f"{name}: a slab lies on another node; only a park form (`{name}_park`, driven by "
+                         "parallel.migrate) reads such a grid")
+    first = held[0]
+    for s in held:
         kernels.require_cuda(name, s, dtype=torch.bfloat16, device=s.device)
         if s.dim() != 3 or tuple(s.shape) != (grid.slab + 2 * SLAB_HALO, *first.shape[1:]):
             raise ValueError(f"{name}: slab of shape {tuple(s.shape)}, expected "
@@ -287,6 +364,81 @@ def tile_march_transmittance(dense, ipos, idir, start, dt, far, valid, state, lu
     if ipos.device.type == "cpu":
         return tile_march_transmittance_plain(*args)
     return tile_march_transmittance_cuda(*args)
+
+
+def _check_park(name, grid, ipos, step, tau):
+    """Check a park form's grid and per-lane step and tau; their C
+    arguments."""
+    if not isinstance(grid, SlabGrid):
+        raise ValueError(f"{name}: the park forms read a SlabGrid")
+    kernels.require_cuda(name, step, dtype=torch.int32, device=ipos.device)
+    kernels.require_cuda(name, tau, dtype=torch.float32, device=ipos.device)
+    _check_lanes(name, ipos.shape[0], (), (("step", step), ("tau", tau)))
+    return step.data_ptr(), tau.data_ptr()
+
+
+def tile_march_sample_park_cuda(grid, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent, step,
+                                tau):
+    """The camera leg's park form as one launch of csrc/tile_march.cu; see
+    `tile_march_sample_park`."""
+    parks = _check_park("tile_march_sample_park", grid, ipos, step, tau)
+    field, (ex, ey, ez), n = _check_march("tile_march_sample_park", grid, ipos, idir, start, dt, far, valid, state,
+                                          lut, scalars, extent, (("tau_target", tau_target),))
+    state_o, hit, t_o, rgb = torch.empty_like(state), torch.empty_like(valid), torch.empty_like(start), \
+        torch.empty_like(ipos)
+    tau_o, step_o, park = torch.empty_like(tau), torch.empty_like(step), torch.empty_like(step)
+    kernels.launch(
+        "vx_tile_march_sample_slabs_park", ipos, *field, ex, ey, ez,
+        *(a.data_ptr() for a in (ipos, idir, start, dt, far, valid, tau_target, state, lut)), lut.shape[0],
+        scalars.data_ptr(), *parks, *(a.data_ptr() for a in (state_o, hit, t_o, rgb, tau_o, step_o, park)), n, STEPS,
+        counter="tile_march_sample_slabs_park",
+    )
+    return state_o, hit, t_o, rgb, step_o, tau_o, park
+
+
+def tile_march_transmittance_park_cuda(grid, ipos, idir, start, dt, far, valid, state, lut, scalars, extent, step,
+                                       tau):
+    """The shadow leg's park form as one launch of csrc/tile_march.cu; see
+    `tile_march_transmittance_park`."""
+    parks = _check_park("tile_march_transmittance_park", grid, ipos, step, tau)
+    field, (ex, ey, ez), n = _check_march("tile_march_transmittance_park", grid, ipos, idir, start, dt, far, valid,
+                                          state, lut, scalars, extent)
+    state_o, tau_o, step_o, park = torch.empty_like(state), torch.empty_like(tau), torch.empty_like(step), \
+        torch.empty_like(step)
+    kernels.launch(
+        "vx_tile_march_transmittance_slabs_park", ipos, *field, ex, ey, ez,
+        *(a.data_ptr() for a in (ipos, idir, start, dt, far, valid, state, lut)), lut.shape[0], scalars.data_ptr(),
+        *parks, *(a.data_ptr() for a in (state_o, tau_o, step_o, park)), n, STEPS,
+        counter="tile_march_transmittance_slabs_park",
+    )
+    return state_o, tau_o, step_o, park
+
+
+def tile_march_sample_park(grid, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent, step,
+                           tau):
+    """The camera leg over a SlabGrid whose absent slabs park lanes: the
+    arguments of `tile_march_sample`, and each lane's next `step` (n,)
+    int32 and its `tau` (n,) f32 so far. Returns (state, hit, t, rgb, step,
+    tau, park): a parked lane's words, step and tau are those before the
+    step it parked at, park (n,) int32 names that step's absent slab (-1
+    for every other lane, whose outputs are the slab form's). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    args = (grid, ipos, idir, start, dt, far, valid, tau_target, state, lut, scalars, extent, step, tau)
+    if ipos.device.type == "cpu":
+        return tile_march_sample_park_plain(*args)
+    return tile_march_sample_park_cuda(*args)
+
+
+def tile_march_transmittance_park(grid, ipos, idir, start, dt, far, valid, state, lut, scalars, extent, step, tau):
+    """The shadow leg's park form: the arguments of
+    `tile_march_transmittance`, then step and tau as in
+    `tile_march_sample_park`. Returns (state, tau, step, park). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    args = (grid, ipos, idir, start, dt, far, valid, state, lut, scalars, extent, step, tau)
+    if ipos.device.type == "cpu":
+        return tile_march_transmittance_park_plain(*args)
+    return tile_march_transmittance_park_cuda(*args)
 
 
 def tile_march_sums_plain(dense, ipos, idir, start, dt, far, valid, extent, steps: int = STEPS):

@@ -48,6 +48,16 @@ with the draw counts the camera leg's look-ahead rests on, and
 tests/test_torch_cuda.py the kernels to the plain legs on the card). Both
 return each lane's events left of TRACKING_MAX_EVENTS beside the leg's
 outputs.
+
+Park forms (a vz row across nodes, parallel.migrate): over a SlabGrid
+whose slabs on other nodes are absent, track_leg_*_park take each lane's
+events left, and a lane parks at the first event whose taps lie in an
+absent slab, before its decode and draws: it stops with its t, words,
+events (and tr) as they are, which is all a lane's state, so the same
+park form resumes it where the slab is readable. `park` names the slab
+(-1 for a lane that ended). The camera kernel issues each event's taps
+ahead, so its park test goes where an event is issued, and the lane
+parks when it reaches that event. They count as track_leg_*_slabs_park.
 """
 
 from __future__ import annotations
@@ -58,8 +68,16 @@ from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render.ddaleg import check_field, check_lanes
 from volxel_tpu_torch.render.gather import lookup_transfer_plain
 from volxel_tpu_torch.render.rng import rng, rng_where
-from volxel_tpu_torch.render.sampling import field_grid, trilinear_sum
-from volxel_tpu_torch.render.tilemarch import S_DEN_SCALE, S_INV_MAJ, S_RANGE_HI, S_RANGE_LO, S_VOL_MAJ, slab_form
+from volxel_tpu_torch.render.sampling import SlabGrid, field_grid, parked_owner, trilinear_sum
+from volxel_tpu_torch.render.tilemarch import (
+    S_DEN_SCALE,
+    S_INV_MAJ,
+    S_RANGE_HI,
+    S_RANGE_LO,
+    S_VOL_MAJ,
+    _check_lanes,
+    slab_form,
+)
 
 TRACKING_MAX_EVENTS = 512  # no_dda events per leg, the JAX package's cap
 
@@ -128,6 +146,70 @@ def track_leg_shadow_plain(dense, extent, scalars, lut, ipos, idir, far, t, stat
     return state, tr, events
 
 
+def _park_here(grid, ipos, idir, t, lanes, park):
+    """The lanes of `lanes` whose next event reads an absent slab park:
+    `park` names it; returns the others."""
+    owner = parked_owner(grid, ipos[lanes, 2] + t[lanes] * idir[lanes, 2])
+    held = owner >= 0
+    park[lanes[held]] = owner[held]
+    return lanes[~held]
+
+
+def track_leg_sample_park_plain(grid, extent, scalars, lut, ipos, idir, far, t, events, state, running):
+    """Plain PyTorch camera leg's park form, event by event over the
+    running lanes; see `track_leg_sample_park`."""
+    inv_maj, vol_maj = scalars[S_INV_MAJ], scalars[S_VOL_MAJ]
+    n = t.shape[0]
+    state, t, events = state.clone(), t.clone(), events.clone()
+    hit = torch.zeros_like(running)
+    rgb = torch.ones((n, 3), dtype=torch.float32, device=t.device)
+    park = torch.full((n,), -1, dtype=torch.int64, device=t.device)
+    lanes = torch.nonzero(running).squeeze(1)
+    while lanes.numel():
+        lanes = _park_here(grid, ipos, idir, t, lanes, park)
+        t_l = t[lanes]
+        rgba = _decode(grid, extent, scalars, lut, ipos[lanes], idir[lanes], t_l)
+        p_real = vol_maj * rgba[:, 3] * inv_maj
+        st, xi1 = rng(state[lanes])
+        real = xi1 < p_real
+        st, xi2 = rng_where(~real, st)
+        t_l = torch.where(real, t_l, t_l - torch.log(1.0 - xi2) * inv_maj)
+        state[lanes] = st
+        t[lanes] = t_l
+        events[lanes] -= 1
+        rgb[lanes[real]] = rgba[real, :3]
+        hit[lanes[real]] = True
+        lanes = lanes[~real & (t_l < far[lanes]) & (events[lanes] > 0)]
+    return state, hit, t, rgb, events, park.to(torch.int32)
+
+
+def track_leg_shadow_park_plain(grid, extent, scalars, lut, ipos, idir, far, t, events, state, running, tr):
+    """Plain PyTorch shadow leg's park form, event by event over the
+    running lanes; see `track_leg_shadow_park`."""
+    inv_maj, vol_maj = scalars[S_INV_MAJ], scalars[S_VOL_MAJ]
+    t_in, state, t, tr, events = t, state.clone(), t.clone(), tr.clone(), events.clone()
+    park = torch.full(t.shape, -1, dtype=torch.int64, device=t.device)
+    lanes = torch.nonzero(running).squeeze(1)
+    while lanes.numel():
+        lanes = _park_here(grid, ipos, idir, t, lanes, park)
+        t_l = t[lanes]
+        rgba = _decode(grid, extent, scalars, lut, ipos[lanes], idir[lanes], t_l)
+        d = vol_maj * rgba[:, 3]
+        tr_l = tr[lanes] * (1.0 - d * inv_maj)
+        rr_active = tr_l < 0.1
+        st, xi_rr = rng_where(rr_active, state[lanes])
+        killed = rr_active & (xi_rr < (1.0 - tr_l))
+        tr_l = torch.where(rr_active & ~killed, tr_l / torch.clamp_min(tr_l, 1e-20), tr_l)
+        tr[lanes] = torch.where(killed, 0.0, tr_l)
+        st, xi2 = rng_where(~killed, st)
+        t_l = t_l - torch.log(1.0 - xi2) * inv_maj
+        state[lanes] = st
+        t[lanes] = t_l
+        events[lanes] -= 1
+        lanes = lanes[~killed & (t_l < far[lanes]) & (events[lanes] > 0)]
+    return state, tr, events, torch.where(park >= 0, t, t_in), park.to(torch.int32)
+
+
 # K - 1 must be exact in f32 for the kernels' LUT row (floor(clamp(y, 0, K - 1)))
 LUT_ROWS_LIMIT = 2**24
 
@@ -166,6 +248,66 @@ def track_leg_shadow_cuda(dense, extent, scalars, lut, ipos, idir, far, t, state
     kernels.launch(f"vx_{name}", t, *args, tr.data_ptr(), TRACKING_MAX_EVENTS,
                    *(a.data_ptr() for a in (state_o, tr_o, events)), t.shape[0], counter=name)
     return state_o, tr_o, events
+
+
+def _check_park(name, grid, t, events):
+    if not isinstance(grid, SlabGrid):
+        raise ValueError(f"{name}: the park forms read a SlabGrid")
+    kernels.require_cuda(name, events, dtype=torch.int32, device=t.device)
+    _check_lanes(name, t.shape[0], (), [("events", events)])
+
+
+def track_leg_sample_park_cuda(grid, extent, scalars, lut, ipos, idir, far, t, events, state, running):
+    """The camera leg's park form as one launch of csrc/track_leg.cu; see
+    `track_leg_sample_park`."""
+    _check_park("track_leg_sample_park", grid, t, events)
+    args = _field_and_lanes("track_leg_sample_park", grid, extent, scalars, lut, ipos, idir, far, t, state, running)
+    n = t.shape[0]
+    state_o, hit, t_o, rgb = torch.empty_like(state), torch.empty_like(running), torch.empty_like(t), torch.empty_like(ipos)
+    events_o, park = torch.empty_like(events), torch.empty_like(events)
+    kernels.launch("vx_track_leg_sample_slabs_park", t, *args, events.data_ptr(),
+                   *(a.data_ptr() for a in (state_o, hit, t_o, rgb, events_o, park)), n,
+                   counter="track_leg_sample_slabs_park")
+    return state_o, hit, t_o, rgb, events_o, park
+
+
+def track_leg_shadow_park_cuda(grid, extent, scalars, lut, ipos, idir, far, t, events, state, running, tr):
+    """The shadow leg's park form as one launch of csrc/track_leg.cu; see
+    `track_leg_shadow_park`."""
+    _check_park("track_leg_shadow_park", grid, t, events)
+    args = _field_and_lanes("track_leg_shadow_park", grid, extent, scalars, lut, ipos, idir, far, t, state, running,
+                            (("tr", tr),))
+    state_o, tr_o, t_o = torch.empty_like(state), torch.empty_like(tr), torch.empty_like(t)
+    events_o, park = torch.empty_like(events), torch.empty_like(events)
+    kernels.launch("vx_track_leg_shadow_slabs_park", t, *args, events.data_ptr(), tr.data_ptr(),
+                   *(a.data_ptr() for a in (state_o, tr_o, events_o, t_o, park)), t.shape[0],
+                   counter="track_leg_shadow_slabs_park")
+    return state_o, tr_o, events_o, t_o, park
+
+
+def track_leg_sample_park(grid, extent, scalars, lut, ipos, idir, far, t, events, state, running):
+    """The camera leg over a SlabGrid whose absent slabs park lanes: the
+    arguments of `track_leg_sample` and each lane's `events` (n,) int32
+    left. Returns (state, hit, t, rgb, events, park): a parked lane's t,
+    words and events are those before the event it parked at, and park
+    (n,) int32 names the absent slab that event reads (-1 for every other
+    lane, whose outputs are the slab form's). A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    args = (grid, extent, scalars, lut, ipos, idir, far, t, events, state, running)
+    if t.device.type == "cpu":
+        return track_leg_sample_park_plain(*args)
+    return track_leg_sample_park_cuda(*args)
+
+
+def track_leg_shadow_park(grid, extent, scalars, lut, ipos, idir, far, t, events, state, running, tr):
+    """The shadow leg's park form: the arguments of `track_leg_sample_park`
+    and tr. Returns (state, tr, events, t, park), t a parked lane's (the
+    input t elsewhere). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    args = (grid, extent, scalars, lut, ipos, idir, far, t, events, state, running, tr)
+    if t.device.type == "cpu":
+        return track_leg_shadow_park_plain(*args)
+    return track_leg_shadow_park_cuda(*args)
 
 
 def resident_warps(leg: str, device) -> int:

@@ -9,7 +9,9 @@ on a scene so the caps are evidence-backed: a capped lane silently
 truncates the estimator (biasing dense scenes), so the percentiles and
 max must stay well under the caps. The counts come from the legs
 themselves (their budget or events left, through the mode functions'
-`with_stats`), so on the card they are the kernels' own.
+`with_stats`), so on the card they are the kernels' own; on volume slabs
+the legs read the first position's SlabGrid, across nodes through
+parallel.migrate, whose lanes carry their budgets and events with them.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def step_statistics(renderer, mode: str | None = None, sample_index: int = 0) ->
 
     w, h = r.width, r.height
     config = r._config()._replace(width=w, height=h, mode=mode)
-    grid, params, lut = r._device_grid, r.volume_params(), r._lut
+    grid, params, lut = _grid(r), r.volume_params(), r._lut
     inv_view, inv_proj, light = r._camera_operands(config)
     if mode == "default":
         grid = grid._replace(maj_alpha=modes.build_premul_majorant(grid.maj_mips, params, lut).contiguous())
@@ -76,6 +78,16 @@ def step_statistics(renderer, mode: str | None = None, sample_index: int = 0) ->
     s_cap = DDA_SAMPLE_MAX_STEPS if mode == "default" else TRACKING_MAX_EVENTS
     t_cap = DDA_TRANSMITTANCE_MAX_STEPS if mode == "default" else TRACKING_MAX_EVENTS
     return {"mode": mode, "sample": _stats(s_steps, s_cap), "transmittance": _stats(t_steps[hit], t_cap)}
+
+
+def _grid(r):
+    """What the legs read: the renderer's device grid or, on a
+    DistributedRenderer with volume slabs, its first position's SlabGrid
+    (whose legs, on a 'vz' row across nodes, go through parallel.migrate:
+    every process of the row calls step_statistics together)."""
+    if getattr(r, "vz", 1) > 1:
+        return r._render_grid().local_grid()
+    return r._device_grid
 
 
 def _stats(steps: np.ndarray, cap: int) -> dict:
