@@ -1998,27 +1998,22 @@ def first_calls(cls, names):
 
 
 def staged_ingest(data: bytes):
-    """read_zip_to_grid's body in three timed stages: parse (inflate and
-    parse every entry), scan (pixel arrays, the histogram and range scan,
-    the stack) and grid (normalize and build the brick grid). It leaves out
-    read_zip_series' checks of the archive (not empty, one folder), which
-    the Renderer's ingest runs. Returns the series, the grid and the
-    stages' seconds."""
+    """read_zip_series and series_to_grid, the Renderer's ingest, in the
+    three stages their spans time: parse (inflate and parse every entry),
+    scan (pixel arrays, the histogram and range scan, the stack) and grid
+    (normalize and build the brick grid). Returns the series, the grid and
+    the stages' seconds."""
     from volxel_tpu_torch.ingest import series as series_mod
     from volxel_tpu_torch.ingest import ziploader
-    from volxel_tpu_torch.ingest.dicom import parse_dicom
-    from volxel_tpu_torch.utils.profiling import StageTimer
+    from volxel_tpu_torch.utils import profiling
 
-    timer = StageTimer(log=False)
-    with timer.stage("parse"):
-        with ziploader._open_zip(data) as zf:
-            files = [parse_dicom(ziploader._read_entry(zf, i)) for i in zf.infolist() if not i.is_dir()]
-    with timer.stage("scan"):
-        series = series_mod._fold_slices(files)
-    del files
-    with timer.stage("grid"):
+    profiling.take_spans()
+    with profiling.spans():
+        series = ziploader.read_zip_series(data)
         grid = series_mod.series_to_grid(series)
-    return series, grid, timer.report()
+    stages = {name.removeprefix("vx::ingest."): (t1 - t0) / 1e9 for name, _, _, t0, t1 in profiling.take_spans()
+              if name.startswith("vx::ingest.")}
+    return series, grid, stages
 
 
 def ingest_and_reference_benchmark(size: int, env_size: tuple, width: int, height: int, spec_path: Path, tmp: Path,

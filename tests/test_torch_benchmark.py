@@ -22,7 +22,6 @@ import pytest
 import tests.torch_threads  # noqa: F401  (caps torch's threads)
 from volxel_tpu import Renderer as JRenderer
 from volxel_tpu.api import benchmark as j_benchmark
-from volxel_tpu.utils import profiling as j_profiling
 from volxel_tpu_torch import Renderer as TRenderer
 from volxel_tpu_torch import kernels
 from volxel_tpu_torch.api import benchmark as t_benchmark
@@ -212,23 +211,21 @@ def test_render_after_zip_and_env_matches_jax(inputs, jax_loaded):
     assert float(tr._framebuffer.mean()) > 0
 
 
-def test_profiling_utils_match_jax(tmp_path):
-    times = [0.0012, 0.0031, 0.0020, 0.0100, 0.0009]
-    assert t_profiling.frame_stats(times) == j_profiling.frame_stats(times)
-    import torch
-
-    timer = t_profiling.StageTimer(log=False)
-    with timer.stage("a"):
-        pass
-    with timer.stage("b", fence=torch.zeros(2)):  # a CPU tensor: no wait
-        pass
-    assert list(timer.report()) == ["a", "b"]
-    assert all(dt >= 0 for dt in timer.report().values())
-    jtimer = j_profiling.StageTimer(log=False)
-    with jtimer.stage("a"):
-        pass
-    assert list(jtimer.report()) == ["a"]
+def test_profiling_utils_match_jax(tmp_path, inputs):
+    """trace(), the operator's way in, as the JAX package's: a region's ops
+    written as a Chrome trace, here with the port's stages over them: a
+    frame of the loaded renderer shows vx::render_frame and its ingest the
+    three vx::ingest stages. Spans are off again after it."""
+    r = TRenderer(W, H, device="cpu")
     with t_profiling.trace(tmp_path / "trace") as out:
-        torch.ones(4).sum()
-    assert (out / "trace.json").exists()
+        r.restart_from_zip(inputs["ct.zip"])
+        r.render_frame()
+    events = json.loads((out / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"vx::render_frame", "vx::ingest.parse", "vx::ingest.scan", "vx::ingest.grid"} <= names
+    frame = next(e for e in events if e.get("name") == "vx::render_frame")
+    assert any(e.get("name", "").startswith("aten::") and frame["ts"] <= e["ts"] <= frame["ts"] + frame["dur"]
+               for e in events)
+    assert t_profiling.span("vx::render_frame") is t_profiling.span("vx::camera")
+    t_profiling.take_spans(), t_profiling.take_counts()
 

@@ -12,6 +12,7 @@ paths and on the numpy ones.
 from __future__ import annotations
 
 import inspect
+import re
 import subprocess
 import sys
 import zlib
@@ -60,10 +61,24 @@ JPEG_LOSSLESS = "1.2.840.10008.1.2.4.70"
 
 # the copies' deliberate differences from the originals besides the
 # imports: two docstrings cite the reference's sources by their path inside
-# its repository, and the worker's upload is the Renderer's
+# its repository, the worker's upload is the Renderer's, and the ZIP ingest's
+# three stages are the port's spans (utils.profiling)
 PORT_EDITS = {
     "ingest/dwa.py": [(r"\(/\S+?/dicom_preprocessor/", "(dicom_preprocessor/")],
     "ingest/ppmd.py": [(r"\(/\S+?/dicom_preprocessor/", "(dicom_preprocessor/")],
+    "ingest/series.py": [
+        (r"(from volxel_tpu_torch\.utils\.mathutil import scale_matrix\n)",
+         r"\1from volxel_tpu_torch.utils.profiling import span\n"),
+        (r"(lib\.rs:193-202\)\.\"\"\"\n)((?:    .*\n)+)",  # series_to_grid's body, under the span
+         lambda m: m[1] + '    with span("vx::ingest.grid"):\n' + re.sub(r"(?m)^(?=.)", "    ", m[2])),
+    ],
+    "ingest/ziploader.py": [
+        (r"(from volxel_tpu_torch\.ingest\.series import DicomSeries, _fold_slices, series_to_grid\n)",
+         r"\1from volxel_tpu_torch.utils.profiling import span\n"),
+        (r"        files = (.*)\n    return _fold_slices\(files\)\n",
+         '        with span("vx::ingest.parse"):\n            files = \\1\n    with span("vx::ingest.scan"):\n'
+         "        return _fold_slices(files)\n"),
+    ],
     "ingest/worker.py": [(r'"transfer" is jax\.device_put of the\nfinished grid buffers\.',
                           '"transfer" is the Renderer\'s upload of\nthe finished grid buffers to its device.')],
 }
@@ -71,8 +86,6 @@ COPIES = sorted(f"ingest/{p.name}" for p in (REPO / "volxel_tpu" / "ingest").glo
 
 
 def _rewrite(text: str, edits=()) -> str:
-    import re
-
     text = text.replace("volxel_tpu.", "volxel_tpu_torch.")
     for pattern, repl in edits:
         text, n = re.subn(pattern, repl, text)

@@ -60,6 +60,7 @@ from volxel_tpu_torch.transfer.function import (
     parse_transfer_function,
 )
 from volxel_tpu_torch.utils.overlay import draw_clip_box
+from volxel_tpu_torch.utils.profiling import span
 
 def _fetch_url(url: str) -> bytes:
     """GET a resource — the fetch() behind restartFromZipUrl /
@@ -204,7 +205,8 @@ class Renderer:
     def _upload_grid(self, grid: BrickGrid):
         """The device grid of a host brick grid: its dense field decoded on
         the renderer's device."""
-        return device_grid_from_brick(grid, self.device)
+        with span("vx::grid.upload"):
+            return device_grid_from_brick(grid, self.device)
 
     def restart_from_files(self, sources: list) -> None:
         """DICOM slices (paths or bytes), in the order given. A failure
@@ -298,9 +300,11 @@ class Renderer:
         full = self._config()
         w = max(1, round(full.width * 0.33))
         h = max(1, round(full.height * 0.33))
-        inv_view, inv_proj, light_dir = self._camera_operands(full)  # the full frame's aspect
+        with span("vx::operands"):
+            inv_view, inv_proj, light_dir = self._camera_operands(full)  # the full frame's aspect
+            params = self.volume_params()
         sample = render_sample(
-            full._replace(width=w, height=h), self._device_grid, self.volume_params(), self._lut,
+            full._replace(width=w, height=h), self._device_grid, params, self._lut,
             self.environment.state, inv_view, inv_proj, light_dir, self.frame_index,
         )
         self._warmup_preview = (w, h, sample)
@@ -382,22 +386,25 @@ class Renderer:
             raise RuntimeError("Renderer is in an error state (clear_error() to resume)") from self.last_error
         if self.suspend:
             return self._framebuffer
-        if self.settings.warmup_low_res and self.frame_index < WARMUP_SAMPLES:
-            self._render_warmup_preview()
-            self.frame_index += 1
-            return self._framebuffer
-        self._warmup_preview = None
-        return self._accumulate_frame()
+        with span("vx::render_frame", frame=self.frame_index, mode=self.settings.render_mode):
+            if self.settings.warmup_low_res and self.frame_index < WARMUP_SAMPLES:
+                self._render_warmup_preview()
+                self.frame_index += 1
+                return self._framebuffer
+            self._warmup_preview = None
+            return self._accumulate_frame()
 
     def _accumulate_frame(self) -> torch.Tensor:
         """One full-resolution sample folded into the accumulator."""
         config = self._config()
         n = config.width * config.height
-        if self._framebuffer.shape[0] != n:
-            self._framebuffer = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
-        inv_view, inv_proj, light_dir = self._camera_operands(config)
+        with span("vx::operands"):
+            if self._framebuffer.shape[0] != n:
+                self._framebuffer = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
+            inv_view, inv_proj, light_dir = self._camera_operands(config)
+            params = self.volume_params()
         sample = render_sample(
-            config, self._device_grid, self.volume_params(), self._lut, self.environment.state,
+            config, self._device_grid, params, self._lut, self.environment.state,
             inv_view, inv_proj, light_dir, self.frame_index,
         )
         self._framebuffer = accumulate_progressive(self._framebuffer, sample, self.frame_index)

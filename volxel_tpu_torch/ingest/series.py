@@ -22,6 +22,7 @@ import numpy as np
 from volxel_tpu_torch.grid.brick import BrickGrid, construct_brick_grid
 from volxel_tpu_torch.ingest.dicom import DicomError, DicomFile, parse_dicom
 from volxel_tpu_torch.utils.mathutil import scale_matrix
+from volxel_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -127,15 +128,16 @@ def read_dicom_series(sources: list) -> DicomSeries:
 
 def series_to_grid(series: DicomSeries) -> BrickGrid:
     """DicomSeries -> BrickGrid (reference read_dicoms_to_grid, lib.rs:193-202)."""
-    grad, gmin, gmax = series.histogram_gradient()
-    return construct_brick_grid(
-        series.normalized(),
-        transform=series.transform,
-        min_maj=(0.0, 1.0),
-        histogram=series.histogram,
-        histogram_gradient=grad,
-        histogram_gradient_range=(gmin, gmax),
-    )
+    with span("vx::ingest.grid"):
+        grad, gmin, gmax = series.histogram_gradient()
+        return construct_brick_grid(
+            series.normalized(),
+            transform=series.transform,
+            min_maj=(0.0, 1.0),
+            histogram=series.histogram,
+            histogram_gradient=grad,
+            histogram_gradient_range=(gmin, gmax),
+        )
 
 
 def read_dicoms_to_grid(sources: list) -> BrickGrid:

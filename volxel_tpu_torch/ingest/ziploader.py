@@ -16,6 +16,7 @@ import numpy as np  # noqa: F401  (re-exported convenience)
 from volxel_tpu_torch.grid.brick import BrickGrid
 from volxel_tpu_torch.ingest.dicom import DicomError, parse_dicom
 from volxel_tpu_torch.ingest.series import DicomSeries, _fold_slices, series_to_grid
+from volxel_tpu_torch.utils.profiling import span
 
 
 class ZipIngestError(DicomError):
@@ -112,8 +113,10 @@ def read_zip_series(source) -> DicomSeries:
             raise ZipIngestError(
                 f"ZIP must contain a single folder of DICOM files, found: {sorted(folders)}"
             )
-        files = [parse_dicom(_read_entry(zf, i)) for i in entries]
-    return _fold_slices(files)
+        with span("vx::ingest.parse"):
+            files = [parse_dicom(_read_entry(zf, i)) for i in entries]
+    with span("vx::ingest.scan"):
+        return _fold_slices(files)
 
 
 def read_zip_to_grid(source) -> BrickGrid:

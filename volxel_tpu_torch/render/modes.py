@@ -60,12 +60,24 @@ from volxel_tpu_torch.render.sampling import (
     world_to_index_point,
 )
 from volxel_tpu_torch.render.tilemarch import STEPS as RAYMARCH_STEPS
-from volxel_tpu_torch.render.tilemarch import tile_march_sample, tile_march_transmittance, volume_scalars
+from volxel_tpu_torch.render.tilemarch import (
+    slab_form,
+    tile_march_sample,
+    tile_march_transmittance,
+    volume_scalars,
+)
 from volxel_tpu_torch.render.trackleg import TRACKING_MAX_EVENTS, track_leg_sample, track_leg_shadow
+from volxel_tpu_torch.utils.profiling import count, span
 
 # adaptive mip schedule (dda.glsl:6-8)
 MIP_START = 3.0
 MIP_SPEED_UP = 0.25
+
+
+# the legs whose outputs hold each lane's work left of a cap: (its index
+# in the outputs, the cap); the raymarch legs return no per-lane count
+_LEFT = {"dda_leg_sample": (4, DDA_SAMPLE_MAX_STEPS), "dda_leg_shadow": (2, DDA_TRANSMITTANCE_MAX_STEPS),
+         "track_leg_sample": (4, TRACKING_MAX_EVENTS), "track_leg_shadow": (2, TRACKING_MAX_EVENTS)}
 
 
 def _leg(name: str, leg, field, *args):
@@ -73,9 +85,19 @@ def _leg(name: str, leg, field, *args):
     its other arguments; on a SlabGrid of a 'vz' row across nodes, whose
     slabs on other nodes are absent, through the row the grid carries
     (parallel.migrate.Row.leg_call), which runs the leg's park form and
-    moves the lanes that park to the slabs' owners."""
+    moves the lanes that park to the slabs' owners.
+
+    The call is the span vx::leg. While spans are on, the DDA and tracking
+    legs' budget or events left is counted (utils.profiling.count) under
+    the leg's launch counter: `name`, `name`_slabs or `name`_slabs_park;
+    the raymarch legs' calls are not counted."""
     row = getattr(field, "row", None)
-    return leg(field, *args) if row is None else row.leg_call(name, field, *args)
+    with span("vx::leg", leg=name):
+        out = leg(field, *args) if row is None else row.leg_call(name, field, *args)
+    left = _LEFT.get(name)
+    if left is not None:
+        count(slab_form(name, field) if row is None else name + "_slabs_park", out[left[0]], left[1])
+    return out
 
 
 def _to_index_space(params: VolumeParams, origin, direction):

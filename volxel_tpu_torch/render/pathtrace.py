@@ -42,6 +42,7 @@ from volxel_tpu_torch.scene.environment import (
     sample_environment,
     sample_environment_light,
 )
+from volxel_tpu_torch.utils.profiling import span
 
 
 class RenderConfig(NamedTuple):
@@ -94,18 +95,20 @@ def trace_path(
             return lookup_environment(env, directions)
         return lookup_environment_light(env, directions, light_dir)
 
-    for _ in range(config.bounces):
-        state, hit, t, rgb, le_add = sample_volume(grid, params, lut, origin, direction, state, active)
+    for bounce in range(config.bounces):
+        with span("vx::sample_leg", bounce=bounce):
+            state, hit, t, rgb, le_add = sample_volume(grid, params, lut, origin, direction, state, active)
         hit = hit & active
         miss = active & ~hit
         radiance = radiance + le_add
 
         # escaped rays: environment contribution with MIS (fragment.frag:117-121)
         if config.show_environment:
-            le = env_radiance(direction)
-            pdf_esc = pdf_environment(env, direction, config.physical_pdf)
-            mis = torch.where(n_paths > 0, power_heuristic(f_p, pdf_esc), 1.0)
-            radiance = radiance + torch.where(miss[..., None], throughput * mis[..., None] * le, 0.0)
+            with span("vx::escape"):
+                le = env_radiance(direction)
+                pdf_esc = pdf_environment(env, direction, config.physical_pdf)
+                mis = torch.where(n_paths > 0, power_heuristic(f_p, pdf_esc), 1.0)
+                radiance = radiance + torch.where(miss[..., None], throughput * mis[..., None] * le, 0.0)
         active = hit
 
         # advance to the collision and absorb (fragment.frag:81-84 + mode rgb)
@@ -114,46 +117,49 @@ def trace_path(
 
         # next-event estimation toward the environment (fragment.frag:86-98);
         # draws only on lanes that hit, as the GLSL does
-        state, xi2 = rng2_where(active, state)
-        if config.use_env:
-            le_nee, pdf_nee, w_i = sample_environment(env, xi2, config.physical_pdf)
-        else:
-            le_nee, pdf_nee, w_i = sample_environment_light(env, xi2, light_dir)
-        valid_nee = active & (pdf_nee > 0.0)
-        f_p_nee = phase_henyey_greenstein((-direction * w_i).sum(dim=-1), params.phase_g)
-        if config.show_environment:
-            mis_nee = power_heuristic(pdf_nee, f_p_nee)
-        else:
-            mis_nee = torch.ones((n,), dtype=torch.float32, device=dev)
-        state, tr = transmittance(grid, params, lut, origin, w_i, state, valid_nee)
-        radiance = radiance + torch.where(
-            valid_nee[..., None],
-            throughput * (mis_nee * f_p_nee * tr / torch.clamp_min(pdf_nee, 1e-20))[..., None] * le_nee,
-            0.0,
-        )
+        with span("vx::nee"):
+            state, xi2 = rng2_where(active, state)
+            if config.use_env:
+                le_nee, pdf_nee, w_i = sample_environment(env, xi2, config.physical_pdf)
+            else:
+                le_nee, pdf_nee, w_i = sample_environment_light(env, xi2, light_dir)
+            valid_nee = active & (pdf_nee > 0.0)
+            f_p_nee = phase_henyey_greenstein((-direction * w_i).sum(dim=-1), params.phase_g)
+            if config.show_environment:
+                mis_nee = power_heuristic(pdf_nee, f_p_nee)
+            else:
+                mis_nee = torch.ones((n,), dtype=torch.float32, device=dev)
+            with span("vx::shadow_leg", bounce=bounce):
+                state, tr = transmittance(grid, params, lut, origin, w_i, state, valid_nee)
+            radiance = radiance + torch.where(
+                valid_nee[..., None],
+                throughput * (mis_nee * f_p_nee * tr / torch.clamp_min(pdf_nee, 1e-20))[..., None] * le_nee,
+                0.0,
+            )
         n_paths = n_paths + active.to(torch.int32)
 
         # bounce cap (fragment.frag:101)
         active = active & (n_paths < config.bounces)
 
-        # russian roulette: the draw happens only when rr_val < 0.1 on a
-        # live lane (fragment.frag:102-107)
-        rr_val = luma(throughput)
-        low = active & (rr_val < 0.1)
-        state, xi_rr = rng_where(low, state)
-        killed = low & (xi_rr < 1.0 - rr_val)
-        throughput = torch.where(
-            (low & ~killed)[..., None], throughput / torch.clamp_min(rr_val, 1e-20)[..., None], throughput
-        )
-        active = active & ~killed
+        with span("vx::scatter"):
+            # russian roulette: the draw happens only when rr_val < 0.1 on a
+            # live lane (fragment.frag:102-107)
+            rr_val = luma(throughput)
+            low = active & (rr_val < 0.1)
+            state, xi_rr = rng_where(low, state)
+            killed = low & (xi_rr < 1.0 - rr_val)
+            throughput = torch.where(
+                (low & ~killed)[..., None], throughput / torch.clamp_min(rr_val, 1e-20)[..., None], throughput
+            )
+            active = active & ~killed
 
-        # scatter draw only for surviving lanes (fragment.frag:110-113)
-        state, xi_ph = rng2_where(active, state)
-        new_dir = sample_phase_henyey_greenstein(direction, params.phase_g, xi_ph)
-        f_p = torch.where(
-            active, phase_henyey_greenstein((-direction * new_dir).sum(dim=-1), params.phase_g), f_p
-        )
-        direction = torch.where(active[..., None], new_dir, direction)
+            # scatter draw only for surviving lanes (fragment.frag:110-113)
+            state, xi_ph = rng2_where(active, state)
+            new_dir = sample_phase_henyey_greenstein(direction, params.phase_g, xi_ph)
+            f_p = torch.where(
+                active, phase_henyey_greenstein((-direction * new_dir).sum(dim=-1), params.phase_g), f_p
+            )
+            direction = torch.where(active[..., None], new_dir, direction)
 
     return state, radiance
 
@@ -205,21 +211,28 @@ def render_rays(config: RenderConfig, grid: DeviceGrid, params: VolumeParams, lu
         return _debug_hits(config, params, env, light_dir, rays.origin, rays.direction)
     if config.gradient_shading:
         return trace_shaded(config, grid, params, lut, env, light_dir, rays.origin, rays.direction, state)[1]
-    state, radiance = trace_path(config, grid, params, lut, env, light_dir, rays.origin, rays.direction, state)
-    return sanitize(radiance)
+    with span("vx::trace_path"):
+        state, radiance = trace_path(config, grid, params, lut, env, light_dir, rays.origin, rays.direction, state)
+        return sanitize(radiance)
 
 
 def with_premul_majorant(config: RenderConfig, grid: DeviceGrid, params: VolumeParams, lut) -> DeviceGrid:
     """The grid with the march's premultiplied pyramid for this transfer
     and these settings (modes.build_premul_majorant)."""
-    maj_alpha = build_premul_majorant(grid.maj_mips, params, lut, config.physical_majorant)
-    return grid._replace(maj_alpha=maj_alpha.contiguous())
+    with span("vx::premul_majorant"):
+        maj_alpha = build_premul_majorant(grid.maj_mips, params, lut, config.physical_majorant)
+        return grid._replace(maj_alpha=maj_alpha.contiguous())
 
 
 def camera_ndc(config: RenderConfig, pixel_index, frame_index):
     """Seeded RNG states and jittered screen positions for a pixel subset
     (fragment.frag:57-65, :143-147) -> (state, ndc). frame_index is an int
     or a tensor of one frame per pixel (rng.seed_rays)."""
+    with span("vx::camera"):
+        return _camera_ndc(config, pixel_index, frame_index)
+
+
+def _camera_ndc(config: RenderConfig, pixel_index, frame_index):
     state = seed_rays(pixel_index, frame_index)
     state, j1 = rng2(state)
     state, j2 = rng2(state)
@@ -234,8 +247,9 @@ def camera_ndc(config: RenderConfig, pixel_index, frame_index):
 def camera_wavefront(config: RenderConfig, inv_view, inv_proj, pixel_index, frame_index: int):
     """Seeded RNG states and jittered camera rays for a pixel subset
     (fragment.frag:57-65, :143-147) -> (state, Rays)."""
-    state, ndc = camera_ndc(config, pixel_index, frame_index)
-    return state, camera_rays(inv_view, inv_proj, ndc)
+    with span("vx::camera"):
+        state, ndc = _camera_ndc(config, pixel_index, frame_index)
+        return state, camera_rays(inv_view, inv_proj, ndc)
 
 
 def render_sample(
@@ -255,7 +269,8 @@ def render_sample(
     convention); hosts reshape to (height, width, 3) and flip for display.
     """
     n = config.width * config.height
-    pixel_index = torch.arange(n, dtype=torch.int64, device=inv_view.device)
+    with span("vx::operands"):
+        pixel_index = torch.arange(n, dtype=torch.int64, device=inv_view.device)
     return render_pixels(config, grid, params, lut, env, inv_view, inv_proj, light_dir, pixel_index, frame_index)
 
 
@@ -266,13 +281,14 @@ def accumulate_progressive(previous, sample, frame_index: int):
     """Fold one sample into the accumulator with the reference's warm-up
     weighting (viewer.ts:1356): frames < WARMUP get weight 0 (overwrite),
     later frames form a running average."""
-    f = torch.tensor(float(frame_index), dtype=torch.float32)
-    if frame_index < WARMUP_SAMPLES:
-        w = torch.tensor(0.0, dtype=torch.float32)
-    else:
-        w = (f - WARMUP_SAMPLES) / (f - WARMUP_SAMPLES + 1.0)
-    w = w.to(previous.device)
-    return w * previous + (1.0 - w) * sample
+    with span("vx::accumulate"):
+        f = torch.tensor(float(frame_index), dtype=torch.float32)
+        if frame_index < WARMUP_SAMPLES:
+            w = torch.tensor(0.0, dtype=torch.float32)
+        else:
+            w = (f - WARMUP_SAMPLES) / (f - WARMUP_SAMPLES + 1.0)
+        w = w.to(previous.device)
+        return w * previous + (1.0 - w) * sample
 
 
 # Hable/Uncharted2 filmic tonemap + gamma (blit.frag:17-35): the plain

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from volxel_tpu_torch.utils.profiling import span
+
 M32 = 0xFFFFFFFF
 _INV_2_24 = 1.0 / 16777216.0
 
@@ -80,23 +82,38 @@ def next_u32(state):
     return torch.stack([s0, s1, s2, s3], dim=-1), result
 
 
-def rng(state):
-    """Draw float32 in [0, 1) from the top 24 bits (random.glsl:103-106)."""
+def _rng(state):
     state, r = next_u32(state)
     return state, (r >> 8).to(torch.float32) * _INV_2_24
 
 
-def rng2(state):
-    state, a = rng(state)
-    state, b = rng(state)
+def _rng2(state):
+    state, a = _rng(state)
+    state, b = _rng(state)
     return state, torch.stack([a, b], dim=-1)
 
 
-def rng3(state):
-    state, a = rng(state)
-    state, b = rng(state)
-    state, c = rng(state)
+def _rng3(state):
+    state, a = _rng(state)
+    state, b = _rng(state)
+    state, c = _rng(state)
     return state, torch.stack([a, b, c], dim=-1)
+
+
+def rng(state):
+    """Draw float32 in [0, 1) from the top 24 bits (random.glsl:103-106)."""
+    with span("vx::rng"):
+        return _rng(state)
+
+
+def rng2(state):
+    with span("vx::rng"):
+        return _rng2(state)
+
+
+def rng3(state):
+    with span("vx::rng"):
+        return _rng3(state)
 
 
 def rng_where(mask, state):
@@ -107,27 +124,31 @@ def rng_where(mask, state):
     conditional consumption, not just conditional use. The returned value
     is meaningful only where mask is True.
     """
-    state2, x = rng(state)
-    return torch.where(mask[..., None], state2, state), x
+    with span("vx::rng"):
+        state2, x = _rng(state)
+        return torch.where(mask[..., None], state2, state), x
 
 
 def rng2_where(mask, state):
-    state2, x = rng2(state)
-    return torch.where(mask[..., None], state2, state), x
+    with span("vx::rng"):
+        state2, x = _rng2(state)
+        return torch.where(mask[..., None], state2, state), x
 
 
 def rng3_where(mask, state):
-    state2, x = rng3(state)
-    return torch.where(mask[..., None], state2, state), x
+    with span("vx::rng"):
+        state2, x = _rng3(state)
+        return torch.where(mask[..., None], state2, state), x
 
 
 def seed_rays(pixel_index, frame_index):
     """Per-ray state from pixel index + frame (fragment.frag:143-144).
     frame_index is one frame for every ray (an int) or a tensor of one
     frame per ray, as a batch of views gives (parallel.multiview)."""
-    pixel_index = _u32(pixel_index)
-    if isinstance(frame_index, torch.Tensor):
-        frame = _u32(frame_index, pixel_index.device).expand_as(pixel_index)
-    else:
-        frame = torch.full_like(pixel_index, int(frame_index) & M32)
-    return seed_xoshiro(tea((42 * pixel_index) & M32, frame))
+    with span("vx::rng"):
+        pixel_index = _u32(pixel_index)
+        if isinstance(frame_index, torch.Tensor):
+            frame = _u32(frame_index, pixel_index.device).expand_as(pixel_index)
+        else:
+            frame = torch.full_like(pixel_index, int(frame_index) & M32)
+        return seed_xoshiro(tea((42 * pixel_index) & M32, frame))

@@ -17,6 +17,7 @@ from volxel_tpu_torch.render.modes import get_mode_functions
 from volxel_tpu_torch.render.rays import sanitize
 from volxel_tpu_torch.render.sampling import lookup_density_trilinear, world_to_index_point
 from volxel_tpu_torch.scene.environment import lookup_environment, lookup_environment_light
+from volxel_tpu_torch.utils.profiling import span
 
 # Blinn-Phong material constants
 K_AMBIENT = 0.15
@@ -47,37 +48,40 @@ def trace_shaded(config, grid, params, lut, env, light_dir, origin, direction, s
     """One-hit gradient Blinn-Phong shading with a traced shadow ray: the
     camera leg finds each ray's hit, the shadow leg runs from the hit
     points toward the light on the lanes that hit."""
-    sample_volume, transmittance = get_mode_functions(config.mode, config.physical_shadows)
-    n = origin.shape[0]
-    active = torch.ones((n,), dtype=torch.bool, device=origin.device)
+    with span("vx::shade"):
+        sample_volume, transmittance = get_mode_functions(config.mode, config.physical_shadows)
+        n = origin.shape[0]
+        active = torch.ones((n,), dtype=torch.bool, device=origin.device)
 
-    state, hit, t, rgb, _ = sample_volume(grid, params, lut, origin, direction, state, active)
+        with span("vx::sample_leg", bounce=0):
+            state, hit, t, rgb, _ = sample_volume(grid, params, lut, origin, direction, state, active)
 
-    hit_pos = origin + t[..., None] * direction
-    ipos = world_to_index_point(params, hit_pos)
-    grad = density_gradient(grid, params, ipos)
-    grad_len = torch.linalg.norm(grad, dim=-1, keepdim=True)
-    normal = -grad / torch.clamp_min(grad_len, 1e-8)
-    # flip toward the viewer so backside hits still shade
-    facing = (normal * (-direction)).sum(dim=-1, keepdim=True)
-    normal = torch.where(facing < 0, -normal, normal)
+        hit_pos = origin + t[..., None] * direction
+        ipos = world_to_index_point(params, hit_pos)
+        grad = density_gradient(grid, params, ipos)
+        grad_len = torch.linalg.norm(grad, dim=-1, keepdim=True)
+        normal = -grad / torch.clamp_min(grad_len, 1e-8)
+        # flip toward the viewer so backside hits still shade
+        facing = (normal * (-direction)).sum(dim=-1, keepdim=True)
+        normal = torch.where(facing < 0, -normal, normal)
 
-    light = -light_dir.expand(n, 3)
-    state, shadow = transmittance(grid, params, lut, hit_pos, light, state, hit)
+        light = -light_dir.expand(n, 3)
+        with span("vx::shadow_leg", bounce=0):
+            state, shadow = transmittance(grid, params, lut, hit_pos, light, state, hit)
 
-    n_dot_l = torch.clamp_min((normal * light).sum(dim=-1), 0.0)
-    half = light - direction
-    half = half / torch.clamp_min(torch.linalg.norm(half, dim=-1, keepdim=True), 1e-8)
-    n_dot_h = torch.clamp_min((normal * half).sum(dim=-1), 0.0)
-    spec = torch.pow(n_dot_h, SHININESS)
+        n_dot_l = torch.clamp_min((normal * light).sum(dim=-1), 0.0)
+        half = light - direction
+        half = half / torch.clamp_min(torch.linalg.norm(half, dim=-1, keepdim=True), 1e-8)
+        n_dot_h = torch.clamp_min((normal * half).sum(dim=-1), 0.0)
+        spec = torch.pow(n_dot_h, SHININESS)
 
-    shaded = rgb * (K_AMBIENT + K_DIFFUSE * (n_dot_l * shadow)[..., None]) + K_SPECULAR * (spec * shadow)[..., None]
+        shaded = rgb * (K_AMBIENT + K_DIFFUSE * (n_dot_l * shadow)[..., None]) + K_SPECULAR * (spec * shadow)[..., None]
 
-    if config.use_env:
-        bg = lookup_environment(env, direction)
-    else:
-        bg = lookup_environment_light(env, direction, light_dir)
-    if not config.show_environment:
-        bg = torch.zeros_like(bg)
+        if config.use_env:
+            bg = lookup_environment(env, direction)
+        else:
+            bg = lookup_environment_light(env, direction, light_dir)
+        if not config.show_environment:
+            bg = torch.zeros_like(bg)
 
-    return state, sanitize(torch.where(hit[..., None], shaded, bg))
+        return state, sanitize(torch.where(hit[..., None], shaded, bg))

@@ -38,6 +38,7 @@ import torch
 
 from volxel_tpu_torch.render import gather
 from volxel_tpu_torch.render.rays import luma
+from volxel_tpu_torch.utils.profiling import spanned
 
 # importance map resolution (power of two; environment.ts:9)
 IMP_DIM = 512
@@ -169,12 +170,18 @@ def _dir_to_uv(direction):
     return u, v
 
 
-def lookup_environment(env: EnvState, direction):
-    """Equirect radiance lookup (environment.glsl:19-27)."""
+def _lookup_environment(env: EnvState, direction):
     u, v = _dir_to_uv(direction)
     return env.strength * _bilinear_wrap_clamp(env.envmap, u, v)
 
 
+@spanned("vx::env")
+def lookup_environment(env: EnvState, direction):
+    """Equirect radiance lookup (environment.glsl:19-27)."""
+    return _lookup_environment(env, direction)
+
+
+@spanned("vx::env")
 def lookup_environment_light(env: EnvState, direction, light_dir):
     """Procedural directional-light fallback (environment.glsl:20-22)."""
     d = (direction * (-light_dir)).sum(dim=-1)
@@ -182,6 +189,7 @@ def lookup_environment_light(env: EnvState, direction, light_dir):
     return env.strength * glow[..., None] * torch.ones(3, dtype=torch.float32, device=direction.device)
 
 
+@spanned("vx::env")
 def sample_environment(env: EnvState, rnd2, physical: bool = False):
     """Hierarchical warp sample (environment.glsl:36-80).
 
@@ -237,6 +245,7 @@ def sample_environment(env: EnvState, rnd2, physical: bool = False):
     return le, pdf, w_i
 
 
+@spanned("vx::env")
 def sample_environment_light(env: EnvState, rnd2, light_dir):
     """Directional-light sampling branch (environment.glsl:30-33)."""
     shape = rnd2.shape[:-1]
@@ -246,6 +255,7 @@ def sample_environment_light(env: EnvState, rnd2, light_dir):
     return le[..., None] * ones, torch.ones(shape, dtype=torch.float32, device=rnd2.device), w_i
 
 
+@spanned("vx::env")
 def pdf_environment(env: EnvState, direction, physical: bool = False):
     """environment.glsl:82-86 — strength-scaled luma over mean importance.
 
@@ -260,15 +270,16 @@ def pdf_environment(env: EnvState, direction, physical: bool = False):
         sin_t = torch.sqrt(torch.clamp_min(1.0 - torch.clamp(direction[..., 1], -1.0, 1.0) ** 2, 0.0))
         texel = gather.gather_f32(env.imp_mips[0], py * IMP_DIM + px)
         return texel / avg_w / (2.0 * math.pi * math.pi * torch.clamp_min(sin_t, 1e-6))
-    le = lookup_environment(env, direction)
+    le = _lookup_environment(env, direction)
     return luma(le) / avg_w * (1.0 / (4.0 * math.pi))
 
 
+@spanned("vx::env")
 def background_color(env: EnvState, direction, hide_envmap: bool, light_dir=None):
     """get_background_color (environment.glsl:89-96) for debug-hits mode:
     the environment, or with hide_envmap a faint checker."""
     if not hide_envmap:
-        return lookup_environment(env, direction)
+        return _lookup_environment(env, direction)
     d = direction
     xz = torch.tensor([1.0, 0.0, 1.0], dtype=torch.float32, device=d.device)
     horiz = d / torch.clamp_min(torch.linalg.norm(d * xz, dim=-1, keepdim=True), 1e-8)
