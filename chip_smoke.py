@@ -182,6 +182,9 @@ Phases, each of which raises (exit code != 0) on failure:
      fixed canvas through the Renderer's default transfer and at a
      translucent density; again at each of the preview's
      six poses in phase 4;
+   - the per-ray RNG's seeding of every 1920x1080 pixel and a masked
+     rng2_where on its words (bit-equal, words and floats at every lane),
+     each beside its plain int64 version;
    each kernel's entry also carries its bound (the larger of its bytes
    over the card's memory rate and its operations over the f32 rate) and,
    where one PyTorch call computes the same function, that call's time;
@@ -192,7 +195,8 @@ Phases, each of which raises (exit code != 0) on failure:
    output, that every kernel of the path launched, that each leg of the
    default and no_dda modes is one launch per bounce and that the LUT
    fetch launched at most once per default sample and never in the other
-   modes; print every kernel's launches per sample; in the three modes
+   modes, and that the RNG is seeded in one launch a sample; print every
+   kernel's launches per sample; in the three modes
    split one sample into its camera and shadow legs (their ms, launches
    and host syncs, which must be 0) and profile one (device kernels,
    torch.nonzero calls), and the default mode once more at bounces 3; then
@@ -270,6 +274,7 @@ KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "
                   "tile_march_transmittance": "tile_march_transmittance_kernel",
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
                   "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel",
+                  "rng_seed": "rng_seed_kernel", "rng_draw": "rng_draw_kernel",
                   **{f"{leg}{form}": f"{leg}{kernel}_kernel"
                      for leg in ("dda_leg_sample", "dda_leg_shadow", "track_leg_sample", "track_leg_shadow",
                                  "tile_march_sample", "tile_march_transmittance")
@@ -303,6 +308,13 @@ OPS_SW_PIXEL = 37
 OPS_SW_OPAQUE_PIXEL = 9
 OPS_TONEMAP_PIXEL = 48
 OPS_LUT_FETCH = 6
+# integer instructions of the RNG (csrc/rng.cu) as SASS fuses them (an IMAD
+# for (v << 4) + c, a LOP3 for the three-way xor, the round's sum folded
+# into an immediate): 12 a TEA round, 8 a Wang hash; a xoshiro128++ step
+# with its float 12, the mask's select 4
+OPS_RNG_SEED = 32 * 12 + 4 * 8 + 2
+OPS_RNG_DRAW = 12
+OPS_RNG_SELECT = 4
 
 
 def log(msg: str) -> None:
@@ -1200,6 +1212,47 @@ def check_gather(r) -> list[dict]:
                   sel["ops"], library_ms=sel["library_ms"])]
 
 
+def check_rng(width: int, height: int) -> list[dict]:
+    """The per-ray RNG's two kernels (csrc/rng.cu) at width x height, bit
+    for bit against the plain int64 version on the card: the seeding of
+    every pixel at a frame past 2^31, then a masked rng2_where on its
+    words (about 70% of the lanes drawing), words and floats at every
+    lane, masked-out lanes included. Each timed beside its plain version,
+    with its bound (bytes: indices, words, mask and floats, each read or
+    written once; its integer instructions, OPS_RNG_*, over the f32 rate
+    are less)."""
+    import torch
+
+    from volxel_tpu_torch.render import rng
+
+    cuda = torch.device("cuda")
+    pix = torch.arange(width * height, dtype=torch.int64, device=cuda)
+    frame = 2**31 + 5
+    state = rng.seed_rays_cuda(pix, frame)
+    if not bits_equal(state, rng.seed_rays_plain(pix, frame)):
+        raise SystemExit("rng_seed: the words differ from the plain version's")
+    mask = torch.rand(pix.shape, generator=torch.Generator(cuda).manual_seed(3), device=cuda) < 0.7
+    got, want = rng.draw_cuda(state, 2, mask), rng.draw_plain(state, 2, mask)
+    if not all(bits_equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit("rng_draw: a masked rng2_where differs from the plain version's")
+    n = pix.numel()
+    work = {"rng_seed": (lambda: rng.seed_rays_cuda(pix, frame), lambda: rng.seed_rays_plain(pix, frame),
+                         nbytes(pix, state), n * OPS_RNG_SEED),
+            "rng_draw": (lambda: rng.draw_cuda(state, 2, mask), lambda: rng.draw_plain(state, 2, mask),
+                         nbytes(state, mask, *got), n * (2 * OPS_RNG_DRAW + OPS_RNG_SELECT))}
+    entries = []
+    for name, (cuda_fn, plain_fn, moved, ops) in work.items():
+        _, ms = device_ms(cuda_fn, 50)
+        _, plain_ms = device_ms(plain_fn, 5)
+        e = entry(name, "volxel_tpu_torch/csrc/rng.cu", "volxel_tpu/render/rng.py (plain jnp)", 0.0, ms, plain_ms,
+                  moved, ops)
+        log(f"{name}: bit-equal at all {n} lanes of {width}x{height}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} ({moved / 1e6:.1f} MB, {ops / 1e9:.3f} G integer ops; "
+            f"the kernel at {e['bound_ms'] / ms:.1%})")
+        entries.append(e)
+    return entries
+
+
 def check_pyramid(r) -> dict:
     """K3 on the default environment's 512^2 importance base, bit-equal to
     its plain version on every level, with its launches per build; timed
@@ -1530,9 +1583,11 @@ def check_shearwarp(r) -> dict:
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
     "default": ("dda_leg_sample", "dda_leg_shadow", "lookup_transfer", "gather_f32",
-                "importance_pyramid", "tonemap"),
-    "raymarch": ("tile_march_sample", "tile_march_transmittance", "gather_f32", "importance_pyramid", "tonemap"),
-    "no_dda": ("track_leg_sample", "track_leg_shadow", "gather_f32", "importance_pyramid", "tonemap"),
+                "importance_pyramid", "tonemap", "rng_seed", "rng_draw"),
+    "raymarch": ("tile_march_sample", "tile_march_transmittance", "gather_f32", "importance_pyramid", "tonemap",
+                 "rng_seed", "rng_draw"),
+    "no_dda": ("track_leg_sample", "track_leg_shadow", "gather_f32", "importance_pyramid", "tonemap", "rng_seed",
+               "rng_draw"),
     "preview": ("shearwarp_intermediate", "tonemap"),
 }
 # each mode's two legs, each one launch per bounce
@@ -1544,7 +1599,8 @@ MODE_LEGS = {"default": ("dda_leg_sample", "dda_leg_shadow"),
 KERNEL_PATH = {"dda_leg_sample": "default", "dda_leg_shadow": "default", "track_leg_sample": "no_dda",
                "track_leg_shadow": "no_dda", "lookup_transfer": "default", "gather_f32": "default", "importance_pyramid": "default",
                "tonemap": "default", "tile_march_sample": "raymarch", "tile_march_transmittance": "raymarch",
-               "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview"}
+               "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview", "rng_seed": "default",
+               "rng_draw": "default"}
 
 
 def main_path(grid, width: int, height: int, mode: str) -> dict:
@@ -1593,6 +1649,9 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
     legs = tuple(per_sample[name] for name in MODE_LEGS[mode])
     if legs != (r.settings.bounces,) * 2:
         raise SystemExit(f"the {mode} legs launched {legs} times per sample at bounces {r.settings.bounces}")
+    # the RNG seeds every pixel once a sample, in one launch
+    if per_sample["rng_seed"] != 1:
+        raise SystemExit(f"the RNG was seeded {per_sample['rng_seed']} times per {mode} sample")
     log(f"main path output ({mode}): mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
     return launches
 
@@ -3932,7 +3991,7 @@ def main() -> int:
     check_neg_log1m()
     results = [*check_legs(r, sass_bodies["dda_leg.cu"], registers["dda_leg.cu"]), *check_track_legs(r, sass_bodies["track_leg.cu"], registers["track_leg.cu"]),
                *check_gather(r), check_pyramid(r), check_tonemap(r.settings.exposure, r.settings.gamma, sass),
-               check_shearwarp(r)]
+               check_shearwarp(r), *check_rng(args.width, args.height)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
     results += check_tile_march(r, sass_bodies["tile_march.cu"], registers["tile_march.cu"])

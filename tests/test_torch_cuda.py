@@ -24,6 +24,8 @@ processes of the node, each mapping the other's slab through CUDA IPC,
 with a timestep swap at every step (two cards over NCCL skip on one). The
 legs' park forms (a vz row across nodes) bit-equal to their plain park
 forms, and parked then resumed bit-equal to the slab form's one launch.
+The per-ray RNG's seeding and draws bit-equal to the plain int64 version
+at every lane, masked-out lanes included, one launch a call.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from volxel_tpu_torch.grid import construct_brick_grid
 from volxel_tpu_torch.render import ddaleg, gather, modes, pallas_ops, shearwarp, tilemarch, trackleg
 from volxel_tpu_torch.render.modes import _march_setup, _tracking_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
+from volxel_tpu_torch.render import rng as rng_mod
 from volxel_tpu_torch.render.rng import seed_rays
 from volxel_tpu_torch.render.sampling import DeviceGrid, VolumeParams
 from volxel_tpu_torch.render.tilemarch import volume_scalars
@@ -1068,7 +1071,7 @@ def test_debug_hits_on_the_card_launch_no_leg(cuda_device):
     kernels.reset_launch_counts()
     r.render_frame()
     ran = {name for name, count in kernels.LAUNCHES.items() if count}
-    assert ran <= {"gather_f32"}  # the environment behind the box
+    assert ran <= {"gather_f32", "rng_seed", "rng_draw"}  # the environment behind the box; the camera's jitter
     cpu = _renderer("cpu", side=32)
     cpu.settings.debug_hits = True
     cpu.render_frame()
@@ -1509,3 +1512,179 @@ def test_slabs_over_two_cards(cuda_device):
         assert b.device == torch.device("cuda", 0)
         _assert_bits_equal([b], [a])
         assert kernels.LAUNCHES[f"{_MODE_LEGS[mode][0][0]}_slabs"] == 2 * 2
+
+
+# -- the per-ray RNG (csrc/rng.cu) ---------------------------------------------
+
+_DRAWS = {"rng": (1, False), "rng2": (2, False), "rng3": (3, False), "rng_where": (1, True),
+          "rng2_where": (2, True), "rng3_where": (3, True)}
+
+
+def _call_draw(name, state, mask):
+    fn = getattr(rng_mod, name)
+    return fn(mask, state) if _DRAWS[name][1] else fn(state)
+
+
+def _pixels(n, dtype, shape=None):
+    """n pixel indices of `dtype` with the low ones, ones at and above
+    2^32 / 42 (where 42 * p wraps) and, for int64, ones past 2^32 and
+    below 0; reshaped to `shape` when given."""
+    top = 2**31 - 1 if dtype == torch.int32 else 2**40
+    g = np.random.default_rng(5)
+    p = g.integers(0, top, n, dtype=np.int64)
+    edge = [0, 1, 2**32 // 42, 2**32 // 42 + 1, 2**31 - 1]
+    if dtype == torch.int64:
+        edge += [2**32 - 1, 2**32, 2**32 + 7, -1, -42]
+    p[:len(edge)] = edge[:n]
+    t = torch.from_numpy(p).to(dtype)
+    return t if shape is None else t.reshape(shape)
+
+
+def _mask(kind, shape):
+    if kind == "all":
+        return torch.ones(shape, dtype=torch.bool)
+    if kind == "none":
+        return torch.zeros(shape, dtype=torch.bool)
+    return torch.from_numpy(np.random.default_rng(9).random(shape) < 0.5)
+
+
+def test_rng_on_cpu_tensors_takes_the_plain_path():
+    """On CPU tensors seed_rays and every draw give the plain version's
+    words and floats, and neither RNG counter moves."""
+    kernels.reset_launch_counts()
+    pix = _pixels(257, torch.int64)
+    frames = torch.arange(257, dtype=torch.int64) * 3
+    for frame in (7, frames):
+        state = rng_mod.seed_rays(pix, frame)
+        assert torch.equal(state, rng_mod.seed_rays_plain(pix, frame))
+    mask = _mask("mixed", (257,))
+    for name, (k, masked) in _DRAWS.items():
+        got = _call_draw(name, state, mask)
+        want = rng_mod.draw_plain(state, k, mask if masked else None)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+        state = got[0]
+    assert kernels.LAUNCHES["rng_seed"] == kernels.LAUNCHES["rng_draw"] == 0
+
+
+@pytest.mark.parametrize("name", ["vx_rng_seed", "vx_rng_draw"])
+def test_rng_entry_points_bound_as_declared(name):
+    """kernels binds csrc/rng.cu's C entry points with ctypes types that
+    match their declarations one for one: a pointer or a stream as a void
+    pointer, `long long` as c_longlong, `unsigned` as c_uint, `int` as
+    c_int."""
+    import ctypes
+    import re
+
+    source = (kernels.CSRC / "rng.cu").read_text()
+    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
+    assert m, f"{name} is not an extern \"C\" int function"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
+            ctypes.c_longlong if p.startswith("long long") else ctypes.c_uint if p.startswith("unsigned") else
+            ctypes.c_int if p.startswith("int ") else p for p in params]
+    assert kernels._SIGNATURES[name] == want
+
+
+@pytest.mark.parametrize("case", ["cpu_state", "cpu_seed", "int32_state", "three_words", "k4", "byte_mask",
+                                  "float_pixels", "float_frames"])
+def test_rng_cuda_wrappers_refuse_what_the_kernels_do_not_take(case):
+    """The RNG's CUDA wrappers raise, before any launch, on CPU tensors,
+    on a state that is not (..., 4) int64, on k outside 1..3, on a mask
+    that is not bool and on indices or frames that are not int32 or
+    int64."""
+    state = rng_mod.seed_rays_plain(_pixels(8, torch.int64), 3)
+    calls = {
+        "cpu_state": (lambda: rng_mod.draw_cuda(state, 2), "CUDA"),
+        "cpu_seed": (lambda: rng_mod.seed_rays_cuda(_pixels(8, torch.int64), 3), "CUDA"),
+        "int32_state": (lambda: rng_mod.draw_cuda(state.to(torch.int32), 1), "int64"),
+        "three_words": (lambda: rng_mod.draw_cuda(state[:, :3], 1), r"\(\.\.\., 4\)"),
+        "k4": (lambda: rng_mod.draw_cuda(state, 4), "k must be"),
+        "byte_mask": (lambda: rng_mod.draw_cuda(state, 1, torch.ones(8, dtype=torch.uint8)), "bool"),
+        "float_pixels": (lambda: rng_mod.seed_rays_cuda(torch.zeros(8), 3), "pixel indices"),
+        "float_frames": (lambda: rng_mod.seed_rays_cuda(_pixels(8, torch.int64), torch.zeros(8)), "frames"),
+    }
+    fn, match = calls[case]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        fn()
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pixel_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("shape", [(4099,), (37, 61)])
+@pytest.mark.parametrize("frame", ["int", "big_int", "per_pixel", "per_pixel_int32", "one_tensor"])
+def test_seed_rays_kernel_bit_equal_to_plain(cuda_device, pixel_dtype, shape, frame):
+    """One launch of rng_seed_kernel gives the plain version's words at
+    every lane: int32 and int64 pixel indices (those at and above
+    2^32 / 42 too), (n,) and (h, w), one frame as an int or a one-element
+    tensor, or one frame a pixel as int64 or int32."""
+    n = int(np.prod(shape))
+    pix = _pixels(n, pixel_dtype, shape)
+    frames = {"int": 5, "big_int": 2**31 + 3, "per_pixel": torch.arange(n, dtype=torch.int64).reshape(shape) * 7,
+              "per_pixel_int32": torch.arange(n, dtype=torch.int32).reshape(shape) * 3 - 100,
+              "one_tensor": torch.tensor(2**32 - 2, dtype=torch.int64)}[frame]
+    on_card = frames.to(cuda_device) if isinstance(frames, torch.Tensor) else frames
+    kernels.reset_launch_counts()
+    got = rng_mod.seed_rays(pix.to(cuda_device), on_card)
+    assert kernels.LAUNCHES["rng_seed"] == 1 and kernels.LAUNCHES["rng_draw"] == 0
+    assert got.shape == (*shape, 4) and got.dtype == torch.int64
+    assert torch.equal(got.cpu(), rng_mod.seed_rays_plain(pix, frames))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, mask_kind", [(name, kind) for name, (_, masked) in _DRAWS.items()
+                                             for kind in (("all", "none", "mixed") if masked else (None,))])
+@pytest.mark.parametrize("layout", ["flat", "image", "strided"])
+def test_rng_draw_kernel_bit_equal_to_plain(cuda_device, name, mask_kind, layout):
+    """One launch of rng_draw_kernel a call gives the plain version's
+    words and floats at every lane, the masked-out lanes' values included:
+    (n, 4) and (h, w, 4) states and a non-contiguous state[::2]; masks all
+    true, all false and mixed. The state given is left as it was."""
+    k, masked = _DRAWS[name]
+    state = rng_mod.seed_rays_plain(_pixels(2 * 4099, torch.int64), 11)
+    state = {"flat": state[:4099], "image": state[:37 * 61].reshape(37, 61, 4), "strided": state[::2]}[layout]
+    mask = _mask(mask_kind or "all", state.shape[:-1])
+    card = state.to(cuda_device)
+    if layout == "strided":
+        card = state.to(cuda_device).repeat_interleave(2, dim=0)[::2]
+        assert not card.is_contiguous()
+    kept = card.clone()
+    kernels.reset_launch_counts()
+    got_state, got = _call_draw(name, card, mask.to(cuda_device))
+    assert kernels.LAUNCHES["rng_draw"] == 1 and kernels.LAUNCHES["rng_seed"] == 0
+    want_state, want = rng_mod.draw_plain(state, k, mask if masked else None)
+    assert torch.equal(got_state.cpu(), want_state) and torch.equal(got.cpu(), want)
+    assert torch.equal(card, kept)
+
+
+@pytest.mark.cuda
+def test_rng_kernels_on_zero_lanes(cuda_device):
+    """Zero lanes launch nothing and give empty outputs of the plain
+    version's shapes."""
+    kernels.reset_launch_counts()
+    state = rng_mod.seed_rays(torch.zeros(0, dtype=torch.int64, device=cuda_device), 3)
+    assert state.shape == (0, 4)
+    for name, (k, _) in _DRAWS.items():
+        s, x = _call_draw(name, state, torch.zeros(0, dtype=torch.bool, device=cuda_device))
+        assert s.shape == (0, 4) and x.shape == ((0, k) if k > 1 else (0,))
+    assert kernels.LAUNCHES["rng_seed"] == kernels.LAUNCHES["rng_draw"] == 0
+
+
+@pytest.mark.cuda
+def test_rng_stream_on_the_card_over_many_draws(cuda_device):
+    """Seeding a 1080p frame on the card and drawing from it in turns of
+    every form, masks changing each call, keeps the words bit-equal to the
+    plain version's at every lane; one launch each call."""
+    pix = torch.arange(1920 * 1080, dtype=torch.int64)
+    kernels.reset_launch_counts()
+    card = rng_mod.seed_rays(pix.to(cuda_device), 17)
+    cpu = rng_mod.seed_rays_plain(pix, 17)
+    g = np.random.default_rng(1)
+    for i, (name, (k, masked)) in enumerate(list(_DRAWS.items()) * 2):
+        mask = torch.from_numpy(g.random(pix.shape[0]) < 0.7)
+        card, got = _call_draw(name, card, mask.to(cuda_device))
+        cpu, want = rng_mod.draw_plain(cpu, k, mask if masked else None)
+        assert torch.equal(got.cpu(), want), (i, name)
+    assert torch.equal(card.cpu(), cpu)
+    assert kernels.LAUNCHES["rng_seed"] == 1 and kernels.LAUNCHES["rng_draw"] == 2 * len(_DRAWS)

@@ -31,6 +31,11 @@
 // it is without slabs. The park forms (parked_owner) are kernels of their
 // own over a SlabField, so the dense and slab forms keep their code.
 //
+// csrc/rng.cu, the per-ray RNG's seeding and draws, includes this header
+// for next_float, so the legs and the RNG draw one stream; it is built with
+// --fmad=false, which changes nothing there (the float's one product is
+// exact).
+//
 // kernels.build compiles csrc/*.cu only, so this header is never compiled
 // alone; kernels.library_path hashes it with the sources.
 

@@ -23,6 +23,9 @@ in ATen's kernels; those sources write every f32 sum and product with the
 
 `LAUNCHES` counts kernel launches by name. Only the wrappers add to it,
 once per launch, so a run can show which kernels its path went through.
+The per-ray RNG (render/rng.py, csrc/rng.cu) counts `rng_seed` once a
+seeding and `rng_draw` once a draw call, whatever the draws a lane; both
+stay 0 where the words are drawn on the CPU.
 A leg launched over z-slabs (render-time volume slabs: the field read
 through a table of the slabs' pointers) counts under its name with
 `_slabs` appended, apart from its launches over a dense field, and its
@@ -58,6 +61,7 @@ LAUNCHES = {
     "tile_march_sample_slabs": 0, "tile_march_transmittance_slabs": 0,
     "dda_leg_sample_slabs_park": 0, "dda_leg_shadow_slabs_park": 0, "track_leg_sample_slabs_park": 0,
     "track_leg_shadow_slabs_park": 0, "tile_march_sample_slabs_park": 0, "tile_march_transmittance_slabs_park": 0,
+    "rng_seed": 0, "rng_draw": 0,
 }
 
 _P = ctypes.c_void_p
@@ -147,6 +151,10 @@ _SIGNATURES = {
     "vx_lookup_transfer": [_P, _I, _P, _P, _P, ctypes.c_longlong, _P],
     # n, stream
     "vx_launch_floor": [ctypes.c_longlong, _P],
+    # pixel, pixel_bytes, frame, frame_bytes, frame_word, state, n, stream
+    "vx_rng_seed": [_P, _I, _P, _I, ctypes.c_uint, _P, ctypes.c_longlong, _P],
+    # state, mask, state_out, out, k, n, stream
+    "vx_rng_draw": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P],
 }
 
 _lib = None

@@ -12,12 +12,21 @@ product is masked back to 32 bits, and right shifts of non-negative int64
 are logical. The words are bit-equal to the uint32 words of the JAX
 package (pinned by tests/test_torch_rng.py). State is explicit: functions
 take and return `(state, value)`; a state is an (..., 4) int64 tensor.
+
+On the card the same words are seeded and drawn by csrc/rng.cu: one launch
+a seeding and one a draw call, each lane's four words in registers from
+load to store, bit-equal to the plain int64 version at every lane, masked
+lanes included. CPU tensors take the plain version: the path is chosen
+by the tensor's device, as for every kernel of the port. The CUDA
+wrappers allocate their outputs and never write into the state they are
+given.
 """
 
 from __future__ import annotations
 
 import torch
 
+from volxel_tpu_torch import kernels
 from volxel_tpu_torch.utils.profiling import span
 
 M32 = 0xFFFFFFFF
@@ -100,20 +109,65 @@ def _rng3(state):
     return state, torch.stack([a, b, c], dim=-1)
 
 
+def draw_plain(state, k: int, mask=None):
+    """k in 1..3 draws a lane in plain PyTorch, on any device; with `mask`
+    the lanes where it is False keep their words (draw_cuda)."""
+    state2, x = (_rng, _rng2, _rng3)[k - 1](state)
+    if mask is None:
+        return state2, x
+    return torch.where(mask[..., None], state2, state), x
+
+
+def draw_cuda(state: torch.Tensor, k: int, mask: torch.Tensor | None = None):
+    """k in 1..3 draws a lane of an (..., 4) int64 state on the card, one
+    launch of csrc/rng.cu -> (state', value (...) for k = 1, else (..., k)),
+    bit-equal to the plain version; with `mask` (bool, broadcast to the
+    state's lanes) lanes where it is False keep their words, and the value
+    is written on every lane."""
+    if state.dtype != torch.int64 or state.shape[-1:] != (4,):
+        raise ValueError(f"rng_draw: expected an (..., 4) int64 state, got {tuple(state.shape)} {state.dtype}")
+    if k not in (1, 2, 3):
+        raise ValueError(f"rng_draw: k must be 1, 2 or 3, got {k}")
+    lanes = state.shape[:-1]
+    state = state.contiguous()
+    if mask is not None:
+        if mask.dtype != torch.bool:
+            raise ValueError(f"rng_draw: expected a bool mask, got {mask.dtype}")
+        mask = mask.expand(lanes).contiguous()
+        kernels.require_cuda("rng_draw", state, mask)
+    else:
+        kernels.require_cuda("rng_draw", state)
+    if state.data_ptr() % 16:
+        state = state.clone()  # a lane's words are loaded as two 16-byte words
+    state_out = torch.empty_like(state)
+    out = torch.empty((*lanes, k) if k > 1 else lanes, dtype=torch.float32, device=state.device)
+    n = out.numel() // k
+    if n:
+        kernels.launch("vx_rng_draw", state, state.data_ptr(), None if mask is None else mask.data_ptr(),
+                       state_out.data_ptr(), out.data_ptr(), k, n, counter="rng_draw")
+    return state_out, out
+
+
+def _draw(state, k: int, mask=None):
+    if state.device.type == "cpu":
+        return draw_plain(state, k, mask)
+    return draw_cuda(state, k, mask)
+
+
 def rng(state):
     """Draw float32 in [0, 1) from the top 24 bits (random.glsl:103-106)."""
     with span("vx::rng"):
-        return _rng(state)
+        return _draw(state, 1)
 
 
 def rng2(state):
     with span("vx::rng"):
-        return _rng2(state)
+        return _draw(state, 2)
 
 
 def rng3(state):
     with span("vx::rng"):
-        return _rng3(state)
+        return _draw(state, 3)
 
 
 def rng_where(mask, state):
@@ -125,20 +179,51 @@ def rng_where(mask, state):
     is meaningful only where mask is True.
     """
     with span("vx::rng"):
-        state2, x = _rng(state)
-        return torch.where(mask[..., None], state2, state), x
+        return _draw(state, 1, mask)
 
 
 def rng2_where(mask, state):
     with span("vx::rng"):
-        state2, x = _rng2(state)
-        return torch.where(mask[..., None], state2, state), x
+        return _draw(state, 2, mask)
 
 
 def rng3_where(mask, state):
     with span("vx::rng"):
-        state2, x = _rng3(state)
-        return torch.where(mask[..., None], state2, state), x
+        return _draw(state, 3, mask)
+
+
+def seed_rays_plain(pixel_index, frame_index):
+    """seed_rays in plain PyTorch, on any device."""
+    pixel_index = _u32(pixel_index)
+    if isinstance(frame_index, torch.Tensor):
+        frame = _u32(frame_index, pixel_index.device).expand_as(pixel_index)
+    else:
+        frame = torch.full_like(pixel_index, int(frame_index) & M32)
+    return seed_xoshiro(tea((42 * pixel_index) & M32, frame))
+
+
+def seed_rays_cuda(pixel_index: torch.Tensor, frame_index) -> torch.Tensor:
+    """seed_rays on the card, one launch of csrc/rng.cu, bit-equal to the
+    plain version: int32 or int64 pixel indices of any shape; the frame an
+    int or an int32 / int64 tensor that broadcasts to them (one frame a
+    lane is read from the card)."""
+    for name, t in (("pixel indices", pixel_index), ("frames", frame_index)):
+        if isinstance(t, torch.Tensor) and t.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"rng_seed: expected int32 or int64 {name}, got {t.dtype}")
+    pixel = pixel_index.contiguous()
+    kernels.require_cuda("rng_seed", pixel)
+    frame, frame_bytes, frame_word = None, 8, 0
+    if isinstance(frame_index, torch.Tensor):
+        frame = frame_index.to(pixel.device).expand(pixel.shape).contiguous()
+        frame_bytes = frame.element_size()
+    else:
+        frame_word = int(frame_index) & M32
+    state = torch.empty((*pixel.shape, 4), dtype=torch.int64, device=pixel.device)
+    if pixel.numel():
+        kernels.launch("vx_rng_seed", pixel, pixel.data_ptr(), pixel.element_size(),
+                       None if frame is None else frame.data_ptr(), frame_bytes, frame_word,
+                       state.data_ptr(), pixel.numel(), counter="rng_seed")
+    return state
 
 
 def seed_rays(pixel_index, frame_index):
@@ -146,9 +231,6 @@ def seed_rays(pixel_index, frame_index):
     frame_index is one frame for every ray (an int) or a tensor of one
     frame per ray, as a batch of views gives (parallel.multiview)."""
     with span("vx::rng"):
-        pixel_index = _u32(pixel_index)
-        if isinstance(frame_index, torch.Tensor):
-            frame = _u32(frame_index, pixel_index.device).expand_as(pixel_index)
-        else:
-            frame = torch.full_like(pixel_index, int(frame_index) & M32)
-        return seed_xoshiro(tea((42 * pixel_index) & M32, frame))
+        if isinstance(pixel_index, torch.Tensor) and pixel_index.device.type != "cpu":
+            return seed_rays_cuda(pixel_index, frame_index)
+        return seed_rays_plain(pixel_index, frame_index)
