@@ -66,6 +66,7 @@ def main() -> None:
                 if on:
                     entries.append(len(profiling.take_spans()) / args.frames)
                     profiling.take_counts()
+                    profiling.take_live_lanes()
     out = {"workload": args.workload, "frames": args.frames, "rounds": args.rounds,
            "span_entries_per_frame": sorted(set(entries))}
     for state, pairs in times.items():

@@ -1,7 +1,7 @@
 """The port's spans and counters (utils/profiling.py) on the CPU: off by
 default, where each stage of a frame lies and what it nests in, frames
-unchanged by them, the legs' counter against utils/stepstats' counts, and
-the ingest's stages."""
+unchanged by them, the later bounces' span and live lanes, the legs'
+counter against utils/stepstats' counts, and the ingest's stages."""
 
 from __future__ import annotations
 
@@ -131,20 +131,67 @@ def test_trace_writes_the_stages(tmp_path):
     profiling.take_spans(), profiling.take_counts()
 
 
-@pytest.mark.parametrize("mode", ["default", "no_dda", "raymarch"])
-def test_framebuffers_are_equal_with_tracing_on_and_off(mode):
-    """Spans and counters change nothing a frame computes: the same frames
-    with them on and off give byte-equal framebuffers."""
+def _framebuffers_on_and_off(mode, **settings):
+    """The framebuffers after the same 7 frames with spans and counters
+    off, then on; what they recorded is taken."""
     fbs = []
     for on in (False, True):
-        r = _renderer(mode)
+        r = _renderer(mode, **settings)
         with profiling.spans(on):
             for _ in range(7):
                 fb = r.render_frame().clone()
         fbs.append(fb)
-    assert profiling.take_counts() or mode == "raymarch"
-    profiling.take_spans()
+    counts = profiling.take_counts()
+    profiling.take_spans(), profiling.take_live_lanes()
+    return fbs, counts
+
+
+@pytest.mark.parametrize("mode", ["default", "no_dda", "raymarch"])
+def test_framebuffers_are_equal_with_tracing_on_and_off(mode):
+    """Spans and counters change nothing a frame computes: the same frames
+    with them on and off give byte-equal framebuffers."""
+    fbs, counts = _framebuffers_on_and_off(mode)
+    assert counts or mode == "raymarch"
     assert fbs[0].numpy().tobytes() == fbs[1].numpy().tobytes()
+
+
+@pytest.mark.parametrize("mode", ["default", "no_dda", "raymarch"])
+def test_framebuffers_are_equal_with_tracing_on_and_off_at_bounces_3(mode):
+    """The later bounces' span and live lanes change nothing either."""
+    fbs, counts = _framebuffers_on_and_off(mode, bounces=3)
+    assert counts or mode == "raymarch"
+    assert fbs[0].numpy().tobytes() == fbs[1].numpy().tobytes()
+
+
+@pytest.mark.parametrize("bounces", [1, 2, 3])
+def test_later_bounces_open_their_span_and_keep_their_live_lanes(bounces):
+    """With spans on, vx::bounce.later opens bounces - 1 times a frame,
+    inside vx::trace_path, and never at bounces 1; the lanes alive at each
+    later bounce's start never rise from one bounce to the next; the legs'
+    counter holds the same keys as at one bounce, none for the bounces."""
+    r = _renderer(bounces=bounces)
+    for _ in range(6):
+        r.render_frame()
+    profiling.take_spans(), profiling.take_counts(), profiling.take_live_lanes()
+    live_at_2 = 0
+    for _ in range(3):
+        with profiling.spans():
+            r.render_frame()
+        later = [(parent, args) for name, parent, args, *_ in profiling.take_spans() if name == "vx::bounce.later"]
+        assert later == [("vx::trace_path", f"bounce={b}") for b in range(1, bounces)]
+        live = profiling.take_live_lanes()
+        assert sorted(live) == list(range(1, bounces))
+        lanes = [SIZE * SIZE] + [live[b]["lanes"] for b in sorted(live)]
+        assert all(c["calls"] == 1 and c["wavefront"] == SIZE * SIZE for c in live.values())
+        assert all(a >= b for a, b in zip(lanes, lanes[1:])), lanes
+        live_at_2 += live.get(1, {"lanes": 0})["lanes"]
+        assert set(profiling.take_counts()) == {"dda_leg_sample", "dda_leg_shadow"}
+    assert live_at_2 > 0 or bounces == 1
+    with profiling.spans(on=False):
+        assert profiling.bounce_span(1, torch.ones(4, dtype=torch.bool)) is profiling._NOOP
+    with profiling.spans():
+        assert profiling.bounce_span(0, torch.ones(4, dtype=torch.bool)) is profiling._NOOP
+    assert profiling.take_live_lanes() == {} and profiling.take_spans() == []
 
 
 def _legs_on_camera_rays(r, mode):

@@ -42,7 +42,7 @@ from volxel_tpu_torch.scene.environment import (
     sample_environment,
     sample_environment_light,
 )
-from volxel_tpu_torch.utils.profiling import span
+from volxel_tpu_torch.utils.profiling import bounce_span, span
 
 
 class RenderConfig(NamedTuple):
@@ -96,70 +96,72 @@ def trace_path(
         return lookup_environment_light(env, directions, light_dir)
 
     for bounce in range(config.bounces):
-        with span("vx::sample_leg", bounce=bounce):
-            state, hit, t, rgb, le_add = sample_volume(grid, params, lut, origin, direction, state, active)
-        hit = hit & active
-        miss = active & ~hit
-        radiance = radiance + le_add
+        # bounces after the first: their own span, and the lanes alive at their start
+        with bounce_span(bounce, active):
+            with span("vx::sample_leg", bounce=bounce):
+                state, hit, t, rgb, le_add = sample_volume(grid, params, lut, origin, direction, state, active)
+            hit = hit & active
+            miss = active & ~hit
+            radiance = radiance + le_add
 
-        # escaped rays: environment contribution with MIS (fragment.frag:117-121)
-        if config.show_environment:
-            with span("vx::escape"):
-                le = env_radiance(direction)
-                pdf_esc = pdf_environment(env, direction, config.physical_pdf)
-                mis = torch.where(n_paths > 0, power_heuristic(f_p, pdf_esc), 1.0)
-                radiance = radiance + torch.where(miss[..., None], throughput * mis[..., None] * le, 0.0)
-        active = hit
-
-        # advance to the collision and absorb (fragment.frag:81-84 + mode rgb)
-        origin = torch.where(hit[..., None], origin + t[..., None] * direction, origin)
-        throughput = torch.where(hit[..., None], throughput * params.albedo * rgb, throughput)
-
-        # next-event estimation toward the environment (fragment.frag:86-98);
-        # draws only on lanes that hit, as the GLSL does
-        with span("vx::nee"):
-            state, xi2 = rng2_where(active, state)
-            if config.use_env:
-                le_nee, pdf_nee, w_i = sample_environment(env, xi2, config.physical_pdf)
-            else:
-                le_nee, pdf_nee, w_i = sample_environment_light(env, xi2, light_dir)
-            valid_nee = active & (pdf_nee > 0.0)
-            f_p_nee = phase_henyey_greenstein((-direction * w_i).sum(dim=-1), params.phase_g)
+            # escaped rays: environment contribution with MIS (fragment.frag:117-121)
             if config.show_environment:
-                mis_nee = power_heuristic(pdf_nee, f_p_nee)
-            else:
-                mis_nee = torch.ones((n,), dtype=torch.float32, device=dev)
-            with span("vx::shadow_leg", bounce=bounce):
-                state, tr = transmittance(grid, params, lut, origin, w_i, state, valid_nee)
-            radiance = radiance + torch.where(
-                valid_nee[..., None],
-                throughput * (mis_nee * f_p_nee * tr / torch.clamp_min(pdf_nee, 1e-20))[..., None] * le_nee,
-                0.0,
-            )
-        n_paths = n_paths + active.to(torch.int32)
+                with span("vx::escape"):
+                    le = env_radiance(direction)
+                    pdf_esc = pdf_environment(env, direction, config.physical_pdf)
+                    mis = torch.where(n_paths > 0, power_heuristic(f_p, pdf_esc), 1.0)
+                    radiance = radiance + torch.where(miss[..., None], throughput * mis[..., None] * le, 0.0)
+            active = hit
 
-        # bounce cap (fragment.frag:101)
-        active = active & (n_paths < config.bounces)
+            # advance to the collision and absorb (fragment.frag:81-84 + mode rgb)
+            origin = torch.where(hit[..., None], origin + t[..., None] * direction, origin)
+            throughput = torch.where(hit[..., None], throughput * params.albedo * rgb, throughput)
 
-        with span("vx::scatter"):
-            # russian roulette: the draw happens only when rr_val < 0.1 on a
-            # live lane (fragment.frag:102-107)
-            rr_val = luma(throughput)
-            low = active & (rr_val < 0.1)
-            state, xi_rr = rng_where(low, state)
-            killed = low & (xi_rr < 1.0 - rr_val)
-            throughput = torch.where(
-                (low & ~killed)[..., None], throughput / torch.clamp_min(rr_val, 1e-20)[..., None], throughput
-            )
-            active = active & ~killed
+            # next-event estimation toward the environment (fragment.frag:86-98);
+            # draws only on lanes that hit, as the GLSL does
+            with span("vx::nee"):
+                state, xi2 = rng2_where(active, state)
+                if config.use_env:
+                    le_nee, pdf_nee, w_i = sample_environment(env, xi2, config.physical_pdf)
+                else:
+                    le_nee, pdf_nee, w_i = sample_environment_light(env, xi2, light_dir)
+                valid_nee = active & (pdf_nee > 0.0)
+                f_p_nee = phase_henyey_greenstein((-direction * w_i).sum(dim=-1), params.phase_g)
+                if config.show_environment:
+                    mis_nee = power_heuristic(pdf_nee, f_p_nee)
+                else:
+                    mis_nee = torch.ones((n,), dtype=torch.float32, device=dev)
+                with span("vx::shadow_leg", bounce=bounce):
+                    state, tr = transmittance(grid, params, lut, origin, w_i, state, valid_nee)
+                radiance = radiance + torch.where(
+                    valid_nee[..., None],
+                    throughput * (mis_nee * f_p_nee * tr / torch.clamp_min(pdf_nee, 1e-20))[..., None] * le_nee,
+                    0.0,
+                )
+            n_paths = n_paths + active.to(torch.int32)
 
-            # scatter draw only for surviving lanes (fragment.frag:110-113)
-            state, xi_ph = rng2_where(active, state)
-            new_dir = sample_phase_henyey_greenstein(direction, params.phase_g, xi_ph)
-            f_p = torch.where(
-                active, phase_henyey_greenstein((-direction * new_dir).sum(dim=-1), params.phase_g), f_p
-            )
-            direction = torch.where(active[..., None], new_dir, direction)
+            # bounce cap (fragment.frag:101)
+            active = active & (n_paths < config.bounces)
+
+            with span("vx::scatter"):
+                # russian roulette: the draw happens only when rr_val < 0.1 on a
+                # live lane (fragment.frag:102-107)
+                rr_val = luma(throughput)
+                low = active & (rr_val < 0.1)
+                state, xi_rr = rng_where(low, state)
+                killed = low & (xi_rr < 1.0 - rr_val)
+                throughput = torch.where(
+                    (low & ~killed)[..., None], throughput / torch.clamp_min(rr_val, 1e-20)[..., None], throughput
+                )
+                active = active & ~killed
+
+                # scatter draw only for surviving lanes (fragment.frag:110-113)
+                state, xi_ph = rng2_where(active, state)
+                new_dir = sample_phase_henyey_greenstein(direction, params.phase_g, xi_ph)
+                f_p = torch.where(
+                    active, phase_henyey_greenstein((-direction * new_dir).sum(dim=-1), params.phase_g), f_p
+                )
+                direction = torch.where(active[..., None], new_dir, direction)
 
     return state, radiance
 

@@ -16,6 +16,10 @@ device fingerprint. Here:
     reference to a leg call's per-lane work left of its cap (an output the
     kernel writes anyway); `take_counts()` reduces them, so nothing is
     launched before it is read
+  * bounce_span(bounce, active) — the span vx::bounce.later around a
+    later bounce of the path tracer; while spans are on it keeps a
+    reference to the lanes alive at the bounce's start, which
+    `take_live_lanes()` reduces, as take_counts() does the legs'
   * trace() — torch.profiler around a code region, spans on, written as a
     Chrome trace (open it in Perfetto or chrome://tracing)
   * fence_device — wait for a card's queued work; nothing on the CPU
@@ -35,6 +39,8 @@ The spans, each named `vx::<stage>`:
   vx::camera            seeded RNG words and jittered camera rays
   vx::premul_majorant   the default mode's premultiplied majorant pyramid
   vx::trace_path        the path tracer's bounce loop
+  vx::bounce.later      one iteration of that loop after the first
+                        (args `bounce=<i>`); never at bounces 1
   vx::sample_leg        a camera/bounce leg: its setup and the leg
                         (args `bounce=<i>`)
   vx::shadow_leg        a shadow leg toward the light, inside vx::nee or
@@ -72,6 +78,7 @@ import torch
 _ON = False  # spans and counters are recorded
 _SPANS: list = []  # (name, parent, args, t0_ns, t1_ns) of the spans closed while on
 _COUNTS: list = []  # (key, left, cap) of the leg calls made while on
+_LIVE: list = []  # (bounce, active) of the later bounces begun while on
 _STACK = threading.local()  # each thread's open span names
 
 
@@ -179,6 +186,34 @@ def take_counts() -> dict:
         c["lanes"] += int((taken > 0).sum())
         c["steps"] += int(taken.sum())
     del _COUNTS[:]
+    return out
+
+
+def bounce_span(bounce: int, active):
+    """The span vx::bounce.later (`bounce=<i>`) around iteration `bounce`
+    of the path tracer's bounce loop, with `active`, the (n,) bool tensor
+    of the lanes alive at its start, kept for take_live_lanes(). The
+    shared no-op context at the first bounce and while spans are off."""
+    if not _ON or not bounce:
+        return _NOOP
+    _LIVE.append((bounce, active))
+    return span("vx::bounce.later", bounce=bounce)
+
+
+def take_live_lanes() -> dict:
+    """{bounce: {"calls", "lanes", "wavefront"}} over the later bounces
+    begun since the last call, and clears them: `lanes` the lanes alive at
+    a bounce's start, `wavefront` all the lanes it ran over, each summed
+    over its calls. Kept apart from the legs' counter, every key of which
+    a reader may sum as leg steps. Launches a reduction a bounce on its
+    device, and waits for it."""
+    out: dict = {}
+    for bounce, active in _LIVE:
+        c = out.setdefault(bounce, {"calls": 0, "lanes": 0, "wavefront": 0})
+        c["calls"] += 1
+        c["lanes"] += int(active.sum())
+        c["wavefront"] += active.numel()
+    del _LIVE[:]
     return out
 
 
