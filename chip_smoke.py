@@ -161,12 +161,15 @@ Phases, each of which raises (exit code != 0) on failure:
      lanes take, and each kernel's registers, resident warps per SM and
      issue floor (its event loop's SASS at every warp iteration);
    - both table fetches: the transfer-LUT fetch where it still runs (the
-     default sample's premultiplied pyramid) and gather_f32 at every call
-     of one 1080p default-mode
-     sample and at one environment lookup over 1920x1080 directions
+     default sample's premultiplied pyramid) and gather_f32, on no render
+     path since the environment's kernels took its sites, at every call of
+     the plain environment's warp and escape lookup over 1920x1080 lanes
      (bit-equal), gather_f32 beside torch.index_select on the same int32
      indices and torch.take on their int64 copy, the LUT fetch's mean call
      beside the launch floor (an empty kernel over the same grid);
+   - the environment's warp sample and lookup (csrc/env.cu) over 1920x1080
+     uniforms and directions, each form bit-equal to the plain version at
+     every lane in one launch, beside it, with its bytes floor;
    - the importance pyramid on the default environment's 512^2 base
      (bit-equal, its launches per build, beside the launch floor), and the
      tonemap, bit-equal on a 1920x1080x3 buffer and at all
@@ -275,6 +278,7 @@ KERNEL_SYMBOLS = {"dda_leg_sample": "dda_leg_sample_kernel", "dda_leg_shadow": "
                   "tile_march_sums": "tile_march_sums_kernel", "shearwarp_intermediate": "shearwarp_kernel",
                   "gather_f32": "gather_f32_kernel", "lookup_transfer": "lookup_transfer_kernel",
                   "rng_seed": "rng_seed_kernel", "rng_draw": "rng_draw_kernel",
+                  "env_sample": "env_sample_kernel", "env_lookup": "env_lookup_kernel",
                   **{f"{leg}{form}": f"{leg}{kernel}_kernel"
                      for leg in ("dda_leg_sample", "dda_leg_shadow", "track_leg_sample", "track_leg_shadow",
                                  "tile_march_sample", "tile_march_transmittance")
@@ -315,6 +319,11 @@ OPS_LUT_FETCH = 6
 OPS_RNG_SEED = 32 * 12 + 4 * 8 + 2
 OPS_RNG_DRAW = 12
 OPS_RNG_SELECT = 4
+# f32 operations of the environment's kernels (csrc/env.cu) as the source
+# writes them, a division or a math function counted one: ~14 a level of the
+# warp's nine, its direction, tap and pdf ~44; a lookup's (u, v), tap and pdf
+OPS_ENV_SAMPLE = 9 * 14 + 44
+OPS_ENV_LOOKUP = 40
 
 
 def log(msg: str) -> None:
@@ -1142,16 +1151,16 @@ def check_gather(r) -> list[dict]:
     at every call of one 1080p default-mode sample (the premultiplied
     pyramid, its only call), with its mean time per call beside the launch
     floor, an empty kernel over the grid of the mean call, timed the same
-    way; gather_f32 at every call of
-    one 1080p default-mode sample (the environment's bilinear taps and
-    importance texels), beside torch.index_select on the same int32
-    indices and torch.take on their int64 copy, then at one environment
-    lookup over 1920x1080 seeded directions."""
+    way; gather_f32, which no render path calls since csrc/env.cu took the
+    environment's sites, at every call of the plain environment's warp
+    sample and escape lookup over 1920x1080 seeded lanes (the bilinear taps
+    and the importance texels), beside torch.index_select on the same int32
+    indices and torch.take on their int64 copy."""
     import torch
 
     from volxel_tpu_torch.render import gather
     from volxel_tpu_torch.render.pathtrace import render_sample
-    from volxel_tpu_torch.scene.environment import lookup_environment
+    from volxel_tpu_torch.scene import environment as env_mod
 
     def gather_cuda(table, idx):
         return gather.gather_f32_cuda(table.contiguous(), idx.contiguous())
@@ -1185,26 +1194,23 @@ def check_gather(r) -> list[dict]:
     log(f"lookup_transfer: {per_call * 1000:.3f} us per call (mean of {lut['calls']} calls, {mean_lanes} lanes on "
         f"average) beside a launch floor of {floor_ms * 1000:.3f} us (empty kernel, same grid): launches are "
         f"{floor_ms / per_call:.1%} of its time")
-    (sel,) = check_every_call(r, gather, {"gather_f32": dict(
-        cuda_fn=gather_cuda, plain_fn=gather.gather_f32_plain, outputs=("values",), lanes=lambda a: a[1].numel(),
-        work=gather_work, library_fn=index_select, others=take)})
-    log(f"gather_f32 over the sample: kernel {sel['ms']:.4f} ms, torch.index_select (int32) "
-        f"{sel['library_ms']:.4f} ms, torch.take (int64) {sel['others']['torch.take (int64)']:.4f} ms, bound "
-        f"{bound(sel['bytes'], sel['ops'])['bound_ms']:.4f} ms")
-
     rng = np.random.default_rng(2)
     d = rng.normal(size=(1920 * 1080, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     dirs = torch.from_numpy(d).cuda()
+    rnd2 = torch.from_numpy(rng.random((1920 * 1080, 2), dtype=np.float32)).cuda()
+    state = r.environment.state
     with compared_calls(gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",),
-                        lambda a: a[1].numel(), gather_work, library_fn=index_select, others=take) as env:
-        le = lookup_environment(r.environment.state, dirs)
-    if not (env["calls"] == 1 and bool(torch.isfinite(le).all())):
-        raise SystemExit(f"environment lookup: {env['calls']} gather calls, finite {bool(torch.isfinite(le).all())}")
-    log(f"gather_f32: bit-equal at one environment lookup of {dirs.shape[0]} directions ({env['lanes']} words); "
-        f"kernel {env['ms']:.4f} ms, plain {env['plain_ms']:.4f} ms, torch.index_select (int32) "
-        f"{env['library_ms']:.4f} ms, torch.take (int64) {env['others']['torch.take (int64)']:.4f} ms, "
-        f"bound {bound(env['bytes'], env['ops'])['bound_ms']:.4f} ms")
+                        lambda a: a[1].numel(), gather_work, library_fn=index_select, others=take) as sel:
+        le, _, _ = env_mod.sample_environment_plain(state, rnd2)
+        le_esc, _ = env_mod.lookup_environment_pdf_plain(state, dirs)
+    finite = bool(torch.isfinite(le).all()) and bool(torch.isfinite(le_esc).all())
+    if not (sel["calls"] == 3 and finite):
+        raise SystemExit(f"the plain environment: {sel['calls']} gather calls (want 3), finite {finite}")
+    log(f"gather_f32: bit-equal at the plain environment's {sel['calls']} calls of a warp sample and an escape "
+        f"lookup over {dirs.shape[0]} lanes ({sel['lanes']} words); kernel {sel['ms']:.4f} ms, plain "
+        f"{sel['plain_ms']:.4f} ms, torch.index_select (int32) {sel['library_ms']:.4f} ms, torch.take (int64) "
+        f"{sel['others']['torch.take (int64)']:.4f} ms, bound {bound(sel['bytes'], sel['ops'])['bound_ms']:.4f} ms")
     source, replaces = "volxel_tpu_torch/csrc/gather.cu", "volxel_tpu/render/mxu_gather.py:196"
     return [entry("lookup_transfer", source, replaces, lut["err"], lut["ms"], lut["plain_ms"], lut["bytes"],
                   lut["ops"]),
@@ -1250,6 +1256,65 @@ def check_rng(width: int, height: int) -> list[dict]:
             f"bound {e['bound_ms']:.4f} ms by {e['bound_by']} ({moved / 1e6:.1f} MB, {ops / 1e9:.3f} G integer ops; "
             f"the kernel at {e['bound_ms'] / ms:.1%})")
         entries.append(e)
+    return entries
+
+
+def check_env(r, width: int, height: int) -> list[dict]:
+    """The environment's two kernels (csrc/env.cu) on `r`'s map at width x
+    height lanes, bit for bit against the plain version on the card, one
+    launch a call: the warp sample with each pdf over seeded uniforms (0,
+    0.5 and 1 - ulp among them), and the lookup with each pdf, alone and
+    the pdf alone over seeded directions (the poles among them). Each form
+    timed beside its plain version; each kernel's entry is its main-path
+    form (the reference's pdf; the escape's lookup with it), with its bytes
+    floor (each lane's inputs read and outputs written once, the map and
+    the pyramid read once; its f32 operations, OPS_ENV_*, over the f32 rate
+    are less)."""
+    import torch
+
+    from volxel_tpu_torch import kernels
+    from volxel_tpu_torch.scene import environment as env_mod
+
+    cuda = torch.device("cuda")
+    n = width * height
+    g = torch.Generator(cuda).manual_seed(5)
+    rnd2 = torch.rand((n, 2), generator=g, device=cuda)
+    rnd2[:3] = torch.tensor([[0.0, 0.0], [0.5, 0.5], [1.0 - 2.0**-24] * 2], device=cuda)
+    d = torch.randn((n, 3), generator=g, device=cuda)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    d[:2] = torch.tensor([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0]], device=cuda)
+    state = r.environment.state
+    tables = nbytes(state.envmap, *state.imp_mips)
+    forms = {"env_sample": [(f"physical {p}", env_mod.sample_environment_cuda, env_mod.sample_environment_plain,
+                             (state, rnd2, p), OPS_ENV_SAMPLE) for p in (False, True)],
+             "env_lookup": [(f"lookup and pdf, physical {p}", env_mod.lookup_environment_pdf_cuda,
+                             env_mod.lookup_environment_pdf_plain, (state, d, p), OPS_ENV_LOOKUP) for p in (False, True)]
+             + [("lookup", env_mod.lookup_environment_cuda, env_mod.lookup_environment_plain, (state, d),
+                 OPS_ENV_LOOKUP)]
+             + [(f"pdf, physical {p}", env_mod.pdf_environment_cuda, env_mod.pdf_environment_plain, (state, d, p),
+                 OPS_ENV_LOOKUP) for p in (False, True)]}
+    entries = []
+    for name, calls in forms.items():
+        for i, (label, cuda_fn, plain_fn, args, ops) in enumerate(calls):
+            before = kernels.LAUNCHES[name]
+            got = cuda_fn(*args)
+            launches = kernels.LAUNCHES[name] - before
+            want = plain_fn(*args)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            if launches != 1 or not all(bits_equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"{name} ({label}): {launches} launches, max abs {max_abs(got, want)} from the "
+                                 "plain version")
+            _, ms = device_ms(lambda: cuda_fn(*args), 50)
+            _, plain_ms = device_ms(lambda: plain_fn(*args), 5)
+            moved = nbytes(args[1], *got) + tables
+            e = entry(name, "volxel_tpu_torch/csrc/env.cu", "volxel_tpu_torch/scene/environment.py (plain ATen ops; "
+                      "the Pallas kernel volxel_tpu/render/mxu_gather.py:196 at its taps)", 0.0, ms, plain_ms, moved,
+                      n * ops)
+            log(f"{name} ({label}): bit-equal at all {n} lanes of {width}x{height} in one launch; kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms; bound {e['bound_ms']:.4f} ms by {e['bound_by']} ({moved / 1e6:.1f} "
+                f"MB; the kernel at {e['bound_ms'] / ms:.1%})")
+            if i == 0:
+                entries.append(e)
     return entries
 
 
@@ -1582,25 +1647,25 @@ def check_shearwarp(r) -> dict:
 
 # the kernels each mode's main path must launch
 PATH_KERNELS = {
-    "default": ("dda_leg_sample", "dda_leg_shadow", "lookup_transfer", "gather_f32",
+    "default": ("dda_leg_sample", "dda_leg_shadow", "lookup_transfer", "env_sample", "env_lookup",
                 "importance_pyramid", "tonemap", "rng_seed", "rng_draw"),
-    "raymarch": ("tile_march_sample", "tile_march_transmittance", "gather_f32", "importance_pyramid", "tonemap",
-                 "rng_seed", "rng_draw"),
-    "no_dda": ("track_leg_sample", "track_leg_shadow", "gather_f32", "importance_pyramid", "tonemap", "rng_seed",
-               "rng_draw"),
+    "raymarch": ("tile_march_sample", "tile_march_transmittance", "env_sample", "env_lookup", "importance_pyramid",
+                 "tonemap", "rng_seed", "rng_draw"),
+    "no_dda": ("track_leg_sample", "track_leg_shadow", "env_sample", "env_lookup", "importance_pyramid", "tonemap",
+               "rng_seed", "rng_draw"),
     "preview": ("shearwarp_intermediate", "tonemap"),
 }
 # each mode's two legs, each one launch per bounce
 MODE_LEGS = {"default": ("dda_leg_sample", "dda_leg_shadow"),
              "raymarch": ("tile_march_sample", "tile_march_transmittance"),
              "no_dda": ("track_leg_sample", "track_leg_shadow")}
-# the path whose run gives each kernel's launch count (K6 lies on none:
-# its count from the raymarch run is 0)
+# the path whose run gives each kernel's launch count (K6 and gather_f32
+# lie on none: their counts from the raymarch and default runs are 0)
 KERNEL_PATH = {"dda_leg_sample": "default", "dda_leg_shadow": "default", "track_leg_sample": "no_dda",
                "track_leg_shadow": "no_dda", "lookup_transfer": "default", "gather_f32": "default", "importance_pyramid": "default",
                "tonemap": "default", "tile_march_sample": "raymarch", "tile_march_transmittance": "raymarch",
                "tile_march_sums": "raymarch", "shearwarp_intermediate": "preview", "rng_seed": "default",
-               "rng_draw": "default"}
+               "rng_draw": "default", "env_sample": "default", "env_lookup": "default"}
 
 
 def main_path(grid, width: int, height: int, mode: str) -> dict:
@@ -1652,6 +1717,11 @@ def main_path(grid, width: int, height: int, mode: str) -> dict:
     # the RNG seeds every pixel once a sample, in one launch
     if per_sample["rng_seed"] != 1:
         raise SystemExit(f"the RNG was seeded {per_sample['rng_seed']} times per {mode} sample")
+    # the environment's warp and escape lookup, one launch each a bounce
+    env = (per_sample["env_sample"], per_sample["env_lookup"], per_sample["gather_f32"])
+    if env != (r.settings.bounces, r.settings.bounces, 0):
+        raise SystemExit(f"the environment launched (env_sample, env_lookup, gather_f32) {env} times per {mode} "
+                         f"sample at bounces {r.settings.bounces}")
     log(f"main path output ({mode}): mean radiance {mean:.6f}, image mean {float(img.mean()):.6f}")
     return launches
 
@@ -1924,33 +1994,42 @@ RESIZE_REPS = 3
 
 # phase 2b's comparisons: for each render mode, the kernels one sample
 # launches, each as (module whose attribute the sample calls, that name,
-# the CUDA entry, the plain version, the outputs held bit for bit)
-def spec_sample_kernels(mode: str) -> list:
+# the CUDA entry, the plain version, the outputs held bit for bit); a
+# gradient-shaded sample (`shaded`) makes one environment lookup, and no
+# warp sample or escape
+def spec_sample_kernels(mode: str, shaded: bool = False) -> list:
     import volxel_tpu_torch.render.modes as modes
+    import volxel_tpu_torch.scene.environment as env_mod
     from volxel_tpu_torch.render import ddaleg, gather, tilemarch, trackleg
-
-    def gather_cuda(table, idx):
-        return gather.gather_f32_cuda(table.contiguous(), idx.contiguous())
 
     def lut_cuda(lut, sample_range, density):
         return gather.lookup_transfer_cuda(lut.contiguous(), sample_range.contiguous(), density.contiguous())
 
-    taps = (gather, "gather_f32", gather_cuda, gather.gather_f32_plain, ("values",))
+    if shaded:
+        taps = (env_mod, "lookup_environment_cuda", env_mod.lookup_environment_cuda,
+                env_mod.lookup_environment_plain, ("le",))
+    else:
+        taps = (env_mod, "sample_environment_cuda", env_mod.sample_environment_cuda,
+                env_mod.sample_environment_plain, ("le", "pdf", "w_i"))
+        escape = (env_mod, "lookup_environment_pdf_cuda", env_mod.lookup_environment_pdf_cuda,
+                  env_mod.lookup_environment_pdf_plain, ("le", "pdf"))
     if mode == "default":
-        return [(modes, "dda_leg_sample", ddaleg.dda_leg_sample_cuda, ddaleg.dda_leg_sample_plain,
-                 ("state", "hit", "t", "rgb", "budget")),
-                (modes, "dda_leg_shadow", ddaleg.dda_leg_shadow_cuda, ddaleg.dda_leg_shadow_plain,
-                 ("state", "tr", "budget")),
-                (gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",)), taps]
-    if mode == "no_dda":
-        return [(modes, "track_leg_sample", trackleg.track_leg_sample_cuda, trackleg.track_leg_sample_plain,
-                 ("state", "hit", "t", "rgb", "events")),
-                (modes, "track_leg_shadow", trackleg.track_leg_shadow_cuda, trackleg.track_leg_shadow_plain,
-                 ("state", "tr", "events")), taps]
-    return [(modes, "tile_march_sample", tilemarch.tile_march_sample_cuda, tilemarch.tile_march_sample_plain,
-             ("state", "hit", "t", "rgb")),
-            (modes, "tile_march_transmittance", tilemarch.tile_march_transmittance_cuda,
-             tilemarch.tile_march_transmittance_plain, ("state", "tau")), taps]
+        checks = [(modes, "dda_leg_sample", ddaleg.dda_leg_sample_cuda, ddaleg.dda_leg_sample_plain,
+                   ("state", "hit", "t", "rgb", "budget")),
+                  (modes, "dda_leg_shadow", ddaleg.dda_leg_shadow_cuda, ddaleg.dda_leg_shadow_plain,
+                   ("state", "tr", "budget")),
+                  (gather, "lookup_transfer_fetch", lut_cuda, gather.lookup_transfer_plain, ("rgba",)), taps]
+    elif mode == "no_dda":
+        checks = [(modes, "track_leg_sample", trackleg.track_leg_sample_cuda, trackleg.track_leg_sample_plain,
+                   ("state", "hit", "t", "rgb", "events")),
+                  (modes, "track_leg_shadow", trackleg.track_leg_shadow_cuda, trackleg.track_leg_shadow_plain,
+                   ("state", "tr", "events")), taps]
+    else:
+        checks = [(modes, "tile_march_sample", tilemarch.tile_march_sample_cuda, tilemarch.tile_march_sample_plain,
+                   ("state", "hit", "t", "rgb")),
+                  (modes, "tile_march_transmittance", tilemarch.tile_march_transmittance_cuda,
+                   tilemarch.tile_march_transmittance_plain, ("state", "tau")), taps]
+    return checks if shaded else checks + [escape]
 
 
 def no_work(args, got):
@@ -1966,12 +2045,13 @@ def mask_lanes(args) -> int:
                default=0)
 
 
-def held_sample_kernels(fn, mode: str) -> tuple:
+def held_sample_kernels(fn, mode: str, shaded: bool = False) -> tuple:
     """fn() with each kernel of a `mode` sample (spec_sample_kernels: the
-    legs, the map's taps and texels through gather_f32, the default mode's
-    LUT fetch) held bit for bit against its plain version at every call.
-    Returns fn's result and [(name, tally)] in the order of the checks."""
-    checks = spec_sample_kernels(mode)
+    legs, the environment's warp sample and escape lookup, or a
+    gradient-shaded sample's lookup, the default mode's LUT fetch) held bit
+    for bit against its plain version at every call. Returns fn's result
+    and [(name, tally)] in the order of the checks."""
+    checks = spec_sample_kernels(mode, shaded)
     with contextlib.ExitStack() as stack:
         tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, mask_lanes, no_work))
                    for module, name, cuda_fn, plain_fn, outputs in checks]
@@ -1986,7 +2066,7 @@ def hold_frame_kernels(r, what: str) -> None:
     called. Launches made here are not the main path's."""
     import volxel_tpu_torch.render.pallas_ops as pallas_ops
 
-    _, tallies = held_sample_kernels(r.render_frame, r.render_mode)
+    _, tallies = held_sample_kernels(r.render_frame, r.render_mode, r.settings.gradient_shading)
     with compared_calls(pallas_ops, "tonemap_cuda", pallas_ops.tonemap_cuda, pallas_ops.tonemap_plain,
                         ("image",), lambda a: 0, no_work) as tonemap:
         img = r.image()
@@ -2243,8 +2323,8 @@ SERVER_BENCH_SAMPLES = 16
 GRADIENT_SAMPLES = 3  # timed gradient-shaded samples a mode, after one untimed
 DEBUG_HITS_ATOL = 1e-5
 CLI_RENDER = ("render", "--synthetic", "256", "--size", "512x512", "--samples", "16")
-# every kernel the app path launches (K6 lies on no render path)
-APP_KERNELS = tuple(name for name in KERNEL_PATH if name != "tile_march_sums")
+# every kernel the app path launches (K6 and gather_f32 lie on no render path)
+APP_KERNELS = tuple(name for name in KERNEL_PATH if name not in ("tile_march_sums", "gather_f32"))
 
 
 def http(base: str, path: str, body=None) -> tuple:
@@ -2549,7 +2629,7 @@ def gradient_and_debug_hits(grid, width: int, height: int) -> None:
     before = dict(kernels.LAUNCHES)
     img = r.image()
     shown = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
-    log(f"debug hits ({width}x{height}): {ms:.3f} ms a sample, launches {frame} (gather_f32: the environment "
+    log(f"debug hits ({width}x{height}): {ms:.3f} ms a sample, launches {frame} (env_lookup: the environment "
         f"behind the box); image() launches {shown}")
     log_device_profile("debug hits", r.render_frame, ms)
     if (legs | {"lookup_transfer", "shearwarp_intermediate", "tonemap"}) & set(frame) or shown != {"tonemap": 1}:
@@ -3099,7 +3179,7 @@ def held_slab_step(r, what: str) -> dict:
     tallies by name."""
     import volxel_tpu_torch.render.modes as modes
 
-    checks = spec_sample_kernels(r.render_mode)
+    checks = spec_sample_kernels(r.render_mode, r.settings.gradient_shading)
     with contextlib.ExitStack() as stack:
         tallies = [stack.enter_context(compared_calls(module, name, cuda_fn, plain_fn, outputs, mask_lanes,
                                                       slab_work(name) if module is modes else no_work))
@@ -3991,7 +4071,7 @@ def main() -> int:
     check_neg_log1m()
     results = [*check_legs(r, sass_bodies["dda_leg.cu"], registers["dda_leg.cu"]), *check_track_legs(r, sass_bodies["track_leg.cu"], registers["track_leg.cu"]),
                *check_gather(r), check_pyramid(r), check_tonemap(r.settings.exposure, r.settings.gamma, sass),
-               check_shearwarp(r), *check_rng(args.width, args.height)]
+               check_shearwarp(r), *check_rng(args.width, args.height), *check_env(r, args.width, args.height)]
     del r
     r = bench_renderer(grid, args.width, args.height, "cuda", "raymarch")
     results += check_tile_march(r, sass_bodies["tile_march.cu"], registers["tile_march.cu"])

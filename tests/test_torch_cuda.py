@@ -25,7 +25,10 @@ with a timestep swap at every step (two cards over NCCL skip on one). The
 legs' park forms (a vz row across nodes) bit-equal to their plain park
 forms, and parked then resumed bit-equal to the slab form's one launch.
 The per-ray RNG's seeding and draws bit-equal to the plain int64 version
-at every lane, masked-out lanes included, one launch a call.
+at every lane, masked-out lanes included, one launch a call. The
+environment's warp sample, lookup and pdf (csrc/env.cu) bit-equal to the
+plain version at every lane, one launch a call, and whole frames of each
+mode at bounces 3 bit-equal with the kernels and with the plain version.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from volxel_tpu_torch.render import rng as rng_mod
 from volxel_tpu_torch.render.rng import seed_rays
 from volxel_tpu_torch.render.sampling import DeviceGrid, VolumeParams
 from volxel_tpu_torch.render.tilemarch import volume_scalars
+from volxel_tpu_torch.scene import environment as env_mod
 from volxel_tpu_torch.utils.fixtures import synthetic_ct_volume
 
 REPO = Path(__file__).resolve().parent.parent
@@ -916,7 +920,8 @@ def test_gather_kernel_refuses_int64_indices(cuda_device):
 @pytest.mark.cuda
 def test_render_on_card_goes_through_every_kernel(cuda_device):
     """Each mode's render and the preview go through their kernels;
-    tile_march_sums is on no render path, the legs' slab forms run only
+    tile_march_sums and gather_f32 (whose environment sites csrc/env.cu
+    took) are on no render path, the legs' slab forms run only
     over volume slabs (test_slab_leg_kernels_bit_equal_to_plain) and their
     park forms only on a row across nodes
     (test_park_forms_bit_equal_to_plain_and_to_one_launch)."""
@@ -932,7 +937,7 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
         assert np.isfinite(image).all() and image.shape == (32, 32, 3)
     ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
     slab_forms = {name for name in kernels.LAUNCHES if name.endswith(("_slabs", "_slabs_park"))}
-    assert ran == set(kernels.LAUNCHES) - {"tile_march_sums"} - slab_forms, kernels.LAUNCHES
+    assert ran == set(kernels.LAUNCHES) - {"tile_march_sums", "gather_f32"} - slab_forms, kernels.LAUNCHES
 
 
 @pytest.mark.cuda
@@ -1071,7 +1076,8 @@ def test_debug_hits_on_the_card_launch_no_leg(cuda_device):
     kernels.reset_launch_counts()
     r.render_frame()
     ran = {name for name, count in kernels.LAUNCHES.items() if count}
-    assert ran <= {"gather_f32", "rng_seed", "rng_draw"}  # the environment behind the box; the camera's jitter
+    # the environment behind the box; the camera's jitter
+    assert ran <= {"gather_f32", "env_lookup", "rng_seed", "rng_draw"}
     cpu = _renderer("cpu", side=32)
     cpu.settings.debug_hits = True
     cpu.render_frame()
@@ -1688,3 +1694,247 @@ def test_rng_stream_on_the_card_over_many_draws(cuda_device):
         assert torch.equal(got.cpu(), want), (i, name)
     assert torch.equal(card.cpu(), cpu)
     assert kernels.LAUNCHES["rng_seed"] == 1 and kernels.LAUNCHES["rng_draw"] == 2 * len(_DRAWS)
+
+
+# -- the environment (csrc/env.cu) ---------------------------------------------
+
+_ENV_LAUNCHES = ("env_sample", "env_lookup")
+
+
+def _env_state(kind, strength, device):
+    """The default 8x6 map, the fixture writers' 64x32 HDR map, or that map
+    with its lower half and a band of columns black (the pyramid then holds
+    quadrants of zero importance, where the warp's 1e-8 clamps act), built
+    on `device`."""
+    from volxel_tpu_torch.ingest.hdr import decode_env_bytes
+    from volxel_tpu_torch.utils.fixtures import synthetic_env_hdr
+
+    if kind == "default":
+        image = env_mod.default_environment_image()
+    else:
+        image = np.array(decode_env_bytes(synthetic_env_hdr(64, 32))[..., :3], dtype=np.float32)
+        if kind == "black":
+            image[16:] = 0.0
+            image[:, 8:20] = 0.0
+    return env_mod.Environment(image, strength, device=device).state
+
+
+def _uniforms(n):
+    """n (n, 2) uniforms: every pair of 0, 0.5 and 1 - ulp first, then seeded ones."""
+    u = np.random.default_rng(3).random((n, 2), dtype=np.float32)
+    edge = np.array([0.0, 0.5, np.nextafter(np.float32(1.0), np.float32(0.0))], np.float32)
+    u[:9] = np.stack(np.meshgrid(edge, edge), axis=-1).reshape(-1, 2)
+    return torch.from_numpy(u)
+
+
+def _directions(n):
+    """n (n, 3) directions: the poles, the u seam (atan2 at +-pi), rows past
+    v's clamp, |y| past 1, then seeded unit directions."""
+    d = np.random.default_rng(4).normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    edge = np.array([[0.0, 1.0, 0.0], [0.0, -1.0, 0.0], [1e-7, 1.0, -1e-7], [-1e-7, -1.0, 1e-7],
+                     [-1.0, 0.0, 0.0], [-1.0, 0.0, -0.0], [-1.0, 0.3, 1e-7], [-1.0, 0.3, -1e-7],
+                     [-0.8, -0.6, -0.0], [0.02, 0.9998, 0.01], [0.02, -0.9998, -0.01], [0.0, 1.0000001, 0.0],
+                     [0.5, -1.5, 0.5]], np.float32)
+    d[:len(edge)] = edge
+    return torch.from_numpy(d)
+
+
+def _lanes_on(t, layout, device):
+    """2 x 4099 lanes of `t` on `device` as (4099, k), (37, 61, k) or a
+    non-contiguous [::2] of all of them."""
+    if layout == "flat":
+        return t[:4099].to(device)
+    if layout == "image":
+        return t[:37 * 61].reshape(37, 61, -1).to(device)
+    lanes = t.to(device)[::2]
+    assert not lanes.is_contiguous()
+    return lanes
+
+
+def _env_calls(env, direction, physical):
+    """(name, entry point, plain version, arguments) of each lookup form."""
+    return [("lookup", env_mod.lookup_environment, env_mod.lookup_environment_plain, (env, direction)),
+            ("pdf", env_mod.pdf_environment, env_mod.pdf_environment_plain, (env, direction, physical)),
+            ("lookup_pdf", env_mod.lookup_environment_pdf, env_mod.lookup_environment_pdf_plain,
+             (env, direction, physical)),
+            ("background", lambda e, d: env_mod.background_color(e, d, False), env_mod.lookup_environment_plain,
+             (env, direction))]
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def test_env_on_cpu_tensors_takes_the_plain_path():
+    """On CPU tensors every environment entry point gives the plain
+    version's outputs bit for bit and launches nothing."""
+    env = _env_state("hdr", 1.5, "cpu")
+    rnd, d = _uniforms(256), _directions(256)
+    kernels.reset_launch_counts()
+    for physical in (False, True):
+        _assert_bits_equal(env_mod.sample_environment(env, rnd, physical),
+                           env_mod.sample_environment_plain(env, rnd, physical))
+        for name, fn, plain, args in _env_calls(env, d, physical):
+            got, want = _as_tuple(fn(*args)), _as_tuple(plain(*args))
+            assert len(got) == len(want)
+            _assert_bits_equal(got, want)
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("name", ["vx_env_sample", "vx_env_lookup"])
+def test_env_entry_points_bound_as_declared(name):
+    """kernels binds csrc/env.cu's C entry points with ctypes types that
+    match their declarations one for one: a pointer, the host array of the
+    pyramid's pointers or a stream as a void pointer, `long long` as
+    c_longlong, `int` as c_int."""
+    import ctypes
+    import re
+
+    source = (kernels.CSRC / "env.cu").read_text()
+    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
+    assert m, f"{name} is not an extern \"C\" int function"
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
+            ctypes.c_longlong if p.startswith("long long") else ctypes.c_int if p.startswith("int ") else p
+            for p in params]
+    assert kernels._SIGNATURES[name] == want
+    assert "env.cu" in kernels.FMAD_SOURCES
+
+
+@pytest.mark.parametrize("case", ["cpu_lanes", "float64_uniforms", "three_uniforms", "two_components",
+                                  "int_directions", "four_channel_map", "nine_levels", "wrong_level",
+                                  "two_strengths"])
+def test_env_cuda_wrappers_refuse_what_the_kernels_do_not_take(case):
+    """The environment's CUDA wrappers raise, before any launch, on CPU
+    tensors, on uniforms that are not (..., 2) f32, on directions that are
+    not (..., 3) f32, on a map that is not (H, W, 3), on a pyramid that is
+    not ten levels of 512^2 ... 1^2 and on more than one strength."""
+    env = _env_state("default", 1.0, "cpu")
+    rnd, d = _uniforms(16), _directions(16)
+    mips = list(env.imp_mips)
+    calls = {
+        "cpu_lanes": (lambda: env_mod.sample_environment_cuda(env, rnd), "CUDA"),
+        "float64_uniforms": (lambda: env_mod.sample_environment_cuda(env, rnd.double()), "float32"),
+        "three_uniforms": (lambda: env_mod.sample_environment_cuda(env, d), r"\(\.\.\., 2\)"),
+        "two_components": (lambda: env_mod.lookup_environment_cuda(env, rnd), r"\(\.\.\., 3\)"),
+        "int_directions": (lambda: env_mod.pdf_environment_cuda(env, d.to(torch.int32)), "float32"),
+        "four_channel_map": (lambda: env_mod.lookup_environment_pdf_cuda(
+            env._replace(envmap=torch.zeros(6, 8, 4)), d), r"\(H, W, 3\)"),
+        "nine_levels": (lambda: env_mod.sample_environment_cuda(env._replace(imp_mips=tuple(mips[:9])), rnd),
+                        "importance levels"),
+        "wrong_level": (lambda: env_mod.lookup_environment_cuda(
+            env._replace(imp_mips=tuple(mips[:3] + [torch.zeros(32, 32)] + mips[4:])), d), "importance levels"),
+        "two_strengths": (lambda: env_mod.sample_environment_cuda(env._replace(strength=torch.ones(2)), rnd),
+                          "one strength"),
+    }
+    fn, match = calls[case]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        fn()
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["default", "hdr", "black"])
+@pytest.mark.parametrize("strength", [1.0, 1.5])
+@pytest.mark.parametrize("physical", [False, True])
+@pytest.mark.parametrize("layout", ["flat", "image", "strided"])
+def test_env_sample_kernel_bit_equal_to_plain(cuda_device, kind, strength, physical, layout):
+    """One launch of env_sample_kernel gives the plain warp's radiance, pdf
+    and direction at every lane: the default 8x6 map, a 64x32 HDR map and
+    one with black quadrants, strength 1 and 1.5, both pdfs, uniforms at
+    0, 0.5 and 1 - ulp, flat, image and non-contiguous lanes."""
+    env = _env_state(kind, strength, cuda_device)
+    if kind == "black":
+        assert all(bool((m == 0).any()) for m in env.imp_mips[:6])
+    rnd = _lanes_on(_uniforms(2 * 4099), layout, cuda_device)
+    kernels.reset_launch_counts()
+    got = env_mod.sample_environment(env, rnd, physical)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"env_sample": 1}
+    want = env_mod.sample_environment_plain(env, rnd, physical)
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert got[0].shape == (*rnd.shape[:-1], 3)
+    _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["default", "hdr", "black"])
+@pytest.mark.parametrize("strength", [1.0, 1.5])
+@pytest.mark.parametrize("physical", [False, True])
+@pytest.mark.parametrize("layout", ["flat", "image", "strided"])
+def test_env_lookup_kernel_bit_equal_to_plain(cuda_device, kind, strength, physical, layout):
+    """One launch of env_lookup_kernel a call gives the plain version's
+    radiance, pdf, or both, at every lane (the poles, the u seam, v's
+    clamp rows and |y| past 1 among them), and background_color's map."""
+    env = _env_state(kind, strength, cuda_device)
+    d = _lanes_on(_directions(2 * 4099), layout, cuda_device)
+    for name, fn, plain, args in _env_calls(env, d, physical):
+        kernels.reset_launch_counts()
+        got = _as_tuple(fn(*args))
+        assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"env_lookup": 1}, name
+        want = _as_tuple(plain(*args))
+        assert [t.shape for t in got] == [t.shape for t in want], name
+        _assert_bits_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_env_kernels_on_zero_lanes(cuda_device):
+    """Zero lanes launch nothing and give empty outputs of the plain
+    version's shapes."""
+    env = _env_state("default", 1.0, cuda_device)
+    rnd = torch.zeros(0, 2, device=cuda_device)
+    d = torch.zeros(5, 0, 3, device=cuda_device)
+    kernels.reset_launch_counts()
+    got = env_mod.sample_environment(env, rnd, True)
+    assert [t.shape for t in got] == [t.shape for t in env_mod.sample_environment_plain(env, rnd, True)]
+    for name, fn, plain, args in _env_calls(env, d, False):
+        assert [t.shape for t in _as_tuple(fn(*args))] == [t.shape for t in _as_tuple(plain(*args))], name
+    assert not any(kernels.LAUNCHES[k] for k in _ENV_LAUNCHES)
+
+
+def _plain_environment(monkeypatch):
+    """Send every environment call on the card through the plain version."""
+    for name in ("sample_environment", "lookup_environment", "pdf_environment", "lookup_environment_pdf"):
+        monkeypatch.setattr(env_mod, f"{name}_cuda", getattr(env_mod, f"{name}_plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "raymarch", "no_dda"])
+@pytest.mark.parametrize("setting", ["reference", "physical_pdf", "hdr", "no_use_env", "gradient_shading"])
+def test_env_kernels_in_frames_bit_equal_to_plain(cuda_device, monkeypatch, mode, setting):
+    """Two 32x24 frames at bounces 3 on the card give the same framebuffer
+    bit for bit with the environment's kernels and with its plain version:
+    the reference's pdf, the physical one, an HDR map, the light fallback
+    (the escape's pdf alone) and gradient shading (one background lookup a
+    frame). The kernels launch once a bounce each (env_lookup alone without
+    use_env; one env_lookup a gradient-shaded frame)."""
+    from volxel_tpu_torch.utils.fixtures import synthetic_env_hdr
+
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+
+    def frames():
+        r = Renderer(32, 24, device=cuda_device)
+        r.restart_from_grid(grid)
+        if setting == "hdr":
+            r.load_env(synthetic_env_hdr(64, 32), strength=1.5)
+        r.render_mode = mode
+        r.settings.physical_pdf = setting == "physical_pdf"
+        r.settings.use_env = setting != "no_use_env"
+        r.settings.gradient_shading = setting == "gradient_shading"
+        assert r.settings.bounces == 3
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            fb = r.render_frame()
+        return fb.clone(), {k: kernels.LAUNCHES[k] for k in _ENV_LAUNCHES}
+
+    fb, launches = frames()
+    want = {"gradient_shading": (0, 1), "no_use_env": (0, 3)}.get(setting, (3, 3))
+    assert launches == {"env_sample": 2 * want[0], "env_lookup": 2 * want[1]}
+    with monkeypatch.context() as m:
+        _plain_environment(m)
+        plain_fb, plain_launches = frames()
+    assert plain_launches == dict.fromkeys(_ENV_LAUNCHES, 0)
+    assert bool(torch.isfinite(fb).all()) and float(fb.mean()) > 0
+    _assert_bits_equal([fb], [plain_fb])

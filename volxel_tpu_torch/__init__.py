@@ -25,7 +25,7 @@ Layer map (the module names follow volxel_tpu):
   __main__    the CLI: render, ingest, benchmark, serve, info
   csrc/       CUDA sources: dda_leg and track_leg (sharing
               leg_common.cuh), tile_march, gather, importance_pyramid,
-              tonemap, shearwarp
+              tonemap, shearwarp, rng, env
 """
 
 __version__ = "0.1.0"

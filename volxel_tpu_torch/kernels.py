@@ -17,15 +17,19 @@ turns a non-zero code into an exception.
 `--fmad=false` keeps every multiply and add separately rounded, as eager
 PyTorch ops are, so a kernel can be held bit-equal to its plain version.
 The sources in FMAD_SOURCES are built with nvcc's default `--fmad=true`
-instead, so that the math library's functions (logf, powf) round as they do
-in ATen's kernels; those sources write every f32 sum and product with the
-`__fadd_rn` / `__fmul_rn` intrinsics, which are never contracted.
+instead, so that the math library's functions (logf, powf, and in env.cu
+atan2f, acosf, sinf, cosf) round as they do in ATen's kernels; those
+sources write every f32 sum and product with the `__fadd_rn` /
+`__fmul_rn` intrinsics, which are never contracted.
 
 `LAUNCHES` counts kernel launches by name. Only the wrappers add to it,
 once per launch, so a run can show which kernels its path went through.
 The per-ray RNG (render/rng.py, csrc/rng.cu) counts `rng_seed` once a
 seeding and `rng_draw` once a draw call, whatever the draws a lane; both
 stay 0 where the words are drawn on the CPU.
+The environment (scene/environment.py, csrc/env.cu) counts `env_sample`
+once a warp sample and `env_lookup` once a lookup, a pdf or both; both
+stay 0 for an environment on the CPU.
 A leg launched over z-slabs (render-time volume slabs: the field read
 through a table of the slabs' pointers) counts under its name with
 `_slabs` appended, apart from its launches over a dense field, and its
@@ -51,7 +55,7 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
 )
-FMAD_SOURCES = ("dda_leg.cu", "track_leg.cu", "tonemap.cu")
+FMAD_SOURCES = ("dda_leg.cu", "track_leg.cu", "tonemap.cu", "env.cu")
 
 LAUNCHES = {
     "dda_leg_sample": 0, "dda_leg_shadow": 0, "track_leg_sample": 0, "track_leg_shadow": 0, "importance_pyramid": 0,
@@ -61,7 +65,7 @@ LAUNCHES = {
     "tile_march_sample_slabs": 0, "tile_march_transmittance_slabs": 0,
     "dda_leg_sample_slabs_park": 0, "dda_leg_shadow_slabs_park": 0, "track_leg_sample_slabs_park": 0,
     "track_leg_shadow_slabs_park": 0, "tile_march_sample_slabs_park": 0, "tile_march_transmittance_slabs_park": 0,
-    "rng_seed": 0, "rng_draw": 0,
+    "rng_seed": 0, "rng_draw": 0, "env_sample": 0, "env_lookup": 0,
 }
 
 _P = ctypes.c_void_p
@@ -155,6 +159,11 @@ _SIGNATURES = {
     "vx_rng_seed": [_P, _I, _P, _I, ctypes.c_uint, _P, ctypes.c_longlong, _P],
     # state, mask, state_out, out, k, n, stream
     "vx_rng_draw": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P],
+    # map, h, w, mips (a host array of 10 device pointers), strength, rnd,
+    # physical, le_out, pdf_out, w_out, n, stream
+    "vx_env_sample": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, ctypes.c_longlong, _P],
+    # map, h, w, mips, strength, dir, pdf, le_out, pdf_out, n, stream
+    "vx_env_lookup": [_P, _I, _I, _P, _P, _P, _I, _P, _P, ctypes.c_longlong, _P],
 }
 
 _lib = None

@@ -10,7 +10,9 @@ of that is carried over. Two entry points, both in csrc/gather.cu:
   * gather_f32(table, idx): table.reshape(-1)[idx], bit for bit, for any
     index shape (NaN payloads and denormals included). The indices are
     int32, as the TPU kernel's are (8 bytes moved per word, not 12). The
-    environment's bilinear taps and importance-texel fetches go through it.
+    plain environment's bilinear taps and importance-texel fetches go
+    through it; on the card the environment's kernels (csrc/env.cu) load
+    them themselves, so no render path launches it.
   * lookup_transfer_fetch(lut, sample_range, density): the transfer LUT's
     NEAREST sample with range rejection (common.glsl:78-83) as one fused
     pass; sampling.lookup_transfer is this function. `sample_range` stays

@@ -36,8 +36,8 @@ from volxel_tpu_torch.render.shading import trace_shaded
 from volxel_tpu_torch.scene.environment import (
     EnvState,
     background_color,
-    lookup_environment,
     lookup_environment_light,
+    lookup_environment_pdf,
     pdf_environment,
     sample_environment,
     sample_environment_light,
@@ -90,11 +90,6 @@ def trace_path(
     n_paths = torch.zeros((n,), dtype=torch.int32, device=dev)
     f_p = torch.zeros((n,), dtype=torch.float32, device=dev)
 
-    def env_radiance(directions):
-        if config.use_env:
-            return lookup_environment(env, directions)
-        return lookup_environment_light(env, directions, light_dir)
-
     for bounce in range(config.bounces):
         # bounces after the first: their own span, and the lanes alive at their start
         with bounce_span(bounce, active):
@@ -107,8 +102,11 @@ def trace_path(
             # escaped rays: environment contribution with MIS (fragment.frag:117-121)
             if config.show_environment:
                 with span("vx::escape"):
-                    le = env_radiance(direction)
-                    pdf_esc = pdf_environment(env, direction, config.physical_pdf)
+                    if config.use_env:
+                        le, pdf_esc = lookup_environment_pdf(env, direction, config.physical_pdf)
+                    else:
+                        le = lookup_environment_light(env, direction, light_dir)
+                        pdf_esc = pdf_environment(env, direction, config.physical_pdf)
                     mis = torch.where(n_paths > 0, power_heuristic(f_p, pdf_esc), 1.0)
                     radiance = radiance + torch.where(miss[..., None], throughput * mis[..., None] * le, 0.0)
             active = hit

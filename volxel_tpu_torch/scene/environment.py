@@ -19,10 +19,20 @@ over solid angle instead (settings.physical_pdf).
 
 The JAX package's precomputed warp tables, MXU packings and quad-packed
 envmap work around serialized TPU gathers; the warp here is the inline
-form, which those tables are pinned bit-identical to. The bilinear taps
-and the importance-texel fetches go through render.gather.gather_f32
-(kernel 2 on the card), as the JAX package sends them through
+form, which those tables are pinned bit-identical to. In the plain
+version the bilinear taps and the importance-texel fetches go through
+render.gather.gather_f32, as the JAX package sends them through
 mxu_gather_f32.
+
+On the card the per-lane work is csrc/env.cu, one launch a call:
+`vx_env_sample` is the warp with its radiance, pdf and direction, and
+`vx_env_lookup` the lookup, the pdf, or both from one read of each
+direction (lookup_environment_pdf, the escaped rays' MIS). Each is
+bit-equal to the plain version at every lane, for either `physical` and
+any map size. CPU tensors take the plain version: the path is chosen by
+the tensors' device, as for every kernel of the port, and the plain
+versions (`*_plain`) run on any device. The light fallback
+(lookup_environment_light, sample_environment_light) stays plain.
 
 Every entry point that builds state takes its device from the caller;
 none defaults to one.
@@ -30,12 +40,14 @@ none defaults to one.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from volxel_tpu_torch import kernels
 from volxel_tpu_torch.render import gather
 from volxel_tpu_torch.render.rays import luma
 from volxel_tpu_torch.utils.profiling import spanned
@@ -170,33 +182,14 @@ def _dir_to_uv(direction):
     return u, v
 
 
-def _lookup_environment(env: EnvState, direction):
+def lookup_environment_plain(env: EnvState, direction):
+    """lookup_environment in plain PyTorch, on any device."""
     u, v = _dir_to_uv(direction)
     return env.strength * _bilinear_wrap_clamp(env.envmap, u, v)
 
 
-@spanned("vx::env")
-def lookup_environment(env: EnvState, direction):
-    """Equirect radiance lookup (environment.glsl:19-27)."""
-    return _lookup_environment(env, direction)
-
-
-@spanned("vx::env")
-def lookup_environment_light(env: EnvState, direction, light_dir):
-    """Procedural directional-light fallback (environment.glsl:20-22)."""
-    d = (direction * (-light_dir)).sum(dim=-1)
-    glow = torch.clamp(torch.pow(torch.clamp_min(d, 0.0), 300.0), 0.0, 1.0) * 4.0 + 0.01
-    return env.strength * glow[..., None] * torch.ones(3, dtype=torch.float32, device=direction.device)
-
-
-@spanned("vx::env")
-def sample_environment(env: EnvState, rnd2, physical: bool = False):
-    """Hierarchical warp sample (environment.glsl:36-80).
-
-    rnd2: (..., 2) uniforms. Returns (Le (...,3), pdf (...), w_i (...,3)).
-    physical=True reports the warp's true solid-angle density instead of
-    the reference's 1/(4*pi)-scaled texel mass.
-    """
+def sample_environment_plain(env: EnvState, rnd2, physical: bool = False):
+    """sample_environment in plain PyTorch, on any device."""
     shape = rnd2.shape[:-1]
     pos_x = torch.zeros(shape, dtype=torch.int32, device=rnd2.device)
     pos_y = torch.zeros(shape, dtype=torch.int32, device=rnd2.device)
@@ -245,6 +238,138 @@ def sample_environment(env: EnvState, rnd2, physical: bool = False):
     return le, pdf, w_i
 
 
+def _reference_pdf(env: EnvState, le):
+    """The reference's escape pdf of radiance `le`: strength-scaled luma over
+    the mean importance, over 4 pi."""
+    return luma(le) / env.imp_mips[IMP_BASE_MIP][0, 0] * (1.0 / (4.0 * math.pi))
+
+
+def pdf_environment_plain(env: EnvState, direction, physical: bool = False):
+    """pdf_environment in plain PyTorch, on any device."""
+    if physical:
+        avg_w = env.imp_mips[IMP_BASE_MIP][0, 0]
+        u, v = _dir_to_uv(direction)
+        px = torch.clamp((u * IMP_DIM).to(torch.int32), 0, IMP_DIM - 1)
+        py = torch.clamp((v * IMP_DIM).to(torch.int32), 0, IMP_DIM - 1)
+        sin_t = torch.sqrt(torch.clamp_min(1.0 - torch.clamp(direction[..., 1], -1.0, 1.0) ** 2, 0.0))
+        texel = gather.gather_f32(env.imp_mips[0], py * IMP_DIM + px)
+        return texel / avg_w / (2.0 * math.pi * math.pi * torch.clamp_min(sin_t, 1e-6))
+    return _reference_pdf(env, lookup_environment_plain(env, direction))
+
+
+def lookup_environment_pdf_plain(env: EnvState, direction, physical: bool = False):
+    """(lookup, pdf) of the directions in plain PyTorch, on any device."""
+    le = lookup_environment_plain(env, direction)
+    return le, (pdf_environment_plain(env, direction, True) if physical else _reference_pdf(env, le))
+
+
+# -- the same on the card: csrc/env.cu -----------------------------------------
+
+_PDF_NONE, _PDF_REFERENCE, _PDF_PHYSICAL = 0, 1, 2  # vx_env_lookup's `pdf`
+
+
+def _env_operands(name: str, env: EnvState, lanes: torch.Tensor, width: int) -> tuple:
+    """Check the environment and the (..., width) f32 lanes a kernel takes,
+    raising before any launch; return the lanes, contiguous, and the C
+    entry points' environment arguments (map, h, w, mips, strength)."""
+    if lanes.dtype != torch.float32 or lanes.shape[-1:] != (width,):
+        raise ValueError(f"{name}: expected (..., {width}) float32 lanes, got {tuple(lanes.shape)} {lanes.dtype}")
+    envmap, mips, strength = env.envmap, env.imp_mips, env.strength
+    if envmap.dim() != 3 or envmap.shape[2] != 3 or envmap.shape[0] < 1 or envmap.shape[1] < 1:
+        raise ValueError(f"{name}: expected an (H, W, 3) map, got {tuple(envmap.shape)}")
+    if len(mips) != IMP_BASE_MIP + 1 or any(m.shape != (IMP_DIM >> k,) * 2 for k, m in enumerate(mips)):
+        raise ValueError(f"{name}: expected {IMP_BASE_MIP + 1} importance levels of 512^2 ... 1^2, got "
+                         f"{[tuple(m.shape) for m in mips]}")
+    if strength.numel() != 1:
+        raise ValueError(f"{name}: expected one strength, got {tuple(strength.shape)}")
+    lanes = lanes.contiguous()
+    kernels.require_cuda(name, envmap, *mips, strength, dtype=torch.float32, device=lanes.device)
+    kernels.require_cuda(name, lanes)
+    ptrs = (ctypes.c_void_p * len(mips))(*(m.data_ptr() for m in mips))
+    return lanes, (envmap.data_ptr(), envmap.shape[0], envmap.shape[1], ptrs, strength.data_ptr())
+
+
+def sample_environment_cuda(env: EnvState, rnd2, physical: bool = False):
+    """sample_environment on the card, one launch of csrc/env.cu over the
+    (..., 2) f32 uniforms, bit-equal to the plain version at every lane."""
+    rnd2, operands = _env_operands("env_sample", env, rnd2, 2)
+    lanes = rnd2.shape[:-1]
+    le = torch.empty((*lanes, 3), dtype=torch.float32, device=rnd2.device)
+    pdf = torch.empty(lanes, dtype=torch.float32, device=rnd2.device)
+    w_i = torch.empty((*lanes, 3), dtype=torch.float32, device=rnd2.device)
+    if pdf.numel():
+        kernels.launch("vx_env_sample", rnd2, *operands, rnd2.data_ptr(), int(bool(physical)), le.data_ptr(),
+                       pdf.data_ptr(), w_i.data_ptr(), pdf.numel(), counter="env_sample")
+    return le, pdf, w_i
+
+
+def _lookup_cuda(env: EnvState, direction, radiance: bool, pdf: int):
+    """One launch of vx_env_lookup over the (..., 3) f32 directions: the
+    radiance (where `radiance`) and the pdf `pdf` -> (le or None, pdf or None)."""
+    direction, operands = _env_operands("env_lookup", env, direction, 3)
+    lanes = direction.shape[:-1]
+    le = torch.empty((*lanes, 3), dtype=torch.float32, device=direction.device) if radiance else None
+    out = torch.empty(lanes, dtype=torch.float32, device=direction.device) if pdf != _PDF_NONE else None
+    n = direction.numel() // 3
+    if n:
+        kernels.launch("vx_env_lookup", direction, *operands, direction.data_ptr(), pdf,
+                       None if le is None else le.data_ptr(), None if out is None else out.data_ptr(), n,
+                       counter="env_lookup")
+    return le, out
+
+
+def lookup_environment_cuda(env: EnvState, direction):
+    """lookup_environment on the card, one launch, bit-equal to the plain version."""
+    return _lookup_cuda(env, direction, True, _PDF_NONE)[0]
+
+
+def pdf_environment_cuda(env: EnvState, direction, physical: bool = False):
+    """pdf_environment on the card, one launch, bit-equal to the plain version."""
+    return _lookup_cuda(env, direction, False, _PDF_PHYSICAL if physical else _PDF_REFERENCE)[1]
+
+
+def lookup_environment_pdf_cuda(env: EnvState, direction, physical: bool = False):
+    """lookup_environment_pdf on the card, one launch for both, bit-equal to
+    the plain version."""
+    return _lookup_cuda(env, direction, True, _PDF_PHYSICAL if physical else _PDF_REFERENCE)
+
+
+# -- the entry points: the plain version for CPU tensors, the kernels for CUDA ones
+
+
+def _lookup_environment(env: EnvState, direction):
+    if direction.device.type == "cpu":
+        return lookup_environment_plain(env, direction)
+    return lookup_environment_cuda(env, direction)
+
+
+@spanned("vx::env")
+def lookup_environment(env: EnvState, direction):
+    """Equirect radiance lookup (environment.glsl:19-27)."""
+    return _lookup_environment(env, direction)
+
+
+@spanned("vx::env")
+def lookup_environment_light(env: EnvState, direction, light_dir):
+    """Procedural directional-light fallback (environment.glsl:20-22)."""
+    d = (direction * (-light_dir)).sum(dim=-1)
+    glow = torch.clamp(torch.pow(torch.clamp_min(d, 0.0), 300.0), 0.0, 1.0) * 4.0 + 0.01
+    return env.strength * glow[..., None] * torch.ones(3, dtype=torch.float32, device=direction.device)
+
+
+@spanned("vx::env")
+def sample_environment(env: EnvState, rnd2, physical: bool = False):
+    """Hierarchical warp sample (environment.glsl:36-80).
+
+    rnd2: (..., 2) uniforms. Returns (Le (...,3), pdf (...), w_i (...,3)).
+    physical=True reports the warp's true solid-angle density instead of
+    the reference's 1/(4*pi)-scaled texel mass.
+    """
+    if rnd2.device.type == "cpu":
+        return sample_environment_plain(env, rnd2, physical)
+    return sample_environment_cuda(env, rnd2, physical)
+
+
 @spanned("vx::env")
 def sample_environment_light(env: EnvState, rnd2, light_dir):
     """Directional-light sampling branch (environment.glsl:30-33)."""
@@ -262,16 +387,18 @@ def pdf_environment(env: EnvState, direction, physical: bool = False):
     physical=True returns the density sample_environment(physical=True)
     draws this direction with.
     """
-    avg_w = env.imp_mips[IMP_BASE_MIP][0, 0]
-    if physical:
-        u, v = _dir_to_uv(direction)
-        px = torch.clamp((u * IMP_DIM).to(torch.int32), 0, IMP_DIM - 1)
-        py = torch.clamp((v * IMP_DIM).to(torch.int32), 0, IMP_DIM - 1)
-        sin_t = torch.sqrt(torch.clamp_min(1.0 - torch.clamp(direction[..., 1], -1.0, 1.0) ** 2, 0.0))
-        texel = gather.gather_f32(env.imp_mips[0], py * IMP_DIM + px)
-        return texel / avg_w / (2.0 * math.pi * math.pi * torch.clamp_min(sin_t, 1e-6))
-    le = _lookup_environment(env, direction)
-    return luma(le) / avg_w * (1.0 / (4.0 * math.pi))
+    if direction.device.type == "cpu":
+        return pdf_environment_plain(env, direction, physical)
+    return pdf_environment_cuda(env, direction, physical)
+
+
+@spanned("vx::env")
+def lookup_environment_pdf(env: EnvState, direction, physical: bool = False):
+    """(lookup_environment, pdf_environment) of the same directions: the
+    escaped rays' radiance and MIS pdf, one launch on the card."""
+    if direction.device.type == "cpu":
+        return lookup_environment_pdf_plain(env, direction, physical)
+    return lookup_environment_pdf_cuda(env, direction, physical)
 
 
 @spanned("vx::env")
