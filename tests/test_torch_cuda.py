@@ -33,7 +33,9 @@ mode at bounces 3 bit-equal with the kernels and with the plain version.
 
 from __future__ import annotations
 
+import ctypes
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -229,8 +231,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         trackleg.track_leg_shadow_cuda(*track_call(track_lanes("cpu", n=64), "shadow"))
     with pytest.raises(ValueError, match="CUDA"):
         pallas_ops.tonemap_cuda(torch.zeros((4, 3)), 1.0, 2.2)
-    with pytest.raises(ValueError, match="CUDA"):
-        pallas_ops.copy16(torch.zeros((4, 3)))
     args = _tile_march_args("cpu", n=64)
     with pytest.raises(ValueError, match="CUDA"):
         tilemarch.tile_march_sample_cuda(*args)
@@ -248,6 +248,53 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         gather.gather_f32_cuda(torch.zeros(8), torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         gather.lookup_transfer_cuda(torch.zeros((128, 4)), torch.tensor([0.0, 1.0]), torch.zeros(16))
+
+
+_DECLARED = re.compile(r'extern "C" int (vx_\w+)\(([^)]*)\)')
+# the entry points that take no stream: the occupancy queries and the
+# peer-access switch
+_NO_STREAM = ("vx_dda_leg_resident_warps", "vx_track_leg_resident_warps", "vx_tile_march_resident_warps",
+              "vx_enable_peer_access")
+
+
+def _declarations() -> list[tuple[str, str, list[str]]]:
+    """(source, entry point, its parameters) of every `extern "C" int
+    vx_...(...)` declaration in csrc/*.cu."""
+    return [(src.name, name, [" ".join(p.split()) for p in params.split(",") if p.strip()])
+            for src in sorted(kernels.CSRC.glob("*.cu")) for name, params in _DECLARED.findall(src.read_text())]
+
+
+def _ctype(param: str):
+    return (ctypes.c_void_p if "*" in param or param.startswith("cudaStream_t ") else
+            ctypes.c_longlong if param.startswith("long long ") else ctypes.c_uint if param.startswith("unsigned ")
+            else ctypes.c_float if param.startswith("float ") else ctypes.c_int if param.startswith("int ") else param)
+
+
+@pytest.mark.parametrize("name", [name for _, name, _ in _declarations()] + ["python_call_sites"])
+def test_entry_points_bound_as_declared(name):
+    """Each C entry point of csrc/*.cu is declared in one source, and
+    kernels binds it with one ctypes type per declared parameter: a pointer
+    or a stream as a void pointer, `long long` as c_longlong, `unsigned` as
+    c_uint, `float` as c_float, `int` as c_int; the last is the stream but
+    in the occupancy queries and the peer-access switch. The last case:
+    every entry point the package's Python names (a literal "vx_..." or
+    "vx_" and a launch counter's name) is declared."""
+    declared = _declarations()
+    names = [n for _, n, _ in declared]
+    if name == "python_call_sites":
+        named = {m for path in (REPO / "volxel_tpu_torch").rglob("*.py")
+                 for m in re.findall(r"[\"'](vx_\w+)[\"']", path.read_text())} - {"vx_slab_"}
+        named |= {f"vx_{counter}" for counter in kernels.LAUNCHES}
+        assert named and named <= set(names), sorted(named - set(names))
+        return
+    sources = [src for src, n, _ in declared if n == name]
+    assert len(sources) == 1, f"{name} is declared in {sources}"
+    (params,) = [p for _, n, p in declared if n == name]
+    bound = kernels.signatures()[name]
+    assert len(bound) == len(params) and bound == [_ctype(p) for p in params]
+    assert params[-1].startswith("cudaStream_t ") == (name not in _NO_STREAM)
+    if name not in _NO_STREAM:
+        assert bound[-1] is ctypes.c_void_p
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -793,8 +840,7 @@ def test_tonemap_kernel_matches_plain(cuda_device, rows, offset):
     of N * 3 % 4 floats (an odd count among them) and at one pixel, with
     NaN, +-inf, negative and denormal radiances, on a buffer that starts at
     its storage (16-byte aligned) and on one 4 bytes past it (the scalar
-    path); NaN stays NaN. Also the 16-byte copy that the kernel is timed
-    against."""
+    path); NaN stays NaN."""
     fb = _tonemap_input(rows, cuda_device)
     storage = torch.empty(fb.numel() + offset, dtype=torch.float32, device=cuda_device)
     src = storage[offset:].view(fb.shape)
@@ -804,9 +850,6 @@ def test_tonemap_kernel_matches_plain(cuda_device, rows, offset):
         got = pallas_ops.tonemap_cuda(src, exposure, gamma)
         _assert_bits_equal([got], [pallas_ops.tonemap_plain(fb, exposure, gamma)])
         assert bool(got.reshape(-1)[0].isnan())
-    if offset == 0:
-        n4 = 4 * (fb.numel() // 4)
-        _assert_bits_equal([pallas_ops.copy16(fb).reshape(-1)[:n4]], [fb.reshape(-1)[:n4]])
 
 
 # one view per (principal axis, flip), two of them with |s| = 1 or nearly
@@ -878,7 +921,7 @@ def test_shearwarp_kernel_misaligned_volume_and_largest_lut(cuda_device):
 def test_gather_kernels_bit_equal_to_plain(cuda_device):
     """gather_f32 on int32 indices: sizes around the 4-word groups, an
     index tensor whose pointer is not 16-byte aligned, negative indices
-    and the special words; the LUT fetch; and the launch floor runs."""
+    and the special words; and the LUT fetch."""
     table = _random_words(5000).reshape(50, 100).to(cuda_device)
     rng = np.random.default_rng(13)
     for shape in [(1,), (3,), (5,), (4097,), (777,), (3, 41, 12)]:
@@ -893,8 +936,6 @@ def test_gather_kernels_bit_equal_to_plain(cuda_device):
             shifted.copy_(idx)
             assert shifted.data_ptr() % 16 == 4 * offset
             _assert_bits_equal([gather.gather_f32(table, shifted)], [gather.gather_f32_plain(table, idx)])
-    gather.launch_floor(4097, cuda_device)
-    torch.cuda.synchronize()
 
     lut = _random_words(512, seed=14).reshape(128, 4).to(cuda_device)
     density = torch.from_numpy(rng.uniform(-0.2, 1.2, 3000).astype(np.float32))
@@ -1572,25 +1613,6 @@ def test_rng_on_cpu_tensors_takes_the_plain_path():
     assert kernels.LAUNCHES["rng_seed"] == kernels.LAUNCHES["rng_draw"] == 0
 
 
-@pytest.mark.parametrize("name", ["vx_rng_seed", "vx_rng_draw"])
-def test_rng_entry_points_bound_as_declared(name):
-    """kernels binds csrc/rng.cu's C entry points with ctypes types that
-    match their declarations one for one: a pointer or a stream as a void
-    pointer, `long long` as c_longlong, `unsigned` as c_uint, `int` as
-    c_int."""
-    import ctypes
-    import re
-
-    source = (kernels.CSRC / "rng.cu").read_text()
-    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
-    assert m, f"{name} is not an extern \"C\" int function"
-    params = [" ".join(p.split()) for p in m.group(1).split(",")]
-    want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
-            ctypes.c_longlong if p.startswith("long long") else ctypes.c_uint if p.startswith("unsigned") else
-            ctypes.c_int if p.startswith("int ") else p for p in params]
-    assert kernels._SIGNATURES[name] == want
-
-
 @pytest.mark.parametrize("case", ["cpu_state", "cpu_seed", "int32_state", "three_words", "k4", "byte_mask",
                                   "float_pixels", "float_frames"])
 def test_rng_cuda_wrappers_refuse_what_the_kernels_do_not_take(case):
@@ -1780,25 +1802,6 @@ def test_env_on_cpu_tensors_takes_the_plain_path():
             assert len(got) == len(want)
             _assert_bits_equal(got, want)
     assert not any(kernels.LAUNCHES.values())
-
-
-@pytest.mark.parametrize("name", ["vx_env_sample", "vx_env_lookup"])
-def test_env_entry_points_bound_as_declared(name):
-    """kernels binds csrc/env.cu's C entry points with ctypes types that
-    match their declarations one for one: a pointer, the host array of the
-    pyramid's pointers or a stream as a void pointer, `long long` as
-    c_longlong, `int` as c_int."""
-    import ctypes
-    import re
-
-    source = (kernels.CSRC / "env.cu").read_text()
-    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
-    assert m, f"{name} is not an extern \"C\" int function"
-    params = [" ".join(p.split()) for p in m.group(1).split(",")]
-    want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
-            ctypes.c_longlong if p.startswith("long long") else ctypes.c_int if p.startswith("int ") else p
-            for p in params]
-    assert kernels._SIGNATURES[name] == want
     assert "env.cu" in kernels.FMAD_SOURCES
 
 

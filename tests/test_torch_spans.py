@@ -95,6 +95,29 @@ def test_span_names_and_args():
     assert outer[3] <= t0 and t1 <= outer[4]
 
 
+def test_a_span_inside_itself_is_one_span():
+    """span() inside an open span of the same name passes through, so a
+    stage that calls itself is one span: vx::camera nested twice, and
+    camera_wavefront's vx::camera around camera_ndc's, each record one
+    vx::camera, with the RNG's spans under it."""
+    profiling.take_spans()
+    with profiling.spans():
+        with profiling.span("vx::camera"):
+            assert profiling.span("vx::camera") is profiling._NOOP
+            with profiling.span("vx::camera"):
+                with profiling.span("vx::rng"):
+                    pass
+    assert [s[:2] for s in profiling.take_spans()] == [("vx::rng", "vx::camera"), ("vx::camera", None)]
+    r = _renderer()
+    config = r._config()
+    inv_view, inv_proj, _ = r._camera_operands(config)
+    with profiling.spans():
+        camera_wavefront(config, inv_view, inv_proj, torch.arange(SIZE * SIZE), 5)
+    names = [(name, parent) for name, parent, *_ in profiling.take_spans()]
+    assert names.count(("vx::camera", None)) == 1 and "vx::camera" not in {n for n, p in names if p == "vx::camera"}
+    assert {n for n, _ in names} == {"vx::camera", "vx::rng"}
+
+
 @pytest.mark.parametrize("kind", ["default", "gradient"])
 def test_a_frames_stages_nest_and_hold_every_aten_op(kind):
     """A frame rendered with spans on under the profiler holds every stage

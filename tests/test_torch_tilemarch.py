@@ -215,7 +215,7 @@ def test_transmittance_plain_matches_jax(render_scene):
 
 @pytest.mark.parametrize("target", ["drawn", "zero", "inf"])
 def test_raymarch_camera_leg_draws_nine_a_step(render_scene, target):
-    """The camera leg's speculative designs (examples/tilemarch_variants.cu:
+    """The camera leg's speculative designs (PERF.md section 6:
     later steps' draws and taps issued before a step's hit test, each slot
     keeping the words before its draws) rest on the plain leg's draw law,
     and so does the words' check of its issue-only twins. Every lane's words

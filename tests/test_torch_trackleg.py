@@ -264,30 +264,3 @@ def test_field_end_lanes_tap_the_last_column_and_element():
     taken = torch.where(run, trackleg.TRACKING_MAX_EVENTS - events, 0).to(torch.int64)
     assert hit.any() and (~hit & run).any()
     assert torch.equal(state, advance_words(lanes["state"], 2 * taken - hit.to(torch.int64)))
-
-
-def _c_params(source: str, name: str) -> list[str]:
-    """The parameters of the extern "C" function `name` in `source`."""
-    import re
-
-    m = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
-    assert m, f"{name} is not an extern \"C\" int function"
-    return [" ".join(p.split()) for p in m.group(1).split(",")] if m.group(1).strip() else []
-
-
-@pytest.mark.parametrize("source, name", [("track_leg.cu", "vx_track_leg_sample"), ("track_leg.cu", "vx_track_leg_shadow"),
-                                          ("track_leg.cu", "vx_track_leg_resident_warps"),
-                                          ("dda_leg.cu", "vx_dda_leg_sample"), ("dda_leg.cu", "vx_dda_leg_shadow"),
-                                          ("dda_leg.cu", "vx_dda_leg_resident_warps"), ("dda_leg.cu", "vx_neg_log1m")])
-def test_track_leg_entry_points_bound_as_declared(source, name):
-    """kernels binds each C entry point of the legs' sources (csrc/track_leg.cu
-    and csrc/dda_leg.cu) with ctypes types that match its declaration, one
-    for one: a pointer or a stream as a void pointer, `long long` as
-    c_longlong, `int` as c_int."""
-    import ctypes
-
-    source = (kernels.CSRC / source).read_text()
-    want = [ctypes.c_void_p if "*" in p or p.startswith("cudaStream_t") else
-            ctypes.c_longlong if p.startswith("long long") else ctypes.c_int if p.startswith("int ") else p
-            for p in _c_params(source, name)]
-    assert kernels._SIGNATURES[name] == want

@@ -19,8 +19,8 @@
 // budget). So a lane that marches and collides until it ends computes, bit
 // for bit, what the rounds compute for it.
 //
-// What bounds it on an H100 (examples/ddaleg_variants.py, PERF.md section
-// 6): not bytes (the parent kernels ran at 22% and 32% of their bytes
+// What bounds it on an H100 (PERF.md section 6): not bytes (the parent
+// kernels ran at 22% and 32% of their bytes
 // bound) and not the majorant fetches' latency. The stacked pyramid (4 MiB
 // at 512^3) is read by warps whose lanes walk neighbouring bricks, so a
 // step's fetch is a short wait: with every load replaced by a register

@@ -29,9 +29,8 @@
 // lookup_transfer: one pass per decode round over a few thousand to a few
 // hundred thousand lanes, 20 bytes each (density in, rgba out) and a
 // 16-byte LUT row from L1. On an NVIDIA H100 80GB HBM3 at 700 W a call is
-// a few microseconds, close to a bare launch (vx_launch_floor below is the
-// empty kernel it is measured against in chip_smoke.py), so what bounds it
-// is launches: the gain over the plain version's ~6 launches is the count
+// a few microseconds, close to a bare launch, so what bounds it is
+// launches: the gain over the plain version's ~6 launches is the count
 // of launches, and folding the collision decode into the march kernel is
 // what removes them. It follows sampling.lookup_transfer op for op: the
 // rejection compares, floor(density * k) as an f32 multiply, the cast to
@@ -96,8 +95,6 @@ __global__ void __launch_bounds__(kThreads) lookup_transfer_kernel(const uint4* 
   out[i] = rejected ? make_uint4(0u, 0u, 0u, 0u) : __ldg(lut + j);
 }
 
-__global__ void __launch_bounds__(kThreads) empty_kernel() {}
-
 int blocks_for(long long n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -122,12 +119,5 @@ extern "C" int vx_lookup_transfer(const float* lut, int k, const float* range, c
     lookup_transfer_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
         reinterpret_cast<const uint4*>(lut), k, range, density, reinterpret_cast<uint4*>(out_rgba), n);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// An empty kernel over the grid the LUT fetch would launch for n lanes: the
-// launch floor that a call of a few microseconds is measured against.
-extern "C" int vx_launch_floor(long long n, cudaStream_t stream) {
-  if (n > 0) empty_kernel<<<blocks_for(n), kThreads, 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }

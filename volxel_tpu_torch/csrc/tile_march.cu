@@ -46,8 +46,8 @@
 // of the next two steps in flight while a step's tap is consumed, under
 // __launch_bounds__(128, 1) so that ptxas issues them ahead of their uses.
 //
-// Designs measured on an H100 and left out (examples/tilemarch_variants.py;
-// PERF.md, section 6). Camera loop: the taps of 1 or 2 later steps issued
+// Designs measured on an H100 and left out (PERF.md, section 6). Camera
+// loop: the taps of 1 or 2 later steps issued
 // before a step's hit test, speculatively, each slot keeping the words
 // before its draws (40-60 more instructions a step for the ~2% that memory
 // takes); the reservoir's compares decided exactly in f64 without the

@@ -10,19 +10,17 @@
 // instructions (the static count of the kernel's own code, slow paths
 // included). On an H100 at 700 W the map alone, with no load and no store,
 // takes 26.9 us at 1080p, more than a 16-byte copy of the buffer (19.0 us;
-// examples/tonemap_variants.py).
+// PERF.md section 6).
 //
 // Design: one thread per float4 and a grid sized to the work, so that no
 // thread walks a grid-stride loop and as many warps as the card holds hide
 // each other's loads behind their maps. Two, four or eight float4s a
 // thread with all their loads issued first measured no faster (two) or
-// slower (four, eight; examples/tonemap_variants.py): more loads in flight
+// slower (four, eight; PERF.md section 6): more loads in flight
 // do not help a kernel whose map costs more than its memory traffic. Loads
 // and stores are streaming (__ldcs / __stcs): the display copy is read
 // once, by the host. A buffer that is not 16-byte aligned takes a scalar
-// path, one float a thread, and so do the last n % 4 floats. vx_copy16 is
-// a plain 16-byte copy in the same layout, the floor the kernel is timed
-// against; it is on no render path.
+// path, one float a thread, and so do the last n % 4 floats.
 //
 // Bit-equality with the plain version: the curve constants are folded in
 // double and rounded to float once, as Python folds them for the plain
@@ -85,12 +83,6 @@ __global__ void __launch_bounds__(kThreads) tonemap_scalar_kernel(const float* _
   if (j < n) __stcs(dst + j, map_one(__ldcs(src + j), exposure, hable(11.2f), inv_gamma));
 }
 
-__global__ void __launch_bounds__(kThreads) copy16_kernel(const float4* __restrict__ src, float4* __restrict__ dst,
-                                                          long long n4) {
-  const long long j = thread_index();
-  if (j < n4) __stcs(dst + j, __ldcs(src + j));
-}
-
 int blocks_for(long long items) { return static_cast<int>((items + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -107,16 +99,6 @@ extern "C" int vx_tonemap(const float* src, float* dst, long long n, float expos
   if (4 * n4 < n) {
     tonemap_scalar_kernel<<<blocks_for(n - 4 * n4), kThreads, 0, stream>>>(src, dst, 4 * n4, n, exposure,
                                                                           inv_gamma);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dst[:n4] = src[:n4] in 16-byte words, in the tonemap's layout; on no
-// render path
-extern "C" int vx_copy16(const float* src, float* dst, long long n4, cudaStream_t stream) {
-  if (n4 > 0) {
-    copy16_kernel<<<blocks_for(n4), kThreads, 0, stream>>>(reinterpret_cast<const float4*>(src),
-                                                           reinterpret_cast<float4*>(dst), n4);
   }
   return static_cast<int>(cudaGetLastError());
 }

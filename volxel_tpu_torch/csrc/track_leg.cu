@@ -26,7 +26,7 @@
 // event is ~170-180 SASS instructions besides the out-of-line log: the
 // cell and predicates of the eight bf16 taps, the trilinear sum, the LUT
 // row, two or three xoshiro draws. With every load replaced by a register
-// constant (examples/trackleg_variants.py's issue-only variants) the
+// constant (issue-only variants, PERF.md section 6) the
 // camera leg takes ~0.9 ms at a 1080p sample, with its taps fetched only
 // when an event is reached ~1.7 ms: fetched then, the taps' latency sits on
 // the chain. Lanes diverge: a ray through air takes a few long free
@@ -63,7 +63,7 @@
 //   loads save) and more events ahead in the camera leg (registers): at
 //   1080p there are about as many running shadow lanes as resident
 //   threads, so refills recover little, and their votes and atomics cost
-//   more (PERF.md section 6; examples/trackleg_variants.py).
+//   more (PERF.md section 6).
 //
 // Bit-equality with the plain version: leg_common.cuh's rules, and every
 // f32 operation the plain version's in its order: p_real = (vol_maj * a) *

@@ -4,7 +4,9 @@ The sources are `csrc/*.cu`, and the headers they include `csrc/*.cuh`. At
 first use each source is compiled by its own `nvcc`, all at once, and the
 objects are linked into one shared library with a plain C interface under
 `build/` (keyed by a hash of the sources, the headers and the flags, so an
-edited source or header rebuilds), loaded with ctypes. Nothing is
+edited source or header rebuilds), loaded with ctypes. Each entry point is
+bound with the ctypes types of its `extern "C"` declaration in the
+sources (`signatures`), the one record of its interface. Nothing is
 compiled or loaded at import: the CPU tests import every module on
 machines without `nvcc` or a card.
 
@@ -42,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -68,103 +71,10 @@ LAUNCHES = {
     "rng_seed": 0, "rng_draw": 0, "env_sample": 0, "env_lookup": 0,
 }
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_SIGNATURES = {
-    # base, out, stream
-    "vx_importance_pyramid": [_P, _P, _P],
-    # src, dst, n, exposure, inv_gamma, stream
-    "vx_tonemap": [_P, _P, ctypes.c_longlong, _F, _F, _P],
-    # src, dst, n4, stream
-    "vx_copy16": [_P, _P, ctypes.c_longlong, _P],
-    # xi, out, n, stream
-    "vx_neg_log1m": [_P, _P, ctypes.c_longlong, _P],
-    # maj, bz, by, bx, dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos,
-    # idir, ri, far, t, tau, mip, state, running, cap, state_out, hit_out,
-    # t_out, rgb_out, budget_out, n, stream
-    "vx_dda_leg_sample": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 10 + [_I] + [_P] * 5
-    + [ctypes.c_longlong, _P],
-    # the same up to running, then tr, cap, physical, state_out, tr_out,
-    # budget_out, n, stream
-    "vx_dda_leg_shadow": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I] + [_P] * 3
-    + [ctypes.c_longlong, _P],
-    # the slab forms: as above with (slabs, slab, round_taps) in place of
-    # dense, the slabs a device array of the slabs' pointers
-    "vx_dda_leg_sample_slabs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 10 + [_I]
-    + [_P] * 5 + [ctypes.c_longlong, _P],
-    "vx_dda_leg_shadow_slabs": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 11 + [_I, _I]
-    + [_P] * 3 + [ctypes.c_longlong, _P],
-    # the park forms: the slab forms' arguments up to running, then m,
-    # budget, resume (tr, physical), then their outputs and park_out
-    "vx_dda_leg_sample_slabs_park": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 13
-    + [_P] * 8 + [ctypes.c_longlong, _P],
-    "vx_dda_leg_shadow_slabs_park": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 14 + [_I]
-    + [_P] * 7 + [ctypes.c_longlong, _P],
-    # peer (no stream)
-    "vx_enable_peer_access": [_I],
-    # leg, warps* (no stream)
-    "vx_dda_leg_resident_warps": [_I, _P],
-    # dense, ny, nx, ex, ey, ez, lut, lut_k, scalars, ipos, idir, far, t,
-    # state, running, cap, state_out, hit_out, t_out, rgb_out, events_out,
-    # n, stream
-    "vx_track_leg_sample": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 7 + [_I] + [_P] * 5 + [ctypes.c_longlong, _P],
-    # the same up to running, then tr, cap, state_out, tr_out, events_out,
-    # n, stream
-    "vx_track_leg_shadow": [_P, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3 + [ctypes.c_longlong, _P],
-    # the slab forms: (slabs, slab, round_taps) in place of dense
-    "vx_track_leg_sample_slabs": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 7 + [_I] + [_P] * 5
-    + [ctypes.c_longlong, _P],
-    "vx_track_leg_shadow_slabs": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_I] + [_P] * 3
-    + [ctypes.c_longlong, _P],
-    # the park forms: the slab forms' arguments up to running, then
-    # events_in (tr), then their outputs and park_out
-    "vx_track_leg_sample_slabs_park": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 8 + [_P] * 6
-    + [ctypes.c_longlong, _P],
-    "vx_track_leg_shadow_slabs_park": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I] + [_P] * 9 + [_P] * 5
-    + [ctypes.c_longlong, _P],
-    # leg, warps* (no stream)
-    "vx_track_leg_resident_warps": [_I, _P],
-    # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid,
-    # tau_target, state, lut, lut_k, scalars, state_out, hit_out, t_out,
-    # rgb_out, n, steps, stream
-    "vx_tile_march_sample": [_P, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _P],
-    # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, state,
-    # lut, lut_k, scalars, state_out, tau_out, n, steps, stream
-    "vx_tile_march_transmittance": [_P, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
-    # the slab forms: (slabs, slab) in place of dense
-    "vx_tile_march_sample_slabs": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 5 + [_I, _I, _P],
-    "vx_tile_march_transmittance_slabs": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3 + [_I, _I, _P],
-    # the park forms: the slab forms' arguments up to scalars, then step_in,
-    # tau_in, their outputs and park_out
-    "vx_tile_march_sample_slabs_park": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 9 + [_I] + [_P] * 3 + [_P] * 7
-    + [_I, _I, _P],
-    "vx_tile_march_transmittance_slabs_park": [_P, _I, _I, _I, _I, _I, _I] + [_P] * 8 + [_I] + [_P] * 3
-    + [_P] * 4 + [_I, _I, _P],
-    # kernel, lut_k, warps* (no stream)
-    "vx_tile_march_resident_warps": [_I, _I, _P],
-    # dense, ny, nx, ex, ey, ez, ipos, idir, start, dt, far, valid, sums,
-    # n, steps, stream
-    "vx_tile_march_sums": [_P, _I, _I, _I, _I, _I] + [_P] * 7 + [_I, _I, _P],
-    # vol, z_n, y_n, x_n, lut, lut_k, params, out_h, out_w, c_out, t_out,
-    # stream
-    "vx_shearwarp_intermediate": [_P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P],
-    # table, idx (int32), out, n, table_n, stream
-    "vx_gather_f32": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P],
-    # lut, lut_k, range, density, out_rgba, n, stream
-    "vx_lookup_transfer": [_P, _I, _P, _P, _P, ctypes.c_longlong, _P],
-    # n, stream
-    "vx_launch_floor": [ctypes.c_longlong, _P],
-    # pixel, pixel_bytes, frame, frame_bytes, frame_word, state, n, stream
-    "vx_rng_seed": [_P, _I, _P, _I, ctypes.c_uint, _P, ctypes.c_longlong, _P],
-    # state, mask, state_out, out, k, n, stream
-    "vx_rng_draw": [_P, _P, _P, _P, _I, ctypes.c_longlong, _P],
-    # map, h, w, mips (a host array of 10 device pointers), strength, rnd,
-    # physical, le_out, pdf_out, w_out, n, stream
-    "vx_env_sample": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, ctypes.c_longlong, _P],
-    # map, h, w, mips, strength, dir, pdf, le_out, pdf_out, n, stream
-    "vx_env_lookup": [_P, _I, _I, _P, _P, _P, _I, _P, _P, ctypes.c_longlong, _P],
-}
+# the ctypes type of each C parameter type of an entry point's declaration
+# (a pointer, whatever it points to, and a stream are void pointers)
+_C_TYPES = {"long long": ctypes.c_longlong, "unsigned": ctypes.c_uint, "float": ctypes.c_float, "int": ctypes.c_int}
+_DECLARATION = re.compile(r'extern "C" int (vx_\w+)\(([^)]*)\)')
 
 _lib = None
 
@@ -229,12 +139,32 @@ def build() -> Path:
     return out
 
 
+def _argtype(name: str, param: str):
+    kind = " ".join(param.split()[:-1])  # the declared type, without the parameter's name
+    if "*" in param or kind == "cudaStream_t":
+        return ctypes.c_void_p
+    if kind not in _C_TYPES:
+        raise TypeError(f"{name}: no ctypes type for the parameter {param.strip()!r}")
+    return _C_TYPES[kind]
+
+
+def signatures() -> dict[str, list]:
+    """{entry point: the ctypes types of its parameters}, read from the
+    `extern "C" int vx_...(...)` declarations in csrc/*.cu."""
+    found = {}
+    for src in _sources():
+        for name, params in _DECLARATION.findall(src.read_text()):
+            found[name] = [_argtype(name, p) for p in params.split(",") if p.strip()]
+    return found
+
+
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call, each entry point
+    bound as its declaration has it (`signatures`)."""
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+        for name, argtypes in signatures().items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -250,8 +250,8 @@ def build_slabbed_volume(grid: DeviceGrid, mesh: Mesh, axis: str = "vz", tap_dty
                          **_node_slabs(mesh, axis, cut))
 
 
-def build_slabbed_volume_from_brick(grid: BrickGrid, mesh: Mesh, axis: str = "vz", tap_dtype: str = "float32",
-                                    maj_dtype: str = "float32") -> SlabbedVolume:
+def build_slabbed_volume_from_brick(grid: BrickGrid, mesh: Mesh, axis: str = "vz",
+                                    tap_dtype: str = "float32") -> SlabbedVolume:
     """Build a SlabbedVolume straight from a host BrickGrid, never holding
     the whole dense field: each halo'd slab is decoded on its card from its
     own brick rows and its halos' (sampling.decode_dense_rows_device,
@@ -260,10 +260,7 @@ def build_slabbed_volume_from_brick(grid: BrickGrid, mesh: Mesh, axis: str = "vz
     positions only, and maps the others' (parallel.nodeshare). Zeros
     beyond the field, as build_slabbed_volume's cut gives, so the slabs
     are bit-equal to build_slabbed_volume's of the decoded field. `meta` holds the majorant pyramid and the extent, and
-    nothing volume-sized. `maj_dtype` is there for the JAX package's
-    signature: the port's pyramid is float32, and any other value raises."""
-    if maj_dtype != "float32":
-        raise ValueError(f"the port's majorant pyramid is float32; maj_dtype {maj_dtype!r} is not ported")
+    nothing volume-sized. Unlike the JAX package's, it takes no `maj_dtype`: the port's pyramid is float32."""
     bx, by, bz = grid.brick_count
     z, y, x = bz * 8, by * 8, bx * 8
     slab = div_round_up(z, mesh.shape[axis])

@@ -90,10 +90,3 @@ def lookup_transfer_fetch(lut: torch.Tensor, sample_range, density) -> torch.Ten
     if density.device.type == "cpu":
         return lookup_transfer_plain(lut, sample_range, density)
     return lookup_transfer_cuda(lut.contiguous(), sample_range.contiguous(), density.contiguous())
-
-
-def launch_floor(n: int, device) -> None:
-    """One launch of csrc/gather.cu's empty kernel over the grid the LUT
-    fetch takes for `n` lanes: the floor that a call of a few microseconds
-    is measured against. It is on no render path and counts no launch."""
-    kernels.launch("vx_launch_floor", device, n)

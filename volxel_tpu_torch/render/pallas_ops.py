@@ -90,19 +90,6 @@ def tonemap_cuda(image: torch.Tensor, exposure: float, gamma: float) -> torch.Te
     return out
 
 
-def copy16(image: torch.Tensor) -> torch.Tensor:
-    """A plain copy of the first 4 * (numel // 4) floats of a contiguous,
-    16-byte aligned f32 CUDA tensor in 16-byte words, in the tonemap
-    kernel's layout: the floor that kernel is timed against. It is on no
-    render path and counts no launch."""
-    kernels.require_cuda("copy16", image, dtype=torch.float32)
-    if image.data_ptr() % 16:
-        raise ValueError("copy16: the kernel copies 16-byte words; image is misaligned")
-    out = torch.empty_like(image)
-    kernels.launch("vx_copy16", image, image.data_ptr(), out.data_ptr(), image.numel() // 4)
-    return out
-
-
 def tonemap_display(framebuffer: torch.Tensor, exposure: float, gamma: float) -> torch.Tensor:
     """Tonemap a flat (N, 3) framebuffer for display."""
     if framebuffer.device.type == "cpu":

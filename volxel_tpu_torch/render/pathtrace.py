@@ -229,26 +229,22 @@ def camera_ndc(config: RenderConfig, pixel_index, frame_index):
     (fragment.frag:57-65, :143-147) -> (state, ndc). frame_index is an int
     or a tensor of one frame per pixel (rng.seed_rays)."""
     with span("vx::camera"):
-        return _camera_ndc(config, pixel_index, frame_index)
-
-
-def _camera_ndc(config: RenderConfig, pixel_index, frame_index):
-    state = seed_rays(pixel_index, frame_index)
-    state, j1 = rng2(state)
-    state, j2 = rng2(state)
-    px = (pixel_index % config.width).to(torch.float32)
-    py = (pixel_index // config.width).to(torch.float32)
-    tex = torch.stack([(px + 0.5) / config.width, (py + 0.5) / config.height], dim=-1)
-    jitter = (j1 + j2) / 2.0
-    size = torch.tensor([config.width, config.height], dtype=torch.float32, device=tex.device)
-    return state, tex + (jitter * 2.0 - 1.0) / size
+        state = seed_rays(pixel_index, frame_index)
+        state, j1 = rng2(state)
+        state, j2 = rng2(state)
+        px = (pixel_index % config.width).to(torch.float32)
+        py = (pixel_index // config.width).to(torch.float32)
+        tex = torch.stack([(px + 0.5) / config.width, (py + 0.5) / config.height], dim=-1)
+        jitter = (j1 + j2) / 2.0
+        size = torch.tensor([config.width, config.height], dtype=torch.float32, device=tex.device)
+        return state, tex + (jitter * 2.0 - 1.0) / size
 
 
 def camera_wavefront(config: RenderConfig, inv_view, inv_proj, pixel_index, frame_index: int):
     """Seeded RNG states and jittered camera rays for a pixel subset
     (fragment.frag:57-65, :143-147) -> (state, Rays)."""
     with span("vx::camera"):
-        state, ndc = _camera_ndc(config, pixel_index, frame_index)
+        state, ndc = camera_ndc(config, pixel_index, frame_index)
         return state, camera_rays(inv_view, inv_proj, ndc)
 
 

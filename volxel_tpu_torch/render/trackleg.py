@@ -34,7 +34,7 @@ spends few instructions an event and keeps taps in flight:
     find it;
   * the shadow leg fetches each event's taps as it takes it: speculating
     past a roulette draw, and refilling the lanes of a persistent grid from
-    a device counter, were measured slower (examples/trackleg_variants.py).
+    a device counter, were measured slower (PERF.md section 6).
 
 Why the two agree: the JAX loop caps all lanes with one global counter
 (it < TRACKING_MAX_EVENTS), but every lane enters at event 0 and a lane

@@ -337,16 +337,12 @@ def lookup_environment_pdf_cuda(env: EnvState, direction, physical: bool = False
 # -- the entry points: the plain version for CPU tensors, the kernels for CUDA ones
 
 
-def _lookup_environment(env: EnvState, direction):
-    if direction.device.type == "cpu":
-        return lookup_environment_plain(env, direction)
-    return lookup_environment_cuda(env, direction)
-
-
 @spanned("vx::env")
 def lookup_environment(env: EnvState, direction):
     """Equirect radiance lookup (environment.glsl:19-27)."""
-    return _lookup_environment(env, direction)
+    if direction.device.type == "cpu":
+        return lookup_environment_plain(env, direction)
+    return lookup_environment_cuda(env, direction)
 
 
 @spanned("vx::env")
@@ -406,7 +402,7 @@ def background_color(env: EnvState, direction, hide_envmap: bool, light_dir=None
     """get_background_color (environment.glsl:89-96) for debug-hits mode:
     the environment, or with hide_envmap a faint checker."""
     if not hide_envmap:
-        return _lookup_environment(env, direction)
+        return lookup_environment(env, direction)
     d = direction
     xz = torch.tensor([1.0, 0.0, 1.0], dtype=torch.float32, device=d.device)
     horiz = d / torch.clamp_min(torch.linalg.norm(d * xz, dim=-1, keepdim=True), 1e-8)

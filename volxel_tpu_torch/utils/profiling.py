@@ -122,9 +122,13 @@ _NOOP = contextlib.nullcontext()
 
 def span(name: str, **args):
     """The stage `name` (`vx::<stage>`) around a block: the shared no-op
-    context while spans are off, else a record_function range with `args`
-    as `key=value` text."""
+    context while spans are off or while the innermost open span is
+    already `name` (a stage that calls itself is one span), else a
+    record_function range with `args` as `key=value` text."""
     if not _ON:
+        return _NOOP
+    stack = getattr(_STACK, "names", None)
+    if stack and stack[-1] == name:
         return _NOOP
     return _Span(name, " ".join(f"{k}={v}" for k, v in args.items()) or None)
 
