@@ -44,8 +44,9 @@ failure:
    its image()) and one drag preview (K7, within 1e-6 where only expf and
    ATen's exp can round apart, and K4). Then through the Renderer at
    1920x1080: a gradient-shaded sample in each mode (one launch of each
-   leg), and one more with each of its kernels held bit for bit at every
-   call; a debug-hits sample (no leg, no LUT fetch; one K4 at image()).
+   leg and of the shading), and one more with each of its kernels held bit
+   for bit at every call; a debug-hits sample (no leg, no LUT fetch; one
+   K4 at image()).
    Then `python -m volxel_tpu_torch render --synthetic 256 --size 512x512
    --samples 16` and `info` in subprocesses, the PNG decoded here;
 2d. the mesh (parallel/), on the bench scene at the main paths' size: with
@@ -931,12 +932,12 @@ ENV_SIZE = (2048, 1024)
 # phase 2b's comparisons: for each render mode, the kernels one sample
 # launches, each as (module whose attribute the sample calls, that name,
 # the CUDA entry, the plain version, the outputs held bit for bit); a
-# gradient-shaded sample (`shaded`) makes one environment lookup, and no
-# warp sample or escape
+# gradient-shaded sample (`shaded`) makes one environment lookup and one
+# shading launch (csrc/shade.cu), and no warp sample or escape
 def spec_sample_kernels(mode: str, shaded: bool = False) -> list:
     import volxel_tpu_torch.render.modes as modes
     import volxel_tpu_torch.scene.environment as env_mod
-    from volxel_tpu_torch.render import ddaleg, gather, tilemarch, trackleg
+    from volxel_tpu_torch.render import ddaleg, gather, shading, tilemarch, trackleg
 
     if shaded:
         taps = (env_mod, "lookup_environment_cuda", env_mod.lookup_environment_cuda,
@@ -962,7 +963,10 @@ def spec_sample_kernels(mode: str, shaded: bool = False) -> list:
                    ("state", "hit", "t", "rgb")),
                   (modes, "tile_march_transmittance", tilemarch.tile_march_transmittance_cuda,
                    tilemarch.tile_march_transmittance_plain, ("state", "tau")), taps]
-    return checks if shaded else checks + [escape]
+    if shaded:
+        return checks + [(shading, "shade_hits_cuda", shading.shade_hits_cuda, shading.shade_hits_plain,
+                          ("radiance",))]
+    return checks + [escape]
 
 
 def mask_lanes(args) -> int:
@@ -1170,8 +1174,9 @@ DRAGS = 3  # rotate commands, each followed by its first preview
 SERVER_BENCH_SAMPLES = 16
 DEBUG_HITS_ATOL = 1e-5
 CLI_RENDER = ("render", "--synthetic", "256", "--size", "512x512", "--samples", "16")
-# every kernel the app path launches (K6 and gather_f32 lie on no render path)
-APP_KERNELS = tuple(sorted({name for names in PATH_KERNELS.values() for name in names}))
+# every kernel the app path launches (K6 and gather_f32 lie on no render path;
+# the gradient-shading setting's frames launch the shading)
+APP_KERNELS = tuple(sorted({name for names in PATH_KERNELS.values() for name in names} | {"shade"}))
 
 
 def http(base: str, path: str, body=None) -> tuple:
@@ -1376,10 +1381,10 @@ def app_server(zip_path: Path, env_path: Path, device="cuda") -> None:
 
 def gradient_and_debug_hits(grid, width: int, height: int) -> None:
     """Through the Renderer on the card at width x height: in each mode a
-    gradient-shaded sample (one launch of each leg), then one more with
-    each kernel of the sample held bit for bit at every call
-    (hold_frame_kernels); a debug-hits sample, which launches no leg and
-    no LUT fetch, and its image() one K4."""
+    gradient-shaded sample (one launch of each leg and of the shading),
+    then one more with each kernel of the sample held bit for bit at every
+    call (hold_frame_kernels); a debug-hits sample, which launches no leg
+    and no LUT fetch, and its image() one K4."""
     import torch
 
     from volxel_tpu_torch import kernels
@@ -1393,8 +1398,8 @@ def gradient_and_debug_hits(grid, width: int, height: int) -> None:
         r.render_frame()
         sample = {k: n - before[k] for k, n in kernels.LAUNCHES.items() if n != before[k]}
         log(f"gradient shading ({mode}, {width}x{height}): launches a sample {sample}")
-        if (sample.get(camera), sample.get(shadow)) != (1, 1):
-            raise SystemExit(f"a gradient-shaded {mode} sample launched its legs {sample}")
+        if (sample.get(camera), sample.get(shadow), sample.get("shade")) != (1, 1, 1):
+            raise SystemExit(f"a gradient-shaded {mode} sample launched its legs and shading {sample}")
         hold_frame_kernels(r, "gradient shading")
         del r
         torch.cuda.empty_cache()

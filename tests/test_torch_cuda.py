@@ -29,6 +29,10 @@ at every lane, masked-out lanes included, one launch a call. The
 environment's warp sample, lookup and pdf (csrc/env.cu) bit-equal to the
 plain version at every lane, one launch a call, and whole frames of each
 mode at bounces 3 bit-equal with the kernels and with the plain version.
+Gradient shading's kernel (csrc/shade.cu) bit-equal to the plain version
+at every one of 1080p lanes on a dense field and on slabs with f32 and
+bf16 taps, and gradient-shaded frames of each mode bit-equal with it and
+with the plain version, one launch a frame.
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ from tests.torch_lanes import (VOL_MAJ, dda_lanes_of, field_end_lanes, leg_call,
 from tests.torch_mesh import replayed_framebuffer
 from volxel_tpu_torch import Renderer, kernels
 from volxel_tpu_torch.grid import construct_brick_grid
-from volxel_tpu_torch.render import ddaleg, gather, modes, pallas_ops, shearwarp, tilemarch, trackleg
+from volxel_tpu_torch.render import (ddaleg, gather, modes, pallas_ops, sampling, shading, shearwarp, tilemarch,
+                                     trackleg)
 from volxel_tpu_torch.render.modes import _march_setup, _tracking_setup, raymarch_prologue
 from volxel_tpu_torch.render.pathtrace import camera_wavefront, with_premul_majorant
 from volxel_tpu_torch.render import rng as rng_mod
@@ -960,8 +965,8 @@ def test_gather_kernel_refuses_int64_indices(cuda_device):
 
 @pytest.mark.cuda
 def test_render_on_card_goes_through_every_kernel(cuda_device):
-    """Each mode's render and the preview go through their kernels;
-    tile_march_sums and gather_f32 (whose environment sites csrc/env.cu
+    """Each mode's render, a gradient-shaded one and the preview go
+    through their kernels; tile_march_sums and gather_f32 (whose environment sites csrc/env.cu
     took) are on no render path, the legs' slab forms run only
     over volume slabs (test_slab_leg_kernels_bit_equal_to_plain) and their
     park forms only on a row across nodes
@@ -974,6 +979,8 @@ def test_render_on_card_goes_through_every_kernel(cuda_device):
     assert np.isfinite(r.render(6)).all()
     r.render_mode = "no_dda"
     assert np.isfinite(r.render(6)).all()
+    r.settings.gradient_shading = True
+    assert np.isfinite(r.render(2)).all()
     for image in (r.render_preview(), r.render_dvr(screen=True)):
         assert np.isfinite(image).all() and image.shape == (32, 32, 3)
     ran = {name for name, count in kernels.LAUNCHES.items() if count > 0}
@@ -1941,3 +1948,199 @@ def test_env_kernels_in_frames_bit_equal_to_plain(cuda_device, monkeypatch, mode
     assert plain_launches == dict.fromkeys(_ENV_LAUNCHES, 0)
     assert bool(torch.isfinite(fb).all()) and float(fb.mean()) > 0
     _assert_bits_equal([fb], [plain_fb])
+
+
+# -- gradient shading (csrc/shade.cu) --------------------------------------------
+
+
+def _shade_grid(device, field):
+    """A renderer on `device` over a 40x32x32 CT at bounces 1, and the grid
+    its shading reads: the dense field, or vz = 4 slabs of it on `device`
+    with f32 or bf16 taps (`field`)."""
+    from volxel_tpu_torch.parallel import make_mesh
+    from volxel_tpu_torch.parallel.volshard import build_slabbed_volume
+
+    vol = synthetic_ct_volume((40, 32, 32), bits_stored=12)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+    r = Renderer(8, 8, device=device)
+    r.restart_from_grid(grid)
+    if field == "dense":
+        return r, r._device_grid
+    mesh = make_mesh(sp=1, px=1, vz=4, devices=[device] * 4)
+    return r, build_slabbed_volume(r._device_grid, mesh, tap_dtype=field).local_grid()
+
+
+def _shade_args(r, grid, origin_kind, n, background=True, seed=7):
+    """shade_hits' arguments for n lanes on r's device whose hit points fall
+    inside, on and around the extent: a quarter on a face (one coordinate
+    at -1, -0.5, 0, 0.25, 0.5 or 1 from either end), an eighth at corners
+    and edges (all three so), a quarter within 1e-5 of half-integers (where
+    the base cell changes), the rest anywhere in the extent widened by 3;
+    15% of the lanes missed, t at NaN, +inf, -inf and 0 on hit lanes,
+    shadows of 0 and 1, the background (or None: black) with NaN and inf
+    among the missed lanes. `origin_kind` "lanes" gives each lane its
+    origin, "camera" one origin expanded over the lanes."""
+    rng = np.random.default_rng(seed)
+    device = r._device_grid.dense.device
+    params = r.volume_params()
+    ext = np.array(grid.extent, np.float64)
+    ipos = rng.uniform(0.0, 1.0, (n, 3)) * (ext + 6.0) - 3.0
+    near = np.array([-1.0, -0.5, 0.0, 0.25, 0.5, 1.0])
+    specials = [np.concatenate([near, e - near]) for e in ext]
+    k = np.arange(n)
+    face, corner, half = k % 8 < 2, k % 8 == 2, k % 8 >= 6
+    axis = rng.integers(0, 3, n)
+    for a in range(3):
+        rows = face & (axis == a)
+        ipos[rows, a] = rng.choice(specials[a], rows.sum())
+        ipos[corner, a] = rng.choice(specials[a], corner.sum())
+    ipos[half] = np.round(ipos[half] * 2.0) / 2.0 + rng.choice([-1e-5, -1e-6, 0.0, 1e-6, 1e-5], (half.sum(), 3))
+    m = params.transform_inv.cpu().double().numpy()
+    world = (np.linalg.inv(m) @ np.concatenate([ipos, np.ones((n, 1))], 1).T).T[:, :3]
+    if origin_kind == "camera":
+        eye = np.array([0.3, -2.5, 1.7])
+        t = np.linalg.norm(world - eye, axis=-1)
+        d = (world - eye) / t[:, None]
+        origin = torch.tensor(eye, dtype=torch.float32, device=device).expand(n, 3)
+    else:
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        t = rng.uniform(0.0, 3.0, n)
+        origin = torch.from_numpy((world - t[:, None] * d).astype(np.float32)).to(device)
+    t = t.astype(np.float32)
+    hit = rng.random(n) < 0.85
+    t[:4] = [np.nan, np.inf, -np.inf, 0.0]
+    hit[:4] = True
+    rgb = rng.random((n, 3), dtype=np.float32)
+    shadow = rng.random(n, dtype=np.float32)
+    shadow[::7], shadow[::11] = 0.0, 1.0
+    bg = rng.uniform(0.0, 2.0, (n, 3)).astype(np.float32)
+    bg[np.flatnonzero(~hit)[:6]] = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30], np.float32)[:, None]
+    light_dir = torch.tensor(r.settings.light_dir, dtype=torch.float32, device=device)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return (grid, params, light_dir, origin, on(d.astype(np.float32)), on(t), on(hit), on(rgb), on(shadow),
+            on(bg) if background else None)
+
+
+_SHADE_FIELDS = ("dense", "float32", "bfloat16")
+_SHADE_LANES = (("lanes", True), ("camera", False))
+
+
+def test_shade_lanes_cover_their_cases():
+    """The shading tests' lanes (built here on the CPU) hit inside the
+    extent and outside it, shade to radiance that varies with the normal,
+    and give NaN or inf before sanitize on the lanes of special t."""
+    r, grid = _shade_grid("cpu", "dense")
+    args = _shade_args(r, grid, "lanes", 4099)
+    _, params, _, origin, direction, t, hit = args[:7]
+    ipos = sampling.world_to_index_point(params, origin + t[:, None] * direction)
+    ext = torch.tensor(grid.extent, dtype=torch.float32)
+    inside = ((ipos > 0.5) & (ipos < ext - 0.5)).all(-1)
+    assert 0.3 < float(inside.float().mean()) < 0.9
+    assert not bool(torch.isfinite(ipos[:3]).all())
+    out = shading.shade_hits_plain(*args)
+    shaded = out[hit & inside]
+    assert bool((shaded != 0).any(-1).all()) and len(torch.unique(shaded[:, 0])) > 1000
+    assert bool((out[~hit] == 0).any())  # the sanitized background
+
+
+@pytest.mark.parametrize("field", _SHADE_FIELDS)
+def test_shade_on_cpu_tensors_takes_the_plain_path(field):
+    """On CPU tensors shade_hits is the plain version bit for bit, for a
+    dense field and for slabs, and launches nothing."""
+    r, grid = _shade_grid("cpu", field)
+    kernels.reset_launch_counts()
+    for origin_kind, background in _SHADE_LANES:
+        args = _shade_args(r, grid, origin_kind, 2048, background)
+        _assert_bits_equal([shading.shade_hits(*args)], [shading.shade_hits_plain(*args)])
+    assert not any(kernels.LAUNCHES.values())
+    assert "shade.cu" in kernels.FMAD_SOURCES
+
+
+def test_shade_cuda_wrapper_refuses_cpu_tensors():
+    """shade_hits_cuda raises on CPU tensors before any launch."""
+    r, grid = _shade_grid("cpu", "dense")
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        shading.shade_hits_cuda(*_shade_args(r, grid, "lanes", 64))
+    assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("field", _SHADE_FIELDS)
+@pytest.mark.parametrize("origin_kind,background", _SHADE_LANES)
+def test_shade_kernel_bit_equal_to_plain(cuda_device, field, origin_kind, background):
+    """One launch of shade_kernel gives the plain version's radiance at
+    every one of 1920 x 1080 lanes (_shade_args: hits inside, on the faces
+    and corners of the extent and past it, missed lanes, t at NaN and
+    +-inf), on a dense field and on vz = 4 slabs with f32 and bf16 taps,
+    with an origin a lane and with one camera origin, over a background and
+    over black."""
+    r, grid = _shade_grid(cuda_device, field)
+    args = _shade_args(r, grid, origin_kind, 1920 * 1080, background)
+    kernels.reset_launch_counts()
+    got = shading.shade_hits(*args)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"shade": 1}
+    want = shading.shade_hits_plain(*args)
+    assert got.shape == want.shape == (1920 * 1080, 3)
+    _assert_bits_equal([got], [want])
+    assert float(want[args[6]].abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_shade_kernel_on_zero_lanes(cuda_device):
+    """Zero lanes launch nothing and give an empty (0, 3) radiance."""
+    r, grid = _shade_grid(cuda_device, "dense")
+    args = _shade_args(r, grid, "lanes", 64)
+    args = (*args[:3], *(a[:0] for a in args[3:]))
+    kernels.reset_launch_counts()
+    assert shading.shade_hits(*args).shape == (0, 3)
+    assert kernels.LAUNCHES["shade"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "raymarch", "no_dda"])
+def test_shade_kernel_in_frames_bit_equal_to_plain(cuda_device, monkeypatch, mode):
+    """Two gradient-shaded 96x64 frames on the card give the same
+    framebuffer bit for bit with csrc/shade.cu (one launch a frame) and
+    with the plain version in its place."""
+
+    vol = synthetic_ct_volume((32, 32, 32), bits_stored=12)
+    grid = construct_brick_grid(vol.astype(np.float32) / vol.max(), transform=np.eye(4, dtype=np.float32))
+
+    def frames():
+        r = Renderer(96, 64, device=cuda_device)
+        r.restart_from_grid(grid)
+        r.camera.rotate_around_view(0.4, 0.2)
+        r.render_mode = mode
+        r.settings.gradient_shading = True
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            fb = r.render_frame()
+        return fb.clone(), kernels.LAUNCHES["shade"]
+
+    fb, launches = frames()
+    assert launches == 2
+    with monkeypatch.context() as m:
+        m.setattr(shading, "shade_hits_cuda", shading.shade_hits_plain)
+        plain_fb, plain_launches = frames()
+    assert plain_launches == 0
+    assert bool(torch.isfinite(fb).all()) and float(fb.mean()) > 0
+    _assert_bits_equal([fb], [plain_fb])
+
+
+@pytest.mark.cuda
+def test_shade_kernel_launches_once_a_shaded_frame(cuda_device):
+    """kernels.LAUNCHES["shade"] counts one launch a gradient-shaded frame
+    and none in a frame without gradient shading."""
+    r = _renderer(cuda_device, side=32)
+    kernels.reset_launch_counts()
+    r.render_frame()
+    assert kernels.LAUNCHES["shade"] == 0
+    r.settings.gradient_shading = True
+    for frame in range(1, 4):
+        r.render_frame()
+        assert kernels.LAUNCHES["shade"] == frame

@@ -36,6 +36,10 @@
 // --fmad=false, which changes nothing there (the float's one product is
 // exact).
 //
+// csrc/shade.cu, gradient shading, includes it for the tap fetch at a point
+// (fetch_at) and the trilinear sum (trilinear), so its six lookups read and
+// sum the taps as the legs do.
+//
 // kernels.build compiles csrc/*.cu only, so this header is never compiled
 // alone; kernels.library_path hashes it with the sources.
 
@@ -178,10 +182,9 @@ struct Taps {
 // it, the x + 1 tap two bytes on, each of the eight 2-byte loads
 // predicated on its tap being inside (0 outside). On slabs the first corner
 // lies in the slab of the owner of the clipped base z (corner).
+// fetch_at issues them at an index-space point, fetch at p + t * d.
 template <class F>
-__device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const float (&d)[3], float t, Taps& e) {
-  const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
-                        __fadd_rn(p[2], __fmul_rn(t, d[2]))};
+__device__ __forceinline__ void fetch_at(const F& v, const float (&pos)[3], Taps& e) {
   const int ext[3] = {v.ex, v.ey, v.ez};
   int b[3];
   bool in[3][2];
@@ -206,15 +209,19 @@ __device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const flo
   }
 }
 
-// the decode of fetched taps: the trilinear sum in _TAPS order (dz outer,
-// dx inner), weights ((wx * wy) * wz), the products summed one after
-// another, times den_scale and inv_maj; then the LUT's NEAREST row
-// (gather.lookup_transfer_plain), 0 where the sample range rejects the
-// density. The row clamp(floor(y), 0, K - 1) is floor(clamp(y, 0, K - 1))
-// (fmaxf takes a NaN y to 0, as the 64-bit cast does). A field with
-// kRoundTaps rounds the sum to bf16 and back first.
 template <class F>
-__device__ __forceinline__ float4 decode(const F& v, const Scalars& c, const Taps& e) {
+__device__ __forceinline__ void fetch(const F& v, const float (&p)[3], const float (&d)[3], float t, Taps& e) {
+  const float pos[3] = {__fadd_rn(p[0], __fmul_rn(t, d[0])), __fadd_rn(p[1], __fmul_rn(t, d[1])),
+                        __fadd_rn(p[2], __fmul_rn(t, d[2]))};
+  fetch_at(v, pos, e);
+}
+
+// the trilinear sum of fetched taps (sampling.trilinear_sum): in _TAPS
+// order (dz outer, dx inner), weights ((wx * wy) * wz), the products summed
+// one after another; a field with kRoundTaps rounds the sum to bf16 and
+// back.
+template <class F>
+__device__ __forceinline__ float trilinear(const Taps& e) {
   float w1[3][2];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -229,7 +236,17 @@ __device__ __forceinline__ float4 decode(const F& v, const Scalars& c, const Tap
     acc = k == 0 ? term : __fadd_rn(acc, term);
   }
   if constexpr (F::kRoundTaps) acc = __bfloat162float(__float2bfloat16_rn(acc));
-  const float dn = __fmul_rn(__fmul_rn(c.den_scale, acc), c.inv_maj);
+  return acc;
+}
+
+// the decode of fetched taps: the trilinear sum times den_scale and
+// inv_maj, then the LUT's NEAREST row (gather.lookup_transfer_plain), 0
+// where the sample range rejects the density. The row clamp(floor(y), 0,
+// K - 1) is floor(clamp(y, 0, K - 1)) (fmaxf takes a NaN y to 0, as the
+// 64-bit cast does).
+template <class F>
+__device__ __forceinline__ float4 decode(const F& v, const Scalars& c, const Taps& e) {
+  const float dn = __fmul_rn(__fmul_rn(c.den_scale, trilinear<F>(e)), c.inv_maj);
   float4 rgba = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (!(dn < c.range_lo || dn > c.range_hi)) {
     rgba = __ldg(v.lut + __float2int_rd(fminf(fmaxf(__fmul_rn(dn, v.lut_k), 0.0f), v.lut_top)));

@@ -32,6 +32,9 @@ stay 0 where the words are drawn on the CPU.
 The environment (scene/environment.py, csrc/env.cu) counts `env_sample`
 once a warp sample and `env_lookup` once a lookup, a pdf or both; both
 stay 0 for an environment on the CPU.
+Gradient shading (render/shading.py, csrc/shade.cu) counts `shade` once a
+shaded wavefront, over a dense field or slabs alike; it stays 0 on the CPU
+and for a row across nodes, which shade through the plain version.
 A leg launched over z-slabs (render-time volume slabs: the field read
 through a table of the slabs' pointers) counts under its name with
 `_slabs` appended, apart from its launches over a dense field, and its
@@ -58,7 +61,7 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC",
 )
-FMAD_SOURCES = ("dda_leg.cu", "track_leg.cu", "tonemap.cu", "env.cu")
+FMAD_SOURCES = ("dda_leg.cu", "track_leg.cu", "tonemap.cu", "env.cu", "shade.cu")
 
 LAUNCHES = {
     "dda_leg_sample": 0, "dda_leg_shadow": 0, "track_leg_sample": 0, "track_leg_shadow": 0, "importance_pyramid": 0,
@@ -68,7 +71,7 @@ LAUNCHES = {
     "tile_march_sample_slabs": 0, "tile_march_transmittance_slabs": 0,
     "dda_leg_sample_slabs_park": 0, "dda_leg_shadow_slabs_park": 0, "track_leg_sample_slabs_park": 0,
     "track_leg_shadow_slabs_park": 0, "tile_march_sample_slabs_park": 0, "tile_march_transmittance_slabs_park": 0,
-    "rng_seed": 0, "rng_draw": 0, "env_sample": 0, "env_lookup": 0,
+    "rng_seed": 0, "rng_draw": 0, "env_sample": 0, "env_lookup": 0, "shade": 0,
 }
 
 # the ctypes type of each C parameter type of an entry point's declaration
